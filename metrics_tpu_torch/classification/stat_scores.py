@@ -1,0 +1,92 @@
+"""StatScores module metric (counterpart of ``metrics_tpu/classification/stat_scores.py``)."""
+from typing import Any, Optional, Tuple
+
+import torch
+
+from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores_compute, _stat_scores_update
+from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utils.data import dim_zero_cat
+from metrics_tpu_torch.utils.enums import AverageMethod, MDMCAverageMethod
+
+
+class StatScores(Metric):
+    """``[tp, fp, tn, fn, support]`` with micro, macro or samples reduction.
+
+    micro keeps ``[]`` int64 sum states and macro ``[C]``; samples and
+    samplewise keep list (cat) states.
+    """
+
+    is_differentiable = False
+    higher_is_better = None
+
+    def __init__(
+        self,
+        threshold: float = 0.5,
+        top_k: Optional[int] = None,
+        reduce: str = "micro",
+        num_classes: Optional[int] = None,
+        ignore_index: Optional[int] = None,
+        mdmc_reduce: Optional[str] = None,
+        multiclass: Optional[bool] = None,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+
+        self.reduce = reduce
+        self.mdmc_reduce = mdmc_reduce
+        self.num_classes = num_classes
+        self.threshold = threshold
+        self.multiclass = multiclass
+        self.ignore_index = ignore_index
+        self.top_k = top_k
+
+        if reduce not in ["micro", "macro", "samples"]:
+            raise ValueError(f"The `reduce` {reduce} is not valid.")
+        if mdmc_reduce not in [None, "samplewise", "global"]:
+            raise ValueError(f"The `mdmc_reduce` {mdmc_reduce} is not valid.")
+        if reduce == "macro" and (not num_classes or num_classes < 1):
+            raise ValueError("When you set `reduce` as 'macro', you have to provide the number of classes.")
+        if num_classes and ignore_index is not None and (not 0 <= ignore_index < num_classes or num_classes == 1):
+            raise ValueError(f"The `ignore_index` {ignore_index} is not valid for inputs with {num_classes} classes")
+
+        if mdmc_reduce != "samplewise" and reduce != "samples":
+            zeros_shape = [] if reduce == "micro" else [num_classes]
+            for s in ("tp", "fp", "tn", "fn"):
+                self.add_state(s, default=torch.zeros(zeros_shape, dtype=torch.int64), dist_reduce_fx="sum")
+        else:
+            for s in ("tp", "fp", "tn", "fn"):
+                self.add_state(s, default=[], dist_reduce_fx="cat")
+
+    def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:
+        tp, fp, tn, fn = _stat_scores_update(
+            preds,
+            target,
+            reduce=self.reduce,
+            mdmc_reduce=self.mdmc_reduce,
+            threshold=self.threshold,
+            num_classes=self.num_classes,
+            top_k=self.top_k,
+            multiclass=self.multiclass,
+            ignore_index=self.ignore_index,
+        )
+        self._accumulate_stat_scores(tp, fp, tn, fn)
+
+    def _accumulate_stat_scores(self, tp: torch.Tensor, fp: torch.Tensor, tn: torch.Tensor, fn: torch.Tensor) -> None:
+        """Add one batch's counts (sum states) or append them (list states)."""
+        if self.reduce != AverageMethod.SAMPLES and self.mdmc_reduce != MDMCAverageMethod.SAMPLEWISE:
+            self.tp = self.tp + tp
+            self.fp = self.fp + fp
+            self.tn = self.tn + tn
+            self.fn = self.fn + fn
+        else:
+            self.tp.append(tp)
+            self.fp.append(fp)
+            self.tn.append(tn)
+            self.fn.append(fn)
+
+    def _get_final_stats(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        return dim_zero_cat(self.tp), dim_zero_cat(self.fp), dim_zero_cat(self.tn), dim_zero_cat(self.fn)
+
+    def compute(self) -> torch.Tensor:
+        tp, fp, tn, fn = self._get_final_stats()
+        return _stat_scores_compute(tp, fp, tn, fn)

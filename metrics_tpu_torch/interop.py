@@ -1,0 +1,48 @@
+"""Carry metric state across from the JAX package.
+
+This system has no weights; what a user carries from one framework to the
+other is the accumulated state of a metric mid-stream. A JAX metric's (or
+``MetricCollection``'s) ``state_dict()`` holds numpy leaves and lists of
+numpy arrays under the same keys this package uses, so the conversion is
+per leaf. The attributes a metric learns during ``update`` (its
+``_dynamic_state_attrs``, such as ``Accuracy.mode``) are not in a JAX
+``state_dict``; pass them as ``dynamic``.
+
+Example::
+
+    jax_acc.persistent(True)
+    state = state_from_jax(jax_acc.state_dict(), dynamic={"mode": jax_acc.mode})
+    port_acc.load_state_dict(state)
+"""
+from typing import Any, Dict, List, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from metrics_tpu_torch.metric import _encode_dynamic
+
+
+def _leaf(x: Any) -> torch.Tensor:
+    # copy: JAX hands out read-only views of its buffers
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def state_from_jax(
+    jax_state: Mapping[str, Union[np.ndarray, List[np.ndarray]]],
+    dynamic: Optional[Mapping[str, Any]] = None,
+) -> Dict[str, Union[torch.Tensor, List[torch.Tensor], Any]]:
+    """A ``state_dict`` that this package's ``load_state_dict`` takes.
+
+    Args:
+        jax_state: the JAX ``state_dict()``: array leaves and lists of arrays.
+        dynamic: learned attributes by state-dict key (``"mode"``, or
+            ``"<member>.mode"`` for a collection). Enum values are carried by
+            enum name and value and come back as this package's enum.
+    """
+    out: Dict[str, Any] = {
+        key: [_leaf(x) for x in value] if isinstance(value, list) else _leaf(value)
+        for key, value in jax_state.items()
+    }
+    for key, value in (dynamic or {}).items():
+        out[key] = _encode_dynamic(value)
+    return out

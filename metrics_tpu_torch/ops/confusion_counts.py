@@ -1,0 +1,123 @@
+"""Confusion counts behind ``ConfusionMatrix`` (counterpart of
+``metrics_tpu/ops/confusion_counts.py``).
+
+* ``confusion_counts``: ``[C, C]`` multiclass counts, rows = target,
+  cols = preds. Indices outside ``[0, C)`` are dropped, as the Pallas kernel
+  drops them (its XLA composition would clip negatives into bin 0;
+  validated input never holds either).
+* ``multilabel_counts``: ``[C, 2, 2]`` per-class ``[[tn, fp], [fn, tp]]``
+  from 0/1 ``[N, C]`` inputs.
+
+Both return int64. The CUDA kernels are in ``csrc/confusion_counts.cu``;
+each has its plain PyTorch version here, which the CPU path runs and the
+kernel is held against bit for bit.
+"""
+from typing import Tuple
+
+import torch
+
+from metrics_tpu_torch.ops import _build
+from metrics_tpu_torch.ops import registry as _registry
+
+
+def _is_int(x: torch.Tensor) -> bool:
+    return not x.is_floating_point() and not x.is_complex() and x.dtype != torch.bool
+
+
+def _confusion_eligible(preds: torch.Tensor, target: torch.Tensor, num_classes: int) -> Tuple[bool, str]:
+    if num_classes < 1:
+        return False, f"num_classes must be >= 1, got {num_classes}"
+    if preds.ndim != 1 or preds.shape != target.shape:
+        return False, f"preds and target must be 1-D of one length, got {tuple(preds.shape)} and {tuple(target.shape)}"
+    if not (_is_int(preds) and _is_int(target)):
+        return False, f"preds and target must be integer class indices, got {preds.dtype} and {target.dtype}"
+    if preds.device != target.device:
+        return False, f"preds on {preds.device} and target on {target.device}"
+    return True, "ok"
+
+
+def _confusion_counts_plain(preds: torch.Tensor, target: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Index-add over the fused index ``target*C + preds``; out-of-range pairs
+    go to one spare bin that is cut off."""
+    c = num_classes
+    p, t = preds.long(), target.long()
+    valid = (p >= 0) & (p < c) & (t >= 0) & (t < c)
+    idx = torch.where(valid, t * c + p, torch.full_like(t, c * c))
+    bins = torch.zeros(c * c + 1, dtype=torch.int64, device=preds.device)
+    bins.index_add_(0, idx, torch.ones_like(idx))
+    return bins[: c * c].reshape(c, c)
+
+
+def _confusion_counts_cuda(preds: torch.Tensor, target: torch.Tensor, num_classes: int) -> torch.Tensor:
+    lib = _build.library()
+    p = preds.to(torch.int64).contiguous()
+    t = target.to(torch.int64).contiguous()
+    out = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=p.device)
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    err = lib.mt_confusion_counts(p.device.index, t.data_ptr(), p.data_ptr(), p.numel(), num_classes, out.data_ptr(), stream)
+    _build.check(lib, err, "confusion_counts kernel")
+    _registry.count_launch("confusion_counts")
+    return out
+
+
+def _multilabel_eligible(preds: torch.Tensor, target: torch.Tensor) -> Tuple[bool, str]:
+    if preds.ndim != 2 or preds.shape != target.shape:
+        return False, f"preds and target must be 2-D of one shape, got {tuple(preds.shape)} and {tuple(target.shape)}"
+    if not (_is_int(preds) and _is_int(target)):
+        return False, f"preds and target must be 0/1 integers, got {preds.dtype} and {target.dtype}"
+    if preds.device != target.device:
+        return False, f"preds on {preds.device} and target on {target.device}"
+    return True, "ok"
+
+
+def _finish_multilabel(n: int, tp: torch.Tensor, sum_p: torch.Tensor, sum_t: torch.Tensor) -> torch.Tensor:
+    """``[C, 2, 2]`` ``[[tn, fp], [fn, tp]]`` from the three per-class sums."""
+    tn = n - sum_p - sum_t + tp
+    return torch.stack([tn, sum_p - tp, sum_t - tp, tp], dim=-1).reshape(-1, 2, 2)
+
+
+def _multilabel_counts_plain(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    p = preds.to(torch.int64)
+    t = target.to(torch.int64)
+    return _finish_multilabel(p.shape[0], (p * t).sum(0), p.sum(0), t.sum(0))
+
+
+def _multilabel_counts_cuda(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    lib = _build.library()
+    p = preds.to(torch.int32).contiguous()
+    t = target.to(torch.int32).contiguous()
+    n, c = p.shape
+    sums = torch.zeros((c, 3), dtype=torch.int64, device=p.device)
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    err = lib.mt_multilabel_counts(p.device.index, p.data_ptr(), t.data_ptr(), n, c, sums.data_ptr(), stream)
+    _build.check(lib, err, "multilabel_counts kernel")
+    _registry.count_launch("multilabel_counts")
+    return _finish_multilabel(n, sums[:, 0], sums[:, 1], sums[:, 2])
+
+
+def confusion_counts(preds: torch.Tensor, target: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """``[C, C]`` int64 confusion counts of flattened index tensors."""
+    return _registry.dispatch("confusion_counts", preds.reshape(-1), target.reshape(-1), num_classes=num_classes)
+
+
+def multilabel_counts(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``[C, 2, 2]`` int64 per-class ``[[tn, fp], [fn, tp]]`` of 0/1 ``[N, C]`` inputs."""
+    return _registry.dispatch("multilabel_counts", preds, target)
+
+
+_registry.register(
+    _registry.KernelOp(
+        name="confusion_counts",
+        kernel=_confusion_counts_cuda,
+        plain=_confusion_counts_plain,
+        eligible=_confusion_eligible,
+    )
+)
+_registry.register(
+    _registry.KernelOp(
+        name="multilabel_counts",
+        kernel=_multilabel_counts_cuda,
+        plain=_multilabel_counts_plain,
+        eligible=_multilabel_eligible,
+    )
+)

@@ -1,0 +1,91 @@
+"""Kernel registry: one entry per hand-written kernel and its plain version
+(counterpart of ``metrics_tpu/ops/registry.py``).
+
+The device of the input decides the path, and nothing else does:
+
+* a CUDA tensor launches the kernel; an input the kernel cannot take raises
+  ``ValueError`` naming the reason, and never reaches the plain version;
+* a CPU tensor runs the plain PyTorch version.
+
+There is no policy switch and no fallback. Each kernel wrapper calls
+:func:`count_launch` right after its launch succeeded, so
+:func:`kernel_stats` shows which path a run really took.
+"""
+import threading
+from typing import Any, Callable, Dict, NamedTuple, Tuple
+
+import torch
+
+
+class KernelOp(NamedTuple):
+    """One registry entry."""
+
+    name: str
+    #: Launches the CUDA kernel on CUDA tensors.
+    kernel: Callable[..., Any]
+    #: Plain PyTorch version of the same function; the CPU path and the
+    #: reference the kernel is held against.
+    plain: Callable[..., Any]
+    #: ``(*args, **kwargs) -> (ok, reason)``: what both paths accept.
+    eligible: Callable[..., Tuple[bool, str]]
+
+
+_REGISTRY: Dict[str, KernelOp] = {}
+_LOCK = threading.Lock()
+_STATS: Dict[str, Dict[str, int]] = {}
+
+
+def register(op: KernelOp) -> KernelOp:
+    with _LOCK:
+        _REGISTRY[op.name] = op
+        _STATS.setdefault(op.name, {"launches": 0, "plain_calls": 0})
+    return op
+
+
+def get_op(name: str) -> KernelOp:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"Unknown kernel op {name!r}; registered: {sorted(_REGISTRY)}") from None
+
+
+def _device_of(args: Tuple, kwargs: Dict) -> torch.device:
+    for a in (*args, *kwargs.values()):
+        if isinstance(a, torch.Tensor):
+            return a.device
+    raise ValueError("kernel dispatch needs at least one tensor argument")
+
+
+def dispatch(name: str, *args: Any, **kwargs: Any) -> Any:
+    """Run op ``name``: its kernel for CUDA inputs, its plain version for CPU inputs."""
+    op = get_op(name)
+    ok, why = op.eligible(*args, **kwargs)
+    if not ok:
+        raise ValueError(f"kernel op {name!r} does not take these inputs: {why}")
+    device = _device_of(args, kwargs)
+    if device.type == "cuda":
+        return op.kernel(*args, **kwargs)
+    if device.type == "cpu":
+        with _LOCK:
+            _STATS[name]["plain_calls"] += 1
+        return op.plain(*args, **kwargs)
+    raise ValueError(f"kernel op {name!r} has no path for device {device}")
+
+
+def count_launch(name: str) -> None:
+    """Called by a kernel wrapper once its kernel launched without error."""
+    with _LOCK:
+        _STATS[name]["launches"] += 1
+
+
+def kernel_stats() -> Dict[str, Dict[str, int]]:
+    """``{op: {"launches": n, "plain_calls": m}}`` since the last reset."""
+    with _LOCK:
+        return {name: dict(rec) for name, rec in sorted(_STATS.items())}
+
+
+def reset_kernel_stats() -> None:
+    with _LOCK:
+        for rec in _STATS.values():
+            rec["launches"] = 0
+            rec["plain_calls"] = 0
