@@ -1,3 +1,27 @@
-from metrics_tpu_torch.functional.classification import accuracy, confusion_matrix, f1_score, fbeta_score, stat_scores
+from metrics_tpu_torch.functional.classification import (
+    accuracy,
+    auc,
+    auroc,
+    average_precision,
+    calibration_error,
+    confusion_matrix,
+    f1_score,
+    fbeta_score,
+    precision_recall_curve,
+    roc,
+    stat_scores,
+)
 
-__all__ = ["accuracy", "confusion_matrix", "f1_score", "fbeta_score", "stat_scores"]
+__all__ = [
+    "accuracy",
+    "auc",
+    "auroc",
+    "average_precision",
+    "calibration_error",
+    "confusion_matrix",
+    "f1_score",
+    "fbeta_score",
+    "precision_recall_curve",
+    "roc",
+    "stat_scores",
+]

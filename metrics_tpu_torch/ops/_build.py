@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("confusion_counts.cu", "select_topk.cu")
+SOURCES = ("binned_counts.cu", "confusion_counts.cu", "select_topk.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +39,16 @@ _SIGNATURES: Dict[str, List] = {
     "mt_multilabel_counts": [_INT, _P, _P, _I64, _I64, _P, _P],
     # device, x f32 [N*C], n, c, k, out i32 [N*C], stream
     "mt_topk_mask": [_INT, _P, _I64, _I64, _INT, _P, _P],
+    # device, x f64 [N*C], n, c, k, out i32 [N*C], stream
+    "mt_topk_mask_f64": [_INT, _P, _I64, _I64, _INT, _P, _P],
+    # device, preds f32 [N*C], target i32 [N*C], ths f32 [T], n, c, t,
+    # tp u64 [C*T], fp u64 [C*T], pos u64 [C], stream
+    "mt_binned_counts_f32": [_INT, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P],
+    # the same with preds and ths f64
+    "mt_binned_counts_f64": [_INT, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P],
+    # device, conf f32 [N], acc f32 [N], bounds f32 [B+1], n, bins,
+    # count u64 [B], conf_sum f32 [B], acc_sum f32 [B], stream
+    "mt_binned_calibration": [_INT, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
 }
 
 _LOCK = threading.Lock()

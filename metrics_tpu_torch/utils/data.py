@@ -1,11 +1,13 @@
-"""Tensor utilities: dim-0 reductions, one-hot, top-k, collection map
-(counterpart of ``metrics_tpu/utils/data.py``)."""
+"""Tensor utilities: dim-0 reductions, one-hot, top-k, collection map,
+bincount and the threshold grid (counterpart of ``metrics_tpu/utils/data.py``)."""
 from collections.abc import Mapping, Sequence
 from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
 
 from metrics_tpu_torch.ops.select_topk import select_topk_mask
+
+METRIC_EPS = 1e-6
 
 
 def dim_zero_cat(x: Union[torch.Tensor, List[torch.Tensor], Tuple[torch.Tensor, ...]]) -> torch.Tensor:
@@ -91,3 +93,22 @@ def apply_to_collection(
 def _squeeze_if_scalar(data: Any) -> Any:
     """Squeeze 1-element tensors to 0-d."""
     return apply_to_collection(data, torch.Tensor, lambda x: x.squeeze() if x.numel() == 1 else x)
+
+
+def _bincount(x: torch.Tensor, minlength: int) -> torch.Tensor:
+    """Counts of ``0..minlength-1``: exactly ``minlength`` bins (larger values dropped)."""
+    return torch.bincount(x.reshape(-1), minlength=minlength)[:minlength]
+
+
+def _linspace(start: float, stop: float, num: int, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """``num`` evenly spaced values from ``start`` to ``stop``, computed as
+    ``jnp.linspace`` computes them (``start + i * step``, then ``stop``), so
+    the bin boundaries and thresholds of the curve and calibration metrics
+    sit on the same values as in the JAX package. (``torch.linspace`` counts
+    its second half down from ``stop`` and differs in the last bit.)"""
+    if num == 1:
+        return torch.full((1,), start, dtype=dtype, device=device)
+    first = torch.tensor(start, dtype=dtype, device=device)
+    step = (torch.tensor(stop, dtype=dtype, device=device) - first) / (num - 1)
+    grid = first + torch.arange(num - 1, dtype=dtype, device=device) * step
+    return torch.cat([grid, torch.full((1,), stop, dtype=dtype, device=device)])

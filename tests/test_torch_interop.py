@@ -115,6 +115,14 @@ def _imported_modules(path: pathlib.Path):
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted((REPO / "metrics_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    scanned = {str(path.relative_to(REPO)) for path in files}
+    curve_slice = {
+        "metrics_tpu_torch/ops/binned_counts.py",
+        "metrics_tpu_torch/utils/bounded.py",
+        *(f"metrics_tpu_torch/classification/{m}.py" for m in ("auc", "auroc", "avg_precision", "binned_precision_recall", "calibration_error", "precision_recall_curve", "roc")),
+        *(f"metrics_tpu_torch/functional/classification/{m}.py" for m in ("auc", "auroc", "average_precision", "calibration_error", "precision_recall_curve", "roc")),
+    }
+    assert curve_slice <= scanned, sorted(curve_slice - scanned)
     offenders = [
         f"{path.relative_to(REPO)}: {mod}"
         for path in files
