@@ -5,10 +5,11 @@
 
 1. Device and build: the card's name and power limit; the CUDA kernels are
    built from ``metrics_tpu_torch/csrc`` with ``nvcc``.
-2. Every kernel against its plain PyTorch version on the card, bit for bit,
-   at the main path's shapes, on a ragged tail and on edge-case rows; then
-   timed with CUDA events beside its bound, its plain version and (where one
-   exists) a single PyTorch call computing the same function.
+2. Every kernel against its plain PyTorch version on the card (counts bit
+   for bit, float sums within a stated tolerance) at the main path's
+   shapes, on a ragged tail and on edge-case rows; then timed with CUDA
+   events beside its bound, its plain version and (where one exists) a
+   single PyTorch call computing the same function.
 3. The main path: a ``MetricCollection`` of top-1 and top-5 accuracy,
    macro-F1 and the confusion matrix streams ImageNet-1k validation at full
    size (50,000 samples, 1000 classes, batches of 8192) through ``forward``,
@@ -25,7 +26,22 @@
       and buffered, over the softmax of phase 3's logits at temperature 1/4;
    c. binary AUROC at a CTR eval pass's scale (4,194,304 samples in batches
       of 65,536): ``AUROC(thresholds=200)`` beside the exact ``AUROC()``.
-6. A profile: each kernel's device time per launch, and the device busy
+6. The pairwise path (the ``pairwise_reduce`` kernel), each call held
+   against a numpy float64 oracle on 512 seeded rows, with its launch count:
+   a. Stanford Online Products test split (60,502 images, 11,316 classes):
+      ``pairwise_cosine_similarity(emb, reduction="mean")`` of 512-wide
+      class-clustered embeddings against themselves, diagonal zeroed;
+   b. In-Shop Clothes retrieval (14,218 queries, 12,612 gallery images,
+      3,985 classes): ``pairwise_euclidean_distance(query, gallery,
+      reduction="sum")``.
+7. The regression path at the size of the NYU Depth v2 test split (654
+   depth maps of 480 x 640, batches of 8): one ``MetricCollection`` of RMSE,
+   MAE, MSLE, MAPE, SMAPE, R2, explained variance, Pearson, Tweedie
+   (power 2) and Spearman through ``forward``, then ``compute()``; beside it
+   ``CosineSimilarity(reduction="mean")`` over teacher and student features
+   of ImageNet-1k val size (50,000 x 2048, batches of 8192). Each value is
+   held against a numpy float64 oracle; the path runs no kernel.
+8. A profile: each kernel's device time per launch, and the device busy
    share, host syncs and top device ops of batches of each path.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -56,11 +72,22 @@ CAL_BINS = 15  # CalibrationError's default (Guo et al. 2017)
 CAL_LOGIT_SCALE = 4.0
 MIN_PRECISION = 0.9
 CTR_EVAL = (4_194_304, 65_536)  # binary samples, batch
+SOP_TEST = (60_502, 11_316)  # Stanford Online Products test split: images, classes
+INSHOP = (14_218, 12_612, 3_985)  # In-Shop Clothes retrieval: queries, gallery images, classes
+EMB_DIM = 512  # embedding width of the deep-metric-learning literature on both sets
+ORACLE_ROWS = 512
+NYU_TEST = (654, 480, 640)  # NYU Depth v2 test split: depth maps, height, width
+NYU_BATCH = 8
+FEATURES = (50_000, 2048, 8192)  # ImageNet-1k val teacher/student features: samples, width, batch
 
 # NVIDIA H100 SXM data sheet: the HBM rate, and the CUDA cores' instruction
 # rate (132 SMs x 128 lanes x 1.98 GHz; the sheet's 67 TFLOP/s float32 counts
-# an FMA as two). No tensor-core type applies to these integer and compare
-# workloads, whose every compare or add is one instruction.
+# an FMA as two). No tensor-core type applies to the integer and compare
+# workloads, whose every compare or add is one instruction; the pairwise
+# kernel's FMAs run on the CUDA cores too, one instruction each (its TF32
+# tensor-core line, 495 TFLOP/s, is a later design's bound). Euclidean row
+# sums need every cell's N*M*d FMAs (the square root is not linear); cosine
+# row sums are linear and need only O((N + M) d), so their bound is bytes.
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 33.5e12
 
@@ -345,6 +372,142 @@ def check_and_time_binned(torch, rng):
     return records, calls
 
 
+def _unit(torch, a):
+    return a / torch.linalg.vector_norm(a, dim=1, keepdim=True)
+
+
+def _embeddings(rng, n: int, classes: int, d: int = EMB_DIM):
+    """Seeded class-clustered embeddings: a shared positive offset (pooled
+    features are not centred), a class centre and per-image noise."""
+    offset = rng.random(d, dtype=np.float32) * np.float32(0.8)
+    centres = rng.standard_normal((classes, d), dtype=np.float32) * np.float32(0.4)
+    emb = centres[rng.integers(0, classes, n)]
+    emb += offset
+    emb += rng.standard_normal((n, d), dtype=np.float32) * np.float32(0.2)
+    return emb
+
+
+def _dml_embeddings(rng):
+    """The pairwise path's embeddings, made once for its kernel check and its
+    functional calls: SOP's test split, and In-Shop's queries and gallery."""
+    return {
+        "sop": _embeddings(rng, *SOP_TEST),
+        "query": _embeddings(rng, INSHOP[0], INSHOP[2]),
+        "gallery": _embeddings(rng, INSHOP[1], INSHOP[2]),
+    }
+
+
+def _pairwise_cases(torch, rng, dev, emb):
+    """``name -> (x, y, op, zero_diagonal)`` at the pairwise path's shapes and on edge inputs."""
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    x, y = normal(1000, 200), normal(777, 200)  # no size a multiple of a tile
+    with_nan = x.clone()
+    with_nan[5, 3] = float("nan")
+    y_nan = y.clone()
+    y_nan[7, 0] = float("nan")
+    zero_row = x.clone()
+    zero_row[9] = 0.0
+    wide_x, wide_y = normal(300, 5000), normal(129, 5000)
+    query, gallery = (torch.from_numpy(emb[k]).to(dev) for k in ("query", "gallery"))
+    sop = _unit(torch, torch.from_numpy(emb["sop"]).to(dev))
+    return {
+        "euclidean": (x, y, "euclidean", False),
+        "cosine": (_unit(torch, x), _unit(torch, y), "cosine", False),
+        "euclidean_self_zero_diag": (x, x, "euclidean", True),
+        "cosine_self_zero_diag": (_unit(torch, x), _unit(torch, x), "cosine", True),
+        "euclidean_pair_zero_diag": (x, y, "euclidean", True),
+        "cosine_pair_zero_diag": (_unit(torch, x), _unit(torch, y), "cosine", True),
+        "d1": (x[:, :1].contiguous(), y[:, :1].contiguous(), "euclidean", False),
+        "d5000": (wide_x, wide_y, "euclidean", True),
+        "d5000_cosine": (_unit(torch, wide_x), _unit(torch, wide_y), "cosine", False),
+        "f64": (x.double(), y.double(), "euclidean", False),
+        "f64_self_zero_diag": (x.double(), x.double(), "euclidean", True),
+        "f64_cosine": (_unit(torch, x.double()), _unit(torch, y.double()), "cosine", True),
+        "bf16": (x.bfloat16(), y.bfloat16(), "euclidean", False),
+        "bf16_cosine": (_unit(torch, x).bfloat16(), _unit(torch, y).bfloat16(), "cosine", True),
+        "f16": (x.half(), y.half(), "euclidean", True),
+        "nan_row": (with_nan, y, "euclidean", False),  # that row's sum is NaN, the others are not
+        "nan_column": (x, y_nan, "euclidean", False),  # every row's sum is NaN
+        "nan_row_cosine": (_unit(torch, with_nan), _unit(torch, y), "cosine", True),
+        "zero_row_cosine": (_unit(torch, zero_row), _unit(torch, y), "cosine", False),
+        "inshop": (query, gallery, "euclidean", False),
+        "sop": (sop, sop, "cosine", True),
+    }
+
+
+def _pairwise_err(torch, name: str, got, want, op: str, m: int) -> float:
+    """Max |kernel - plain| of the row sums; raises unless NaN sits in the
+    same rows and the finite rows agree: euclidean within 1e-5 relative
+    (1e-12 for float64), cosine within 1e-5 absolute on the row mean (the
+    entries lie in [-1, 1]; 1e-12 for float64). bfloat16 and float16 inputs
+    are compared before the cast back, in float32."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: kernel gives {got.dtype}{tuple(got.shape)}, plain {want.dtype}{tuple(want.shape)}")
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError(f"{name}: NaN rows differ between kernel and plain version")
+    finite = ~torch.isnan(want)
+    if not finite.any():
+        return 0.0
+    diff = (got[finite].double() - want[finite].double()).abs()
+    tol = 1e-12 if got.dtype == torch.float64 else 1e-5
+    bad = diff > tol * want[finite].double().abs() if op == "euclidean" else diff / m > tol
+    if bad.any():
+        raise AssertionError(f"{name}: kernel and plain row sums differ (max abs err {diff.max().item()}, tolerance {tol})")
+    return diff.max().item()
+
+
+def check_and_time_pairwise(torch, rng, emb):
+    from metrics_tpu_torch.ops import pairwise_reduce as pr
+
+    dev = torch.device("cuda")
+    cases = _pairwise_cases(torch, rng, dev, emb)
+    errs = {}
+    for tag, (x, y, op, zd) in cases.items():
+        errs[tag] = _pairwise_err(torch, f"pairwise_reduce[{tag}]", pr._pairwise_cuda(x, y, op, zd), pr._pairwise_plain(x, y, op, zd), op, y.shape[0])
+    _log(f"kernel pairwise_reduce: matches plain on all {len(cases)} cases; max abs err of the row sums per case {errs}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the library yardsticks multiply in full float32
+    records, calls = {}, {}
+    for tag, library in (
+        ("inshop", lambda x, y: torch.cdist(x, y).sum(1)),
+        ("sop", lambda x, y: torch.mm(x, y.T).sum(1)),
+    ):
+        x, y, op, zd = cases[tag]
+        (n, d), m = x.shape, y.shape[0]
+        iters = 10 if tag == "inshop" else 3
+        in_bytes = (n if x.data_ptr() == y.data_ptr() else n + m) * d * x.element_size()
+        if op == "cosine":
+            # the row sums are linear, x_i.(sum_j y_j) (less x_i.y_i with the
+            # diagonal zeroed), so the function needs O((N + M) d) operations
+            bound_ms, bound_by = _bound_ms(in_bytes + n * 4, (m + (2 if zd else 1) * n) * d)
+        else:
+            bound_ms, bound_by = _bound_ms(in_bytes + n * 4, n * m * d)
+        fma_floor_ms = n * m * d / CUDA_CORE_OPS_PER_S * 1e3  # this design's floor: every cell's d FMAs
+        rec = dict(
+            source="metrics_tpu_torch/csrc/pairwise_reduce.cu",
+            replaces="metrics_tpu/ops/pairwise_reduce.py:39",
+            max_abs_err=max(errs.values()),
+            ms=_cuda_ms(torch, lambda: pr._pairwise_cuda(x, y, op, zd), iters=iters, warmup=1),
+            plain_ms=_cuda_ms(torch, lambda: pr._pairwise_plain(x, y, op, zd), iters=iters, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=_cuda_ms(torch, lambda: library(x, y), iters=iters, warmup=1),
+            shape=f"{op} [{n}, {d}] x [{m}, {d}] f32{', zero diagonal' if zd else ''}",
+        )
+        lib_name = "torch.cdist(x, y).sum(1)" if tag == "inshop" else "torch.mm(x, y.T).sum(1)"
+        _log(
+            f"kernel pairwise_reduce ({rec['shape']}): ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f}"
+            f" library_ms={rec['library_ms']:.4f} ({lib_name}, allow_tf32=False) bound_ms={rec['bound_ms']:.4f} ({bound_by});"
+            f" N*M*d FMA floor of this design {fma_floor_ms:.4f} ms"
+        )
+        if tag == "inshop":
+            records["pairwise_reduce"] = rec
+            calls["pairwise_reduce"] = lambda x=x, y=y: pr._pairwise_cuda(x, y, "euclidean", False)
+    del cases
+    torch.cuda.empty_cache()
+    return records, calls
+
+
 def _imagenet_stream(rng, n: int = IMAGENET_VAL[0]):
     """Seeded ImageNet-1k logits with a signal on the target class (val size by default)."""
     c = IMAGENET_VAL[1]
@@ -387,8 +550,12 @@ def _check_result(name: str, got, want) -> None:
         raise AssertionError(f"{name}: {float(got)!r} vs numpy oracle {float(want)!r} (rtol 1e-6)")
 
 
+def _batches_of(total: int, batch: int):
+    return [(s, min(s + batch, total)) for s in range(0, total, batch)]
+
+
 def _batches(total: int):
-    return [(s, min(s + BATCH, total)) for s in range(0, total, BATCH)]
+    return _batches_of(total, BATCH)
 
 
 def run_main_path(torch, mt, rng):
@@ -470,11 +637,11 @@ def _reset_stats(torch, mt):
 
 def _read_stats(torch, mt, t0: float, expect: dict):
     """Seconds since ``t0``, and the kernel stats, which must show exactly
-    ``expect`` launches per op and no plain call."""
+    ``expect`` launches per op, no launch of any other op and no plain call."""
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     stats = mt.kernel_stats()
-    got = {op: stats[op]["launches"] for op in expect}
+    got = {op: rec["launches"] for op, rec in stats.items() if rec["launches"]}
     if got != expect or any(rec["plain_calls"] for rec in stats.values()):
         raise AssertionError(f"launches {got}, expected {expect}; kernel_stats {stats}")
     return seconds, stats
@@ -639,6 +806,207 @@ def run_ctr_auroc(torch, mt, rng):
     return stats, (mc, scores, labels)
 
 
+def _cosine_mean_oracle(emb: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Mean cosine similarity of ``rows`` against every row, self excluded, in float64."""
+    unit = emb / np.linalg.norm(emb.astype(np.float64), axis=1, keepdims=True)
+    sims = unit[rows] @ unit.T
+    sims[np.arange(len(rows)), rows] = 0.0
+    return sims.sum(1) / len(emb)
+
+
+def _euclidean_sum_oracle(query: np.ndarray, gallery: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Row sums of the euclidean distances of ``rows`` of ``query`` to every gallery row, in float64."""
+    q = query[rows].astype(np.float64)
+    g = gallery.astype(np.float64)
+    sq = (q * q).sum(1)[:, None] + (g * g).sum(1)[None, :] - 2 * q @ g.T
+    return np.sqrt(np.clip(sq, 0, None)).sum(1)
+
+
+def run_pairwise_path(torch, mt, rng, emb):
+    """The pairwise functionals at the published sizes of two deep-metric-learning test sets."""
+    from metrics_tpu_torch.functional import pairwise_cosine_similarity, pairwise_euclidean_distance
+
+    sop_np, query_np, gallery_np = emb["sop"], emb["query"], emb["gallery"]
+    stats_total = {}
+    timings = {}
+    for label, fn, args, oracle, check in (
+        (
+            "sop cosine",
+            lambda a: pairwise_cosine_similarity(a, reduction="mean"),
+            (sop_np,),
+            lambda rows: _cosine_mean_oracle(sop_np, rows),
+            "1e-5 absolute",
+        ),
+        (
+            "inshop euclidean",
+            lambda a, b: pairwise_euclidean_distance(a, b, reduction="sum"),
+            (query_np, gallery_np),
+            lambda rows: _euclidean_sum_oracle(query_np, gallery_np, rows),
+            "1e-5 relative",
+        ),
+    ):
+        tensors = [torch.from_numpy(a).cuda() for a in args]
+        t0 = _reset_stats(torch, mt)
+        out = fn(*tensors)
+        seconds, stats = _read_stats(torch, mt, t0, {"pairwise_reduce": 1})
+        if out.dtype != torch.float32 or out.shape != (args[0].shape[0],) or not torch.isfinite(out).all():
+            raise AssertionError(f"{label}: {out.dtype}{tuple(out.shape)} with non-finite values or of the wrong shape")
+        rows = np.sort(rng.choice(args[0].shape[0], ORACLE_ROWS, replace=False))
+        want = oracle(rows)
+        got = out.cpu().numpy()[rows]
+        if check.endswith("absolute"):
+            _close(f"{label} row means", got, want, atol=1e-5)
+        else:
+            _close(f"{label} row sums", got, want, rtol=1e-5)
+        stats_total[label] = stats["pairwise_reduce"]["launches"]
+        timings[label] = (fn, tensors)
+        _log(
+            f"pairwise {label}: {' x '.join(str(list(a.shape)) for a in args)} -> [{args[0].shape[0]}] in"
+            f" {seconds * 1e3:.2f} ms (first call); {ORACLE_ROWS} seeded rows match the numpy float64 oracle within {check}"
+            f" (mean of the checked rows {float(np.mean(want)):.6f}); kernel_stats {stats}"
+        )
+    return sum(stats_total.values()), timings
+
+
+def _regression_oracle(preds: np.ndarray, target: np.ndarray):
+    """Every collection member's value over the whole stream, in float64 (sums taken in chunks)."""
+    n = len(target)
+    acc = dict.fromkeys(("se", "ae", "sle", "ape", "sape", "tw2", "sp", "st", "spp", "stt", "spt", "sd", "sdd"), 0.0)
+    for s in range(0, n, 1 << 24):
+        p = preds[s:s + (1 << 24)].astype(np.float64)
+        t = target[s:s + (1 << 24)].astype(np.float64)
+        d = t - p
+        acc["se"] += np.dot(d, d)
+        acc["ae"] += np.abs(d).sum()
+        lg = np.log1p(p) - np.log1p(t)
+        acc["sle"] += np.dot(lg, lg)
+        acc["ape"] += (np.abs(d) / np.maximum(np.abs(t), 1.17e-06)).sum()
+        acc["sape"] += (2 * np.abs(d) / np.maximum(np.abs(t) + np.abs(p), 1.17e-06)).sum()
+        acc["tw2"] += (2 * (np.log(p / t) + t / p - 1)).sum()
+        acc["sp"] += p.sum()
+        acc["st"] += t.sum()
+        acc["spp"] += np.dot(p, p)
+        acc["stt"] += np.dot(t, t)
+        acc["spt"] += np.dot(p, t)
+        acc["sd"] += d.sum()
+        acc["sdd"] += np.dot(d, d)
+    var_t = acc["stt"] / n - (acc["st"] / n) ** 2
+    var_p = acc["spp"] / n - (acc["sp"] / n) ** 2
+    cov = acc["spt"] / n - acc["sp"] * acc["st"] / n**2
+    return {
+        "rmse": np.sqrt(acc["se"] / n),
+        "mae": acc["ae"] / n,
+        "msle": acc["sle"] / n,
+        "mape": acc["ape"] / n,
+        "smape": acc["sape"] / n,
+        "r2": 1 - acc["se"] / (n * var_t),
+        "explained_variance": 1 - (acc["sdd"] / n - (acc["sd"] / n) ** 2) / var_t,
+        "pearson": cov / np.sqrt(var_p * var_t),
+        "tweedie": acc["tw2"] / n,
+        "spearman": _spearman_oracle(preds, target),
+    }
+
+
+def _mean_ranks(x: np.ndarray) -> np.ndarray:
+    """1-based ranks of positive float32 values, ties at their mean rank, in
+    O(N): positive floats order as their bit patterns, so a bincount over
+    the patterns and its running sum give every value's rank block."""
+    keys = x.view(np.int32)
+    lo = int(keys.min())
+    counts = np.bincount(keys - lo)
+    ends = np.cumsum(counts)
+    return (ends - (counts - 1) / 2.0)[keys - lo]
+
+
+def _spearman_oracle(preds: np.ndarray, target: np.ndarray) -> float:
+    assert (preds > 0).all() and (target > 0).all()
+    rp, rt = _mean_ranks(preds), _mean_ranks(target)
+    mid = (len(rp) + 1) / 2.0  # the mean of any rank vector
+    rp -= mid
+    rt -= mid
+    return float(np.dot(rp, rt) / np.sqrt(np.dot(rp, rp) * np.dot(rt, rt)))
+
+
+# Sum-type values 1e-5 relative; Pearson, R2 and explained variance 1e-4
+# relative (float32 moments cancel: R2's total sum of squares is
+# sum(t^2) - sum(t)^2/n); Spearman 1e-5 absolute (float32 ranks of 2e8
+# values are rounded to 16).
+REGRESSION_TOLERANCES = {
+    "rmse": ("rtol", 1e-5), "mae": ("rtol", 1e-5), "msle": ("rtol", 1e-5), "mape": ("rtol", 1e-5),
+    "smape": ("rtol", 1e-5), "tweedie": ("rtol", 1e-5), "r2": ("rtol", 1e-4),
+    "explained_variance": ("rtol", 1e-4), "pearson": ("rtol", 1e-4), "spearman": ("atol", 1e-5),
+}
+
+
+def _nyu_collection(mt):
+    return mt.MetricCollection(
+        {
+            "rmse": mt.MeanSquaredError(squared=False),
+            "mae": mt.MeanAbsoluteError(),
+            "msle": mt.MeanSquaredLogError(),
+            "mape": mt.MeanAbsolutePercentageError(),
+            "smape": mt.SymmetricMeanAbsolutePercentageError(),
+            "r2": mt.R2Score(),
+            "explained_variance": mt.ExplainedVariance(),
+            "pearson": mt.PearsonCorrCoef(),
+            "tweedie": mt.TweedieDevianceScore(power=2),
+            "spearman": mt.SpearmanCorrCoef(),
+        }
+    )
+
+
+def run_regression_path(torch, mt, rng):
+    """NYU Depth v2 test-split depth regression, and teacher/student feature cosine similarity."""
+    maps, h, w = NYU_TEST
+    pixels = h * w
+    target_np = rng.random(maps * pixels, dtype=np.float32) * np.float32(9.5) + np.float32(0.5)  # metres
+    preds_np = target_np * np.exp(rng.standard_normal(maps * pixels, dtype=np.float32) * np.float32(0.12))
+    target, preds = torch.from_numpy(target_np).cuda(), torch.from_numpy(preds_np).cuda()
+    batches = [(s * pixels, min(s + NYU_BATCH, maps) * pixels) for s in range(0, maps, NYU_BATCH)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # Spearman's buffer-size warning
+        mc = _nyu_collection(mt)
+    t0 = _reset_stats(torch, mt)
+    for s, e in batches:
+        mc(preds[s:e], target[s:e])
+    result = mc.compute()
+    seconds, stats = _read_stats(torch, mt, t0, {})
+    t1 = time.perf_counter()
+    oracle = _regression_oracle(preds_np, target_np)
+    oracle_s = time.perf_counter() - t1
+    for key, want in oracle.items():
+        kind, tol = REGRESSION_TOLERANCES[key]
+        _close(f"nyu {key}", result[key], want, **{kind: tol})
+    shown = {k: round(float(v), 6) for k, v in result.items()}
+    _log(
+        f"nyu depth regression: {maps} maps x {h}x{w} = {maps * pixels} pixels in {len(batches)} batches of {NYU_BATCH} maps:"
+        f" all 10 values match the numpy float64 oracle {shown}; {maps * pixels / seconds:.0f} pixels/s"
+        f" ({seconds * 1e3 / len(batches):.2f} ms/batch, first batch and the final compute included);"
+        f" oracle {oracle_s:.1f} s on the host; no kernel ran (kernel_stats {stats})"
+    )
+
+    n, d, batch = FEATURES
+    teacher_np = np.abs(rng.standard_normal((n, d), dtype=np.float32))
+    student_np = teacher_np + rng.standard_normal((n, d), dtype=np.float32) * np.float32(0.5)
+    teacher, student = torch.from_numpy(teacher_np).cuda(), torch.from_numpy(student_np).cuda()
+    cos = mt.CosineSimilarity(reduction="mean")
+    feat_batches = _batches_of(n, batch)
+    t0 = _reset_stats(torch, mt)
+    for s, e in feat_batches:
+        cos(student[s:e], teacher[s:e])
+    value = cos.compute()
+    cos_seconds, _ = _read_stats(torch, mt, t0, {})
+    t64, s64 = teacher_np.astype(np.float64), student_np.astype(np.float64)
+    want = float(np.mean((t64 * s64).sum(1) / (np.linalg.norm(t64, axis=1) * np.linalg.norm(s64, axis=1))))
+    _close("feature cosine similarity", value, want, rtol=1e-5)
+    _log(
+        f"feature cosine similarity: ImageNet-1k val size, {n} x {d} in {len(feat_batches)} batches of {batch}:"
+        f" {float(value):.6f} matches the numpy float64 oracle within 1e-5 relative;"
+        f" {n / cos_seconds:.0f} samples/s ({cos_seconds * 1e3 / len(feat_batches):.2f} ms/batch)"
+    )
+    return (mc, preds, target, batches), (cos, student, teacher, feat_batches)
+
+
 # kernel wrappers' device-side names, as the profiler reports them
 KERNEL_SYMBOLS = {
     "confusion_counts": "confusion_counts_kernel",
@@ -646,6 +1014,7 @@ KERNEL_SYMBOLS = {
     "select_topk": "topk_mask_kernel",
     "binned_counts": "binned_counts_kernel",
     "binned_calibration": "binned_calibration_kernel",
+    "pairwise_reduce": "pairwise_rows_kernel",
 }
 PROFILE_BATCHES = 3
 
@@ -753,11 +1122,17 @@ def main() -> int:
     binned_records, binned_calls = check_and_time_binned(torch, rng)
     records.update(binned_records)
     calls.update(binned_calls)
+    embeddings = _dml_embeddings(rng)
+    pairwise_records, pairwise_calls = check_and_time_pairwise(torch, rng, embeddings)
+    records.update(pairwise_records)
+    calls.update(pairwise_calls)
     main_stats, mc, logits, target = run_main_path(torch, mt, rng)
     ml_stats = run_multilabel(torch, mt, rng)
     coco_stats, (curves, coco_probs, coco_target) = run_coco_curves(torch, mt, rng)
     calibration, probs = run_imagenet_calibration(torch, mt, logits, target)
     ctr_stats, (aurocs, ctr_scores, ctr_labels) = run_ctr_auroc(torch, mt, rng)
+    pairwise_launches, pairwise_paths = run_pairwise_path(torch, mt, rng, embeddings)
+    (nyu, depth_preds, depth_target, nyu_batches), (cos, student, teacher, feat_batches) = run_regression_path(torch, mt, rng)
 
     def steps(metric, preds, labels, bounds):
         return [lambda s=s, e=e: metric(preds[s:e], labels[s:e]) for s, e in bounds[:PROFILE_BATCHES]]
@@ -770,6 +1145,9 @@ def main() -> int:
             "coco curves": steps(curves, coco_probs, coco_target, _batches(COCO_VAL[0])),
             "imagenet calibration (streaming)": steps(calibration["streaming"][0], probs, target, _batches(IMAGENET_VAL[0])),
             "ctr auroc (binned + exact)": steps(aurocs, ctr_scores, ctr_labels, [(s, s + CTR_EVAL[1]) for s in range(0, CTR_EVAL[0], CTR_EVAL[1])]),
+            **{f"{label} (one call)": [lambda fn=fn, args=args: fn(*args)] for label, (fn, args) in pairwise_paths.items()},
+            "nyu depth regression": steps(nyu, depth_preds, depth_target, nyu_batches),
+            "feature cosine similarity": steps(cos, student, teacher, feat_batches),
         },
     )
 
@@ -779,6 +1157,7 @@ def main() -> int:
         "multilabel_counts": ml_stats["multilabel_counts"]["launches"],
         "binned_counts": coco_stats["binned_counts"]["launches"] + ctr_stats["binned_counts"]["launches"],
         "binned_calibration": sum(stats["binned_calibration"]["launches"] for _, stats in calibration.values()),
+        "pairwise_reduce": pairwise_launches,
     }
     kernels = [
         {

@@ -2,13 +2,16 @@
 
 Ported so far: the streaming classification eval loop (``Accuracy``,
 ``F1Score``/``FBetaScore``, ``StatScores``, ``ConfusionMatrix``,
-``MetricCollection``) and the curve and calibration metrics (``AUROC``,
+``MetricCollection``), the curve and calibration metrics (``AUROC``,
 ``ROC``, ``PrecisionRecallCurve``, ``AveragePrecision``, ``AUC``, the binned
-curve family and ``CalibrationError``), with their functional forms. Metrics
-live on the GPU unless a ``device`` is given; the five kernels of these paths
-(``confusion_counts``, ``multilabel_counts``, ``select_topk``,
-``binned_counts``, ``binned_calibration``) are CUDA C++ in ``csrc/``, built
-with ``nvcc`` at first use.
+curve family and ``CalibrationError``), the regression metrics (``MeanSquaredError``
+and the other ten of ``metrics_tpu/regression``) and the pairwise
+functionals, with their functional forms. Metrics live on the GPU unless a
+``device`` is given; functionals run on their inputs' device. The six
+kernels of these paths (``confusion_counts``, ``multilabel_counts``,
+``select_topk``, ``binned_counts``, ``binned_calibration``,
+``pairwise_reduce``) are CUDA C++ in ``csrc/``, built with ``nvcc`` at
+first use.
 """
 from metrics_tpu_torch.classification import (
     AUC,
@@ -30,6 +33,19 @@ from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.interop import state_from_jax
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.ops.registry import kernel_stats, reset_kernel_stats
+from metrics_tpu_torch.regression import (
+    CosineSimilarity,
+    ExplainedVariance,
+    MeanAbsoluteError,
+    MeanAbsolutePercentageError,
+    MeanSquaredError,
+    MeanSquaredLogError,
+    PearsonCorrCoef,
+    R2Score,
+    SpearmanCorrCoef,
+    SymmetricMeanAbsolutePercentageError,
+    TweedieDevianceScore,
+)
 
 __all__ = [
     "AUC",
@@ -41,13 +57,24 @@ __all__ = [
     "BinnedRecallAtFixedPrecision",
     "CalibrationError",
     "ConfusionMatrix",
+    "CosineSimilarity",
+    "ExplainedVariance",
     "F1Score",
     "FBetaScore",
+    "MeanAbsoluteError",
+    "MeanAbsolutePercentageError",
+    "MeanSquaredError",
+    "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
+    "PearsonCorrCoef",
     "PrecisionRecallCurve",
+    "R2Score",
     "ROC",
+    "SpearmanCorrCoef",
     "StatScores",
+    "SymmetricMeanAbsolutePercentageError",
+    "TweedieDevianceScore",
     "kernel_stats",
     "reset_kernel_stats",
     "state_from_jax",

@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("binned_counts.cu", "confusion_counts.cu", "select_topk.cu")
+SOURCES = ("binned_counts.cu", "confusion_counts.cu", "pairwise_reduce.cu", "select_topk.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +49,9 @@ _SIGNATURES: Dict[str, List] = {
     # device, conf f32 [N], acc f32 [N], bounds f32 [B+1], n, bins,
     # count u64 [B], conf_sum f32 [B], acc_sum f32 [B], stream
     "mt_binned_calibration": [_INT, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
+    # device, dtype code, op code, x [N*d], y [M*d], n, m, d, zero_diag,
+    # out [N] (f64 for f64 inputs, else f32), stream
+    "mt_pairwise_reduce": [_INT, _INT, _INT, _P, _P, _I64, _I64, _I64, _INT, _P, _P],
 }
 
 _LOCK = threading.Lock()

@@ -9,7 +9,8 @@ The device of the input decides the path, and nothing else does:
 
 There is no policy switch and no fallback. Each kernel wrapper calls
 :func:`count_launch` right after its launch succeeded, so
-:func:`kernel_stats` shows which path a run really took.
+:func:`kernel_stats` shows which path a run really took: it lists the ops
+that ran since the last reset, and no other.
 """
 import threading
 from typing import Any, Callable, Dict, NamedTuple, Tuple
@@ -38,7 +39,6 @@ _STATS: Dict[str, Dict[str, int]] = {}
 def register(op: KernelOp) -> KernelOp:
     with _LOCK:
         _REGISTRY[op.name] = op
-        _STATS.setdefault(op.name, {"launches": 0, "plain_calls": 0})
     return op
 
 
@@ -66,26 +66,27 @@ def dispatch(name: str, *args: Any, **kwargs: Any) -> Any:
     if device.type == "cuda":
         return op.kernel(*args, **kwargs)
     if device.type == "cpu":
-        with _LOCK:
-            _STATS[name]["plain_calls"] += 1
+        _count(name, "plain_calls")
         return op.plain(*args, **kwargs)
     raise ValueError(f"kernel op {name!r} has no path for device {device}")
 
 
+def _count(name: str, key: str) -> None:
+    with _LOCK:
+        _STATS.setdefault(name, {"launches": 0, "plain_calls": 0})[key] += 1
+
+
 def count_launch(name: str) -> None:
     """Called by a kernel wrapper once its kernel launched without error."""
-    with _LOCK:
-        _STATS[name]["launches"] += 1
+    _count(name, "launches")
 
 
 def kernel_stats() -> Dict[str, Dict[str, int]]:
-    """``{op: {"launches": n, "plain_calls": m}}`` since the last reset."""
+    """``{op: {"launches": n, "plain_calls": m}}`` for each op that ran since the last reset."""
     with _LOCK:
         return {name: dict(rec) for name, rec in sorted(_STATS.items())}
 
 
 def reset_kernel_stats() -> None:
     with _LOCK:
-        for rec in _STATS.values():
-            rec["launches"] = 0
-            rec["plain_calls"] = 0
+        _STATS.clear()

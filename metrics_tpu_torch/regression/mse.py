@@ -1,0 +1,52 @@
+"""MeanSquaredError module metric (counterpart of ``metrics_tpu/regression/mse.py``)."""
+from typing import Any
+
+import torch
+
+from metrics_tpu_torch.functional.regression.mse import _mean_squared_error_compute, _mean_squared_error_update
+from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.ops.safe_ops import kahan_add
+
+
+class MeanSquaredError(Metric):
+    """Mean squared error (RMSE with ``squared=False``).
+
+    Args:
+        squared: the mean of the squares; ``False`` gives its square root.
+        compensated: Kahan-compensate the running squared-error sum, so a
+            float32 sum over millions of updates keeps close to float64
+            accuracy.
+        device: see :class:`~metrics_tpu_torch.metric.Metric`.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import MeanSquaredError
+        >>> mse = MeanSquaredError(device="cpu")
+        >>> print(round(float(mse(torch.tensor([2.5, 0.0, 2.0, 8.0]), torch.tensor([3.0, -0.5, 2.0, 7.0]))), 4))
+        0.375
+    """
+
+    is_differentiable = True
+    higher_is_better = False
+
+    def __init__(self, squared: bool = True, compensated: bool = False, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.squared = squared
+        self.compensated = compensated
+        self.add_state("sum_squared_error", default=0.0, dist_reduce_fx="sum")
+        self.add_state("total", default=0, dist_reduce_fx="sum")
+        if compensated:
+            self.add_state("sum_squared_error_comp", default=0.0, dist_reduce_fx="sum")
+
+    def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:
+        sum_squared_error, n_obs = _mean_squared_error_update(preds, target)
+        if self.compensated:
+            self.sum_squared_error, self.sum_squared_error_comp = kahan_add(
+                self.sum_squared_error, self.sum_squared_error_comp, sum_squared_error
+            )
+        else:
+            self.sum_squared_error = self.sum_squared_error + sum_squared_error
+        self.total = self.total + n_obs
+
+    def compute(self) -> torch.Tensor:
+        return _mean_squared_error_compute(self.sum_squared_error, self.total, squared=self.squared)

@@ -59,6 +59,7 @@ class _BoundedSampleBufferMixin:
         capacity: Optional[int],
         num_classes: Optional[int] = None,
         specs: Optional[Sequence[BufferSpec]] = None,
+        warn_message: Optional[str] = None,
     ) -> None:
         if specs is None:  # the curve default: scores and integer labels
             specs = (("preds", num_classes, None), ("target", None, torch.int32))
@@ -70,7 +71,8 @@ class _BoundedSampleBufferMixin:
         for name, _, _ in self._buffer_specs:
             self.add_state(name, default=[], dist_reduce_fx="cat")
         warn_once(
-            f"Metric `{type(self).__name__}` will save all targets and predictions in buffer."
+            warn_message
+            or f"Metric `{type(self).__name__}` will save all targets and predictions in buffer."
             " For large datasets this may lead to large memory footprint."
         )
 

@@ -1,5 +1,6 @@
-"""Input validation and normalization for classification metrics
-(counterpart of ``metrics_tpu/utils/checks.py:23-272``).
+"""Input validation: the shape check shared by the regression metrics, and
+the checks and normalization of classification inputs (counterpart of
+``metrics_tpu/utils/checks.py:23-272``).
 
 The value checks (negative labels, labels beyond ``num_classes``, non-binary
 targets) read concrete values, so each is one ``.item()`` host sync per
@@ -11,6 +12,15 @@ import torch
 
 from metrics_tpu_torch.utils.data import select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
+
+
+def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
+    """Raise unless ``preds`` and ``target`` have exactly the same shape."""
+    if preds.shape != target.shape:
+        raise RuntimeError(
+            f"`preds` and `target` shapes must match exactly; received "
+            f"preds{tuple(preds.shape)} vs target{tuple(target.shape)}."
+        )
 
 
 def _basic_input_validation(
