@@ -9,7 +9,10 @@
    for bit, float sums within a stated tolerance) at the main path's
    shapes, on a ragged tail and on edge-case rows; then timed with CUDA
    events beside its bound, its plain version and (where one exists) a
-   single PyTorch call computing the same function.
+   single PyTorch call computing the same function. ``pairwise_reduce``
+   is also held to the composition's answers on its edge cases (a NaN
+   column on the masked diagonal, one row against itself) and launched
+   twice at each path shape, where the row sums must be bit-identical.
 3. The main path: a ``MetricCollection`` of top-1 and top-5 accuracy,
    macro-F1 and the confusion matrix streams ImageNet-1k validation at full
    size (50,000 samples, 1000 classes, batches of 8192) through ``forward``,
@@ -41,7 +44,8 @@
    ``CosineSimilarity(reduction="mean")`` over teacher and student features
    of ImageNet-1k val size (50,000 x 2048, batches of 8192). Each value is
    held against a numpy float64 oracle; the path runs no kernel.
-8. A profile: each kernel's device time per launch, and the device busy
+8. A profile: each kernel's device time per wrapper call (all the kernels
+   the wrapper launches), and the device busy
    share, host syncs and top device ops of batches of each path.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -80,24 +84,25 @@ NYU_TEST = (654, 480, 640)  # NYU Depth v2 test split: depth maps, height, width
 NYU_BATCH = 8
 FEATURES = (50_000, 2048, 8192)  # ImageNet-1k val teacher/student features: samples, width, batch
 
-# NVIDIA H100 SXM data sheet: the HBM rate, and the CUDA cores' instruction
-# rate (132 SMs x 128 lanes x 1.98 GHz; the sheet's 67 TFLOP/s float32 counts
-# an FMA as two). No tensor-core type applies to the integer and compare
-# workloads, whose every compare or add is one instruction; the pairwise
-# kernel's FMAs run on the CUDA cores too, one instruction each (its TF32
-# tensor-core line, 495 TFLOP/s, is a later design's bound). Euclidean row
-# sums need every cell's N*M*d FMAs (the square root is not linear); cosine
-# row sums are linear and need only O((N + M) d), so their bound is bytes.
+# NVIDIA H100 SXM data sheet: the HBM rate, the CUDA cores' instruction rate
+# (132 SMs x 128 lanes x 1.98 GHz; the sheet's 67 TFLOP/s float32 counts an
+# FMA as two) and the tensor cores' dense TF32 rate. No tensor-core type
+# applies to the integer and compare workloads, whose every compare or add
+# is one instruction. Euclidean row sums need every cell's 2 d flops (the
+# square root is not linear), and the pairwise kernel runs them on the
+# tensor cores in TF32; cosine row sums are linear and need only
+# O((N + M) d), so their bound is bytes.
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 33.5e12
+TF32_FLOPS_PER_S = 495e12
 
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / CUDA_CORE_OPS_PER_S
+def _bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = CUDA_CORE_OPS_PER_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -412,6 +417,18 @@ def _pairwise_cases(torch, rng, dev, emb):
     wide_x, wide_y = normal(300, 5000), normal(129, 5000)
     query, gallery = (torch.from_numpy(emb[k]).to(dev) for k in ("query", "gallery"))
     sop = _unit(torch, torch.from_numpy(emb["sop"]).to(dev))
+    # a NaN column on the masked diagonal: row 2 stays finite, the others are NaN
+    diag_x, diag_y = normal(5, 4), normal(6, 4)
+    diag_y_zero, diag_y_nan = diag_y.clone(), diag_y.clone()
+    diag_y_zero[2] = 0.0
+    diag_y_nan[2, 1] = float("nan")
+    d5_x, d5_y = normal(301, 5), normal(203, 5)
+
+    def misaligned(a):  # the same values, 4 bytes past an allocation: not 16-byte aligned
+        return torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(a.shape)
+
+    far_zero = normal(300, 64)
+    far_zero[200] = 0.0  # a zero row of y at an index >= N (= 100)
     return {
         "euclidean": (x, y, "euclidean", False),
         "cosine": (_unit(torch, x), _unit(torch, y), "cosine", False),
@@ -432,6 +449,22 @@ def _pairwise_cases(torch, rng, dev, emb):
         "nan_column": (x, y_nan, "euclidean", False),  # every row's sum is NaN
         "nan_row_cosine": (_unit(torch, with_nan), _unit(torch, y), "cosine", True),
         "zero_row_cosine": (_unit(torch, zero_row), _unit(torch, y), "cosine", False),
+        "nan_column_on_masked_diagonal": (diag_x, diag_y_nan, "euclidean", True),
+        "nan_column_on_masked_diagonal_cosine": (_unit(torch, diag_x), _unit(torch, diag_y_zero), "cosine", True),
+        "tiny_3x2": (x[:3], y[:2], "euclidean", True),
+        "tiny_3x2_cosine": (_unit(torch, x[:3]), _unit(torch, y[:2]), "cosine", True),
+        "one_by_one": (x[:1], x[:1], "euclidean", True),
+        "one_by_one_cosine": (_unit(torch, x[:1]), _unit(torch, x[:1]), "cosine", True),
+        "zero_row_self_cosine": (_unit(torch, x[:1] * 0), _unit(torch, x[:1] * 0), "cosine", True),  # gives [0.]
+        "m1": (x, y[:1], "euclidean", False),
+        "m1_cosine": (_unit(torch, x), _unit(torch, y[:1]), "cosine", True),
+        "d5": (d5_x, d5_y, "euclidean", True),
+        "d5_cosine": (_unit(torch, d5_x), _unit(torch, d5_y), "cosine", True),
+        "d5_offset_view": (d5_x[1:], d5_y, "euclidean", True),
+        "misaligned": (misaligned(x[:301, :8]), x[:, :8].contiguous(), "euclidean", True),
+        "misaligned_cosine": (misaligned(_unit(torch, x[:301, :8])), _unit(torch, x[:, :8]), "cosine", True),
+        "zero_row_of_y_beyond_n": (x[:100, :64], far_zero, "euclidean", True),
+        "zero_row_of_y_beyond_n_cosine": (_unit(torch, x[:100, :64]), _unit(torch, far_zero), "cosine", True),
         "inshop": (query, gallery, "euclidean", False),
         "sop": (sop, sop, "cosine", True),
     }
@@ -458,6 +491,16 @@ def _pairwise_err(torch, name: str, got, want, op: str, m: int) -> float:
     return diff.max().item()
 
 
+def _check_pairwise_edges(name: str, got) -> None:
+    """The composition's answers on the edge cases, beyond agreeing with the plain version."""
+    if name.startswith("nan_column_on_masked_diagonal"):
+        nan = got.isnan().tolist()
+        if nan != [True, True, False, True, True]:
+            raise AssertionError(f"pairwise_reduce[{name}]: NaN rows {nan}, want every row but row 2")
+    if name == "zero_row_self_cosine" and got.tolist() != [0.0]:
+        raise AssertionError(f"pairwise_reduce[{name}]: {got.tolist()}, want [0.0]")
+
+
 def check_and_time_pairwise(torch, rng, emb):
     from metrics_tpu_torch.ops import pairwise_reduce as pr
 
@@ -465,25 +508,31 @@ def check_and_time_pairwise(torch, rng, emb):
     cases = _pairwise_cases(torch, rng, dev, emb)
     errs = {}
     for tag, (x, y, op, zd) in cases.items():
-        errs[tag] = _pairwise_err(torch, f"pairwise_reduce[{tag}]", pr._pairwise_cuda(x, y, op, zd), pr._pairwise_plain(x, y, op, zd), op, y.shape[0])
+        got = pr._pairwise_cuda(x, y, op, zd)
+        errs[tag] = _pairwise_err(torch, f"pairwise_reduce[{tag}]", got, pr._pairwise_plain(x, y, op, zd), op, y.shape[0])
+        _check_pairwise_edges(tag, got)
     _log(f"kernel pairwise_reduce: matches plain on all {len(cases)} cases; max abs err of the row sums per case {errs}")
     torch.backends.cuda.matmul.allow_tf32 = False  # the library yardsticks multiply in full float32
     records, calls = {}, {}
-    for tag, library in (
-        ("inshop", lambda x, y: torch.cdist(x, y).sum(1)),
-        ("sop", lambda x, y: torch.mm(x, y.T).sum(1)),
+    for tag, libraries in (
+        ("inshop", {"torch.cdist(x, y).sum(1)": lambda x, y: torch.cdist(x, y).sum(1)}),
+        ("sop", {"torch.mm(x, y.T).sum(1)": lambda x, y: torch.mm(x, y.T).sum(1),
+                 "torch.mv(x, y.sum(0)), the linear order": lambda x, y: torch.mv(x, y.sum(0))}),
     ):
         x, y, op, zd = cases[tag]
         (n, d), m = x.shape, y.shape[0]
-        iters = 10 if tag == "inshop" else 3
+        first, second = pr._pairwise_cuda(x, y, op, zd), pr._pairwise_cuda(x, y, op, zd)
+        if not torch.equal(first, second):
+            raise AssertionError(f"pairwise_reduce[{tag}]: two launches give different row sums")
+        iters = 10
         in_bytes = (n if x.data_ptr() == y.data_ptr() else n + m) * d * x.element_size()
         if op == "cosine":
             # the row sums are linear, x_i.(sum_j y_j) (less x_i.y_i with the
             # diagonal zeroed), so the function needs O((N + M) d) operations
             bound_ms, bound_by = _bound_ms(in_bytes + n * 4, (m + (2 if zd else 1) * n) * d)
         else:
-            bound_ms, bound_by = _bound_ms(in_bytes + n * 4, n * m * d)
-        fma_floor_ms = n * m * d / CUDA_CORE_OPS_PER_S * 1e3  # this design's floor: every cell's d FMAs
+            bound_ms, bound_by = _bound_ms(in_bytes + n * 4, 2 * n * m * d, TF32_FLOPS_PER_S)
+        lib_ms = {name: _cuda_ms(torch, lambda fn=fn: fn(x, y), iters=iters, warmup=1) for name, fn in libraries.items()}
         rec = dict(
             source="metrics_tpu_torch/csrc/pairwise_reduce.cu",
             replaces="metrics_tpu/ops/pairwise_reduce.py:39",
@@ -491,14 +540,18 @@ def check_and_time_pairwise(torch, rng, emb):
             ms=_cuda_ms(torch, lambda: pr._pairwise_cuda(x, y, op, zd), iters=iters, warmup=1),
             plain_ms=_cuda_ms(torch, lambda: pr._pairwise_plain(x, y, op, zd), iters=iters, warmup=1),
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=_cuda_ms(torch, lambda: library(x, y), iters=iters, warmup=1),
+            library_ms=next(iter(lib_ms.values())),
             shape=f"{op} [{n}, {d}] x [{m}, {d}] f32{', zero diagonal' if zd else ''}",
         )
-        lib_name = "torch.cdist(x, y).sum(1)" if tag == "inshop" else "torch.mm(x, y.T).sum(1)"
+        context = (
+            f"3-pass split-TF32 floor of this design {3 * bound_ms:.4f} ms" if op == "euclidean"
+            else f"N*M*d FMA floor of a design that forms every cell on the CUDA cores {n * m * d / CUDA_CORE_OPS_PER_S * 1e3:.4f} ms"
+        )
         _log(
             f"kernel pairwise_reduce ({rec['shape']}): ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f}"
-            f" library_ms={rec['library_ms']:.4f} ({lib_name}, allow_tf32=False) bound_ms={rec['bound_ms']:.4f} ({bound_by});"
-            f" N*M*d FMA floor of this design {fma_floor_ms:.4f} ms"
+            f" bound_ms={rec['bound_ms']:.4f} ({bound_by}), {100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound;"
+            f" {'; '.join(f'{k} {v:.4f} ms' for k, v in lib_ms.items())} (allow_tf32=False); {context};"
+            f" two launches bit-identical"
         )
         if tag == "inshop":
             records["pairwise_reduce"] = rec
@@ -1007,15 +1060,20 @@ def run_regression_path(torch, mt, rng):
     return (mc, preds, target, batches), (cos, student, teacher, feat_batches)
 
 
-# kernel wrappers' device-side names, as the profiler reports them
+# kernel wrappers' device-side names, as the profiler reports them; a
+# wrapper that runs several kernels per call lists them all
 KERNEL_SYMBOLS = {
-    "confusion_counts": "confusion_counts_kernel",
-    "multilabel_counts": "multilabel_counts_kernel",
-    "select_topk": "topk_mask_kernel",
-    "binned_counts": "binned_counts_kernel",
-    "binned_calibration": "binned_calibration_kernel",
-    "pairwise_reduce": "pairwise_rows_kernel",
+    "confusion_counts": ("confusion_counts_kernel",),
+    "multilabel_counts": ("multilabel_counts_kernel",),
+    "select_topk": ("topk_mask_kernel",),
+    "binned_counts": ("binned_counts_kernel",),
+    "binned_calibration": ("binned_calibration_kernel",),
+    "pairwise_reduce": (
+        "prep_kernel", "euclid_tf32_kernel", "fold_rows_kernel", "pairwise_rows_kernel",
+        "cosine_nan_rows_kernel", "cosine_col_partials_kernel", "cosine_fold_kernel", "cosine_rows_kernel",
+    ),
 }
+PROFILE_CALLS = 10
 PROFILE_BATCHES = 3
 
 
@@ -1072,22 +1130,22 @@ def _profile_path(torch, label: str, steps, top: int) -> None:
 
 
 def profile_device_time(torch, kernel_calls, paths):
-    """Each kernel's device time per launch; then, for each path, the device
+    """Each wrapper's device time per call; then, for each path, the device
     busy share, host syncs and top device ops of a few of its batches."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for call in kernel_calls.values():
-            for _ in range(10):
+            for _ in range(PROFILE_CALLS):
                 call()
         torch.cuda.synchronize()
     rows = _device_rows(prof)
-    kernel_us = {}
-    for name, symbol in KERNEL_SYMBOLS.items():
-        hits = [r for r in rows if symbol in r["name"]]
-        kernel_us[name] = sum(r["device_us"] for r in hits) / sum(r["calls"] for r in hits) if hits else None
+    kernel_us = {}  # device time per wrapper call, all of its kernels
+    for name, symbols in KERNEL_SYMBOLS.items():
+        hits = [r for r in rows if any(sym in r["name"] for sym in symbols)]
+        kernel_us[name] = sum(r["device_us"] for r in hits) / PROFILE_CALLS if hits else None
     shown = {k: ("not measured" if v is None else f"{v:.2f} us") for k, v in kernel_us.items()}
-    _log(f"profile: device time per launch {shown}")
+    _log(f"profile: device time per wrapper call {shown}")
     for i, (label, steps) in enumerate(paths.items()):
         _profile_path(torch, label, steps, top=15 if i == 0 else 8)
     return kernel_us

@@ -49,6 +49,8 @@ def pairwise_cosine_similarity(
     if reduction in ("sum", "mean"):
         xc, yc, zero_diag = _check_input(x, y, zero_diagonal)
         xc, yc = _promote(xc, yc, to_float=True)
-        return pairwise_reduce_rows(_normalize_rows(xc), _normalize_rows(yc), "cosine", reduction, zero_diag)
+        xn = _normalize_rows(xc)
+        yn = xn if y is None else _normalize_rows(yc)  # x against itself: normalized once
+        return pairwise_reduce_rows(xn, yn, "cosine", reduction, zero_diag)
     distance = _pairwise_cosine_similarity_update(x, y, zero_diagonal)
     return _reduce_distance_matrix(distance, reduction)

@@ -50,8 +50,13 @@ _SIGNATURES: Dict[str, List] = {
     # count u64 [B], conf_sum f32 [B], acc_sum f32 [B], stream
     "mt_binned_calibration": [_INT, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     # device, dtype code, op code, x [N*d], y [M*d], n, m, d, zero_diag,
-    # out [N] (f64 for f64 inputs, else f32), stream
-    "mt_pairwise_reduce": [_INT, _INT, _INT, _P, _P, _I64, _I64, _I64, _INT, _P, _P],
+    # out [N] (f64 for f64 inputs, else f32), scratch, scratch bytes, stream
+    "mt_pairwise_reduce": [_INT, _INT, _INT, _P, _P, _I64, _I64, _I64, _INT, _P, _P, _I64, _P],
+}
+#: C entries that return a value other than an error code: name -> (argument types, result type).
+_QUERIES: Dict[str, tuple] = {
+    # dtype code, op code, n, m, d -> bytes of scratch mt_pairwise_reduce needs
+    "mt_pairwise_scratch_bytes": ([_INT, _INT, _I64, _I64, _I64], _I64),
 }
 
 _LOCK = threading.Lock()
@@ -125,6 +130,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = _INT
+            for name, (argtypes, restype) in _QUERIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
             lib.mt_error_string.argtypes = [_INT]
             lib.mt_error_string.restype = ctypes.c_char_p
             _LIB = lib

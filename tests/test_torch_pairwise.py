@@ -199,3 +199,69 @@ def test_plain_op_cuts_rows_into_blocks(monkeypatch):
     monkeypatch.setattr(pr, "_PLAIN_BLOCK_ELEMENTS", 3 * 11)  # 3 rows per block
     for op, want in whole.items():
         torch.testing.assert_close(pr._pairwise_plain(xt, xt, op, True), want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("y_change", ["zero_row", "nan_entry"])
+@pytest.mark.parametrize("reduction", ["sum", "mean"])
+@pytest.mark.parametrize("name", FUNCTIONALS[:2])
+def test_nan_column_on_the_masked_diagonal_like_jax(name, reduction, y_change):
+    """Column 2 of y is NaN (for cosine a zero row is too, 0/0): every row's
+    sum is NaN but row 2's, whose NaN cell is the zeroed diagonal one."""
+    x, y = _inputs(n=5, m=6, d=4, seed=7)
+    if y_change == "zero_row":
+        y[2] = 0.0
+    else:
+        y[2, 1] = np.nan
+    got, want = _call_both(name, x, y, reduction=reduction, zero_diagonal=True)
+    _assert_close(got, want, TOL["float32"])
+    if y_change == "nan_entry" or name == "pairwise_cosine_similarity":
+        assert np.isnan(got.numpy()).tolist() == [True, True, False, True, True]
+
+
+@pytest.mark.parametrize("reduction", ["sum", "mean"])
+@pytest.mark.parametrize("name", FUNCTIONALS[:2])
+def test_one_zero_row_against_itself_gives_zero_like_jax(name, reduction):
+    """Every cell masked: the sum is 0, though cosine's only cell is 0/0."""
+    x = np.zeros((1, 4), np.float32)
+    got, want = _call_both(name, x, None, reduction=reduction)
+    _assert_close(got, want, TOL["float32"])
+    assert got.tolist() == [0.0]
+
+
+@pytest.mark.parametrize("zero_diagonal", [True, False])
+@pytest.mark.parametrize("case", ["self", "pair"])
+def test_cosine_linear_order_in_float64_matches_jax(case, zero_diagonal):
+    """The plain cosine row sums, x_i.(sum_j y_j) less the masked diagonal,
+    in float64 against the JAX composition's matrix row sums."""
+    x, y = _inputs(n=13, m=9, d=7, seed=8)
+    y = x if case == "self" else y
+    unit = lambda a: a.astype(np.float64) / np.linalg.norm(a.astype(np.float64), axis=1, keepdims=True)  # noqa: E731
+    want = fj.pairwise_cosine_similarity(jnp.asarray(x, jnp.float64), jnp.asarray(y, jnp.float64), reduction="sum", zero_diagonal=zero_diagonal)
+    got = pairwise_reduce(torch.from_numpy(unit(x)), torch.from_numpy(unit(y)), op="cosine", zero_diagonal=zero_diagonal)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-10)
+
+
+def _misaligned(a: torch.Tensor) -> torch.Tensor:
+    """The same values 4 bytes past an allocation's start."""
+    return torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(a.shape)
+
+
+@pytest.mark.parametrize("view", ["whole", "offset_rows", "misaligned"])
+@pytest.mark.parametrize("d", [1, 5, 7, 8])
+def test_tma_operand_pads_and_aligns_without_changing_the_sums(d, view):
+    """The euclidean kernel's operands: width a multiple of 4 (zero columns),
+    contiguous, 16-byte aligned; the plain row sums are those of the
+    unpadded inputs (1e-6: a padded product may round otherwise)."""
+    from metrics_tpu_torch.ops.pairwise_reduce import _pairwise_plain, _tma_operand
+
+    x, y = (torch.from_numpy(a) for a in _inputs(n=9, m=6, d=d, seed=9))
+    x = {"whole": x, "offset_rows": x[1:], "misaligned": _misaligned(x)}[view]
+    xp, yp = _tma_operand(x), _tma_operand(y)
+    for a, ap in ((x, xp), (y, yp)):
+        assert ap.is_contiguous() and ap.shape[1] % 4 == 0 and ap.data_ptr() % 16 == 0
+        torch.testing.assert_close(ap[:, : a.shape[1]], a, rtol=0, atol=0)
+        assert not ap[:, a.shape[1]:].any()
+    for zero_diagonal in (True, False):
+        want = _pairwise_plain(x, y, "euclidean", zero_diagonal)
+        torch.testing.assert_close(_pairwise_plain(xp, yp, "euclidean", zero_diagonal), want, rtol=1e-6, atol=0)
