@@ -9,7 +9,14 @@
    for bit, float sums within a stated tolerance) at the main path's
    shapes, on a ragged tail and on edge-case rows; then timed with CUDA
    events beside its bound, its plain version and (where one exists) a
-   single PyTorch call computing the same function. ``pairwise_reduce``
+   single PyTorch call computing the same function. ``binned_counts`` is
+   also checked at T = 1, 5000 and 40,001 (the global-histogram path), on
+   NaN, shuffled and log-spaced thresholds, equal preds, 81 classes, one
+   row, 200,000 rows (partial rows and the finishing kernel) and on the CTR
+   phase's own skewed scores, and timed at both path shapes; ``select_topk``
+   at C = 1000 with k from 2 to 1000, at widths 1 to 1025, on an unaligned
+   view and on rows all equal, NaN, -inf or signed zeros, with the path each
+   case took. ``pairwise_reduce``
    is also held to the composition's answers on its edge cases (a NaN
    column on the masked diagonal, one row against itself) and launched
    twice at each path shape, where the row sums must be bit-identical.
@@ -44,8 +51,9 @@
    ``CosineSimilarity(reduction="mean")`` over teacher and student features
    of ImageNet-1k val size (50,000 x 2048, batches of 8192). Each value is
    held against a numpy float64 oracle; the path runs no kernel.
-8. A profile: each kernel's device time per wrapper call (all the kernels
-   the wrapper launches), and the device busy
+8. A profile: each kernel's device time and device operations per wrapper
+   call (all the kernels the wrapper launches; one profile per call, so
+   ``binned_counts`` at the CTR shape is read apart), and the device busy
    share, host syncs and top device ops of batches of each path.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -204,7 +212,10 @@ def check_and_time_kernels(torch, rng):
     )
 
     # select_topk: main-path shape, ragged tail, edge rows, half inputs, a
-    # row too wide for the default 48 KB of shared memory
+    # row too wide for the register kernel and for the default 48 KB of
+    # shared memory; every k from 2 to C at the main width; widths on both
+    # sides of each register instance's limit and of the 16-byte path's
+    # (C % 4); a view one element past an allocation (not 16-byte aligned)
     errs = []
     x = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)).to(dev)
     edge = torch.from_numpy(_topk_edge_rows(rng, 600, c)).to(dev)
@@ -214,8 +225,21 @@ def check_and_time_kernels(torch, rng):
     cases.update({"f64": (x64, TOP_K), "f64_edge": (edge.double(), 5), "f64_wide": (wide.double(), 7)})
     cases.update({f"edge_k{k}": (edge, k) for k in (2, 5, 64)})
     cases["wide_k7"] = (wide, 7)
+    cases.update({f"c{c}_k{k}": (x[:512], k) for k in (2, 5, 64, 500, 1000)})
+    narrow = torch.from_numpy(_topk_edge_rows(rng, 300, 1025)).to(dev)
+    cases.update({f"c{w}": (narrow[:, :w].contiguous(), min(w, 3)) for w in (1, 3, 31, 33, 998, 1024, 1025)})
+    cases["offset_view"] = (torch.cat([x.new_zeros(1), x[:300].reshape(-1)])[1:].view(300, c), TOP_K)
+    cases["all_equal"] = (torch.full((64, c), 0.25, device=dev), 7)
+    cases["all_nan"] = (torch.full((64, c), float("nan"), device=dev), 7)
+    cases["all_neg_inf"] = (torch.full((64, c), -np.inf, device=dev), 7)
+    cases["signed_zeros"] = (torch.where(torch.from_numpy(rng.random((64, c)) < 0.5).to(dev), -0.0, 0.0), 9)
+    routes = {}
     for tag, (v, k) in cases.items():
         errs.append(_max_abs_err(torch, f"select_topk[{tag}]", st._topk_mask_cuda(v, k), st._topk_mask_plain(v, k)))
+        w = v if v.dtype == torch.float64 else v.float().contiguous()
+        route, keys, vec = st._topk_route(w.dtype, w.shape[1], w.data_ptr())
+        routes[tag] = route if route != "registers" else f"registers/{keys}{'/16B' if vec else '/4B'}"
+    _log(f"select_topk: bit-identical to plain on {len(cases)} cases; path per case {routes}")
     ms = _cuda_ms(torch, lambda: st._topk_mask_cuda(x, TOP_K))
     plain_ms = _cuda_ms(torch, lambda: st._topk_mask_plain(x, TOP_K), iters=10)
     library_ms = _cuda_ms(
@@ -258,6 +282,12 @@ def _binned_counts_cases(torch, rng, dev):
     with_nan[torch.from_numpy(rng.random((n, c)) < 0.01).to(dev)] = float("nan")
     on_grid = grid[torch.from_numpy(rng.integers(0, THRESHOLDS, (n, c))).to(dev)]  # preds exactly on thresholds
     shuffled = torch.cat([grid[torch.randperm(THRESHOLDS, device=dev)], grid[:17], torch.tensor([-np.inf, np.inf, np.nan], device=dev)])
+    nan_ths = torch.cat([grid[:100], torch.tensor([np.nan, 0.5, np.nan, -np.inf], device=dev), grid[100:]])
+    skewed, clicked = _ctr_scores(rng, CTR_EVAL[1])
+    big_col = torch.from_numpy(rng.random((200_000, 1), dtype=np.float32)).to(dev)
+    big_col_labels = torch.from_numpy((rng.random((200_000, 1)) < 0.25).astype(np.int32)).to(dev)
+    c81 = torch.from_numpy(rng.random((n, 81), dtype=np.float32)).to(dev)
+    c81_labels = torch.from_numpy((rng.random((n, 81)) < 3 / 81).astype(np.int32)).to(dev)
     return {
         "main": (probs, labels, grid),
         "ragged": (probs[:COCO_RAGGED], labels[:COCO_RAGGED], grid),
@@ -272,6 +302,20 @@ def _binned_counts_cases(torch, rng, dev):
         "all_positive": (probs, torch.ones_like(labels), grid),
         "all_negative": (probs, torch.zeros_like(labels), grid),
         "int64_target": (probs, labels.long() * 3 - 1, grid),  # positive means > 0
+        "ctr_skewed": (torch.from_numpy(skewed[:, None]).to(dev), torch.from_numpy(clicked[:, None].astype(np.int32)).to(dev), grid),
+        "t1": (probs, labels, grid[THRESHOLDS // 3 : THRESHOLDS // 3 + 1]),
+        "t40001_global_histogram": (probs[:512], labels[:512], torch.linspace(0, 1, 40_001, device=dev)),
+        "t5000_ranked_by_kernel": (on_grid[:2048], labels[:2048], torch.linspace(0, 1, 5000, device=dev).flip(0)),
+        "t5000_ascending": (probs[:2048], labels[:2048], torch.linspace(0, 1, 5000, device=dev)),
+        "log_grid": (probs, labels, torch.logspace(-6, 0, THRESHOLDS, device=dev)),  # uneven: bins found by search
+        "n200000_c1_partial_rows": (big_col, big_col_labels, grid),  # past the cluster path's rows
+        "nan_thresholds": (with_nan, labels, nan_ths),
+        "all_preds_equal": (torch.full_like(probs, 0.5), labels, grid),
+        "c81_ragged_tile": (c81, c81_labels, grid),
+        "misaligned_view": (probs.reshape(-1)[1:].reshape(-1)[: n * 79].view(n, 79), labels[:, :79].contiguous(), grid),
+        "n1": (probs[:1], labels[:1], grid),
+        "n1_c1": (ctr[:1], ctr_labels[:1], grid),
+        "f64_t40001": (probs[:256].double(), labels[:256], torch.linspace(0, 1, 40_001, device=dev)),
     }
 
 
@@ -327,7 +371,13 @@ def check_and_time_binned(torch, rng):
             errs.append(_max_abs_err(torch, f"binned_counts[{tag}].{name}", got, want))
     n, c = cases["main"][0].shape
     main = cases["main"]
-    bound_ms, bound_by = _bound_ms(2 * n * c * 4 + THRESHOLDS * 4 + 4 * c * THRESHOLDS * 8, n * c * THRESHOLDS)
+
+    def bound(rows: int, cols: int):
+        """Bytes bound of one call: preds and target read, thresholds read, four
+        [C, T] int64 written; operations N*C*ceil(log2(T + 1)) compares."""
+        return _bound_ms(2 * rows * cols * 4 + THRESHOLDS * 4 + 4 * cols * THRESHOLDS * 8, rows * cols * np.ceil(np.log2(THRESHOLDS + 1)))
+
+    bound_ms, bound_by = bound(n, c)
     records["binned_counts"] = dict(
         source="metrics_tpu_torch/csrc/binned_counts.cu",
         replaces="metrics_tpu/ops/binned_counts.py:51",
@@ -335,12 +385,18 @@ def check_and_time_binned(torch, rng):
         plain_ms=_cuda_ms(torch, lambda: bc._binned_counts_plain(*main), iters=10),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, shape=f"[{n}, {c}] f32, T={THRESHOLDS}",
     )
-    ctr = cases["ctr_shape"]
-    ctr_bound, ctr_by = _bound_ms(2 * CTR_EVAL[1] * 4 + THRESHOLDS * 4 + 4 * THRESHOLDS * 8, CTR_EVAL[1] * THRESHOLDS)
     _log(
-        f"kernel binned_counts ([{CTR_EVAL[1]}, 1] f32, T={THRESHOLDS}): ms={_cuda_ms(torch, lambda: bc._binned_counts_cuda(*ctr)):.4f}"
-        f" plain_ms={_cuda_ms(torch, lambda: bc._binned_counts_plain(*ctr), iters=10):.4f} bound_ms={ctr_bound:.4f} ({ctr_by})"
+        f"kernel binned_counts ([{n}, {c}] f32, T={THRESHOLDS}): the first design's N*C*T compare floor"
+        f" {n * c * THRESHOLDS / CUDA_CORE_OPS_PER_S * 1e3:.4f} ms (operations), not the function's bound"
     )
+    ctr_bound, ctr_by = bound(CTR_EVAL[1], 1)
+    for tag in ("ctr_shape", "ctr_skewed"):
+        args = cases[tag]
+        _log(
+            f"kernel binned_counts ([{CTR_EVAL[1]}, 1] f32, T={THRESHOLDS}, {'uniform' if tag == 'ctr_shape' else 'CTR-skewed'} scores):"
+            f" ms={_cuda_ms(torch, lambda: bc._binned_counts_cuda(*args)):.4f}"
+            f" plain_ms={_cuda_ms(torch, lambda: bc._binned_counts_plain(*args), iters=10):.4f} bound_ms={ctr_bound:.5f} ({ctr_by})"
+        )
 
     errs = []
     cal_cases = _calibration_cases(torch, rng, dev)
@@ -370,8 +426,11 @@ def check_and_time_binned(torch, rng):
             f" library_ms=none (no single call) bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})"
         )
     conf, acc, b15 = cal_cases["main_b15"]
+    ctr_uniform, ctr_skewed = cases["ctr_shape"], cases["ctr_skewed"]
     calls = {
         "binned_counts": lambda: bc._binned_counts_cuda(*main),
+        "binned_counts@ctr_uniform": lambda: bc._binned_counts_cuda(*ctr_uniform),
+        "binned_counts@ctr_skewed": lambda: bc._binned_counts_cuda(*ctr_skewed),
         "binned_calibration": lambda: bc._binned_calibration_cuda(conf, acc, b15),
     }
     return records, calls
@@ -829,11 +888,17 @@ def _binned_auroc(scores: np.ndarray, positive: np.ndarray, ths: np.ndarray) -> 
     return float(np.sum((fpr[1:] - fpr[:-1]) * (tpr[1:] + tpr[:-1]) / 2.0))
 
 
+def _ctr_scores(rng, n: int):
+    """Seeded scores of a CTR model and its clicks (about Criteo's click rate):
+    most scores fall in a few of the 200 bins."""
+    clicked = rng.random(n) < 0.034
+    return (1.0 / (1.0 + np.exp(-(rng.standard_normal(n) + 1.2 * clicked - 3.0)))).astype(np.float32), clicked
+
+
 def run_ctr_auroc(torch, mt, rng):
     """Binary AUROC over a CTR model's eval pass, binned beside exact."""
     n, batch = CTR_EVAL
-    clicked = rng.random(n) < 0.034  # about Criteo's click rate
-    scores_np = (1.0 / (1.0 + np.exp(-(rng.standard_normal(n) + 1.2 * clicked - 3.0)))).astype(np.float32)
+    scores_np, clicked = _ctr_scores(rng, n)
     scores, labels = torch.from_numpy(scores_np).cuda(), torch.from_numpy(clicked.astype(np.int64)).cuda()
     mc = mt.MetricCollection({"auroc_binned": mt.AUROC(thresholds=THRESHOLDS), "auroc_exact": mt.AUROC()})
     batches = [(s, s + batch) for s in range(0, n, batch)]
@@ -1065,8 +1130,8 @@ def run_regression_path(torch, mt, rng):
 KERNEL_SYMBOLS = {
     "confusion_counts": ("confusion_counts_kernel",),
     "multilabel_counts": ("multilabel_counts_kernel",),
-    "select_topk": ("topk_mask_kernel",),
-    "binned_counts": ("binned_counts_kernel",),
+    "select_topk": ("topk_mask_regs_kernel", "topk_mask_kernel", "topk_mask_f64_kernel"),
+    "binned_counts": ("binned_hist_kernel", "binned_finish_kernel", "rank_thresholds_kernel"),
     "binned_calibration": ("binned_calibration_kernel",),
     "pairwise_reduce": (
         "prep_kernel", "euclid_tf32_kernel", "fold_rows_kernel", "pairwise_rows_kernel",
@@ -1130,21 +1195,25 @@ def _profile_path(torch, label: str, steps, top: int) -> None:
 
 
 def profile_device_time(torch, kernel_calls, paths):
-    """Each wrapper's device time per call; then, for each path, the device
-    busy share, host syncs and top device ops of a few of its batches."""
+    """Each wrapper's device time and device operations per call, one
+    profile per call (``op@label`` names a second shape of op ``op``); then,
+    for each path, the device busy share, host syncs and top device ops of
+    a few of its batches."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for call in kernel_calls.values():
+    kernel_us, ops = {}, {}  # device time of the op's kernels, and device events of any kind, per call
+    for label, call in kernel_calls.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILE_CALLS):
                 call()
-        torch.cuda.synchronize()
-    rows = _device_rows(prof)
-    kernel_us = {}  # device time per wrapper call, all of its kernels
-    for name, symbols in KERNEL_SYMBOLS.items():
+            torch.cuda.synchronize()
+        rows = _device_rows(prof)
+        symbols = KERNEL_SYMBOLS[label.split("@")[0]]
         hits = [r for r in rows if any(sym in r["name"] for sym in symbols)]
-        kernel_us[name] = sum(r["device_us"] for r in hits) / PROFILE_CALLS if hits else None
-    shown = {k: ("not measured" if v is None else f"{v:.2f} us") for k, v in kernel_us.items()}
+        # each kernel launches once per call; a dropped profiler event would not bias its mean
+        kernel_us[label] = sum(r["device_us"] / r["calls"] for r in hits) if hits else None
+        ops[label] = sum(r["calls"] for r in rows) / max(r["calls"] for r in rows) if rows else None
+    shown = {k: ("not measured" if v is None else f"{v:.2f} us in {ops[k]:.0f} device ops") for k, v in kernel_us.items()}
     _log(f"profile: device time per wrapper call {shown}")
     for i, (label, steps) in enumerate(paths.items()):
         _profile_path(torch, label, steps, top=15 if i == 0 else 8)

@@ -41,11 +41,13 @@ _SIGNATURES: Dict[str, List] = {
     "mt_topk_mask": [_INT, _P, _I64, _I64, _INT, _P, _P],
     # device, x f64 [N*C], n, c, k, out i32 [N*C], stream
     "mt_topk_mask_f64": [_INT, _P, _I64, _I64, _INT, _P, _P],
+    # device, x f32 [N*C], n, c, k, keys per lane, 16-byte loads, out i32 [N*C], stream
+    "mt_topk_mask_regs": [_INT, _P, _I64, _I64, _INT, _INT, _INT, _P, _P],
     # device, preds f32 [N*C], target i32 [N*C], ths f32 [T], n, c, t,
-    # tp u64 [C*T], fp u64 [C*T], pos u64 [C], stream
-    "mt_binned_counts_f32": [_INT, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P],
+    # out i64 [4*C*T] (TP, FP, FN, TN), scratch, scratch bytes, stream
+    "mt_binned_counts_f32": [_INT, _P, _P, _P, _I64, _I64, _I64, _P, _P, _I64, _P],
     # the same with preds and ths f64
-    "mt_binned_counts_f64": [_INT, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P],
+    "mt_binned_counts_f64": [_INT, _P, _P, _P, _I64, _I64, _I64, _P, _P, _I64, _P],
     # device, conf f32 [N], acc f32 [N], bounds f32 [B+1], n, bins,
     # count u64 [B], conf_sum f32 [B], acc_sum f32 [B], stream
     "mt_binned_calibration": [_INT, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
@@ -57,6 +59,8 @@ _SIGNATURES: Dict[str, List] = {
 _QUERIES: Dict[str, tuple] = {
     # dtype code, op code, n, m, d -> bytes of scratch mt_pairwise_reduce needs
     "mt_pairwise_scratch_bytes": ([_INT, _INT, _I64, _I64, _I64], _I64),
+    # n, c, t, bytes per pred -> bytes of scratch mt_binned_counts_f32/_f64 need
+    "mt_binned_counts_scratch_bytes": ([_I64, _I64, _I64, _I64], _I64),
 }
 
 _LOCK = threading.Lock()

@@ -25,7 +25,7 @@ from metrics_tpu.ops.select_topk import _topk_mask, _topk_mask_xla
 from metrics_tpu_torch import kernel_stats, reset_kernel_stats
 from metrics_tpu_torch.ops.binned_counts import binned_calibration_counts, binned_stat_counts
 from metrics_tpu_torch.ops.confusion_counts import confusion_counts, multilabel_counts
-from metrics_tpu_torch.ops.select_topk import select_topk_mask
+from metrics_tpu_torch.ops.select_topk import _topk_route, select_topk_mask
 from metrics_tpu_torch.utils.data import _linspace, select_topk
 
 
@@ -319,3 +319,105 @@ def test_linspace_matches_jnp_linspace_bit_for_bit():
 def test_binned_ops_reject_what_they_do_not_take(op, args, reason):
     with pytest.raises(ValueError, match=reason):
         op(*args)
+
+
+def _sorted_threshold_counts(preds: torch.Tensor, target: torch.Tensor, thresholds: torch.Tensor):
+    """The CUDA ``binned_counts`` kernel's formulation, in torch on the CPU:
+    rank the thresholds (slot = #less + #equal before, NaN after every
+    number; lb = #less, T for NaN), histogram each pred's bin u = #{s <= p}
+    per class, split into positives and negatives, and read each count off
+    the suffix sums at lb + 1."""
+    dtype = torch.float64 if torch.float64 in (preds.dtype, thresholds.dtype) else torch.float32
+    p, th = preds.to(dtype), thresholds.to(dtype)
+    n, c = p.shape
+    t = th.numel()
+    nan_th = torch.isnan(th)
+    # less[j, i]: th[j] orders before th[i] (NaN after every number, never less)
+    less = ~nan_th[:, None] & (nan_th[None, :] | (th[:, None] < th[None, :]))
+    ties = ~less & ~less.T & torch.tril(torch.ones(t, t, dtype=torch.bool), diagonal=-1)
+    below = less.sum(0)
+    slot = below + ties.sum(0)
+    assert sorted(slot.tolist()) == list(range(t))  # a permutation
+    s = torch.empty_like(th)
+    s[slot] = th
+    lb = torch.where(nan_th, t, below)
+    if not nan_th.any() and (th[1:] > th[:-1]).all():  # the kernel's fast path for a strictly ascending grid
+        assert torch.equal(s, th) and torch.equal(lb, torch.arange(t))
+    u = (s[None, None, :] <= p[:, :, None]).sum(-1)  # NaN s or NaN p: never <=, so a NaN pred is bin 0
+    key = torch.arange(c)[None, :] * (t + 1) + u
+    positive = target > 0
+    pos = torch.zeros(c * (t + 1), dtype=torch.int64).index_add_(0, key[positive], torch.ones_like(key[positive]))
+    neg = torch.zeros(c * (t + 1), dtype=torch.int64).index_add_(0, key[~positive], torch.ones_like(key[~positive]))
+
+    def suffix(h):
+        h = h.view(c, t + 1)
+        return torch.cat([h.flip(1).cumsum(1).flip(1), torch.zeros(c, 1, dtype=torch.int64)], dim=1)
+
+    sp, sn = suffix(pos), suffix(neg)
+    tp, fp = sp[:, lb + 1], sn[:, lb + 1]
+    return tp, fp, sp[:, :1] - tp, sn[:, :1] - fp
+
+
+def _threshold_identity_inputs():
+    rng = np.random.default_rng(11)
+    grid = np.linspace(0, 1, 11).astype(np.float32)
+    preds = grid[rng.integers(0, 11, (300, 5))]  # preds exactly on thresholds
+    preds[rng.random((300, 5)) < 0.05] = np.nan
+    preds[rng.random((300, 5)) < 0.03] = np.inf
+    preds[rng.random((300, 5)) < 0.03] = -np.inf
+    target = rng.integers(-1, 3, (300, 5)).astype(np.int32)
+    return {
+        "unsorted_repeated_nan_inf": (preds, target, np.concatenate([grid[::-1], grid[2:5], [np.inf, -np.inf, np.nan, 0.5, np.nan]]).astype(np.float32)),
+        "ascending_grid": (preds, target, grid),
+        "f64_preds_above_f32_thresholds": (preds.astype(np.float64) + 1e-12, target, grid),
+        "t1": (preds, target, grid[4:5]),
+        "t1_nan": (preds, target, np.array([np.nan], np.float32)),
+        "all_preds_equal": (np.full((300, 5), 0.5, np.float32), target, grid),
+        "signed_zeros": (np.where(rng.random((300, 5)) < 0.5, -0.0, 0.0).astype(np.float32), target, np.array([0.0, -0.0, 1.0, -1.0], np.float32)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_threshold_identity_inputs()))
+def test_sorted_threshold_histogram_gives_the_compare_counts(case):
+    """The identity the kernel rests on, ``p >= th[t]`` exactly when
+    ``#{s <= p} > #{th < th[t]}``, with suffix sums over a per-class
+    histogram, gives the broadcast compare's counts bit for bit: against the
+    port's plain version and the JAX package's XLA composition."""
+    preds, target, ths = _threshold_identity_inputs()[case]
+    got = _sorted_threshold_counts(_t(preds), _t(target), _t(ths))
+    plain = binned_stat_counts(_t(preds), _t(target), _t(ths))
+    for g, w, name in zip(got, plain, ("tp", "fp", "fn", "tn")):
+        assert torch.equal(g, w), name
+    _assert_four_counts(got, _binned_counts_xla(jnp.asarray(preds), jnp.asarray(target), jnp.asarray(ths)))
+
+
+@pytest.mark.parametrize(
+    "dtype,c,offset,want",
+    [
+        (torch.float32, 1000, 0, ("registers", 32, True)),  # the ImageNet path
+        (torch.float32, 1000, 4, ("registers", 32, False)),  # a view one element in: not 16-byte aligned
+        (torch.float32, 998, 0, ("registers", 32, False)),  # width not a multiple of 4
+        (torch.float32, 1024, 0, ("registers", 32, True)),
+        (torch.float32, 1025, 0, ("shared", 0, False)),  # past the register kernel
+        (torch.float32, 20_000, 0, ("shared", 0, False)),
+        (torch.float32, 1, 0, ("registers", 4, False)),
+        (torch.float32, 128, 0, ("registers", 4, True)),
+        (torch.float32, 129, 0, ("registers", 8, False)),
+        (torch.float32, 256, 16, ("registers", 8, True)),
+        (torch.float32, 257, 0, ("registers", 16, False)),
+        (torch.float32, 513, 0, ("registers", 32, False)),
+        (torch.float64, 10, 0, ("shared_f64", 0, False)),
+        (torch.float64, 1000, 0, ("shared_f64", 0, False)),
+    ],
+)
+def test_topk_route_picks_the_kernel_by_width_alignment_and_dtype(dtype, c, offset, want):
+    assert _topk_route(dtype, c, 1 << 20 | offset) == want
+
+
+def test_topk_route_sees_the_alignment_of_a_view():
+    base = torch.zeros(301 * 1000)
+    aligned = base[: 300 * 1000].view(300, 1000)
+    shifted = base[1 : 1 + 300 * 1000].view(300, 1000)
+    assert aligned.data_ptr() % 16 == 0
+    assert _topk_route(torch.float32, 1000, aligned.data_ptr())[2]
+    assert not _topk_route(torch.float32, 1000, shifted.data_ptr())[2]
