@@ -20,11 +20,23 @@
    is also held to the composition's answers on its edge cases (a NaN
    column on the masked diagonal, one row against itself) and launched
    twice at each path shape, where the row sums must be bit-identical.
+   ``multilabel_counts`` is checked at 1, 3, 80, 81 and 1000 columns, at
+   1 to 200,000 rows, on values 0-2 and int32's extremes, all zeros, all
+   ones, no rows and an unaligned view. ``binned_calibration`` is checked
+   at B = 1 to 65 (both sides of each instance of the private-bins kernel),
+   on a single bin (every confidence 0.999, as from an over-confident
+   classifier; timed beside the main shape), at N = 50,000 and 4,194,304
+   (the cooperative grid), and every case but the atomics route's (past 64
+   bins) is launched twice and must be bit-identical.
 3. The main path: a ``MetricCollection`` of top-1 and top-5 accuracy,
    macro-F1 and the confusion matrix streams ImageNet-1k validation at full
    size (50,000 samples, 1000 classes, batches of 8192) through ``forward``,
    then ``compute()``; held against a numpy oracle, with the kernel launch
    counts of that run.
+   Then copies on the card: the collection cloned mid-stream and fed the
+   rest beside the original (equal results), and a pickle round trip of a
+   CUDA multilabel ``ConfusionMatrix`` mid-stream (stays on ``cuda``, its
+   updates launch ``multilabel_counts``, equal results).
 4. Multilabel: ``ConfusionMatrix(multilabel=True)`` over MS-COCO 2014 val
    size (40,504 samples, 80 labels), held against a numpy oracle.
 5. The curve and calibration path, each phase held against a numpy float64
@@ -53,8 +65,9 @@
    held against a numpy float64 oracle; the path runs no kernel.
 8. A profile: each kernel's device time and device operations per wrapper
    call (all the kernels the wrapper launches; one profile per call, so
-   ``binned_counts`` at the CTR shape is read apart), and the device busy
-   share, host syncs and top device ops of batches of each path.
+   ``binned_counts`` at the CTR shape is read apart), the launch floor (a
+   one-element ``fill_``), and the device busy share, host syncs and top
+   device ops of batches of each path.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
@@ -195,12 +208,34 @@ def check_and_time_kernels(torch, rng):
         shape=f"N={n}, C={c}",
     )
 
-    # multilabel_counts: main-path shape (COCO width), ragged tail
+    # multilabel_counts: main-path shape (COCO width), ragged tail; widths on
+    # both sides of the 16-byte path (C % 4) and of a 16-column tile; one
+    # row to 200,000 rows (past 16 chunks of a cluster); values 0-2 and the
+    # extremes of int32 (exact int64 products); all zeros and all ones; a
+    # view one element past an allocation (not 16-byte aligned); no rows
     errs = []
     mp = torch.from_numpy(rng.integers(0, 2, (n, ml_c), dtype=np.int32)).to(dev)
     mt_ = torch.from_numpy(rng.integers(0, 2, (n, ml_c), dtype=np.int32)).to(dev)
-    for tag, (p, t) in {"main": (mp, mt_), "ragged": (mp[:RAGGED], mt_[:RAGGED])}.items():
+
+    def labels(rows: int, cols: int, high: int = 2):
+        return torch.from_numpy(rng.integers(0, high, (rows, cols), dtype=np.int32)).to(dev)
+
+    ml_cases = {"main": (mp, mt_), "ragged": (mp[:RAGGED], mt_[:RAGGED])}
+    ml_cases.update({f"c{w}": (labels(n, w), labels(n, w)) for w in (1, 3, 81, 1000)})
+    ml_cases.update({f"n{r}": (labels(r, ml_c), labels(r, ml_c)) for r in (1, 200_000)})
+    ml_cases["values_0_2"] = (labels(n, ml_c, 3), labels(n, ml_c, 3))
+    extremes = torch.tensor([-(2**31), -1, 0, 1, 2**31 - 1], dtype=torch.int32, device=dev)
+    ml_cases["int32_extremes"] = tuple(extremes[labels(1000, ml_c, 5).long()] for _ in range(2))
+    ml_cases["all_zeros"] = (torch.zeros_like(mp), torch.zeros_like(mt_))
+    ml_cases["all_ones"] = (torch.ones_like(mp), torch.ones_like(mt_))
+    ml_cases["offset_view"] = (torch.cat([mp.new_zeros(1), mp.reshape(-1)])[1:].view(n, ml_c), mt_)
+    ml_cases["n0"] = (mp[:0], mt_[:0])
+    ml_routes = {}
+    for tag, (p, t) in ml_cases.items():
         errs.append(_max_abs_err(torch, f"multilabel_counts[{tag}]", cc._multilabel_counts_cuda(p, t), cc._multilabel_counts_plain(p, t)))
+        lanes, vec = cc._multilabel_route(p.shape[1], p.data_ptr(), t.data_ptr())
+        ml_routes[tag] = f"{lanes}x{'16B' if vec else '4B'}"
+    _log(f"multilabel_counts: bit-identical to plain on {len(ml_cases)} cases; lanes per row x load width per case {ml_routes}")
     ms = _cuda_ms(torch, lambda: cc._multilabel_counts_cuda(mp, mt_))
     plain_ms = _cuda_ms(torch, lambda: cc._multilabel_counts_plain(mp, mt_))
     bound_ms, bound_by = _bound_ms(2 * n * ml_c * 4 + ml_c * 4 * 8, 3 * n * ml_c)
@@ -337,6 +372,7 @@ def _calibration_cases(torch, rng, dev):
     kind = torch.from_numpy(rng.integers(0, 3, n)).to(dev)
     edge = torch.where(kind == 0, b15[pick], edge)  # exactly on float32 boundaries
     edge = torch.where(kind == 1, specials[torch.from_numpy(rng.integers(0, len(specials), n)).to(dev)], edge)
+    big = torch.from_numpy(rng.random(CTR_EVAL[0], dtype=np.float32)).to(dev)
     return {
         "main_b15": (conf, acc, b15),
         "b5000": (conf, acc, torch.linspace(0, 1, 5001, device=dev)),
@@ -345,12 +381,23 @@ def _calibration_cases(torch, rng, dev):
         "edge_b5000": (edge, acc, torch.linspace(0, 1, 5001, device=dev)),
         "b20000_global_atomics": (edge, acc, torch.linspace(0, 1, 20001, device=dev)),
         "imagenet_size": (torch.from_numpy(rng.random(IMAGENET_VAL[0], dtype=np.float32)).to(dev), torch.ones(IMAGENET_VAL[0], device=dev), b15),
+        # every confidence in the top bin, as from an over-confident classifier
+        "one_bin": (torch.full((n,), 0.999, device=dev), acc, b15),
+        # both sides of each instance of the private-bins kernel (K = 16, 32,
+        # 64) and past it (the atomics kernel)
+        **{f"b{b}": (conf, acc, torch.linspace(0, 1, b + 1, device=dev)) for b in (1, 16, 31, 32, 33, 64, 65)},
+        "n4194304": (big, (torch.from_numpy(rng.random(big.numel()) < 0.4).to(dev)).float(), b15),  # the cooperative grid
+        "n4194304_one_bin": (torch.full_like(big, 0.999), torch.ones_like(big), b15),
+        "offset_view": (conf[1:], acc[1:], b15),  # not 16-byte aligned
+        "n1": (conf[:1], acc[:1], b15),
+        "n0": (conf[:0], acc[:0], b15),
     }
 
 
 def _sums_err(torch, name: str, got, want) -> float:
     """Max |kernel - plain| of a float32 sum; raises beyond 1e-5 relative (NaN
-    where both are NaN): the kernel's float atomics add in no fixed order."""
+    where both are NaN): the kernel adds in float32 in its own order, the
+    plain version in float64, rounded once."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: kernel gives {got.dtype}{tuple(got.shape)}, plain {want.dtype}{tuple(want.shape)}")
     if not torch.allclose(got, want, rtol=1e-5, atol=0.0, equal_nan=True):
@@ -400,11 +447,21 @@ def check_and_time_binned(torch, rng):
 
     errs = []
     cal_cases = _calibration_cases(torch, rng, dev)
+    cal_routes = {}
     for tag, args in cal_cases.items():
         got, want = bc._binned_calibration_cuda(*args), bc._binned_calibration_plain(*args)
         _max_abs_err(torch, f"binned_calibration[{tag}].count", got[0], want[0])
         errs += [_sums_err(torch, f"binned_calibration[{tag}].{name}", g, w) for name, g, w in zip(("conf_sum", "acc_sum"), got[1:], want[1:])]
-    for tag in ("main_b15", "b5000"):
+        route, regs, vec = bc._calibration_route(args[0].numel(), args[2].numel() - 1, args[0].data_ptr(), args[1].data_ptr())
+        again = bc._binned_calibration_cuda(*args)
+        # a second launch on the same inputs, bit for bit (NaN sums included);
+        # past 64 bins the atomics kernel promises only the tolerance
+        bits = [(g.view(torch.int32), h.view(torch.int32)) if g.is_floating_point() else (g, h) for g, h in zip(got, again)]
+        if route != "atomics" and not all(torch.equal(g, h) for g, h in bits):
+            raise AssertionError(f"binned_calibration[{tag}]: two launches on the same inputs differ")
+        cal_routes[tag] = route if route == "atomics" else f"{route}/K={regs}/{'16B' if vec else '4B'}"
+    _log(f"binned_calibration: counts exact, sums within 1e-5 relative of plain, two launches bit-identical on every case but the atomics route's; route per case {cal_routes}")
+    for tag in ("main_b15", "one_bin", "b64", "n4194304", "b5000"):
         conf, acc, bounds = cal_cases[tag]
         bins = bounds.numel() - 1
         bound_ms, bound_by = _bound_ms(2 * conf.numel() * 4 + (bins + 1) * 4 + bins * 16, conf.numel() * np.log2(bins + 1))
@@ -418,7 +475,7 @@ def check_and_time_binned(torch, rng):
         if tag == "main_b15":
             records["binned_calibration"] = rec
         else:
-            _log(f"kernel binned_calibration ({rec['shape']}): ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} ({bound_by})")
+            _log(f"kernel binned_calibration ({tag}, {rec['shape']}): ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.5f} ({bound_by})")
     for name, rec in records.items():
         _log(
             f"kernel {name} ({rec['shape']}): matches plain on all {len(cases) if name == 'binned_counts' else len(cal_cases)} cases"
@@ -426,12 +483,15 @@ def check_and_time_binned(torch, rng):
             f" library_ms=none (no single call) bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})"
         )
     conf, acc, b15 = cal_cases["main_b15"]
+    one_bin, cal_big = cal_cases["one_bin"], cal_cases["n4194304"]
     ctr_uniform, ctr_skewed = cases["ctr_shape"], cases["ctr_skewed"]
     calls = {
         "binned_counts": lambda: bc._binned_counts_cuda(*main),
         "binned_counts@ctr_uniform": lambda: bc._binned_counts_cuda(*ctr_uniform),
         "binned_counts@ctr_skewed": lambda: bc._binned_counts_cuda(*ctr_skewed),
         "binned_calibration": lambda: bc._binned_calibration_cuda(conf, acc, b15),
+        "binned_calibration@one_bin": lambda: bc._binned_calibration_cuda(*one_bin),
+        "binned_calibration@n4194304": lambda: bc._binned_calibration_cuda(*cal_big),
     }
     return records, calls
 
@@ -670,13 +730,9 @@ def _batches(total: int):
     return _batches_of(total, BATCH)
 
 
-def run_main_path(torch, mt, rng):
-    n, c = IMAGENET_VAL
-    logits_np, target_np = _imagenet_stream(rng)
-    oracle = _numpy_oracle(logits_np, target_np, c)
-    logits = torch.from_numpy(logits_np).cuda()
-    target = torch.from_numpy(target_np).cuda()
-    mc = mt.MetricCollection(
+def _imagenet_collection(mt):
+    c = IMAGENET_VAL[1]
+    return mt.MetricCollection(
         {
             "top1": mt.Accuracy(num_classes=c),
             "top5": mt.Accuracy(num_classes=c, top_k=TOP_K),
@@ -684,6 +740,15 @@ def run_main_path(torch, mt, rng):
             "confmat": mt.ConfusionMatrix(num_classes=c),
         }
     )
+
+
+def run_main_path(torch, mt, rng):
+    n, c = IMAGENET_VAL
+    logits_np, target_np = _imagenet_stream(rng)
+    oracle = _numpy_oracle(logits_np, target_np, c)
+    logits = torch.from_numpy(logits_np).cuda()
+    target = torch.from_numpy(target_np).cuda()
+    mc = _imagenet_collection(mt)
     batches = _batches(n)
     torch.cuda.synchronize()
     mt.reset_kernel_stats()
@@ -738,7 +803,63 @@ def run_multilabel(torch, mt, rng):
     if stats["multilabel_counts"]["launches"] != len(batches) or any(r["plain_calls"] for r in stats.values()):
         raise AssertionError(f"multilabel path: {stats} for {len(batches)} batches")
     _log(f"multilabel: MS-COCO 2014 val, {n} samples x {c} labels in {len(batches)} batches: matches the numpy oracle; kernel_stats {stats}")
-    return stats
+    return stats, (cm, probs, target)
+
+
+def _same_values(name: str, got: dict, want: dict) -> None:
+    """Every value of ``want`` in ``got``, on the card, equal bit for bit."""
+    for key, w in want.items():
+        g = got[key]
+        if g.device.type != "cuda" or g.shape != w.shape or g.dtype != w.dtype or not bool((g == w).all()):
+            raise AssertionError(f"{name} {key}: {g} on {g.device}, want {w}")
+
+
+def run_copy_phase(torch, mt, rng, logits, target):
+    """Copies on the card, mid-stream: ``clone()`` of the ImageNet-1k
+    collection, fed the rest of the stream beside the original (their
+    results must be equal and both take the kernels), and a pickle round
+    trip of a CUDA multilabel ``ConfusionMatrix`` over MS-COCO 2014 val,
+    whose copy must stay on ``cuda`` and launch ``multilabel_counts``."""
+    import pickle
+
+    batches = _batches(IMAGENET_VAL[0])
+    half = len(batches) // 2
+    mc = _imagenet_collection(mt)
+    t0 = _reset_stats(torch, mt)
+    for s, e in batches[:half]:
+        mc(logits[s:e], target[s:e])
+    twin = mc.clone(prefix="twin_")
+    for s, e in batches[half:]:
+        mc(logits[s:e], target[s:e])
+        twin(logits[s:e], target[s:e])
+    launches = half + 2 * (len(batches) - half)
+    _, stats = _read_stats(torch, mt, t0, {"confusion_counts": launches, "select_topk": launches})
+    want = mc.compute()
+    got = {k[len("twin_"):]: v for k, v in twin.compute().items()}
+    _same_values("clone of the imagenet collection", got, want)
+
+    n, c = COCO_VAL
+    probs = torch.from_numpy(rng.random((n, c), dtype=np.float32)).cuda()
+    labels = torch.from_numpy((rng.random((n, c)) < 0.05).astype(np.int64)).cuda()
+    coco = _batches(n)
+    cm = mt.ConfusionMatrix(num_classes=c, multilabel=True)
+    for s, e in coco[:2]:
+        cm(probs[s:e], labels[s:e])
+    restored = pickle.loads(pickle.dumps(cm))
+    if restored.device.type != "cuda" or restored.confmat.device.type != "cuda":
+        raise AssertionError(f"pickled multilabel ConfusionMatrix came back on {restored.device} / {restored.confmat.device}")
+    t0 = _reset_stats(torch, mt)
+    for s, e in coco[2:]:
+        restored(probs[s:e], labels[s:e])
+    _, copy_stats = _read_stats(torch, mt, t0, {"multilabel_counts": len(coco) - 2})
+    for s, e in coco[2:]:
+        cm(probs[s:e], labels[s:e])
+    _same_values("pickled multilabel confusion matrix", {"confmat": restored.compute()}, {"confmat": cm.compute()})
+    _log(
+        f"copy phase: the imagenet collection cloned after {half} of {len(batches)} batches gives the original's values"
+        f" (top1={float(want['top1']):.6f}; kernel_stats {stats}); a multilabel ConfusionMatrix pickled after 2 of"
+        f" {len(coco)} batches stays on cuda and matches the original after the rest (its updates: kernel_stats {copy_stats})"
+    )
 
 
 def _reset_stats(torch, mt):
@@ -1132,7 +1253,8 @@ KERNEL_SYMBOLS = {
     "multilabel_counts": ("multilabel_counts_kernel",),
     "select_topk": ("topk_mask_regs_kernel", "topk_mask_kernel", "topk_mask_f64_kernel"),
     "binned_counts": ("binned_hist_kernel", "binned_finish_kernel", "rank_thresholds_kernel"),
-    "binned_calibration": ("binned_calibration_kernel",),
+    "binned_calibration": ("calibration_private_kernel", "binned_calibration_kernel"),
+    "launch_floor": ("FillFunctor",),
     "pairwise_reduce": (
         "prep_kernel", "euclid_tf32_kernel", "fold_rows_kernel", "pairwise_rows_kernel",
         "cosine_nan_rows_kernel", "cosine_col_partials_kernel", "cosine_fold_kernel", "cosine_rows_kernel",
@@ -1196,7 +1318,8 @@ def _profile_path(torch, label: str, steps, top: int) -> None:
 
 def profile_device_time(torch, kernel_calls, paths):
     """Each wrapper's device time and device operations per call, one
-    profile per call (``op@label`` names a second shape of op ``op``); then,
+    profile per call (``op@label`` names a second shape of op ``op``), and
+    the launch floor (``launch_floor``: a one-element ``fill_``); then,
     for each path, the device busy share, host syncs and top device ops of
     a few of its batches."""
     from torch.profiler import ProfilerActivity, profile
@@ -1215,6 +1338,8 @@ def profile_device_time(torch, kernel_calls, paths):
         ops[label] = sum(r["calls"] for r in rows) / max(r["calls"] for r in rows) if rows else None
     shown = {k: ("not measured" if v is None else f"{v:.2f} us in {ops[k]:.0f} device ops") for k, v in kernel_us.items()}
     _log(f"profile: device time per wrapper call {shown}")
+    floor = kernel_us.get("launch_floor")
+    _log(f"profile: launch floor (a one-element fill_, the least device time of a kernel): {'not measured' if floor is None else f'{floor:.2f} us'}")
     for i, (label, steps) in enumerate(paths.items()):
         _profile_path(torch, label, steps, top=15 if i == 0 else 8)
     return kernel_us
@@ -1254,7 +1379,8 @@ def main() -> int:
     records.update(pairwise_records)
     calls.update(pairwise_calls)
     main_stats, mc, logits, target = run_main_path(torch, mt, rng)
-    ml_stats = run_multilabel(torch, mt, rng)
+    run_copy_phase(torch, mt, rng, logits, target)
+    ml_stats, (ml_cm, ml_probs, ml_target) = run_multilabel(torch, mt, rng)
     coco_stats, (curves, coco_probs, coco_target) = run_coco_curves(torch, mt, rng)
     calibration, probs = run_imagenet_calibration(torch, mt, logits, target)
     ctr_stats, (aurocs, ctr_scores, ctr_labels) = run_ctr_auroc(torch, mt, rng)
@@ -1264,11 +1390,13 @@ def main() -> int:
     def steps(metric, preds, labels, bounds):
         return [lambda s=s, e=e: metric(preds[s:e], labels[s:e]) for s, e in bounds[:PROFILE_BATCHES]]
 
+    floor = torch.zeros(1, device="cuda")
     kernel_us = profile_device_time(
         torch,
-        calls,
+        {**calls, "launch_floor": lambda: floor.fill_(1.0)},
         {
             "imagenet main path": steps(mc, logits, target, _batches(IMAGENET_VAL[0])),
+            "coco multilabel confusion": steps(ml_cm, ml_probs, ml_target, _batches(COCO_VAL[0])),
             "coco curves": steps(curves, coco_probs, coco_target, _batches(COCO_VAL[0])),
             "imagenet calibration (streaming)": steps(calibration["streaming"][0], probs, target, _batches(IMAGENET_VAL[0])),
             "ctr auroc (binned + exact)": steps(aurocs, ctr_scores, ctr_labels, [(s, s + CTR_EVAL[1]) for s in range(0, CTR_EVAL[0], CTR_EVAL[1])]),

@@ -54,6 +54,14 @@ class MetricCollection(nn.ModuleDict):
         for _, m in self.items(keep_base=True):
             m.persistent(mode)
 
+    def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
+        """A deep copy of every member under the same keys; ``prefix`` and
+        ``postfix`` replace this collection's where given, else are kept."""
+        mc = MetricCollection({k: m.clone() for k, m in self._modules.items()})
+        mc.prefix = self._check_arg(prefix, "prefix") if prefix is not None else self.prefix
+        mc.postfix = self._check_arg(postfix, "postfix") if postfix is not None else self.postfix
+        return mc
+
     def add_metrics(
         self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]], *additional_metrics: Metric
     ) -> None:

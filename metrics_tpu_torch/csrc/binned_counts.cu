@@ -75,15 +75,50 @@
 //   bin i holds b[i] < conf <= b[i+1]; conf <= b[0] falls in no bin; conf above
 //   b[B] and NaN land in the last bin (the rule of the JAX package's XLA
 //   composition, which its users run; its Pallas body drops such values).
-//   Bound on an H100: bytes (two float32 vectors read once).
-//   Design: a grid-stride loop; each thread finds its bin by binary search
-//   over the boundaries, held in shared memory, and adds to a block histogram
-//   in shared memory (int counts, float sums) with shared atomics; the block
-//   then adds its non-empty bins to the outputs with global atomics. When the
-//   boundaries and histogram do not fit in shared memory (past about 14,000
-//   bins) the same loop adds straight to the outputs. Float atomics add in an
-//   order that changes from run to run, so the sums match the plain version
-//   within 1e-5 relative, not bit for bit; the counts are exact.
+//   Bound on an H100: bytes (two float32 vectors read once: 0.02 us at
+//   N = 8192, 10 us at N = 4,194,304).
+//   Design (the first design made three shared atomics per element, which
+//   serialize when the confidences share a bin: 4x slower on an
+//   over-confident classifier's top-1 scores; then up to 3 B global atomics
+//   per block, float ones, so the sums changed in their last bits from run
+//   to run; and the wrapper zero-filled three outputs):
+//   calibration_private_kernel<K>, for B up to K = 16, 32 or 64 (the
+//   wrapper's route picks the smallest that holds B). Each thread owns 3 B
+//   words of shared memory (a count, a confidence sum and an accuracy sum
+//   per bin), word j of thread t at j * 256 + t, so a thread's adds hit its
+//   own bank whatever bins its elements fall in: no atomics, no conflicts,
+//   a time that does not depend on how the confidences fall. The bin is a
+//   branch-free binary search over the boundaries in shared memory, 8
+//   elements in lockstep (16-byte loads of 4 where both inputs are
+//   aligned; the next 8 in flight meanwhile). A fixed assignment of
+//   elements to threads and a fixed folding order make the sums
+//   bit-identical from launch to launch: each thread loads its 3 K words
+//   into registers and the warp folds them by halving (each step a lane
+//   keeps half the values and adds its partner's copy of them: 3 K
+//   shuffles in all, not the 15 K of a butterfly over every value), the
+//   block folds its warps in shared memory in order, and the blocks fold
+//   either as one cluster of up to 16 blocks (up to 32,768 elements; each
+//   block stores its values into block 0's shared memory, which adds them
+//   in block order) or, past that, as a cooperative grid of every SM's
+//   resident blocks, which store their values in the scratch and meet at a
+//   grid barrier; block j then folds value j over the blocks in a fixed
+//   tree. One launch writes the three outputs in full (count int64, the
+//   sums float32): no zero-fill.
+//   Probes (scratch, not kept) ran two designs before this one and did not
+//   ship them: the bins in registers, every element added to every bin under
+//   a predicate (3 K instructions an element, slower than the first design
+//   at N = 8192), and the private words folded lane by lane in shared memory
+//   (a long chain of dependent loads); and blocks of 1024 threads, so that
+//   N = 8192 needs one block and no cluster, were slower too. A binary
+//   search whose loads sat under `&&` branches took more of the kernel's
+//   time than anything else: a load under a branch waits for the one before
+//   it.
+//   Past 64 bins the first design's kernel stays (binned_calibration_kernel:
+//   a block histogram in shared memory with shared atomics, added to the
+//   outputs with global atomics, or straight to the outputs past about
+//   14,000 bins), after a memset of the outputs: two device operations, sums
+//   within 1e-5 relative of the plain version but not bit-identical from run
+//   to run.
 //
 // The kernels allocate nothing and launch on the caller's stream and device,
 // and every C entry returns cudaGetLastError() so a refused launch is reported.
@@ -842,6 +877,311 @@ __global__ void binned_calibration_kernel(const float* __restrict__ conf, const 
 }
 
 
+constexpr int kCalThreadsPriv = 256;  // at K = 64, 3 x 64 private words per thread: 192 KB of shared memory
+constexpr int kCalMaxCluster = 16;
+constexpr int kCalBatch = 8;           // elements a thread holds at once (two quads)
+
+// Dynamic shared memory of calibration_private_kernel: every thread's
+// private words for `bins` bins.
+constexpr size_t cal_private_smem(int bins) { return sizeof(uint32_t) * 3 * bins * kCalThreadsPriv; }
+
+// Steps of the warp fold that halve the live values: while half of them is
+// still a whole number of (count, conf, acc) triples, and at most 5 (the
+// lane bits).
+__host__ __device__ constexpr int cal_halvings(int v) {
+  int s = 0;
+  while (s < 5 && v % 2 == 0 && (v / 2) % 3 == 0) v /= 2, ++s;
+  return s;
+}
+
+// The two halves of a cluster barrier: arrive (without ordering memory)
+// early, wait later, so that the wait, the proof that every block of the
+// cluster has started, seldom stalls. All threads of the block call both.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;" ::: "memory"); }
+
+// The sum of two packed values of kind k: 0 a count, else float32 bits.
+__device__ __forceinline__ uint32_t cal_add(uint32_t a, uint32_t b, int k) {
+  return k == 0 ? a + b : __float_as_uint(__uint_as_float(a) + __uint_as_float(b));
+}
+
+// One halving step of the warp fold and the steps after it: the lane whose
+// `kBit` is set keeps the upper half of the live values, its partner the
+// lower, and each adds the partner's copy of the half it keeps; the live
+// values move to the front of v and `lo` tracks where they sit in the
+// full array. Every half is a multiple of 3, so a value's kind is i % 3.
+template <int kH, int kBit, int kSteps>
+__device__ __forceinline__ void cal_halve(uint32_t* v, int lane, int& lo) {
+  if constexpr (kSteps > 0) {
+    const bool upper = lane & kBit;
+#pragma unroll
+    for (int i = 0; i < kH; ++i) {
+      const uint32_t got = __shfl_xor_sync(0xFFFFFFFFu, upper ? v[i] : v[i + kH], kBit);
+      v[i] = cal_add(upper ? v[i + kH] : v[i], got, i % 3);
+    }
+    lo += upper ? kH : 0;
+    cal_halve<kH / 2, kBit / 2, kSteps - 1>(v, lane, lo);
+  }
+}
+
+// Per-bin (count, conf sum, acc sum) of B <= K bins (see the design note
+// above). Value j of a thread (bin j / 3, kind j % 3) lives at word
+// j * 256 + t of shared memory: a thread's adds touch only its own bank,
+// whatever bins its elements fall in. kGrid: the blocks fold through
+// `partials` after a grid barrier (a cooperative launch); else the grid is
+// one cluster and folds through distributed shared memory.
+template <int K, bool kGrid>
+__global__ void __launch_bounds__(kCalThreadsPriv) calibration_private_kernel(
+    const float* __restrict__ conf, const float* __restrict__ acc, int64_t n, const float* __restrict__ bounds,
+    int bins, int vec, long long* __restrict__ count, float* __restrict__ conf_sum, float* __restrict__ acc_sum,
+    uint32_t* __restrict__ partials) {
+  namespace cg = cooperative_groups;
+  constexpr int T = kCalThreadsPriv;
+  constexpr int V = 3 * K;
+  constexpr int S = cal_halvings(V);
+  constexpr int kLive = V >> S;
+  extern __shared__ __align__(16) uint32_t cal_priv[];
+  __shared__ float s_b[K + 1];
+  __shared__ uint32_t warp_part[T / 32][V];
+  __shared__ uint32_t gathered[kGrid ? 1 : kCalMaxCluster][V];  // block 0's: every block's values
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int vals = 3 * bins;
+  if (!kGrid) cluster_arrive();
+  uint32_t* mine = cal_priv + tid;
+  for (int j = 0; j < vals; ++j) mine[j * T] = 0u;
+  const int64_t quads = (n + 3) / 4;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * T;
+  // two quads a trip, the next trip's loads in flight while this one's
+  // elements are added; the first trip's are issued before the boundaries
+  // are published
+  auto load = [&](int64_t q0, float* x, float* a, bool* ok) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t e0 = 4 * (q0 + h * stride);
+      if (vec && e0 + 3 < n) {
+        const float4 cx = *reinterpret_cast<const float4*>(conf + e0);
+        const float4 ax = *reinterpret_cast<const float4*>(acc + e0);
+        x[4 * h] = cx.x, x[4 * h + 1] = cx.y, x[4 * h + 2] = cx.z, x[4 * h + 3] = cx.w;
+        a[4 * h] = ax.x, a[4 * h + 1] = ax.y, a[4 * h + 2] = ax.z, a[4 * h + 3] = ax.w;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ok[4 * h + j] = true;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ok[4 * h + j] = e0 + j < n;
+          x[4 * h + j] = ok[4 * h + j] ? conf[e0 + j] : 0.0f;
+          a[4 * h + j] = ok[4 * h + j] ? acc[e0 + j] : 0.0f;
+        }
+      }
+    }
+  };
+  int64_t q0 = static_cast<int64_t>(blockIdx.x) * T + tid;
+  float x[kCalBatch], a[kCalBatch];
+  bool ok[kCalBatch];
+  load(q0, x, a, ok);
+  for (int i = tid; i <= bins; i += T) s_b[i] = bounds[i];
+  __syncthreads();
+  const int top = 1 << (31 - __clz(bins + 1));  // the largest power of 2 <= bins + 1
+  for (; q0 < quads; q0 += 2 * stride) {
+    float xn[kCalBatch], an[kCalBatch];
+    bool okn[kCalBatch];
+    load(q0 + 2 * stride, xn, an, okn);
+    // #{i <= B : b[i] < x}, by binary lifting over the sorted boundaries,
+    // the batch in lockstep and without branches (a load under a branch
+    // waits for the one before it: the search took most of the kernel's time)
+    int pos[kCalBatch];
+#pragma unroll
+    for (int e = 0; e < kCalBatch; ++e) pos[e] = 0;
+    for (int step = top; step > 0; step >>= 1) {
+#pragma unroll
+      for (int e = 0; e < kCalBatch; ++e) {
+        const int q = pos[e] + step;
+        const bool below = s_b[(q <= bins + 1 ? q : bins + 1) - 1] < x[e];
+        pos[e] += q <= bins + 1 && below ? step : 0;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kCalBatch; ++e) {
+      // bin pos - 1: none for x <= b[0]; the last for x > b[B] and for NaN
+      const int bin = x[e] != x[e] || pos[e] > bins ? bins - 1 : pos[e] - 1;
+      if (ok[e] && bin >= 0) {
+        uint32_t* v = mine + 3 * bin * T;
+        v[0] += 1;
+        v[T] = __float_as_uint(__uint_as_float(v[T]) + x[e]);
+        v[2 * T] = __float_as_uint(__uint_as_float(v[2 * T]) + a[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kCalBatch; ++e) x[e] = xn[e], a[e] = an[e], ok[e] = okn[e];
+  }
+
+  // the thread's words into registers, then the warp's fold by halving:
+  // 3 K shuffles in all, not the 15 K of a butterfly over every value
+  uint32_t v[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = j < vals ? mine[j * T] : 0u;
+  int lo = 0;
+  cal_halve<V / 2, 16, S>(v, lane, lo);
+  // lanes that differ only in the bits below the halvings' hold the same
+  // values: add them pairwise (a + b and b + a are the same float)
+#pragma unroll
+  for (int bit = 16 >> S; bit > 0; bit >>= 1) {
+#pragma unroll
+    for (int i = 0; i < kLive; ++i) v[i] = cal_add(v[i], __shfl_xor_sync(0xFFFFFFFFu, v[i], bit), i % 3);
+  }
+  if ((lane & ((32 >> S) - 1)) == 0) {
+#pragma unroll
+    for (int i = 0; i < kLive; ++i) warp_part[warp][lo + i] = v[i];
+  }
+  __syncthreads();
+  uint32_t t_part = 0;  // the block's value tid
+  if (tid < vals) {
+    t_part = warp_part[0][tid];
+#pragma unroll
+    for (int w = 1; w < T / 32; ++w) t_part = cal_add(t_part, warp_part[w][tid], tid % 3);
+  }
+  auto write = [&](int j, unsigned long long c64, float f) {
+    const int i = j / 3;
+    if (j % 3 == 0) {
+      count[i] = static_cast<long long>(c64);
+    } else if (j % 3 == 1) {
+      conf_sum[i] = f;
+    } else {
+      acc_sum[i] = f;
+    }
+  };
+  if constexpr (kGrid) {
+    __shared__ unsigned long long red_c[T];
+    __shared__ float red_f[T];
+    cg::grid_group grid = cg::this_grid();
+    if (tid < vals) partials[static_cast<int64_t>(blockIdx.x) * vals + tid] = t_part;
+    grid.sync();
+    // block b folds values b, b + G, ... over the blocks: its threads over
+    // strided blocks, then a fixed tree
+    for (int j = blockIdx.x; j < vals; j += gridDim.x) {
+      unsigned long long c64 = 0;
+      float f = 0.0f;
+      for (int b = tid; b < static_cast<int>(gridDim.x); b += T) {
+        const uint32_t q = __ldcg(partials + static_cast<int64_t>(b) * vals + j);
+        c64 += q;
+        f += __uint_as_float(q);
+      }
+      red_c[tid] = c64, red_f[tid] = f;
+      __syncthreads();
+      for (int off = T / 2; off > 0; off >>= 1) {
+        if (tid < off) red_c[tid] += red_c[tid + off], red_f[tid] += red_f[tid + off];
+        __syncthreads();
+      }
+      if (tid == 0) write(j, red_c[0], red_f[0]);
+      __syncthreads();
+    }
+  } else {
+    // every block stores its values into block 0's shared memory (once all
+    // blocks have started, as a cluster's shared memory requires), one
+    // barrier, and block 0 folds them in block order and writes the outputs
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = static_cast<int>(cl.block_rank());
+    const int ranks = static_cast<int>(cl.num_blocks());
+    cluster_wait();
+    if (tid < vals) cl.map_shared_rank(&gathered[0][0], 0)[rank * V + tid] = t_part;
+    cl.sync();
+    if (rank == 0 && tid < vals) {
+      unsigned long long c64 = 0;
+      float f = __uint_as_float(gathered[0][tid]);
+      for (int q = 0; q < ranks; ++q) c64 += gathered[q][tid];
+      for (int q = 1; q < ranks; ++q) f += __uint_as_float(gathered[q][tid]);
+      write(tid, c64, f);
+    }
+  }
+}
+
+// Lets both instances for K take the dynamic shared memory of K bins, and
+// the cluster instance run in clusters of up to 16 blocks, once per device.
+template <int K>
+cudaError_t prepare_calibration(int device) {
+  static std::atomic<unsigned long long> done{0};
+  const unsigned long long bit = 1ULL << (device & 63);
+  if (done.load() & bit) return cudaSuccess;
+  const int smem = static_cast<int>(cal_private_smem(K));
+  auto* cluster = calibration_private_kernel<K, false>;
+  auto* grid = calibration_private_kernel<K, true>;
+  cudaError_t err = cudaFuncSetAttribute(cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(grid, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  done.fetch_or(bit);
+  return cudaSuccess;
+}
+
+// Resident blocks of the cooperative instance for `bins` on the device (its
+// grid), queried once per device and bin count; 0 on an error.
+template <int K>
+int cal_grid_blocks(int device, int bins) {
+  static std::atomic<int> cached[64][K + 1];
+  std::atomic<int>& slot = cached[device & 63][bins];
+  int blocks = slot.load();
+  if (blocks > 0) return blocks;
+  int per_sm = 0, sms = 0;
+  if (prepare_calibration<K>(device) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, calibration_private_kernel<K, true>, kCalThreadsPriv,
+                                                    cal_private_smem(bins)) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+    return 0;
+  }
+  blocks = per_sm * sms;
+  slot.store(blocks);
+  return blocks;
+}
+
+int cal_grid_blocks(int device, int regs, int bins) {
+  return regs == 16 ? cal_grid_blocks<16>(device, bins)
+         : regs == 32 ? cal_grid_blocks<32>(device, bins)
+                      : cal_grid_blocks<64>(device, bins);
+}
+
+template <int K>
+cudaError_t launch_calibration_private(int route, int device, const float* conf, const float* acc, int64_t n,
+                                       const float* bounds, int bins, int vec, long long* count, float* conf_sum,
+                                       float* acc_sum, uint32_t* partials, int64_t scratch_bytes, cudaStream_t st) {
+  const cudaError_t prep = prepare_calibration<K>(device);
+  if (prep != cudaSuccess) return prep;
+  const int64_t quads = (n + 3) / 4;
+  int64_t blocks = (quads + kCalThreadsPriv - 1) / kCalThreadsPriv;  // a quad per thread
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kCalThreadsPriv);
+  cfg.dynamicSmemBytes = cal_private_smem(bins);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  cfg.attrs = attr;
+  if (route == 2) {
+    const int resident = cal_grid_blocks<K>(device, bins);
+    if (resident < 1) return cudaErrorInvalidValue;
+    if (blocks > resident) blocks = resident;
+    if (blocks < 1) blocks = 1;
+    if (scratch_bytes < static_cast<int64_t>(sizeof(uint32_t)) * 3 * bins * blocks) return cudaErrorInvalidValue;
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.numAttrs = 1;
+    cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+    return cudaLaunchKernelEx(&cfg, calibration_private_kernel<K, true>, conf, acc, n, bounds, bins, vec, count,
+                              conf_sum, acc_sum, partials);
+  }
+  if (blocks > kCalMaxCluster) blocks = kCalMaxCluster;
+  if (blocks < 1) blocks = 1;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(blocks);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.numAttrs = blocks > 1;  // one block is a cluster of its own, and launches sooner without the attribute
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  return cudaLaunchKernelEx(&cfg, calibration_private_kernel<K, false>, conf, acc, n, bounds, bins, vec, count,
+                            conf_sum, acc_sum, partials);
+}
+
 }  // namespace
 
 extern "C" {
@@ -867,25 +1207,55 @@ int mt_binned_counts_f64(int device, const void* preds, const void* target, cons
   return launch_binned_counts<double>(device, preds, target, ths, n, c, t, out, scratch, scratch_bytes, stream);
 }
 
-// conf, acc: float32 [n]; bounds: float32 [bins + 1], ascending; count: int64
-// [bins], conf_sum and acc_sum: float32 [bins], all zeroed by the caller.
-int mt_binned_calibration(int device, const void* conf, const void* acc, const void* bounds, int64_t n,
-                          int64_t bins, void* count, void* conf_sum, void* acc_sum, void* stream) {
-  if (bins < 1 || bins > 0x7FFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+// Bytes of scratch mt_binned_calibration needs on `device` for `route`,
+// `regs` and `bins` (route 2's partials; none on the other routes); -1 on
+// an error.
+int64_t mt_binned_calibration_scratch_bytes(int device, int route, int regs, int64_t bins) {
+  if (route != 2) return 0;
+  if (bins < 1 || bins > regs || (regs != 16 && regs != 32 && regs != 64)) return -1;
+  const int blocks = cal_grid_blocks(device, regs, static_cast<int>(bins));
+  return blocks < 1 ? -1 : static_cast<int64_t>(sizeof(uint32_t)) * 3 * bins * blocks;
+}
+
+// conf, acc: float32 [n]; bounds: float32 [bins + 1], ascending; out: count
+// int64 [bins], then conf_sum and acc_sum float32 [bins], fully written.
+// route 0: the atomics kernel (any bins; the outputs are zeroed here first);
+// 1: calibration_private_kernel as one cluster; 2: as a cooperative grid
+// with `scratch` (mt_binned_calibration_scratch_bytes). On routes 1 and 2,
+// regs is its K (16, 32 or 64, at least bins) and n below 2^31. vec:
+// 16-byte loads (both inputs 16-byte aligned).
+int mt_binned_calibration(int device, const void* conf, const void* acc, const void* bounds, int64_t n, int64_t bins,
+                          int route, int regs, int vec, void* out, void* scratch, int64_t scratch_bytes,
+                          void* stream) {
+  if (bins < 1 || bins > 0x7FFFFFF || n < 0 || route < 0 || route > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (route && (bins > regs || (regs != 16 && regs != 32 && regs != 64) || n >= (int64_t{1} << 31))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (n == 0) return static_cast<int>(cudaGetLastError());
-  int64_t blocks = (n + kCalThreads - 1) / kCalThreads;
-  if (blocks > kCalMaxBlocks) blocks = kCalMaxBlocks;
-  const size_t smem = sizeof(float) * (bins + 1) + (2 * sizeof(float) + sizeof(int)) * bins;
-  const int b = static_cast<int>(bins);
   const float* cf = static_cast<const float*>(conf);
   const float* ac = static_cast<const float*>(acc);
   const float* bd = static_cast<const float*>(bounds);
-  auto* cnt = static_cast<unsigned long long*>(count);
-  auto* cs = static_cast<float*>(conf_sum);
-  auto* as = static_cast<float*>(acc_sum);
+  auto* cnt = static_cast<long long*>(out);
+  auto* cs = reinterpret_cast<float*>(cnt + bins);
+  auto* as = cs + bins;
   const auto s = static_cast<cudaStream_t>(stream);
+  const int b = static_cast<int>(bins);
+  if (route) {
+    auto* launch = regs == 16   ? launch_calibration_private<16>
+                   : regs == 32 ? launch_calibration_private<32>
+                                : launch_calibration_private<64>;
+    const cudaError_t err = launch(route, device, cf, ac, n, bd, b, vec, cnt, cs, as, static_cast<uint32_t*>(scratch),
+                                   scratch_bytes, s);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  }
+  const cudaError_t zero = cudaMemsetAsync(out, 0, 16 * bins, s);
+  if (zero != cudaSuccess) return static_cast<int>(zero);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  auto* ucnt = reinterpret_cast<unsigned long long*>(cnt);
+  int64_t blocks = (n + kCalThreads - 1) / kCalThreads;
+  if (blocks > kCalMaxBlocks) blocks = kCalMaxBlocks;
+  const size_t smem = sizeof(float) * (bins + 1) + (2 * sizeof(float) + sizeof(int)) * bins;
   if (smem <= kMaxSmem) {
     if (smem > kDefaultSmem) {
       const cudaError_t err = cudaFuncSetAttribute(binned_calibration_kernel<true>,
@@ -894,10 +1264,10 @@ int mt_binned_calibration(int device, const void* conf, const void* acc, const v
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     binned_calibration_kernel<true><<<static_cast<unsigned>(blocks), kCalThreads, smem, s>>>(cf, ac, n, bd, b,
-                                                                                          cnt, cs, as);
+                                                                                          ucnt, cs, as);
   } else {
     binned_calibration_kernel<false><<<static_cast<unsigned>(blocks), kCalThreads, 0, s>>>(cf, ac, n, bd, b,
-                                                                                        cnt, cs, as);
+                                                                                        ucnt, cs, as);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,10 @@ cross-process sync are not part of this package yet).
   into the accumulated state with each state's ``dist_reduce_fx``.
 * The pure API (``init_state``/``update_state``/``compute_state``/
   ``merge_states``) runs the same update and compute on explicit state dicts.
+* ``copy.deepcopy``, ``pickle`` and ``clone`` give a metric with its own
+  state and its own ``update``/``compute`` wrappers; states keep their device.
 """
+import copy
 import enum
 import functools
 import inspect
@@ -362,6 +365,33 @@ class Metric(nn.Module):
             if key.startswith(prefix) and key[len(prefix):] not in known and "." not in key[len(prefix):]:
                 unexpected_keys.append(key)
         self._computed = None
+
+    # ------------------------------------------------------------------
+    # pickling / copying
+    # ------------------------------------------------------------------
+    def __getstate__(self) -> Dict[str, Any]:
+        """The instance's attributes without the wrappers ``__init__`` made:
+        they are closures over this instance (a copy would update the
+        original) and do not pickle. State tensors pickle as they are, with
+        their device: a CUDA state comes back on CUDA, and ``_device`` with
+        it (the JAX package turns its states into numpy instead)."""
+        skip = ("update", "compute", "_update_signature", "_inner_update", "_compute_impl")
+        return {k: v for k, v in self.__dict__.items() if k not in skip}
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        """Rebuild the wrappers from the class's own methods, as ``__init__``
+        does, after unpickling or ``deepcopy``. The warn-once token is issued
+        anew: a copy does not share the original's warning history, and a
+        pickled token could collide with one issued in this process."""
+        super().__setstate__(state)
+        self._update_signature = inspect.signature(self.update)
+        self.update = self._wrap_update(self.update)  # type: ignore[method-assign]
+        self.compute = self._wrap_compute(self.compute)  # type: ignore[method-assign]
+        self._warn_token = instance_token()
+
+    def clone(self) -> "Metric":
+        """A deep copy, with its own state and wrappers."""
+        return copy.deepcopy(self)
 
     # ------------------------------------------------------------------
     # kwarg filtering for collections

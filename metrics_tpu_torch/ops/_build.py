@@ -35,8 +35,9 @@ _INT = ctypes.c_int
 _SIGNATURES: Dict[str, List] = {
     # device, target, preds, n, num_classes, out [C*C] u64, stream
     "mt_confusion_counts": [_INT, _P, _P, _I64, _I64, _P, _P],
-    # device, preds, target, n, c, out [C*3] u64, stream
-    "mt_multilabel_counts": [_INT, _P, _P, _I64, _I64, _P, _P],
+    # device, preds i32 [N*C], target i32 [N*C], n, c, lanes per row, 16-byte loads,
+    # out i64 [C*4] ([[tn, fp], [fn, tp]] per class), stream
+    "mt_multilabel_counts": [_INT, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
     # device, x f32 [N*C], n, c, k, out i32 [N*C], stream
     "mt_topk_mask": [_INT, _P, _I64, _I64, _INT, _P, _P],
     # device, x f64 [N*C], n, c, k, out i32 [N*C], stream
@@ -48,9 +49,9 @@ _SIGNATURES: Dict[str, List] = {
     "mt_binned_counts_f32": [_INT, _P, _P, _P, _I64, _I64, _I64, _P, _P, _I64, _P],
     # the same with preds and ths f64
     "mt_binned_counts_f64": [_INT, _P, _P, _P, _I64, _I64, _I64, _P, _P, _I64, _P],
-    # device, conf f32 [N], acc f32 [N], bounds f32 [B+1], n, bins,
-    # count u64 [B], conf_sum f32 [B], acc_sum f32 [B], stream
-    "mt_binned_calibration": [_INT, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
+    # device, conf f32 [N], acc f32 [N], bounds f32 [B+1], n, bins, route, K, 16-byte loads,
+    # out (count i64 [B], conf_sum f32 [B], acc_sum f32 [B]), scratch, scratch bytes, stream
+    "mt_binned_calibration": [_INT, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P, _P, _I64, _P],
     # device, dtype code, op code, x [N*d], y [M*d], n, m, d, zero_diag,
     # out [N] (f64 for f64 inputs, else f32), scratch, scratch bytes, stream
     "mt_pairwise_reduce": [_INT, _INT, _INT, _P, _P, _I64, _I64, _I64, _INT, _P, _P, _I64, _P],
@@ -59,6 +60,8 @@ _SIGNATURES: Dict[str, List] = {
 _QUERIES: Dict[str, tuple] = {
     # dtype code, op code, n, m, d -> bytes of scratch mt_pairwise_reduce needs
     "mt_pairwise_scratch_bytes": ([_INT, _INT, _I64, _I64, _I64], _I64),
+    # device, route, K, bins -> bytes of scratch mt_binned_calibration needs
+    "mt_binned_calibration_scratch_bytes": ([_INT, _INT, _INT, _I64], _I64),
     # n, c, t, bytes per pred -> bytes of scratch mt_binned_counts_f32/_f64 need
     "mt_binned_counts_scratch_bytes": ([_I64, _I64, _I64, _I64], _I64),
 }

@@ -13,7 +13,8 @@
   bin ``i`` holds ``b[i] < conf <= b[i+1]``, ``conf <= b[0]`` falls in no bin,
   and ``conf > b[B]`` and NaN land in the last bin. Counts are int64; the sums
   are float32, within 1e-5 relative of each other on the two paths (the
-  kernel's float atomics add in no fixed order).
+  kernel adds in float32 in a fixed order of its own, so its sums are the
+  same from launch to launch; the plain version adds in float64).
 
 Both follow the XLA composition, which is what users of the JAX package run
 (its Pallas kernels are off by default): the Pallas calibration body drops a
@@ -41,6 +42,17 @@ partial rows and a finishing kernel sums them. The wrapper makes one
 (14,000 for float64) a class's histogram no longer fits a block, and the
 blocks add to one 64-bit histogram in device memory instead (a memset, a
 threshold-ranking kernel, the two kernels).
+
+``binned_calibration`` replaces ``_binned_calibration_kernel``
+(``metrics_tpu/ops/binned_counts.py:172``). Its bound is bytes (two float32
+reads per confidence). Up to 64 bins the kernel gives each thread private
+words in shared memory for every bin (no atomics, and the same time
+however the confidences fall), folds them in a fixed order and writes the
+outputs in the same launch, as one cluster up to 32,768 confidences and as
+a cooperative grid over every SM past that; :func:`_calibration_route`
+picks the kernel's instance (16, 32 or 64 bins), the route and the load
+width. Past 64 bins the first design's shared-atomics kernel runs, after a
+memset of the outputs.
 """
 from typing import Tuple
 
@@ -137,9 +149,34 @@ def _binned_calibration_plain(
     idx = torch.where(torch.isnan(conf), bins - 1, idx)  # NaN: the last bin, whatever searchsorted made of it
     idx = torch.where(idx < 0, bins, idx)  # conf <= b[0]: a spare bin that is cut off
     count = torch.zeros(bins + 1, dtype=torch.int64, device=conf.device).index_add_(0, idx, torch.ones_like(idx))
-    conf_sum = torch.zeros(bins + 1, dtype=torch.float32, device=conf.device).index_add_(0, idx, conf)
-    acc_sum = torch.zeros(bins + 1, dtype=torch.float32, device=conf.device).index_add_(0, idx, acc)
-    return count[:bins], conf_sum[:bins], acc_sum[:bins]
+    # float64 sums, rounded once: a float32 index_add_ adds each bin's values
+    # one after another, which drifts by 1e-5 relative and more once a bin
+    # holds some 10^5 values (on the card its atomics also add in no fixed order)
+    conf_sum = torch.zeros(bins + 1, dtype=torch.float64, device=conf.device).index_add_(0, idx, conf.double())
+    acc_sum = torch.zeros(bins + 1, dtype=torch.float64, device=conf.device).index_add_(0, idx, acc.double())
+    return count[:bins], conf_sum[:bins].float(), acc_sum[:bins].float()
+
+
+#: Instances of the private-bins kernel: the bins ``K`` its warp fold takes.
+_CAL_REGS = (16, 32, 64)
+#: Past this many confidences (a batch of 8 for each thread of 16 blocks)
+#: the private-bins kernel runs as a cooperative grid over every SM, not as
+#: one cluster.
+_CAL_CLUSTER_MAX = 32_768
+_CAL_ROUTES = {"atomics": 0, "cluster": 1, "grid": 2}
+
+
+def _calibration_route(n: int, bins: int, conf_ptr: int, acc_ptr: int) -> Tuple[str, int, bool]:
+    """``(route, K, 16-byte loads)`` of the calibration kernel for ``n``
+    float32 confidences in ``bins`` bins at these addresses: the private-bins
+    kernel with the smallest ``K`` that holds ``bins``, as one cluster up to
+    32,768 confidences and as a cooperative grid past that; past 64 bins (or
+    2**31 confidences) the shared-atomics kernel."""
+    regs = next((k for k in _CAL_REGS if bins <= k), 0)
+    if not regs or n >= 1 << 31:
+        return "atomics", 0, False
+    route = "cluster" if n <= _CAL_CLUSTER_MAX else "grid"
+    return route, regs, conf_ptr % 16 == 0 and acc_ptr % 16 == 0
 
 
 def _binned_calibration_cuda(
@@ -149,18 +186,23 @@ def _binned_calibration_cuda(
     conf = confidences.to(torch.float32).contiguous()
     acc = accuracies.to(torch.float32).contiguous()
     bounds = bin_boundaries.to(torch.float32).contiguous()
-    bins = bounds.numel() - 1
-    count = torch.zeros(bins, dtype=torch.int64, device=conf.device)
-    conf_sum = torch.zeros(bins, dtype=torch.float32, device=conf.device)
-    acc_sum = torch.zeros(bins, dtype=torch.float32, device=conf.device)
+    bins, n = bounds.numel() - 1, conf.numel()
+    route, regs, vec = _calibration_route(n, bins, conf.data_ptr(), acc.data_ptr())
+    dev = conf.device.index
+    scratch = lib.mt_binned_calibration_scratch_bytes(dev, _CAL_ROUTES[route], regs, bins)
+    if scratch < 0:
+        raise RuntimeError(f"binned_calibration: the occupancy query for device {dev} failed")
+    # count (int64), conf_sum and acc_sum (float32) and the scratch in one
+    # allocation; the C entry writes every output element
+    buf = torch.empty(16 * bins + scratch, dtype=torch.uint8, device=conf.device)
     stream = torch.cuda.current_stream(conf.device).cuda_stream
     err = lib.mt_binned_calibration(
-        conf.device.index, conf.data_ptr(), acc.data_ptr(), bounds.data_ptr(), conf.numel(), bins,
-        count.data_ptr(), conf_sum.data_ptr(), acc_sum.data_ptr(), stream,
+        dev, conf.data_ptr(), acc.data_ptr(), bounds.data_ptr(), n, bins, _CAL_ROUTES[route], regs, int(vec),
+        buf.data_ptr(), buf.data_ptr() + 16 * bins, scratch, stream,
     )
     _build.check(lib, err, "binned_calibration kernel")
     _registry.count_launch("binned_calibration")
-    return count, conf_sum, acc_sum
+    return buf[: 8 * bins].view(torch.int64), buf[8 * bins : 12 * bins].view(torch.float32), buf[12 * bins : 16 * bins].view(torch.float32)
 
 
 def binned_calibration_counts(

@@ -10,7 +10,9 @@
 
 Both return int64. The CUDA kernels are in ``csrc/confusion_counts.cu``;
 each has its plain PyTorch version here, which the CPU path runs and the
-kernel is held against bit for bit.
+kernel is held against bit for bit. The multilabel kernel writes the
+``[C, 2, 2]`` counts itself in one launch (a cluster per tile of up to 16
+columns); :func:`_multilabel_route` picks its lanes per row and load width.
 """
 from typing import Tuple
 
@@ -70,16 +72,30 @@ def _multilabel_eligible(preds: torch.Tensor, target: torch.Tensor) -> Tuple[boo
     return True, "ok"
 
 
-def _finish_multilabel(n: int, tp: torch.Tensor, sum_p: torch.Tensor, sum_t: torch.Tensor) -> torch.Tensor:
-    """``[C, 2, 2]`` ``[[tn, fp], [fn, tp]]`` from the three per-class sums."""
+def _multilabel_counts_plain(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    p = preds.to(torch.int64)
+    t = target.to(torch.int64)
+    n = p.shape[0]
+    tp, sum_p, sum_t = (p * t).sum(0), p.sum(0), t.sum(0)
     tn = n - sum_p - sum_t + tp
     return torch.stack([tn, sum_p - tp, sum_t - tp, tp], dim=-1).reshape(-1, 2, 2)
 
 
-def _multilabel_counts_plain(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    p = preds.to(torch.int64)
-    t = target.to(torch.int64)
-    return _finish_multilabel(p.shape[0], (p * t).sum(0), p.sum(0), t.sum(0))
+#: Columns a block of the multilabel kernel covers (``kMlTile`` in the source).
+_ML_TILE = 16
+
+
+def _multilabel_route(c: int, preds_ptr: int, target_ptr: int) -> Tuple[int, bool]:
+    """``(lanes per row, 16-byte loads)`` of the multilabel kernel for ``c``
+    int32 columns at these addresses: a lane loads 4 columns at once where
+    ``c`` is a multiple of 4 and both inputs are 16-byte aligned, else 1; a
+    block's tile is at most 16 columns, in a power of 2 of lanes."""
+    vec = c % 4 == 0 and preds_ptr % 16 == 0 and target_ptr % 16 == 0
+    per_lane = 4 if vec else 1
+    lanes = 1
+    while lanes * per_lane < min(c, _ML_TILE):
+        lanes *= 2
+    return lanes, vec
 
 
 def _multilabel_counts_cuda(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -87,12 +103,13 @@ def _multilabel_counts_cuda(preds: torch.Tensor, target: torch.Tensor) -> torch.
     p = preds.to(torch.int32).contiguous()
     t = target.to(torch.int32).contiguous()
     n, c = p.shape
-    sums = torch.zeros((c, 3), dtype=torch.int64, device=p.device)
+    lanes, vec = _multilabel_route(c, p.data_ptr(), t.data_ptr())
+    out = torch.empty((c, 2, 2), dtype=torch.int64, device=p.device)
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    err = lib.mt_multilabel_counts(p.device.index, p.data_ptr(), t.data_ptr(), n, c, sums.data_ptr(), stream)
+    err = lib.mt_multilabel_counts(p.device.index, p.data_ptr(), t.data_ptr(), n, c, lanes, int(vec), out.data_ptr(), stream)
     _build.check(lib, err, "multilabel_counts kernel")
     _registry.count_launch("multilabel_counts")
-    return _finish_multilabel(n, sums[:, 0], sums[:, 1], sums[:, 2])
+    return out
 
 
 def confusion_counts(preds: torch.Tensor, target: torch.Tensor, num_classes: int) -> torch.Tensor:

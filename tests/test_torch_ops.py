@@ -23,8 +23,8 @@ from metrics_tpu.ops.binned_counts import (
 )
 from metrics_tpu.ops.select_topk import _topk_mask, _topk_mask_xla
 from metrics_tpu_torch import kernel_stats, reset_kernel_stats
-from metrics_tpu_torch.ops.binned_counts import binned_calibration_counts, binned_stat_counts
-from metrics_tpu_torch.ops.confusion_counts import confusion_counts, multilabel_counts
+from metrics_tpu_torch.ops.binned_counts import _calibration_route, binned_calibration_counts, binned_stat_counts
+from metrics_tpu_torch.ops.confusion_counts import _multilabel_route, confusion_counts, multilabel_counts
 from metrics_tpu_torch.ops.select_topk import _topk_route, select_topk_mask
 from metrics_tpu_torch.utils.data import _linspace, select_topk
 
@@ -421,3 +421,92 @@ def test_topk_route_sees_the_alignment_of_a_view():
     assert aligned.data_ptr() % 16 == 0
     assert _topk_route(torch.float32, 1000, aligned.data_ptr())[2]
     assert not _topk_route(torch.float32, 1000, shifted.data_ptr())[2]
+
+
+@pytest.mark.parametrize(
+    "n,bins,offset,want",
+    [
+        (8192, 15, 0, ("cluster", 16, True)),  # the ImageNet calibration path
+        (8192, 1, 0, ("cluster", 16, True)),
+        (8192, 16, 0, ("cluster", 16, True)),
+        (8192, 17, 0, ("cluster", 32, True)),
+        (8192, 32, 0, ("cluster", 32, True)),
+        (8192, 33, 0, ("cluster", 64, True)),
+        (8192, 64, 0, ("cluster", 64, True)),
+        (8192, 65, 0, ("atomics", 0, False)),  # past the largest instance
+        (8192, 5000, 0, ("atomics", 0, False)),
+        (8192, 15, 4, ("cluster", 16, False)),  # a view one element in: 4-byte loads
+        (0, 15, 0, ("cluster", 16, True)),
+        (32_768, 15, 0, ("cluster", 16, True)),  # a batch of 8 for each thread of 16 blocks
+        (32_769, 15, 0, ("grid", 16, True)),
+        (50_000, 15, 0, ("grid", 16, True)),  # the buffered compute
+        (4_194_304, 64, 0, ("grid", 64, True)),
+        (1 << 31, 15, 0, ("atomics", 0, False)),  # the private kernel counts in 32 bits
+    ],
+)
+def test_calibration_route_picks_the_instance_by_bins_and_the_route_by_size(n, bins, offset, want):
+    assert _calibration_route(n, bins, 1 << 20 | offset, 1 << 21) == want
+
+
+def test_calibration_route_sees_the_alignment_of_both_inputs():
+    base = torch.zeros(8200)
+    assert _calibration_route(8192, 15, base.data_ptr(), base.data_ptr())[2]
+    assert not _calibration_route(8192, 15, base[1:].data_ptr(), base.data_ptr())[2]
+    assert not _calibration_route(8192, 15, base.data_ptr(), base[1:].data_ptr())[2]
+
+
+def test_binned_calibration_plain_sums_in_float64_and_rounds_once():
+    """One bin of 200,000 equal confidences: a float32 running sum drifts
+    by about 2e-4 relative; the plain version, which the kernel is held to
+    on the card, gives the float64 sum rounded to float32."""
+    n = 200_000
+    conf = np.full(n, 0.999, np.float32)
+    acc = np.ones(n, np.float32)
+    bounds = np.asarray(jnp.linspace(0, 1, 16, dtype=jnp.float32))
+    count, conf_sum, acc_sum = binned_calibration_counts(_t(conf), _t(acc), _t(bounds))
+    assert count.tolist() == [0] * 14 + [n]
+    assert conf_sum[14].item() == np.float32(conf.astype(np.float64).sum())
+    assert acc_sum[14].item() == float(n)
+    drift = abs(float(np.cumsum(conf, dtype=np.float32)[-1]) - conf.astype(np.float64).sum()) / conf.astype(np.float64).sum()
+    assert drift > 1e-5  # what the float64 sums avoid
+
+
+@pytest.mark.parametrize(
+    "c,offsets,want",
+    [
+        (80, (0, 0), (4, True)),  # the COCO path: 4 lanes of 4 columns, a 16-column tile
+        (80, (4, 0), (16, False)),  # preds one element in: 4-byte loads
+        (80, (0, 4), (16, False)),
+        (81, (0, 0), (16, False)),  # not a multiple of 4
+        (1, (0, 0), (1, False)),
+        (3, (0, 0), (4, False)),
+        (4, (0, 0), (1, True)),
+        (8, (0, 0), (2, True)),
+        (1000, (0, 0), (4, True)),
+        (1000, (8, 8), (16, False)),
+    ],
+)
+def test_multilabel_route_picks_lanes_and_load_width(c, offsets, want):
+    assert _multilabel_route(c, 1 << 20 | offsets[0], 1 << 21 | offsets[1]) == want
+
+
+def test_multilabel_route_sees_the_alignment_of_a_view():
+    base = torch.zeros(301 * 80, dtype=torch.int32)
+    aligned, shifted = base[: 300 * 80].view(300, 80), base[1 : 1 + 300 * 80].view(300, 80)
+    assert _multilabel_route(80, aligned.data_ptr(), aligned.data_ptr())[1]
+    assert not _multilabel_route(80, shifted.data_ptr(), aligned.data_ptr())[1]
+
+
+def test_multilabel_counts_of_any_int32_values_are_exact_int64_sums():
+    """Values outside 0/1, up to int32's extremes: every product of two of
+    them, and sums over rows, are taken in int64 (the kernel's arithmetic
+    too), never wrapped in int32."""
+    extremes = np.array([-(2**31), -1, 0, 1, 2, 2**31 - 1], np.int64)
+    pairs = np.stack([np.repeat(extremes, 6), np.tile(extremes, 6)])  # [2, 36]: every pair once
+    for preds, target in ((pairs[:1], pairs[1:]), (np.repeat(pairs[:1], 3, 0) // 4, np.repeat(pairs[1:], 3, 0) // 4)):
+        got = multilabel_counts(_t(preds).int(), _t(target).int())
+        n = preds.shape[0]
+        tp, sp, st = (preds * target).sum(0), preds.sum(0), target.sum(0)
+        want = np.stack([n - sp - st + tp, sp - tp, st - tp, tp], axis=-1).reshape(-1, 2, 2)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert np.abs(tp).max() > 2**31  # past what int32 holds
