@@ -37,6 +37,24 @@
    rest beside the original (equal results), and a pickle round trip of a
    CUDA multilabel ``ConfusionMatrix`` mid-stream (stays on ``cuda``, its
    updates launch ``multilabel_counts``, equal results).
+   Then the sync phase, on the same ImageNet-1k val stream (rebuilt from a
+   seed of its own in every process): a ``MetricCollection`` of top-1 and
+   top-5 accuracy, macro F1, the confusion matrix, macro precision at
+   top-5, micro recall, macro specificity, the Hamming distance, the mean
+   and max of each sample's cross-entropy, the buffer of each sample's
+   top-1 confidence and the harmonic mean of precision and recall built by
+   the operators. (a) Two ranks, this script run twice with
+   ``--sync-rank``, join a gloo group over TCP loopback with their metrics
+   on ``cuda:0``; rank 0 streams batches 0, 2, 4 and 6, rank 1 batches 1,
+   3 and 5, and each ``compute()`` syncs. Both ranks must give the same
+   results, equal to one process's over the whole stream in rank-major
+   order (counts and the confidence buffer bit for bit, scores within 1e-6
+   relative, float sums within 1e-5 relative), and each rank's updates
+   must launch ``select_topk`` and ``confusion_counts``. (b) That process
+   then joins an NCCL group of one, and its ``compute()`` through NCCL must
+   equal its unsynced result bit for bit. Each rank's ``compute()`` is
+   timed with the sync and without it, and its collectives are counted.
+   Each rank runs under a wall-clock limit and is killed past it.
 4. Multilabel: ``ConfusionMatrix(multilabel=True)`` over MS-COCO 2014 val
    size (40,504 samples, 80 labels), held against a numpy oracle.
 5. The curve and calibration path, each phase held against a numpy float64
@@ -862,6 +880,291 @@ def run_copy_phase(torch, mt, rng, logits, target):
     )
 
 
+# ---------------------------------------------------------------------------
+# the sync phase: two ranks on the one card (gloo), and NCCL at world size 1
+# ---------------------------------------------------------------------------
+SYNC_SEED = 1
+SYNC_WORLD = 2
+SYNC_RANK_TIMEOUT_S = 420
+SYNC_REPEATS = 5
+# the sync phase's results by kind: counts and the cat buffer bit for bit,
+# scores within 1e-6 relative, float sums within 1e-5 relative
+SYNC_EXACT = ("confmat", "confidence")
+SYNC_SUMS = ("loss_mean", "loss_max")
+
+
+def _sync_stream(torch):
+    """The ImageNet-1k val stream on the card, from the sync phase's own seed
+    (so every rank builds the same one), with each sample's cross-entropy and
+    top-1 confidence, computed once over the whole stream."""
+    logits_np, target_np = _imagenet_stream(np.random.default_rng(SYNC_SEED))
+    logits, target = torch.from_numpy(logits_np).cuda(), torch.from_numpy(target_np).cuda()
+    lse = torch.logsumexp(logits, dim=1)
+    loss = lse - logits.gather(1, target[:, None])[:, 0]
+    confidence = torch.exp(logits.max(dim=1).values - lse)
+    return {"preds": logits, "target": target, "loss": loss, "confidence": confidence}
+
+
+def _sync_collection(mt):
+    """The ImageNet collection of the main path, and the rest of the
+    classification metrics, the aggregators over each sample's loss and
+    confidence, and the harmonic mean of precision and recall built by the
+    operators (from operands of its own, so that no update counts twice)."""
+    c = IMAGENET_VAL[1]
+
+    class LossMean(mt.MeanMetric):
+        def update(self, loss):
+            super().update(loss)
+
+    class LossMax(mt.MaxMetric):
+        def update(self, loss):
+            super().update(loss)
+
+    class Confidence(mt.CatMetric):
+        def update(self, confidence):
+            super().update(confidence)
+
+    precision = mt.Precision(num_classes=c, average="macro", top_k=TOP_K)
+    recall = mt.Recall(average="micro")
+    return mt.MetricCollection(
+        {
+            "top1": mt.Accuracy(num_classes=c),
+            "top5": mt.Accuracy(num_classes=c, top_k=TOP_K),
+            "f1": mt.F1Score(num_classes=c, average="macro"),
+            "confmat": mt.ConfusionMatrix(num_classes=c),
+            "precision": mt.Precision(num_classes=c, average="macro", top_k=TOP_K),
+            "recall": mt.Recall(average="micro"),
+            "specificity": mt.Specificity(num_classes=c, average="macro"),
+            "hamming": mt.HammingDistance(),
+            "loss_mean": LossMean(),
+            "loss_max": LossMax(),
+            "confidence": Confidence(),
+            "harmonic": 2 / (1 / precision + 1 / recall),
+        }
+    )
+
+
+def _sync_batches(rank: int):
+    """The batches a rank streams: rank 0 the even ones (the ragged 848 last), rank 1 the odd ones."""
+    return _batches(IMAGENET_VAL[0])[rank::SYNC_WORLD]
+
+
+def _stream_into(mc, data, bounds) -> None:
+    for s, e in bounds:
+        mc(**{k: v[s:e] for k, v in data.items()})
+
+
+def _set_sync(torch, mt, mc, on: bool) -> None:
+    """Every metric in the collection, operands included: forget the cached
+    value, and sync (the default) or compute on the local state."""
+    for m in mc.modules():
+        if isinstance(m, mt.Metric):
+            m._computed = None
+            m._distributed_available_fn = None if on else (lambda: False)
+
+
+def _timed_computes(torch, mt, mc, on: bool):
+    """``SYNC_REPEATS`` computes of the collection, with or without the sync:
+    the first result, each time in ms, and the collectives per compute."""
+    import torch.distributed as dist
+
+    calls = {"n": 0}
+    all_gather = dist.all_gather
+
+    def counted(*args, **kwargs):
+        calls["n"] += 1
+        return all_gather(*args, **kwargs)
+
+    dist.all_gather = counted
+    try:
+        times, result = [], None
+        for _ in range(SYNC_REPEATS):
+            _set_sync(torch, mt, mc, on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value = mc.compute()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            result = value if result is None else result
+    finally:
+        dist.all_gather = all_gather
+        _set_sync(torch, mt, mc, True)
+    return result, times, calls["n"] / SYNC_REPEATS
+
+
+def _sync_rank(rank: int, port: int, out_path: str) -> None:
+    """One rank of the sync phase (this script run with ``--sync-rank``):
+    join the gloo group, stream this rank's batches on ``cuda:0``, and save
+    the synced results, the local compute's, the launches and the times."""
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import metrics_tpu_torch as mt
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=SYNC_WORLD, rank=rank, timeout=timedelta(seconds=120)
+    )
+    try:
+        data = _sync_stream(torch)
+        mc = _sync_collection(mt)
+        bounds = _sync_batches(rank)
+        t0 = _reset_stats(torch, mt)
+        _stream_into(mc, data, bounds)
+        seconds, stats = _read_stats(torch, mt, t0, {"select_topk": 3 * len(bounds), "confusion_counts": len(bounds)})
+        synced, sync_ms, collectives = _timed_computes(torch, mt, mc, on=True)
+        local, local_ms, local_collectives = _timed_computes(torch, mt, mc, on=False)
+        if local_collectives:
+            raise AssertionError(f"rank {rank}: the local compute ran {local_collectives} collectives")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(
+        {
+            "synced": {k: v.cpu() for k, v in synced.items()},
+            "rows": int(local["confidence"].numel()),
+            "devices": sorted({v.device.type for v in synced.values()}),
+            "launches": {op: stats[op]["launches"] for op in ("select_topk", "confusion_counts")},
+            "stream_s": seconds,
+            "sync_ms": sync_ms,
+            "local_ms": local_ms,
+            "collectives": collectives,
+        },
+        out_path,
+    )
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(out_dir: str):
+    """Start the two ranks, wait for each within its limit, and return their
+    records; a rank that fails or outlives its limit raises, with the logs."""
+    port = _free_port()
+    procs = []
+    for rank in range(SYNC_WORLD):
+        log = open(os.path.join(out_dir, f"rank{rank}.log"), "w+")
+        cmd = [sys.executable, os.path.abspath(__file__), "--sync-rank", str(rank), str(port), os.path.join(out_dir, f"rank{rank}.pt")]
+        procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log))
+    failed = []
+    try:
+        deadline = time.monotonic() + SYNC_RANK_TIMEOUT_S
+        for rank, (proc, _) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = f"killed after {SYNC_RANK_TIMEOUT_S} s"
+            if rc != 0:
+                failed.append((rank, rc))
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    logs = []
+    for rank, (_, log) in enumerate(procs):
+        log.seek(0)
+        logs.append(log.read())
+        log.close()
+    if failed:
+        tails = "\n".join(f"--- rank {r} ---\n{text[-6000:]}" for r, text in enumerate(logs))
+        raise AssertionError(f"sync phase: ranks failed {failed}\n{tails}")
+    import torch
+
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(SYNC_WORLD)]
+
+
+def _same_as(name: str, got: dict, want: dict, exact: bool = False) -> None:
+    """``got`` equals ``want``: counts and the cat buffer (everything, with
+    ``exact``) bit for bit, scores within 1e-6 relative and float sums within
+    1e-5 relative."""
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: keys {sorted(got)} vs {sorted(want)}")
+    for key, w in want.items():
+        g, w = got[key].cpu(), w.cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} {key}: {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
+        if exact or key in SYNC_EXACT or not g.is_floating_point():
+            if not bool((g == w).all()):
+                raise AssertionError(f"{name} {key}: differs (bit for bit)")
+            continue
+        rtol = 1e-5 if key in SYNC_SUMS else 1e-6
+        if not bool(g.isfinite().all()) or not bool(((g.double() - w.double()).abs() <= rtol * w.double().abs()).all()):
+            raise AssertionError(f"{name} {key}: {g.tolist()} vs {w.tolist()} (rtol {rtol})")
+
+
+def run_sync_phase(torch, mt, smi: str):
+    """The cross-process sync at full width. (a) Two ranks on the one card
+    join a gloo group over TCP loopback, each with its metrics on ``cuda:0``;
+    rank 0 streams batches 0, 2, 4 and 6, rank 1 batches 1, 3 and 5, and
+    each ``compute()`` syncs. Both ranks must equal each other and one
+    process's result over the whole stream in rank-major order. (b) That
+    process then joins an NCCL group of one, and its ``compute()`` through
+    NCCL must equal its unsynced result. Returns the launches of the phase."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        ranks = _run_ranks(out_dir)
+    for rank, rec in enumerate(ranks):
+        if rec["devices"] != ["cuda"] or min(rec["launches"].values()) <= 0:
+            raise AssertionError(f"sync phase rank {rank}: results on {rec['devices']}, launches {rec['launches']}")
+    _same_as("sync phase: rank 1 against rank 0", ranks[1]["synced"], ranks[0]["synced"], exact=True)
+
+    data = _sync_stream(torch)
+    mc = _sync_collection(mt)
+    order = [b for rank in range(SYNC_WORLD) for b in _sync_batches(rank)]
+    t0 = _reset_stats(torch, mt)
+    _stream_into(mc, data, order)
+    _, serial_stats = _read_stats(torch, mt, t0, {"select_topk": 3 * len(order), "confusion_counts": len(order)})
+    serial, serial_ms, _ = _timed_computes(torch, mt, mc, on=False)
+    for rank, rec in enumerate(ranks):
+        _same_as(f"sync phase: rank {rank} against one process over the whole stream", rec["synced"], serial)
+        if rec["rows"] != sum(e - s for s, e in _sync_batches(rank)):
+            raise AssertionError(f"sync phase rank {rank}: unsync left {rec['rows']} buffered confidences")
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0, device_id=torch.device("cuda:0")
+    )
+    try:
+        nccl, nccl_ms, nccl_collectives = _timed_computes(torch, mt, mc, on=True)
+    finally:
+        dist.destroy_process_group()
+    _same_as("sync phase: NCCL at world size 1 against the unsynced result", nccl, serial, exact=True)
+
+    def ms(times):
+        return f"first {times[0]:.2f} ms, median {sorted(times)[len(times) // 2]:.2f} ms"
+
+    for rank, rec in enumerate(ranks):
+        _log(
+            f"sync phase rank {rank} (gloo, {SYNC_WORLD} ranks on cuda:0, {len(_sync_batches(rank))} batches in"
+            f" {rec['stream_s']:.2f} s): compute() with the sync {ms(rec['sync_ms'])}, without {ms(rec['local_ms'])};"
+            f" {rec['collectives']:.0f} collectives per synced compute(); launches {rec['launches']}; {smi}"
+        )
+    _log(
+        f"sync phase NCCL world size 1: compute() with the sync {ms(nccl_ms)}, without {ms(serial_ms)};"
+        f" {nccl_collectives:.0f} collectives per synced compute(); {smi}"
+    )
+    _log(
+        f"sync phase: both ranks equal each other and one process over all {IMAGENET_VAL[0]} samples in rank-major"
+        f" order (top1={float(serial['top1']):.6f} macro_precision@5={float(serial['precision']):.6f}"
+        f" harmonic={float(serial['harmonic']):.6f} loss_mean={float(serial['loss_mean']):.6f}"
+        f" confidences={serial['confidence'].numel()}); NCCL at world size 1 equals the unsynced result"
+    )
+    return {
+        op: serial_stats[op]["launches"] + sum(rec["launches"][op] for rec in ranks)
+        for op in ("select_topk", "confusion_counts")
+    }
+
+
 def _reset_stats(torch, mt):
     torch.cuda.synchronize()
     mt.reset_kernel_stats()
@@ -1380,6 +1683,7 @@ def main() -> int:
     calls.update(pairwise_calls)
     main_stats, mc, logits, target = run_main_path(torch, mt, rng)
     run_copy_phase(torch, mt, rng, logits, target)
+    sync_launches = run_sync_phase(torch, mt, smi)
     ml_stats, (ml_cm, ml_probs, ml_target) = run_multilabel(torch, mt, rng)
     coco_stats, (curves, coco_probs, coco_target) = run_coco_curves(torch, mt, rng)
     calibration, probs = run_imagenet_calibration(torch, mt, logits, target)
@@ -1408,7 +1712,7 @@ def main() -> int:
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {
-        **{k: v["launches"] for k, v in main_stats.items()},
+        **{k: v["launches"] + sync_launches.get(k, 0) for k, v in main_stats.items()},
         "multilabel_counts": ml_stats["multilabel_counts"]["launches"],
         "binned_counts": coco_stats["binned_counts"]["launches"] + ctr_stats["binned_counts"]["launches"],
         "binned_calibration": sum(stats["binned_calibration"]["launches"] for _, stats in calibration.values()),
@@ -1438,4 +1742,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sync-rank"]:
+        _sync_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

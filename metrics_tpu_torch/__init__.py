@@ -1,8 +1,10 @@
 """PyTorch and CUDA port of ``metrics_tpu``, slice by slice.
 
 Ported so far: the streaming classification eval loop (``Accuracy``,
-``F1Score``/``FBetaScore``, ``StatScores``, ``ConfusionMatrix``,
-``MetricCollection``), the curve and calibration metrics (``AUROC``,
+``F1Score``/``FBetaScore``, ``Precision``, ``Recall``, ``Specificity``,
+``HammingDistance``, ``StatScores``, ``ConfusionMatrix``, the aggregators,
+``MetricCollection`` and ``CompositionalMetric``), with the cross-process
+sync on ``torch.distributed`` that every ``compute()`` runs, the curve and calibration metrics (``AUROC``,
 ``ROC``, ``PrecisionRecallCurve``, ``AveragePrecision``, ``AUC``, the binned
 curve family and ``CalibrationError``), the regression metrics (``MeanSquaredError``
 and the other ten of ``metrics_tpu/regression``) and the pairwise
@@ -13,6 +15,7 @@ kernels of these paths (``confusion_counts``, ``multilabel_counts``,
 ``pairwise_reduce``) are CUDA C++ in ``csrc/``, built with ``nvcc`` at
 first use.
 """
+from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.classification import (
     AUC,
     AUROC,
@@ -26,12 +29,16 @@ from metrics_tpu_torch.classification import (
     ConfusionMatrix,
     F1Score,
     FBetaScore,
+    HammingDistance,
+    Precision,
     PrecisionRecallCurve,
+    Recall,
+    Specificity,
     StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.interop import state_from_jax
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.metric import CompositionalMetric, Metric
 from metrics_tpu_torch.ops.registry import kernel_stats, reset_kernel_stats
 from metrics_tpu_torch.regression import (
     CosineSimilarity,
@@ -56,23 +63,33 @@ __all__ = [
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
     "CalibrationError",
+    "CatMetric",
+    "CompositionalMetric",
     "ConfusionMatrix",
     "CosineSimilarity",
     "ExplainedVariance",
     "F1Score",
     "FBetaScore",
+    "HammingDistance",
+    "MaxMetric",
     "MeanAbsoluteError",
     "MeanAbsolutePercentageError",
     "MeanSquaredError",
+    "MeanMetric",
     "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
+    "MinMetric",
     "PearsonCorrCoef",
+    "Precision",
     "PrecisionRecallCurve",
     "R2Score",
     "ROC",
+    "Recall",
     "SpearmanCorrCoef",
+    "Specificity",
     "StatScores",
+    "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
     "TweedieDevianceScore",
     "kernel_stats",

@@ -10,8 +10,11 @@ from metrics_tpu_torch.classification.binned_precision_recall import (
 from metrics_tpu_torch.classification.calibration_error import CalibrationError
 from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix
 from metrics_tpu_torch.classification.f_beta import F1Score, FBetaScore
+from metrics_tpu_torch.classification.hamming import HammingDistance
+from metrics_tpu_torch.classification.precision_recall import Precision, Recall
 from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve
 from metrics_tpu_torch.classification.roc import ROC
+from metrics_tpu_torch.classification.specificity import Specificity
 from metrics_tpu_torch.classification.stat_scores import StatScores
 
 __all__ = [
@@ -26,7 +29,11 @@ __all__ = [
     "ConfusionMatrix",
     "F1Score",
     "FBetaScore",
+    "HammingDistance",
+    "Precision",
     "PrecisionRecallCurve",
     "ROC",
+    "Recall",
+    "Specificity",
     "StatScores",
 ]

@@ -1,8 +1,10 @@
 """``MetricCollection``: a dict of metrics with one lifecycle (counterpart of
 ``metrics_tpu/collections.py`` without its fused programs, which wait for
-the engine). Each call goes to every member in turn."""
+the engine). Each call goes to every member in turn; each member syncs in
+its own ``compute()``."""
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple, Union
 
+import torch
 from torch import nn
 
 from metrics_tpu_torch.metric import Metric
@@ -53,6 +55,45 @@ class MetricCollection(nn.ModuleDict):
     def persistent(self, mode: bool = True) -> None:
         for _, m in self.items(keep_base=True):
             m.persistent(mode)
+
+    # -- pure (explicitly state-passing) API -----------------------------
+    def init_state(self) -> Dict[str, Dict[str, Any]]:
+        """Fresh per-member states, keyed like ``compute`` results. A metric
+        registered under two keys gets two independent states here."""
+        return {k: m.init_state() for k, m in self.items()}
+
+    def update_state(self, states: Dict[str, Dict[str, Any]], *args: Any, **kwargs: Any) -> Dict[str, Dict[str, Any]]:
+        """Pure update of every member, with per-member kwarg routing."""
+        return {k: m.update_state(states[k], *args, **m._filter_kwargs(**kwargs)) for k, m in self.items()}
+
+    def sync_state(
+        self, states: Dict[str, Dict[str, Any]], process_group: Optional[Any] = None
+    ) -> Dict[str, Dict[str, Any]]:
+        """Every member's state gathered over ``process_group`` (each
+        member's own group when None) and reduced, member by member in key
+        order, so every rank issues the same collectives."""
+        return {k: m.sync_state(states[k], process_group=process_group) for k, m in self.items()}
+
+    def compute_state(self, states: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+        """Pure compute: ``states -> {key: value}``."""
+        return {k: m.compute_state(states[k]) for k, m in self.items()}
+
+    def merge_states(
+        self, states_a: Dict[str, Dict[str, Any]], states_b: Dict[str, Dict[str, Any]]
+    ) -> Dict[str, Dict[str, Any]]:
+        """Merge two independently accumulated collection states, member by member."""
+        return {k: m.merge_states(states_a[k], states_b[k]) for k, m in self.items()}
+
+    def to_device(self, device: Union[str, torch.device]) -> "MetricCollection":
+        for _, m in self.items(keep_base=True):
+            m.to_device(device)
+        return self
+
+    def astype(self, dtype: torch.dtype) -> "MetricCollection":
+        """Cast every member's current floating-point states to ``dtype``."""
+        for _, m in self.items(keep_base=True):
+            m.astype(dtype)
+        return self
 
     def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
         """A deep copy of every member under the same keys; ``prefix`` and

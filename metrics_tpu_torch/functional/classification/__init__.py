@@ -5,8 +5,11 @@ from metrics_tpu_torch.functional.classification.average_precision import averag
 from metrics_tpu_torch.functional.classification.calibration_error import calibration_error
 from metrics_tpu_torch.functional.classification.confusion_matrix import confusion_matrix
 from metrics_tpu_torch.functional.classification.f_beta import f1_score, fbeta_score
+from metrics_tpu_torch.functional.classification.hamming import hamming_distance
+from metrics_tpu_torch.functional.classification.precision_recall import precision, precision_recall, recall
 from metrics_tpu_torch.functional.classification.precision_recall_curve import precision_recall_curve
 from metrics_tpu_torch.functional.classification.roc import roc
+from metrics_tpu_torch.functional.classification.specificity import specificity
 from metrics_tpu_torch.functional.classification.stat_scores import stat_scores
 
 __all__ = [
@@ -18,7 +21,12 @@ __all__ = [
     "confusion_matrix",
     "f1_score",
     "fbeta_score",
+    "hamming_distance",
+    "precision",
+    "precision_recall",
     "precision_recall_curve",
+    "recall",
     "roc",
+    "specificity",
     "stat_scores",
 ]

@@ -6,7 +6,11 @@ other is the accumulated state of a metric mid-stream. A JAX metric's (or
 numpy arrays under the same keys this package uses, so the conversion is
 per leaf. The attributes a metric learns during ``update`` (its
 ``_dynamic_state_attrs``, such as ``Accuracy.mode``) are not in a JAX
-``state_dict``; pass them as ``dynamic``.
+``state_dict``; pass them as ``dynamic``. The counters of the JAX package's
+input-health guard (``_health_counts``, registered by the aggregators'
+``nan_strategy`` and by ``on_bad_input``) are left out: this package has
+no health guard yet, and its aggregators apply ``nan_strategy`` in the
+eager update.
 
 Example::
 
@@ -20,6 +24,8 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.metric import _encode_dynamic
+
+_HEALTH_STATE = "_health_counts"
 
 
 def _leaf(x: Any) -> torch.Tensor:
@@ -42,6 +48,7 @@ def state_from_jax(
     out: Dict[str, Any] = {
         key: [_leaf(x) for x in value] if isinstance(value, list) else _leaf(value)
         for key, value in jax_state.items()
+        if key.rsplit(".", 1)[-1] != _HEALTH_STATE
     }
     for key, value in (dynamic or {}).items():
         out[key] = _encode_dynamic(value)

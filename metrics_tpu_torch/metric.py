@@ -1,6 +1,6 @@
-"""``Metric`` base class: state registry and lifecycle (counterpart of
-``metrics_tpu/metric.py``; the engine, health screening, tracing spans and
-cross-process sync are not part of this package yet).
+"""``Metric`` base class: state registry, lifecycle and cross-process sync
+(counterpart of ``metrics_tpu/metric.py``; the engine, health screening and
+tracing spans are not part of this package yet).
 
 * A ``Metric`` is an ``nn.Module``. Tensor states are buffers on the
   metric's device; ``cat`` buffers are Python lists of tensors.
@@ -14,23 +14,36 @@ cross-process sync are not part of this package yet).
   ``merge_states``) runs the same update and compute on explicit state dicts.
 * ``copy.deepcopy``, ``pickle`` and ``clone`` give a metric with its own
   state and its own ``update``/``compute`` wrappers; states keep their device.
+  A ``torch.distributed`` process group is a process-local handle: a deep
+  copy shares it, and pickling leaves it out.
+* ``compute`` syncs: every state is gathered from the ranks of the process
+  group and reduced by its ``dist_reduce_fx`` before the value is computed,
+  and the local state comes back afterwards (``sync``/``unsync``).
+* Arithmetic and comparison operators on metrics build a
+  :class:`CompositionalMetric`; ``__hash__`` stays identity-based.
 """
 import copy
 import enum
 import functools
 import inspect
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+import warnings
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, FrozenSet, Generator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from metrics_tpu_torch.obs.warn import instance_token, warn_once
+from metrics_tpu_torch.parallel import comm
 from metrics_tpu_torch.utils import enums as _enums
-from metrics_tpu_torch.utils.data import _squeeze_if_scalar
-from metrics_tpu_torch.utils.exceptions import MetricsUserError
+from metrics_tpu_torch.utils.data import _squeeze_if_scalar, dim_zero_cat
+from metrics_tpu_torch.utils.exceptions import MetricsUserError, SyncError
+from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 _MERGEABLE_FX = ("sum", "max", "min", "cat")
+SYNC_ERROR_POLICIES = ("raise", "local")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -59,6 +72,20 @@ def _decode_dynamic(value: Any) -> Any:
     return value
 
 
+class _ProcessLocal:
+    """A process-local handle (a ``torch.distributed`` process group) in a
+    metric's pickled state: a deep copy shares it, a pickle drops it."""
+
+    def __init__(self, handle: Any) -> None:
+        self.handle = handle
+
+    def __deepcopy__(self, memo: Dict[int, Any]) -> "_ProcessLocal":
+        return self
+
+    def __reduce__(self) -> Tuple[Any, Tuple[Any, ...]]:
+        return (_ProcessLocal, (None,))
+
+
 class Metric(nn.Module):
     """Base class for all metrics.
 
@@ -67,6 +94,16 @@ class Metric(nn.Module):
 
     Args:
         compute_on_step: return the batch value from ``forward``.
+        dist_sync_on_step: sync the batch value of ``forward`` across
+            processes too (a collective per state on every batch).
+        process_group: the ``torch.distributed.ProcessGroup`` to sync over;
+            the default group when None.
+        dist_sync_fn: ``fn(tensor, group) -> List[tensor]``, one call per
+            state in sorted state-name order, in place of the default
+            ``all_gather``.
+        on_sync_error: ``"raise"`` propagates a failed sync as a
+            :class:`SyncError`; ``"local"`` warns and computes on the
+            rank-local state.
         device: where the states live and the kernels run; ``None`` is the
             GPU, and raises when CUDA is not available.
     """
@@ -76,12 +113,36 @@ class Metric(nn.Module):
     full_state_update: Optional[bool] = None
     #: Attributes learned during ``update`` that a checkpoint must carry.
     _dynamic_state_attrs: Tuple[str, ...] = ()
+    #: Sum/mean/max/min states whose ``update`` may give them another shape
+    #: than the registered default: the sync exchanges their shapes first,
+    #: as for cat states, since a rank that never updated keeps the default.
+    _shape_polymorphic_states: FrozenSet[str] = frozenset()
 
-    def __init__(self, compute_on_step: bool = True, device: Optional[Union[str, torch.device]] = None) -> None:
+    def __init__(
+        self,
+        compute_on_step: bool = True,
+        dist_sync_on_step: bool = False,
+        process_group: Optional[Any] = None,
+        dist_sync_fn: Optional[Callable] = None,
+        on_sync_error: str = "raise",
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> None:
         super().__init__()
         self._device = resolve_device(device)
         self._warn_token = instance_token()
         self.compute_on_step = compute_on_step
+        self.dist_sync_on_step = dist_sync_on_step
+        if on_sync_error not in SYNC_ERROR_POLICIES:
+            raise ValueError(f"`on_sync_error` must be one of {SYNC_ERROR_POLICIES}, got {on_sync_error!r}")
+        self.on_sync_error = on_sync_error
+        if process_group is not None and dist_sync_fn is None and not isinstance(process_group, dist.ProcessGroup):
+            # fail here, not in the first distributed compute(): the default gather needs a torch group
+            raise ValueError(
+                f"Unsupported `process_group` {process_group!r}: pass a torch.distributed.ProcessGroup"
+                " that this process is a member of, or a `dist_sync_fn` that understands your group object."
+            )
+        self.process_group = process_group
+        self.dist_sync_fn = dist_sync_fn
         self._update_signature = inspect.signature(self.update)
         self.update: Callable = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute: Callable = self._wrap_compute(self.compute)  # type: ignore[method-assign]
@@ -90,7 +151,13 @@ class Metric(nn.Module):
         self._update_count = 0
         self._defaults: Dict[str, Union[torch.Tensor, List]] = {}
         self._persistent: Dict[str, bool] = {}
-        self._reductions: Dict[str, Optional[str]] = {}
+        self._reductions: Dict[str, Union[str, Callable, None]] = {}
+        self._to_sync = True
+        self._should_unsync = True
+        self._is_synced = False
+        self._cache: Optional[Dict[str, Any]] = None
+        # overrides the "is a distributed world present" check (in-process tests of a dist_sync_fn)
+        self._distributed_available_fn: Optional[Callable] = None
 
     @property
     def device(self) -> torch.device:
@@ -103,12 +170,13 @@ class Metric(nn.Module):
         self,
         name: str,
         default: Union[torch.Tensor, List, float, int, np.ndarray],
-        dist_reduce_fx: Optional[str] = None,
+        dist_reduce_fx: Union[str, Callable, None] = None,
         persistent: bool = False,
     ) -> None:
         """Register a state: a tensor (any array-like is converted and put on
         the metric's device) or an empty list; ``dist_reduce_fx`` one of
-        ``"sum"/"mean"/"max"/"min"/"cat"`` or ``None``."""
+        ``"sum"/"mean"/"max"/"min"/"cat"``, ``None`` (a sync stacks the
+        ranks' states) or a callable that takes that stack."""
         if isinstance(default, list):
             if default:
                 raise ValueError("state defaults that are lists must be empty")
@@ -116,8 +184,8 @@ class Metric(nn.Module):
             default = torch.as_tensor(default, device=self._device)
         else:
             raise ValueError("state variable must be a tensor or an empty list")
-        if dist_reduce_fx not in (None, "sum", "mean", "max", "min", "cat"):
-            raise ValueError("`dist_reduce_fx` must be one of ['mean', 'sum', 'cat', 'min', 'max', None]")
+        if dist_reduce_fx not in (None, "sum", "mean", "max", "min", "cat") and not callable(dist_reduce_fx):
+            raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
         if name in ("update", "compute", "forward", "reset"):
             raise ValueError(f"The name {name!r} clashes with a Metric method")
         self._defaults[name] = default
@@ -174,6 +242,17 @@ class Metric(nn.Module):
         with torch.no_grad():
             return self._with_state(state, self._compute_impl)
 
+    def sync_state(self, state: Dict[str, Any], process_group: Optional[Any] = None) -> Dict[str, Any]:
+        """Pure sync: ``state`` gathered from every rank of ``process_group``
+        (this metric's group when None) and reduced as ``compute`` would;
+        ``state`` is left as it was. Under ``on_sync_error="local"`` a failed
+        sync returns the local state, with a warning."""
+        group = process_group if process_group is not None else self.process_group
+        gathered = self._gather_with_policy(self._sync_leaves(state), group, self.dist_sync_fn)
+        if gathered is None:
+            return dict(state)
+        return self._reduce_gathered(gathered)
+
     def merge_states(self, state_a: Dict[str, Any], state_b: Dict[str, Any]) -> Dict[str, Any]:
         """Merge two independently accumulated states with each state's reduction."""
         out: Dict[str, Any] = {}
@@ -199,6 +278,10 @@ class Metric(nn.Module):
     # ------------------------------------------------------------------
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Accumulate the batch into the state and (optionally) return the batch value."""
+        if self._is_synced:
+            raise MetricsUserError(
+                "The Metric shouldn't be synced when performing ``forward``. HINT: Did you forget to call ``unsync``?"
+            )
         if not self.compute_on_step:
             self.update(*args, **kwargs)
             return None
@@ -217,16 +300,22 @@ class Metric(nn.Module):
         update_count = self._update_count
         computed = self._computed
         try:
+            self._to_sync = self.dist_sync_on_step
             for name in self._defaults:
                 setattr(self, name, self._default_value(name))
             self._update_count = 1
             self._computed = None
+            self._should_unsync = False  # the accumulated state is restored below
             self.update(*args, **kwargs)
             batch_val = self.compute()
         finally:
             self._restore_state(cache)
             self._update_count = update_count
             self._computed = computed
+            self._should_unsync = True
+            self._to_sync = True
+            self._is_synced = False
+            self._cache = None
         return batch_val
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
@@ -237,7 +326,10 @@ class Metric(nn.Module):
             for name in self._defaults:
                 setattr(self, name, self._default_value(name))
             self.update(*args, **kwargs)
+            # the local batch state, taken before a dist_sync_on_step compute
+            # syncs it: merging the synced state would count every rank's batch
             batch_state = self._snapshot_state()
+            self._to_sync = self.dist_sync_on_step
             batch_val = self.compute()
             merged = self.merge_states(global_state, batch_state)
         except BaseException:
@@ -245,6 +337,10 @@ class Metric(nn.Module):
             self._restore_state(global_state)
             self._update_count = update_count
             raise
+        finally:
+            self._to_sync = True
+            self._is_synced = False
+            self._cache = None
         self._restore_state(merged)
         self._update_count = update_count + 1
         self._computed = None
@@ -274,7 +370,13 @@ class Metric(nn.Module):
                 )
             if self._computed is not None:
                 return self._computed
-            with torch.no_grad():
+            with torch.no_grad(), self.sync_context(
+                dist_sync_fn=self.dist_sync_fn,
+                process_group=self.process_group,
+                should_sync=self._to_sync,
+                should_unsync=self._should_unsync,
+                distributed_available=self._distributed_available_fn,
+            ):
                 self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
             return self._computed
 
@@ -288,6 +390,127 @@ class Metric(nn.Module):
         self._computed = None
         for name in self._defaults:
             setattr(self, name, self._default_value(name))
+        self._cache = None
+        self._is_synced = False
+        self._to_sync = True
+
+    # ------------------------------------------------------------------
+    # cross-process sync
+    # ------------------------------------------------------------------
+    def _sync_leaves(self, state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """One tensor per state, in sorted state-name order: a list state is
+        concatenated, and an empty one is a zero-length float32 tensor (the
+        gather gives it the dtype of the ranks that hold data)."""
+        leaves = {}
+        for name in sorted(self._reductions):
+            v = state[name]
+            if isinstance(v, list):
+                v = dim_zero_cat(v) if v else torch.zeros(0, device=self._device)
+            leaves[name] = v
+        return leaves
+
+    def _gather_with_policy(
+        self, leaves: Dict[str, torch.Tensor], group: Optional[Any], dist_sync_fn: Optional[Callable]
+    ) -> Optional[Dict[str, List[torch.Tensor]]]:
+        """Every rank's tensor for each leaf, or None when the gather failed
+        and ``on_sync_error="local"`` says to keep the rank-local state."""
+        try:
+            if dist_sync_fn is not None:
+                return {name: list(dist_sync_fn(leaf, group=group)) for name, leaf in leaves.items()}
+            return {
+                name: comm.gather_all_arrays(
+                    leaf,
+                    group,
+                    # fixed by registration, so the same on every rank
+                    fixed_shape=not isinstance(self._defaults[name], list)
+                    and self._reductions[name] in comm.SIMPLE_REDUCTIONS
+                    and name not in self._shape_polymorphic_states,
+                )
+                for name, leaf in leaves.items()
+            }
+        except (ValueError, TypeError, MetricsUserError):
+            raise  # programming errors, not sync failures
+        except Exception as err:  # noqa: BLE001 - a collective or a custom gather failed; reclassified
+            if self.on_sync_error == "raise":
+                if isinstance(err, SyncError):
+                    raise
+                raise SyncError(f"Gathering the states failed: {err}") from err
+            rank_zero_warn(
+                f"Distributed sync of {self.__class__.__name__} failed; keeping the rank-local state"
+                f" (on_sync_error={self.on_sync_error!r}). Original error: {err}",
+                UserWarning,
+            )
+            return None
+
+    def _reduce_gathered(self, gathered: Dict[str, List[torch.Tensor]]) -> Dict[str, Any]:
+        """Each state's reduction over the ranks' tensors. A list state drops
+        the ranks that held nothing, and stays an empty list if none did."""
+        out: Dict[str, Any] = {}
+        for name, parts in gathered.items():
+            if isinstance(self._defaults[name], list):
+                parts = [p for p in parts if p.numel()]
+                if not parts:
+                    out[name] = []
+                    continue
+            out[name] = comm.reduce_gathered(parts, self._reductions[name])
+        return out
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        """Replace every state with its reduction across the ranks of the group."""
+        group = process_group if process_group is not None else self.process_group
+        gathered = self._gather_with_policy(self._sync_leaves(self._snapshot_state()), group, dist_sync_fn)
+        if gathered is not None:
+            self._restore_state(self._reduce_gathered(gathered))
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> None:
+        """Cache the local state and replace it with the cross-process reduction."""
+        if self._is_synced and should_sync:
+            raise MetricsUserError("The Metric has already been synced.")
+        if distributed_available is None:
+            distributed_available = comm.distributed_available
+        is_distributed = distributed_available() if callable(distributed_available) else bool(distributed_available)
+        if not should_sync or not is_distributed:
+            return
+        self._cache = self._snapshot_state()
+        self._sync_dist(dist_sync_fn, process_group=process_group)
+        self._is_synced = True
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore the local state cached by :meth:`sync`."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise MetricsUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise MetricsUserError("The internal cache should exist to unsync the Metric.")
+        self._restore_state(self._cache)
+        self._is_synced = False
+        self._cache = None
+
+    @contextmanager
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> Generator[None, None, None]:
+        """:meth:`sync` on enter, :meth:`unsync` on exit."""
+        self.sync(
+            dist_sync_fn=dist_sync_fn,
+            process_group=process_group,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+        )
+        yield
+        self.unsync(should_unsync=self._is_synced and should_unsync)
 
     def update(self, *_: Any, **__: Any) -> None:  # pragma: no cover - replaced in __init__
         """Override to update the metric state from a batch."""
@@ -298,16 +521,53 @@ class Metric(nn.Module):
         raise NotImplementedError
 
     def _apply(self, fn: Callable, *args: Any, **kwargs: Any) -> "Metric":
-        """``.to()``/``.cuda()``/``.cpu()`` move the defaults and list states
-        with the buffers, so ``reset`` stays on the new device."""
+        """``.to()``/``.cuda()``/``.cpu()`` move the defaults, the list states
+        and the local state cached by a sync with the buffers, so ``reset``
+        and ``unsync`` stay on the new device."""
         super()._apply(fn, *args, **kwargs)
         self._defaults = {n: (d if isinstance(d, list) else fn(d)) for n, d in self._defaults.items()}
         for name, d in self._defaults.items():
             if isinstance(d, list):
-                setattr(self, name, [fn(x) for x in getattr(self, name)])
+                v = getattr(self, name)  # a tensor while synced
+                setattr(self, name, [fn(x) for x in v] if isinstance(v, list) else fn(v))
             else:
                 self._device = d.device
+        if self._cache is not None:
+            self._cache = {n: ([fn(x) for x in c] if isinstance(c, list) else fn(c)) for n, c in self._cache.items()}
         return self
+
+    # ------------------------------------------------------------------
+    # device / dtype
+    # ------------------------------------------------------------------
+    def to_device(self, device: Union[str, torch.device]) -> "Metric":
+        """Move the states, defaults and sync cache to ``device``."""
+        self.to(device)
+        self._device = torch.device(device)
+        return self
+
+    def astype(self, dtype: torch.dtype) -> "Metric":
+        """Cast the current floating-point states to ``dtype``. The defaults
+        keep their dtype, so ``reset`` brings back the registered one."""
+
+        def _cast(x: torch.Tensor) -> torch.Tensor:
+            return x.to(dtype) if x.is_floating_point() else x
+
+        for name in self._defaults:
+            v = getattr(self, name)
+            setattr(self, name, [_cast(x) for x in v] if isinstance(v, list) else _cast(v))
+        return self
+
+    def half(self) -> "Metric":  # type: ignore[override]
+        return self.astype(torch.float16)
+
+    def float(self) -> "Metric":  # type: ignore[override]
+        return self.astype(torch.float32)
+
+    def double(self) -> "Metric":  # type: ignore[override]
+        return self.astype(torch.float64)
+
+    def bfloat16(self) -> "Metric":  # type: ignore[override]
+        return self.astype(torch.bfloat16)
 
     # ------------------------------------------------------------------
     # persistence
@@ -374,15 +634,31 @@ class Metric(nn.Module):
         they are closures over this instance (a copy would update the
         original) and do not pickle. State tensors pickle as they are, with
         their device: a CUDA state comes back on CUDA, and ``_device`` with
-        it (the JAX package turns its states into numpy instead)."""
+        it (the JAX package turns its states into numpy instead). The process
+        group is a handle to this process's communicator: a deep copy shares
+        it, and a pickle leaves it out."""
         skip = ("update", "compute", "_update_signature", "_inner_update", "_compute_impl")
-        return {k: v for k, v in self.__dict__.items() if k not in skip}
+        state = {k: v for k, v in self.__dict__.items() if k not in skip}
+        if state.get("process_group") is not None:
+            state["process_group"] = _ProcessLocal(state["process_group"])
+        return state
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         """Rebuild the wrappers from the class's own methods, as ``__init__``
         does, after unpickling or ``deepcopy``. The warn-once token is issued
         anew: a copy does not share the original's warning history, and a
         pickled token could collide with one issued in this process."""
+        group = state.get("process_group")
+        if isinstance(group, _ProcessLocal):
+            if group.handle is None:
+                warnings.warn(
+                    f"A pickled {type(self).__name__} comes back with process_group=None: a"
+                    " torch.distributed process group belongs to the process that made it."
+                    " Pass this process's group to `process_group` again before syncing.",
+                    UserWarning,
+                    stacklevel=2,
+                )
+            state = {**state, "process_group": group.handle}
         super().__setstate__(state)
         self._update_signature = inspect.signature(self.update)
         self.update = self._wrap_update(self.update)  # type: ignore[method-assign]
@@ -405,3 +681,205 @@ class Metric(nn.Module):
 
     def extra_repr(self) -> str:
         return f"device={self._device}"
+
+    def __hash__(self) -> int:
+        # identity, as nn.Module's: ``==`` builds a CompositionalMetric, and
+        # the memo sets of ``named_modules`` need a hash that never changes
+        return object.__hash__(self)
+
+    # ------------------------------------------------------------------
+    # operators -> CompositionalMetric
+    # ------------------------------------------------------------------
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.sub, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.sub, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.mul, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.mul, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        # fmod: the result has the dividend's sign, as in the JAX package
+        return CompositionalMetric(torch.fmod, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.fmod, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, other, self)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, other, self)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, other, self)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.ne, self, other)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.lt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.le, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.gt, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.ge, self, other)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        # abs, as in the JAX package
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __invert__(self) -> "CompositionalMetric":
+        # bitwise complement: logical on bools, two's complement on ints
+        return CompositionalMetric(torch.bitwise_not, self, None)
+
+    def __getitem__(self, idx: Any) -> "CompositionalMetric":
+        return CompositionalMetric(lambda x: x[idx], self, None)
+
+
+def _neg(x: torch.Tensor) -> torch.Tensor:
+    # -abs, as in the JAX package
+    return -torch.abs(x)
+
+
+class CompositionalMetric(Metric):
+    """A lazy arithmetic composition of metrics (built by the operators).
+
+    The operand metrics are submodules and do the updates and the syncs;
+    a constant operand is a buffer on their device. The composition takes
+    its device from its operands, so it never falls back to the default.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import Accuracy
+        >>> acc = Accuracy(device="cpu")
+        >>> double = acc * 2
+        >>> double.update(torch.tensor([1, 0, 1, 1]), torch.tensor([1, 0, 0, 1]))
+        >>> print(round(float(double.compute()), 4))
+        1.5
+    """
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, float, int, torch.Tensor, None],
+        metric_b: Union[Metric, float, int, torch.Tensor, None],
+    ) -> None:
+        operands = (metric_a, metric_b)
+        device = next((x.device for x in operands if isinstance(x, (Metric, torch.Tensor))), None)
+        super().__init__(device=device)
+        self.op = operator
+        for name, x in zip(("metric_a", "metric_b"), operands):
+            if isinstance(x, Metric):
+                setattr(self, name, x)
+            else:
+                self.register_buffer(name, None if x is None else torch.as_tensor(x, device=self._device), persistent=False)
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        pass  # the operands sync in their own compute()
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a = (
+            self.metric_a(*args, **self.metric_a._filter_kwargs(**kwargs))
+            if isinstance(self.metric_a, Metric)
+            else self.metric_a
+        )
+        val_b = (
+            self.metric_b(*args, **self.metric_b._filter_kwargs(**kwargs))
+            if isinstance(self.metric_b, Metric)
+            else self.metric_b
+        )
+        if val_a is None or (val_b is None and isinstance(self.metric_b, Metric)):
+            self._forward_cache = None
+        elif val_b is None:
+            self._forward_cache = self.op(val_a)
+        else:
+            self._forward_cache = self.op(val_a, val_b)
+        return self._forward_cache
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+        self._update_count = 0
+        self._forward_cache = None
+        self._computed = None
+
+    def persistent(self, mode: bool = False) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.persistent(mode=mode)
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.persistent(mode=mode)
+
+    def extra_repr(self) -> str:
+        return f"op={getattr(self.op, '__name__', 'op')}, device={self._device}"

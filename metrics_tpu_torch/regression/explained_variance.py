@@ -25,6 +25,8 @@ class ExplainedVariance(Metric):
 
     is_differentiable = True
     higher_is_better = True
+    # a multi-output update turns the scalar sums into [num_outputs]
+    _shape_polymorphic_states = frozenset({"sum_error", "sum_squared_error", "sum_target", "sum_squared_target"})
 
     def __init__(self, multioutput: str = "uniform_average", **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -29,6 +29,8 @@ class R2Score(Metric):
 
     is_differentiable = True
     higher_is_better = True
+    # the sums grow to the inputs' output width when it exceeds num_outputs
+    _shape_polymorphic_states = frozenset({"sum_squared_error", "sum_error", "residual"})
 
     def __init__(
         self, num_outputs: int = 1, adjusted: int = 0, multioutput: str = "uniform_average", **kwargs: Any

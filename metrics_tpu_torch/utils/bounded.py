@@ -119,12 +119,22 @@ class _BoundedSampleBufferMixin:
         self.count = self.count + n
 
     def _bounded_collect(self) -> Tuple[torch.Tensor, ...]:
-        """The valid rows of each buffer; raises if the capacity was passed."""
-        seen = int(self.count)
-        if seen > self.buffer_capacity:
+        """The valid rows of each buffer; raises if the capacity was passed.
+
+        After a sync (``dist_reduce_fx=None`` stacks) ``count`` is
+        ``[world, 1]`` and each buffer ``[world, capacity, ...]``: the valid
+        rows of every rank are joined in rank order.
+        """
+        counts = [int(c) for c in self.count.reshape(-1).tolist()]
+        if max(counts) > self.buffer_capacity:
             raise ValueError(
-                f"buffer_capacity exceeded: a rank saw {seen} samples"
+                f"buffer_capacity exceeded: a rank saw {max(counts)} samples"
                 f" but the buffer holds {self.buffer_capacity}. Raise `buffer_capacity`"
                 " (results would otherwise silently drop samples)."
             )
-        return tuple(getattr(self, name)[:seen] for name, _, _ in self._buffer_specs)
+        if self.count.ndim == 0:
+            return tuple(getattr(self, name)[: counts[0]] for name, _, _ in self._buffer_specs)
+        return tuple(
+            torch.cat([getattr(self, name)[r, :c] for r, c in enumerate(counts)], dim=0)
+            for name, _, _ in self._buffer_specs
+        )

@@ -77,6 +77,18 @@ CASES = [
     ("ConfusionMatrix", "labels", {"num_classes": N_CLASSES, "normalize": "true"}),
     ("ConfusionMatrix", "multilabel", {"num_classes": N_CLASSES, "multilabel": True}),
     ("ConfusionMatrix", "binary", {"num_classes": 2}),
+    ("Precision", "logits", {"num_classes": N_CLASSES, "average": "macro", "top_k": 3}),
+    ("Precision", "labels", {"num_classes": N_CLASSES, "average": "none"}),
+    ("Precision", "mdmc", {"num_classes": N_CLASSES, "average": "weighted", "mdmc_average": "samplewise", "ignore_index": 2}),
+    ("Recall", "logits", {"average": "micro"}),
+    ("Recall", "multilabel", {"num_classes": N_CLASSES, "average": "samples"}),
+    ("Recall", "mdmc", {"num_classes": N_CLASSES, "average": "macro", "mdmc_average": "global"}),
+    ("Specificity", "logits", {"num_classes": N_CLASSES, "average": "macro"}),
+    ("Specificity", "binary", {}),
+    ("Specificity", "labels", {"num_classes": N_CLASSES, "average": "none", "ignore_index": 0}),
+    ("HammingDistance", "logits", {}),
+    ("HammingDistance", "multilabel", {"threshold": 0.3}),
+    ("HammingDistance", "mdmc", {}),
 ]
 
 
@@ -121,6 +133,51 @@ def test_functional_matches_jax(name, kind, kwargs):
     _assert_close(got, getattr(fj, name)(jnp.asarray(preds), jnp.asarray(target), **kwargs))
 
 
+SCORE_FUNCTIONS = ("precision", "recall", "precision_recall", "specificity")
+AVERAGES = ("micro", "macro", "weighted", "none", "samples")
+
+
+def _score_combinations(kind: str):
+    """Every mdmc_average / ignore_index / top_k setting tried for one input kind."""
+    mdmc = (None, "global", "samplewise") if kind == "mdmc" else (None,)
+    top_k = (None, 2) if kind in ("logits", "mdmc") else (None,)
+    return [
+        {"mdmc_average": m, "ignore_index": i, "top_k": k}
+        for m in mdmc
+        for i in (None, 1)
+        for k in top_k
+    ]
+
+
+@pytest.mark.parametrize("average", AVERAGES)
+@pytest.mark.parametrize("kind", ["logits", "labels", "multilabel", "binary", "mdmc"])
+@pytest.mark.parametrize("name", SCORE_FUNCTIONS)
+def test_score_functional_matches_jax_over_its_settings(name, kind, average):
+    """Each setting that ``metrics_tpu`` accepts gives its value; each that it
+    rejects with a ValueError is rejected by the port with the same message."""
+    preds, target = _batches(kind, seed=17, n_batches=1)[0]
+    for combo in _score_combinations(kind):
+        kwargs = {"num_classes": N_CLASSES if kind != "binary" else None, "average": average, **combo}
+        try:
+            want = getattr(fj, name)(jnp.asarray(preds), jnp.asarray(target), **kwargs)
+        except ValueError as err:
+            with pytest.raises(ValueError) as port_err:
+                getattr(ft, name)(torch.from_numpy(preds), torch.from_numpy(target), **kwargs)
+            assert str(port_err.value) == str(err), kwargs
+            continue
+        got = getattr(ft, name)(torch.from_numpy(preds), torch.from_numpy(target), **kwargs)
+        for g, w in zip(got, want) if name == "precision_recall" else [(got, want)]:
+            _assert_close(g, w)
+
+
+@pytest.mark.parametrize("kind", ["logits", "labels", "multilabel", "binary", "mdmc"])
+def test_hamming_distance_functional_matches_jax(kind):
+    preds, target = _batches(kind, seed=19, n_batches=1)[0]
+    for threshold in (0.5, 0.2):
+        got = ft.hamming_distance(torch.from_numpy(preds), torch.from_numpy(target), threshold=threshold)
+        _assert_close(got, fj.hamming_distance(jnp.asarray(preds), jnp.asarray(target), threshold=threshold))
+
+
 def _main_path_members(pkg, **dev):
     return {
         "top1": pkg.Accuracy(num_classes=N_CLASSES, **dev),
@@ -163,6 +220,27 @@ def test_pure_state_api_matches_module_path():
     for preds, target in batches:
         jax_m.update(jnp.asarray(preds), jnp.asarray(target))
     _assert_close(port.compute_state(state), jax_m.compute())
+
+
+def test_collection_pure_api_matches_jax():
+    """The collection's init/update/merge/compute_state over two halves of a
+    stream equal the JAX collection over the whole stream."""
+    port_mc = mt.MetricCollection(_main_path_members(mt, device="cpu"), prefix="val_")
+    jax_mc = mj.MetricCollection(_main_path_members(mj), prefix="val_")
+    batches = _batches("logits", seed=9, n_batches=4)
+    whole, halves = port_mc.init_state(), [port_mc.init_state(), port_mc.init_state()]
+    assert list(whole) == list(jax_mc.init_state())
+    for i, (preds, target) in enumerate(batches):
+        whole = port_mc.update_state(whole, torch.from_numpy(preds), torch.from_numpy(target))
+        halves[i // 2] = port_mc.update_state(halves[i // 2], torch.from_numpy(preds), torch.from_numpy(target))
+        jax_mc.update(jnp.asarray(preds), jnp.asarray(target))
+    want = jax_mc.compute()
+    for states in (whole, port_mc.merge_states(*halves)):
+        got = port_mc.compute_state(states)
+        assert got.keys() == want.keys()
+        for key in want:
+            _assert_close(got[key], want[key])
+    assert all(m._update_count == 0 for _, m in port_mc.items())  # the members' own state is untouched
 
 
 def test_metric_without_device_needs_cuda():

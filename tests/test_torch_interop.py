@@ -79,6 +79,51 @@ def test_list_states_carry_across_from_jax():
     np.testing.assert_array_equal(port_m.compute().numpy(), np.asarray(jax_m.compute()))
 
 
+# (class, constructor kwargs, input kind); each new metric carries its state across mid-stream
+NEW_METRICS = [
+    ("Precision", {"num_classes": C, "average": "macro", "top_k": 3}, "scores"),
+    ("Recall", {"average": "micro"}, "scores"),
+    ("Specificity", {"num_classes": C, "average": "macro"}, "scores"),
+    ("Precision", {"average": "samples"}, "multilabel"),  # list states
+    ("HammingDistance", {}, "scores"),
+    ("MaxMetric", {}, "values"),
+    ("MinMetric", {}, "values"),
+    ("SumMetric", {"compensated": True}, "values"),
+    ("MeanMetric", {}, "values"),
+    ("CatMetric", {}, "values"),
+]
+
+
+@pytest.mark.parametrize("name,kwargs,kind", NEW_METRICS, ids=[f"{n}-{i}" for i, (n, _, _) in enumerate(NEW_METRICS)])
+def test_new_metric_state_carries_across_from_jax(name, kwargs, kind):
+    """JAX updates batches 1-2; the port takes its state and updates 3-4; the
+    result equals JAX over batches 1-4 (scores within 1e-6, float sums 1e-5)."""
+    rng = np.random.default_rng(5)
+    if kind == "values":
+        batches = [(rng.standard_normal(11).astype(np.float32),) for _ in range(4)]
+    elif kind == "multilabel":
+        batches = [(rng.random((20, C)).astype(np.float32), rng.integers(0, 2, (20, C))) for _ in range(4)]
+    else:
+        batches = [(preds, target) for preds, target in _stream(seed=6)]
+    jax_m = getattr(mj, name)(**kwargs)
+    for batch in batches[:2]:
+        jax_m.update(*map(jnp.asarray, batch))
+    jax_m.persistent(True)
+    port_m = getattr(mt, name)(device="cpu", **kwargs)
+    port_m.persistent(True)
+    result = port_m.load_state_dict(mt.state_from_jax(jax_m.state_dict()))
+    assert not result.missing_keys and not result.unexpected_keys
+    for batch in batches[2:]:
+        port_m.update(*map(torch.from_numpy, batch))
+        jax_m.update(*map(jnp.asarray, batch))
+    got, want = port_m.compute().numpy(), np.asarray(jax_m.compute())
+    assert got.shape == want.shape
+    if name == "CatMetric":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5 if kind == "values" else 1e-6, atol=0)
+
+
 def test_port_state_dict_round_trip_and_validation():
     batches = _stream(seed=2, n_batches=2)
     src = mt.MetricCollection(_members(mt, device="cpu"))
@@ -116,6 +161,14 @@ def test_port_and_chip_smoke_import_no_jax():
     files = sorted((REPO / "metrics_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     scanned = {str(path.relative_to(REPO)) for path in files}
+    sync_slice = {
+        "metrics_tpu_torch/parallel/comm.py",
+        "metrics_tpu_torch/utils/prints.py",
+        "metrics_tpu_torch/aggregation.py",
+        *(f"metrics_tpu_torch/classification/{m}.py" for m in ("precision_recall", "specificity", "hamming")),
+        *(f"metrics_tpu_torch/functional/classification/{m}.py" for m in ("precision_recall", "specificity", "hamming")),
+    }
+    assert sync_slice <= scanned, sorted(sync_slice - scanned)
     curve_slice = {
         "metrics_tpu_torch/ops/binned_counts.py",
         "metrics_tpu_torch/utils/bounded.py",
