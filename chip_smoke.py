@@ -33,6 +33,29 @@
    size (50,000 samples, 1000 classes, batches of 8192) through ``forward``,
    then ``compute()``; held against a numpy oracle, with the kernel launch
    counts of that run.
+   The main path's updates run through the engine: the collection's
+   ``forward`` is one fused program, captured as a CUDA graph at the first
+   batch of each shape and replayed after (the run fails if a member fell
+   back to its eager update); every later phase's updates go through the
+   engine too, and each log line says how (``programs: ...``).
+   Then the engine phase, on the same stream at full size: the collection
+   six ways, (a) ``jit_update=False``, eager with the value checks; (b)
+   eager with the checks skipped (the in-program flag); (c) the default, a
+   captured fused update per batch; (d) ``jit_bucket="pow2"`` on a ragged
+   stream of 8192, 5000, 3000 and 848 rows, repeated (one program per pow2
+   bucket); (e) ``engine.drive`` over the stacked epoch with
+   ``compute_in_trace=True``; (f) ``engine.drive`` over a host iterable of
+   CPU batches (pinned, double-buffered copies). Each is run twice (the
+   first pass captures, the second is timed) and held against the numpy
+   oracle, its confusion counts bit for bit against (a), with ms per batch,
+   device ms per batch, host syncs per batch, captures and cache hits,
+   memory in use and the kernel launches, credited through graph replays
+   and checked exactly. Then ``compute_async`` (one coalesced fetch),
+   ``CalibrationError(streaming_bins=True)`` captured at 4,194,304
+   confidences (the cooperative grid) against its eager twin, and the
+   health policies: an ``on_bad_input="mask"`` macro F1 and an
+   ``on_bad_input="skip"`` ``MeanMetric`` on a stream with NaN rows,
+   against the oracle without them, with exact ``health_report()`` counts.
    Then copies on the card: the collection cloned mid-stream and fed the
    rest beside the original (equal results), and a pickle round trip of a
    CUDA multilabel ``ConfusionMatrix`` mid-stream (stays on ``cuda``, its
@@ -785,13 +808,14 @@ def run_main_path(torch, mt, rng):
     if any(rec["plain_calls"] for rec in stats.values()):
         raise AssertionError(f"a plain version ran on the main path: {stats}")
     updates = {k: m._update_count for k, m in mc.items()}
+    _require_programs("main path", mc, forward=True, captured=True)
     _log(
         f"main path: ImageNet-1k val, {n} samples x {c} classes in {len(batches)} batches: matches the numpy oracle"
         f" (top1={float(result['top1']):.6f} top5={float(result['top5']):.6f} macro_f1={float(result['f1']):.6f});"
-        f" {n / seconds:.0f} samples/s ({seconds * 1e3 / len(batches):.2f} ms/batch, first batch included);"
-        f" updates per metric {updates}; kernel_stats {stats}"
+        f" {n / seconds:.0f} samples/s ({seconds * 1e3 / len(batches):.2f} ms/batch, first batch and its capture included);"
+        f" updates per metric {updates}; {_engine_note(mc)}; kernel_stats {stats}"
     )
-    return stats, mc, logits, target
+    return stats, mc, logits, target, (logits_np, target_np, oracle)
 
 
 def run_multilabel(torch, mt, rng):
@@ -820,7 +844,11 @@ def run_multilabel(torch, mt, rng):
     _check_result("coco multilabel confmat", result, oracle)
     if stats["multilabel_counts"]["launches"] != len(batches) or any(r["plain_calls"] for r in stats.values()):
         raise AssertionError(f"multilabel path: {stats} for {len(batches)} batches")
-    _log(f"multilabel: MS-COCO 2014 val, {n} samples x {c} labels in {len(batches)} batches: matches the numpy oracle; kernel_stats {stats}")
+    _require_programs("coco multilabel confusion", cm)
+    _log(
+        f"multilabel: MS-COCO 2014 val, {n} samples x {c} labels in {len(batches)} batches: matches the numpy oracle;"
+        f" {_engine_note(cm)}; kernel_stats {stats}"
+    )
     return stats, (cm, probs, target)
 
 
@@ -877,6 +905,275 @@ def run_copy_phase(torch, mt, rng, logits, target):
         f"copy phase: the imagenet collection cloned after {half} of {len(batches)} batches gives the original's values"
         f" (top1={float(want['top1']):.6f}; kernel_stats {stats}); a multilabel ConfusionMatrix pickled after 2 of"
         f" {len(coco)} batches stays on cuda and matches the original after the rest (its updates: kernel_stats {copy_stats})"
+    )
+
+
+# ---------------------------------------------------------------------------
+# the engine phase: the ImageNet-1k collection six ways, capture checks, health
+# ---------------------------------------------------------------------------
+ENGINE_PATTERN = (8192, 5000, 3000, 848)  # the ragged stream of mode (d), repeated over the 50,000
+ENGINE_CHUNK = 2  # steps per program replay in mode (f)
+ENGINE_WARM_PASSES = 5  # timed passes after the first; the median is logged
+HEALTH_BAD_ROWS = {1: 3, 4: 5}  # batch -> rows of it made NaN in the health checks
+
+
+def _program_counts(obj):
+    """``(captures, cache hits, members that ran eagerly)`` of a metric or
+    collection, its fused programs and its members' own together."""
+    stats = obj.compile_stats()
+    members = stats.get("members", {"": stats})
+    eager = sorted(k for k, s in members.items() if s["jit_failed"] or not s["jit_enabled"])
+    if "members" not in stats:
+        return stats["compiles"], stats["cache_hits"], eager
+    return tuple(stats[k] + sum(s[k] for s in members.values()) for k in ("compiles", "cache_hits")) + (eager,)
+
+
+def _engine_note(obj) -> str:
+    """How an object's updates ran: through programs (CUDA graphs) or eagerly."""
+    captures, hits, eager = _program_counts(obj)
+    return f"programs: {captures} captured, {hits} cache hits, eager members {eager}"
+
+
+def _require_programs(name: str, obj, forward: bool = False, captured: bool = False) -> None:
+    """Every member ran through programs: none fell back, and later batches
+    replayed one (cache hits); with ``captured``, this object captured at
+    least one itself (another instance of the same configuration may have
+    captured the programs a later phase replays)."""
+    captures, hits, eager = _program_counts(obj)
+    fused_failed = getattr(obj, "_fused_fwd_failed" if forward else "_fused_failed", False)
+    if eager or fused_failed or hits < 1 or (captured and captures < 1):
+        raise AssertionError(f"{name}: not captured as programs: {obj.compile_stats()} (fused failed: {fused_failed})")
+
+
+def _ragged_bounds(total: int):
+    out, s, i = [], 0, 0
+    while s < total:
+        e = min(s + ENGINE_PATTERN[i % len(ENGINE_PATTERN)], total)
+        out.append((s, e))
+        s, i = e, i + 1
+    return out
+
+
+def _engine_modes(torch, mt, logits, target, logits_cpu, target_cpu):
+    """label -> (collection kwargs, run(mc) -> results, batches, warm launches
+    per kernel, extra launches of the first pass). Every mode streams all of
+    ImageNet-1k val and computes."""
+    from metrics_tpu_torch.engine import drive
+    from metrics_tpu_torch.utils.program import program_scope
+
+    n = IMAGENET_VAL[0]
+    full, ragged = _batches(n), _ragged_bounds(n)
+    whole = (len(full) - 1) * BATCH  # the stacked epoch of mode (e); the 848 tail goes first
+
+    def stream(bounds):
+        def run(mc):
+            for s, e in bounds:
+                mc.update(logits[s:e], target[s:e])
+            return mc.compute()
+
+        return run
+
+    def unchecked(mc):
+        with program_scope(guard=False):
+            return stream(full)(mc)
+
+    def stacked(mc):
+        mc.update(logits[whole:], target[whole:])
+        steps = len(full) - 1
+        res = drive(mc, (logits[:whole].view(steps, BATCH, -1), target[:whole].view(steps, BATCH)), compute_in_trace=True)
+        return res.values
+
+    def host_iterable(mc):
+        res = drive(mc, ((logits_cpu[s:e], target_cpu[s:e]) for s, e in full), compute_in_trace=True, steps_per_chunk=ENGINE_CHUNK)
+        return res.values
+
+    chunked = -(-len(full) // ENGINE_CHUNK) * ENGINE_CHUNK
+    return {
+        "(a) eager, value checks on": ({"jit_update": False}, stream(full), len(full), len(full), 0),
+        "(b) eager, value checks skipped": ({"jit_update": False}, unchecked, len(full), len(full), 0),
+        "(c) captured fused update": ({}, stream(full), len(full), len(full), 0),
+        "(d) captured, jit_bucket=pow2, ragged stream": ({"jit_bucket": "pow2"}, stream(ragged), len(ragged), len(ragged), 1),
+        "(e) drive, stacked epoch, compute_in_trace": ({}, stacked, len(full), len(full), 0),
+        "(f) drive, host iterable of CPU batches": ({}, host_iterable, len(full), chunked, 1),
+    }
+
+
+def _device_ms(torch, fn) -> float:
+    """Device time of ``fn`` (torch.profiler, every device event summed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(r["device_us"] for r in _device_rows(prof)) / 1e3
+
+
+def _host_syncs(torch, fn) -> int:
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _imagenet_collection_with(mt, **kw):
+    c = IMAGENET_VAL[1]
+    return mt.MetricCollection(
+        {
+            "top1": mt.Accuracy(num_classes=c, **kw),
+            "top5": mt.Accuracy(num_classes=c, top_k=TOP_K, **kw),
+            "f1": mt.F1Score(num_classes=c, average="macro", **kw),
+            "confmat": mt.ConfusionMatrix(num_classes=c, **kw),
+        }
+    )
+
+
+def _time_input_copy(torch, logits) -> float:
+    """ms of the copy into a program's static input: one [8192, 1000] float32 batch (32 MB)."""
+    src = logits[:BATCH]
+    static = torch.empty_like(src)
+    return _cuda_ms(torch, lambda: static.copy_(src))
+
+
+def run_engine_phase(torch, mt, smi: str, logits, target, host_stream):
+    """The ImageNet-1k val collection through the engine at full size, six
+    ways, each against the numpy oracle and, counts bit for bit, against
+    mode (a); then the capture checks and the health policies. Returns the
+    launches of the warm passes, by kernel."""
+    from metrics_tpu_torch import engine
+
+    logits_np, target_np, oracle = host_stream
+    logits_cpu, target_cpu = torch.from_numpy(logits_np), torch.from_numpy(target_np)
+    copy_ms = _time_input_copy(torch, logits)
+    _log(f"engine: the copy of one batch into a program's static input ([8192, 1000] float32, 32 MB): {copy_ms:.4f} ms; {smi}")
+    reference = None
+    launches = {"select_topk": 0, "confusion_counts": 0}
+    for label, (kw, run, n_batches, warm_launches, extra) in _engine_modes(torch, mt, logits, target, logits_cpu, target_cpu).items():
+        mc = _imagenet_collection_with(mt, **kw)
+        expect = {"select_topk": warm_launches, "confusion_counts": warm_launches}
+        t0 = _reset_stats(torch, mt)
+        first = run(mc)
+        cold_s, cold_stats = _read_stats(torch, mt, t0, {op: v + extra for op, v in expect.items()})
+        if kw.get("jit_bucket") == "pow2":
+            buckets = {engine.next_pow2(e - s) for s, e in _ragged_bounds(IMAGENET_VAL[0])}
+            if mc.compile_stats()["compiles"] != len(buckets) + 1:  # a fused update per bucket, one fused compute
+                raise AssertionError(f"engine {label}: {mc.compile_stats()} for the buckets {sorted(buckets)}")
+        mem_mib = torch.cuda.memory_allocated() / 2**20
+        static_mib = engine.cache_summary()["static_bytes"] / 2**20
+        cold_programs = _engine_note(mc)
+        warm = []
+        for _ in range(ENGINE_WARM_PASSES):
+            mc.reset()
+            t0 = _reset_stats(torch, mt)
+            result = run(mc)
+            seconds, warm_stats = _read_stats(torch, mt, t0, expect)
+            warm.append(seconds)
+        warm_s = sorted(warm)[len(warm) // 2]
+        for op in launches:
+            launches[op] += warm_stats[op]["launches"]
+        for key, want in oracle.items():
+            _check_result(f"engine {label} {key}", result[key], want)
+            _check_result(f"engine {label} {key} (first pass)", first[key], want)
+        if reference is None:
+            reference = result
+        elif not torch.equal(result["confmat"], reference["confmat"]):
+            raise AssertionError(f"engine {label}: confusion counts differ from mode (a)")
+        mc.reset()
+        device_ms = _device_ms(torch, lambda: run(mc))
+        mc.reset()
+        syncs = _host_syncs(torch, lambda: run(mc))
+        if kw.get("jit_update", True):
+            _require_programs(f"engine {label}", mc, captured=True)
+        _log(
+            f"engine {label}: {n_batches} batches, {warm_s * 1e3 / n_batches:.3f} ms/batch warm (median of {ENGINE_WARM_PASSES} passes)"
+            f" ({cold_s * 1e3 / n_batches:.3f} first pass, captures included), device {device_ms / n_batches:.3f} ms/batch,"
+            f" {syncs / n_batches:.2f} host syncs/batch; first pass {cold_programs}; both passes {_engine_note(mc)};"
+            f" memory in use after the first pass {mem_mib:.0f} MiB (static program inputs {static_mib:.0f} MiB);"
+            f" launches warm {({op: r['launches'] for op, r in warm_stats.items()})}, first pass"
+            f" {({op: r['launches'] for op, r in cold_stats.items()})}; matches the numpy oracle"
+        )
+    # compute_async: one coalesced copy for the collection
+    engine.reset_fetch_stats()
+    handle = mc.compute_async()
+    fetched = handle.result()
+    fetches = engine.fetch_stats()
+    blocking = mc.compute()
+    for key in blocking:
+        if not torch.equal(fetched[key], blocking[key].cpu()):
+            raise AssertionError(f"compute_async {key}: differs from compute()")
+    if fetches["async_fetches"] != 1:
+        raise AssertionError(f"compute_async: {fetches}")
+    _log(f"engine compute_async: {fetches['async_fetches']} fetch for {fetches['coalesced_leaves']} results, bitwise equal to compute()")
+    _run_capture_checks(torch, mt)
+    _run_health_checks(torch, mt, logits, target, logits_np, target_np)
+    return launches
+
+
+def _run_capture_checks(torch, mt):
+    """binned_calibration captured at 4,194,304 confidences (the cooperative
+    grid) against its eager twin, bit for bit (the kernel's fold is fixed)."""
+    n = CTR_EVAL[0]
+    rng = np.random.default_rng(SEED + 1)
+    conf = torch.from_numpy(rng.random(n, dtype=np.float32)).cuda()
+    hit = torch.from_numpy((rng.random(n) < conf.cpu().numpy()).astype(np.int64)).cuda()
+    graph = mt.CalibrationError(n_bins=CAL_BINS, streaming_bins=True)
+    eager = mt.CalibrationError(n_bins=CAL_BINS, streaming_bins=True, jit_update=False)
+    t0 = _reset_stats(torch, mt)
+    for _ in range(3):
+        graph.update(conf, hit)
+        eager.update(conf, hit)
+    _read_stats(torch, mt, t0, {"binned_calibration": 6})
+    for name in graph._defaults:
+        if not torch.equal(getattr(graph, name), getattr(eager, name)):
+            raise AssertionError(f"captured calibration at N={n}: {name} differs from the eager update")
+    _require_programs(f"calibration at N={n}", graph)
+    _log(f"engine capture check: CalibrationError(streaming_bins=True) at N={n} (cooperative grid) captured and replayed, bit-identical to eager; {_engine_note(graph)}")
+
+
+def _run_health_checks(torch, mt, logits, target, logits_np, target_np):
+    """on_bad_input="mask" macro F1 and on_bad_input="skip" MeanMetric on the
+    ImageNet-1k stream with NaN rows, against the oracle without them."""
+    n, c = IMAGENET_VAL
+    batches = _batches(n)
+    bad = np.zeros(n, bool)
+    for b, rows in HEALTH_BAD_ROWS.items():
+        bad[batches[b][0]:batches[b][0] + rows] = True
+    noisy = logits.clone()
+    noisy[torch.from_numpy(np.flatnonzero(bad)).cuda(), 0] = float("nan")
+    lse = torch.logsumexp(logits, dim=1)
+    loss = (lse - logits.gather(1, target[:, None])[:, 0]).float()
+    loss_noisy = torch.where(torch.from_numpy(bad).cuda(), torch.full_like(loss, float("nan")), loss)
+    f1 = mt.F1Score(num_classes=c, average="macro", on_bad_input="mask")
+    mean = mt.MeanMetric(on_bad_input="skip")
+    t0 = _reset_stats(torch, mt)
+    for s, e in batches:
+        f1.update(noisy[s:e], target[s:e])
+        mean.update(loss_noisy[s:e])
+    _read_stats(torch, mt, t0, {})  # macro F1 at top-1 takes argmax: no kernel
+    kept = ~bad
+    want_f1 = _numpy_oracle(logits_np[kept], target_np[kept], c)["f1"]
+    _check_result("health mask macro F1", f1.compute(), want_f1)
+    clean_batches = [(s, e) for i, (s, e) in enumerate(batches) if i not in HEALTH_BAD_ROWS]
+    loss_np = loss.cpu().numpy().astype(np.float64)
+    want_mean = np.concatenate([loss_np[s:e] for s, e in clean_batches]).mean()
+    _close("health skip mean loss", mean.compute(), want_mean, rtol=1e-5)
+    n_bad = int(bad.sum())
+    f1_rep, mean_rep = f1.health_report(), mean.health_report()
+    if (f1_rep["rows_masked"], f1_rep["nan_count"], f1_rep["updates_quarantined"], f1_rep["batches_screened"]) != (n_bad, n_bad, 0, len(batches)):
+        raise AssertionError(f"health mask report {f1_rep}")
+    if (mean_rep["updates_quarantined"], mean_rep["nan_count"], mean_rep["rows_masked"]) != (len(HEALTH_BAD_ROWS), n_bad, 0):
+        raise AssertionError(f"health skip report {mean_rep}")
+    _require_programs("health mask F1", f1)
+    _require_programs("health skip MeanMetric", mean)
+    _log(
+        f"engine health: {n_bad} NaN rows in batches {sorted(HEALTH_BAD_ROWS)}; mask macro F1 {float(f1.compute()):.6f} and skip"
+        f" mean loss {float(mean.compute()):.6f} match the oracle without them; reports exact"
+        f" (F1 rows_masked={f1_rep['rows_masked']} nan_count={f1_rep['nan_count']};"
+        f" mean updates_quarantined={mean_rep['updates_quarantined']} nan_count={mean_rep['nan_count']});"
+        f" {_engine_note(f1)}; {_engine_note(mean)}"
     )
 
 
@@ -1241,6 +1538,7 @@ def run_coco_curves(torch, mt, rng):
         for name, want in zip(("TPs", "FPs", "FNs"), (tp, fp, fn)):
             if not np.array_equal(getattr(member, name).cpu().numpy(), want):
                 raise AssertionError(f"coco curves {name}: counts differ from the numpy oracle")
+    _require_programs("coco curves", mc, forward=True)
     _close("coco per-label AP", torch.stack(result["map"]), ap, atol=1e-6)
     _close("coco recall at precision 0.9", result["r_at_p90"][0], r_at_p, atol=1e-6)
     _close("coco threshold at precision 0.9", result["r_at_p90"][1], th_at_p, atol=1e-6)
@@ -1248,7 +1546,7 @@ def run_coco_curves(torch, mt, rng):
         f"coco curves: MS-COCO 2014 val, {n} samples x {c} labels, T={THRESHOLDS}, in {len(batches)} batches:"
         f" counts match the numpy oracle exactly, per-label AP and recall at precision {MIN_PRECISION} within 1e-6"
         f" (mAP={ap.mean():.6f}, mean R@P90={r_at_p.mean():.6f}); {n / seconds:.0f} samples/s"
-        f" ({seconds * 1e3 / len(batches):.2f} ms/batch, first batch included); kernel_stats {stats}"
+        f" ({seconds * 1e3 / len(batches):.2f} ms/batch, first batch included); {_engine_note(mc)}; kernel_stats {stats}"
     )
     return stats, (mc, probs, target)
 
@@ -1285,11 +1583,13 @@ def run_imagenet_calibration(torch, mt, logits, target):
         _close(f"imagenet ECE ({name})", value, ece, rtol=1e-5)
         if name == "streaming" and not np.array_equal(metric.bin_count.cpu().numpy(), count):
             raise AssertionError("imagenet calibration: bin counts differ from the numpy oracle")
+        if name == "streaming":
+            _require_programs("imagenet calibration (streaming)", metric)
         out[name] = (metric, stats)
         _log(
             f"imagenet calibration ({name}): {len(target)} samples, {CAL_BINS} bins, in {len(batches)} batches:"
             f" ECE={float(value):.6f} matches the numpy oracle within 1e-5 relative; {len(target) / seconds:.0f} samples/s"
-            f" ({seconds * 1e3 / len(batches):.2f} ms/batch); kernel_stats {stats}"
+            f" ({seconds * 1e3 / len(batches):.2f} ms/batch); {_engine_note(metric)}; kernel_stats {stats}"
         )
     return out, probs
 
@@ -1336,6 +1636,7 @@ def run_ctr_auroc(torch, mt, rng):
     for name, want in zip(("bTPs", "bFPs", "bFNs", "bTNs"), (tp, fp, fn, (~clicked).sum() - fp)):
         if not np.array_equal(getattr(mc["auroc_binned"], name).cpu().numpy(), want):
             raise AssertionError(f"ctr binned AUROC {name}: counts differ from the numpy oracle")
+    _require_programs("ctr binned AUROC", mc["auroc_binned"])
     binned = _binned_auroc(scores_np, clicked, ths)
     exact = _rank_auroc(scores_np, clicked)
     _close("ctr binned AUROC", result["auroc_binned"], binned, atol=1e-6)
@@ -1343,7 +1644,7 @@ def run_ctr_auroc(torch, mt, rng):
     _log(
         f"ctr auroc: {n} binary samples in {len(batches)} batches of {batch}: binned counts match the numpy oracle exactly;"
         f" binned (T={THRESHOLDS}) {float(result['auroc_binned']):.6f} and exact {float(result['auroc_exact']):.6f} match theirs within 1e-6; {n / seconds:.0f} samples/s"
-        f" ({seconds * 1e3 / len(batches):.2f} ms/batch, both members, first batch and the exact sort of all samples included); kernel_stats {stats}"
+        f" ({seconds * 1e3 / len(batches):.2f} ms/batch, both members, first batch and the exact sort of all samples included); {_engine_note(mc)}; kernel_stats {stats}"
     )
     return stats, (mc, scores, labels)
 
@@ -1519,12 +1820,13 @@ def run_regression_path(torch, mt, rng):
     for key, want in oracle.items():
         kind, tol = REGRESSION_TOLERANCES[key]
         _close(f"nyu {key}", result[key], want, **{kind: tol})
+    _require_programs("nyu depth regression", mc)
     shown = {k: round(float(v), 6) for k, v in result.items()}
     _log(
         f"nyu depth regression: {maps} maps x {h}x{w} = {maps * pixels} pixels in {len(batches)} batches of {NYU_BATCH} maps:"
         f" all 10 values match the numpy float64 oracle {shown}; {maps * pixels / seconds:.0f} pixels/s"
         f" ({seconds * 1e3 / len(batches):.2f} ms/batch, first batch and the final compute included);"
-        f" oracle {oracle_s:.1f} s on the host; no kernel ran (kernel_stats {stats})"
+        f" oracle {oracle_s:.1f} s on the host; no kernel ran (kernel_stats {stats}); {_engine_note(mc)}"
     )
 
     n, d, batch = FEATURES
@@ -1681,7 +1983,8 @@ def main() -> int:
     pairwise_records, pairwise_calls = check_and_time_pairwise(torch, rng, embeddings)
     records.update(pairwise_records)
     calls.update(pairwise_calls)
-    main_stats, mc, logits, target = run_main_path(torch, mt, rng)
+    main_stats, mc, logits, target, host_stream = run_main_path(torch, mt, rng)
+    engine_launches = run_engine_phase(torch, mt, smi, logits, target, host_stream)
     run_copy_phase(torch, mt, rng, logits, target)
     sync_launches = run_sync_phase(torch, mt, smi)
     ml_stats, (ml_cm, ml_probs, ml_target) = run_multilabel(torch, mt, rng)
@@ -1712,7 +2015,7 @@ def main() -> int:
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {
-        **{k: v["launches"] + sync_launches.get(k, 0) for k, v in main_stats.items()},
+        **{k: v["launches"] + sync_launches.get(k, 0) + engine_launches.get(k, 0) for k, v in main_stats.items()},
         "multilabel_counts": ml_stats["multilabel_counts"]["launches"],
         "binned_counts": coco_stats["binned_counts"]["launches"] + ctr_stats["binned_counts"]["launches"],
         "binned_calibration": sum(stats["binned_calibration"]["launches"] for _, stats in calibration.values()),

@@ -13,7 +13,10 @@ functionals, with their functional forms. Metrics live on the GPU unless a
 kernels of these paths (``confusion_counts``, ``multilabel_counts``,
 ``select_topk``, ``binned_counts``, ``binned_calibration``,
 ``pairwise_reduce``) are CUDA C++ in ``csrc/``, built with ``nvcc`` at
-first use.
+first use. Updates run through the engine (``metrics_tpu_torch.engine``):
+shared update programs, replayed as CUDA graphs on the card, with pow2
+bucketing, fused collection programs, non-finite screening
+(``on_bad_input``), ``engine.drive`` and ``compute_async``.
 """
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.classification import (
@@ -36,8 +39,9 @@ from metrics_tpu_torch.classification import (
     Specificity,
     StatScores,
 )
+from metrics_tpu_torch import engine  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection
-from metrics_tpu_torch.interop import state_from_jax
+from metrics_tpu_torch.interop import state_from_jax, state_to_jax
 from metrics_tpu_torch.metric import CompositionalMetric, Metric
 from metrics_tpu_torch.ops.registry import kernel_stats, reset_kernel_stats
 from metrics_tpu_torch.regression import (
@@ -95,4 +99,5 @@ __all__ = [
     "kernel_stats",
     "reset_kernel_stats",
     "state_from_jax",
+    "state_to_jax",
 ]

@@ -1,17 +1,26 @@
 """Streaming aggregation metrics with a NaN policy (counterpart of
 ``metrics_tpu/aggregation.py``).
 
-``nan_strategy`` decides, in the eager update, what a NaN in the input
-does; ±inf is data, as in the JAX package:
+``nan_strategy`` is an alias over the screening layer
+(``resilience/health.py``), as in the JAX package; it screens NaN only
+(``health_screen="nan"``): ±inf is data.
 
-* ``"error"``: raise a ``RuntimeError``; the state is left as it was.
-* ``"warn"``: drop the NaN elements, with a warning.
-* ``"ignore"``: drop the NaN elements silently.
-* ``"disable"``: no check; a NaN propagates into the state.
-* a float: replace each NaN by it.
+* ``"ignore"`` and ``"warn"`` map to ``on_bad_input="mask"``: the NaN
+  elements are dropped inside the update program (rank >= 2 values are
+  flattened first by ``_health_prescreen``, so whole elements go, as a
+  boolean filter would drop them). ``"warn"`` warns at every removal, which
+  only an eager update can do, so a ``"warn"`` instance runs eagerly.
+* ``"error"`` maps to ``on_bad_input="raise"``: the update is quarantined and
+  a :class:`~metrics_tpu_torch.utils.exceptions.NumericalHealthError` (a
+  ``RuntimeError``) raised.
+* a float fills each NaN with it (``torch.where``, no screening).
+* ``"disable"`` maps to ``"propagate"``: no NaN handling.
 
-Inputs of rank 2 and more are flattened when NaNs are dropped. ``MeanMetric``
-drops a (value, weight) pair when either is NaN, and fills both.
+``MaxMetric`` and ``MinMetric`` take ``"ignore"`` as a fill with the
+reduction's identity (∓inf), which equals removal. ``CatMetric`` keeps its
+host-side element filter (a list buffer runs eagerly anyway). ``MeanMetric``
+drops or fills a (value, weight) pair when either is NaN. Passing
+``on_bad_input`` yourself opts out of the alias.
 """
 from typing import Any, Callable, List, Tuple, Union
 
@@ -23,6 +32,28 @@ from metrics_tpu_torch.utils.data import dim_zero_cat
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 _NAN_STRATEGIES = ("error", "warn", "ignore", "disable")
+_LEGACY_TO_POLICY = {"error": "raise", "warn": "mask", "ignore": "mask", "disable": "propagate"}
+
+
+def _as_float(x: Any, device: torch.device) -> torch.Tensor:
+    """A float tensor of ``x``; a Python number becomes a fill on ``device``
+    (no host-to-device copy, which a graph capture refuses)."""
+    if isinstance(x, torch.Tensor):
+        return x if x.is_floating_point() else x.float()
+    if isinstance(x, (int, float)):
+        return torch.full((), float(x), dtype=torch.float32, device=device)
+    x = torch.as_tensor(x, device=device)
+    return x if x.is_floating_point() else x.float()
+
+
+def _flatten_value_prescreen(args: Any, kwargs: Any) -> Tuple[Any, Any]:
+    """Screening prescreen of the flatten-invariant aggregators: rank >= 2
+    values are flattened, so masking drops elements."""
+
+    def _flat(x: Any) -> Any:
+        return x.reshape(-1) if isinstance(x, torch.Tensor) and x.ndim >= 2 else x
+
+    return tuple(_flat(a) for a in args), {k: _flat(v) for k, v in kwargs.items()}
 
 
 class BaseAggregator(Metric):
@@ -49,32 +80,21 @@ class BaseAggregator(Metric):
             raise ValueError(
                 f"Arg `nan_strategy` should either be a float or one of {_NAN_STRATEGIES} but got {nan_strategy}."
             )
+        legacy_mapped = "on_bad_input" not in kwargs
+        if legacy_mapped:
+            kwargs["on_bad_input"] = _LEGACY_TO_POLICY[nan_strategy] if isinstance(nan_strategy, str) else "propagate"
         super().__init__(**kwargs)
+        self.health_screen = "nan"
+        self._health_warn_on_bad = legacy_mapped and nan_strategy == "warn"
         self.nan_strategy = nan_strategy
         self.add_state("value", default=default_value, dist_reduce_fx=fn)
 
-    def _as_float(self, x: Union[float, torch.Tensor]) -> torch.Tensor:
-        x = torch.as_tensor(x, device=self._device)
-        return x if x.is_floating_point() else x.float()
-
-    def _screen(self, value: torch.Tensor, *paired: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """Apply ``nan_strategy`` to ``value`` and the tensors paired with it
-        (of its shape): raise, drop the elements where any is NaN, or fill."""
-        tensors = (value, *paired)
+    def _fill(self, x: torch.Tensor) -> torch.Tensor:
+        """Apply a float ``nan_strategy`` (the other strategies are the
+        screening layer's)."""
         if isinstance(self.nan_strategy, (float, int)) and not isinstance(self.nan_strategy, bool):
-            return tuple(torch.where(torch.isnan(t), torch.full_like(t, float(self.nan_strategy)), t) for t in tensors)
-        if self.nan_strategy == "disable":
-            return tensors
-        nans = torch.isnan(tensors[0])
-        for t in tensors[1:]:
-            nans = nans | torch.isnan(t)
-        if not bool(nans.any()):
-            return tensors
-        if self.nan_strategy == "error":
-            raise RuntimeError("Encountered `nan` values in tensor")
-        if self.nan_strategy == "warn":
-            rank_zero_warn("Encountered `nan` values in tensor. Will be removed.", UserWarning)
-        return tuple(t[~nans] for t in tensors)
+            return torch.where(torch.isnan(x), torch.full_like(x, float(self.nan_strategy)), x)
+        return x
 
     def update(self, value: Union[float, torch.Tensor]) -> None:  # pragma: no cover - abstract
         raise NotImplementedError
@@ -98,10 +118,17 @@ class MaxMetric(BaseAggregator):
     full_state_update = True
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
+        if "on_bad_input" not in kwargs and nan_strategy == "ignore":
+            kwargs["on_bad_input"] = "propagate"  # removal is a fill with -inf
         super().__init__("max", torch.tensor(-float("inf")), nan_strategy, **kwargs)
 
+    def _health_prescreen(self, args: Any, kwargs: Any) -> Any:
+        return _flatten_value_prescreen(args, kwargs)
+
     def update(self, value: Union[float, torch.Tensor]) -> None:
-        (value,) = self._screen(self._as_float(value))
+        value = self._fill(_as_float(value, self._device))
+        if self.nan_strategy in ("warn", "ignore"):
+            value = torch.where(torch.isnan(value), torch.full_like(value, -float("inf")), value)
         if value.numel():
             self.value = torch.maximum(self.value, value.max())
 
@@ -121,10 +148,17 @@ class MinMetric(BaseAggregator):
     full_state_update = True
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
+        if "on_bad_input" not in kwargs and nan_strategy == "ignore":
+            kwargs["on_bad_input"] = "propagate"  # removal is a fill with +inf
         super().__init__("min", torch.tensor(float("inf")), nan_strategy, **kwargs)
 
+    def _health_prescreen(self, args: Any, kwargs: Any) -> Any:
+        return _flatten_value_prescreen(args, kwargs)
+
     def update(self, value: Union[float, torch.Tensor]) -> None:
-        (value,) = self._screen(self._as_float(value))
+        value = self._fill(_as_float(value, self._device))
+        if self.nan_strategy in ("warn", "ignore"):
+            value = torch.where(torch.isnan(value), torch.full_like(value, float("inf")), value)
         if value.numel():
             self.value = torch.minimum(self.value, value.min())
 
@@ -151,8 +185,17 @@ class SumMetric(BaseAggregator):
         if compensated:
             self.add_state("value_comp", default=torch.tensor(0.0), dist_reduce_fx="sum")
 
+    # per-element sums: eligible for `jit_bucket` and the compiled "mask",
+    # except under the Kahan carry (order-dependent)
+    @property
+    def _batch_additive(self) -> bool:
+        return not getattr(self, "compensated", False)
+
+    def _health_prescreen(self, args: Any, kwargs: Any) -> Any:
+        return _flatten_value_prescreen(args, kwargs)
+
     def update(self, value: Union[float, torch.Tensor]) -> None:
-        (value,) = self._screen(self._as_float(value))
+        value = self._fill(_as_float(value, self._device))
         if not value.numel():
             return
         if self.compensated:
@@ -175,10 +218,20 @@ class CatMetric(BaseAggregator):
     """
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
+        # a list buffer updates eagerly, so the host-side element filter below
+        # is the right one; row masking would drop whole rows of 2-D values
+        if "on_bad_input" not in kwargs and nan_strategy in ("warn", "ignore"):
+            kwargs["on_bad_input"] = "propagate"
         super().__init__("cat", [], nan_strategy, **kwargs)
 
     def update(self, value: Union[float, torch.Tensor]) -> None:
-        (value,) = self._screen(self._as_float(value))
+        value = self._fill(_as_float(value, self._device))
+        if self.nan_strategy in ("warn", "ignore"):
+            nans = torch.isnan(value)
+            if bool(nans.any()):
+                if self.nan_strategy == "warn":
+                    rank_zero_warn("Encountered `nan` values in tensor. Will be removed.", UserWarning)
+                value = value[~nans]
         if value.numel():
             self.value.append(value)
 
@@ -211,10 +264,32 @@ class MeanMetric(BaseAggregator):
             self.add_state("value_comp", default=torch.tensor(0.0), dist_reduce_fx="sum")
             self.add_state("weight_comp", default=torch.tensor(0.0), dist_reduce_fx="sum")
 
+    # value and weight sums are per element (the Kahan carry excepted)
+    @property
+    def _batch_additive(self) -> bool:
+        return not getattr(self, "compensated", False)
+
+    def _pair(self, value: Any, weight: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+        value = _as_float(value, self._device)
+        weight = _as_float(weight, value.device).to(value.dtype).broadcast_to(value.shape)
+        return value, weight
+
+    def _health_prescreen(self, args: Any, kwargs: Any) -> Any:
+        """Broadcast the weight against the value and flatten the pair, so
+        masking drops (value, weight) elements together."""
+        value = kwargs.get("value", args[0] if args else None)
+        if value is None:
+            return args, kwargs
+        weighted = "weight" in kwargs or len(args) > 1
+        value, weight = self._pair(value, kwargs.get("weight", args[1] if len(args) > 1 else 1.0))
+        if value.ndim >= 2:
+            value, weight = value.reshape(-1), weight.reshape(-1)
+        # an unweighted call stays one argument (a subclass may take only the value)
+        return ((value, weight) if weighted else (value,)), {}
+
     def update(self, value: Union[float, torch.Tensor], weight: Union[float, torch.Tensor] = 1.0) -> None:
-        value = self._as_float(value)
-        weight = torch.as_tensor(weight, dtype=value.dtype, device=value.device).broadcast_to(value.shape)
-        value, weight = self._screen(value, weight)
+        value, weight = self._pair(value, weight)
+        value, weight = self._fill(value), self._fill(weight)
         if not value.numel():
             return
         if self.compensated:

@@ -25,6 +25,9 @@ class ConfusionMatrix(Metric):
 
     is_differentiable = False
     higher_is_better = None
+    # a bincount of per-row (target, pred) pairs: row-additive, so `jit_bucket`
+    # padding corrects exactly
+    _batch_additive = True
 
     def __init__(
         self,

@@ -5,6 +5,8 @@ import torch
 
 from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores_compute, _stat_scores_update
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.ops.safe_ops import saturating_add
+from metrics_tpu_torch.resilience import health as _health
 from metrics_tpu_torch.utils.data import dim_zero_cat
 from metrics_tpu_torch.utils.enums import AverageMethod, MDMCAverageMethod
 
@@ -18,6 +20,12 @@ class StatScores(Metric):
 
     is_differentiable = False
     higher_is_better = None
+
+    @property
+    def _batch_additive(self) -> bool:
+        # row-additive sums, except under macro reduce with ignore_index: its
+        # -1 column marker is set once per update, not once per row
+        return self.ignore_index is None or self.reduce != "macro"
 
     def __init__(
         self,
@@ -72,8 +80,17 @@ class StatScores(Metric):
         self._accumulate_stat_scores(tp, fp, tn, fn)
 
     def _accumulate_stat_scores(self, tp: torch.Tensor, fp: torch.Tensor, tn: torch.Tensor, fn: torch.Tensor) -> None:
-        """Add one batch's counts (sum states) or append them (list states)."""
+        """Add one batch's counts (sum states) or append them (list states).
+        Under a health policy the sums saturate at the int64 maximum instead
+        of wrapping, and a saturation counts in ``overflow_events``."""
         if self.reduce != AverageMethod.SAMPLES and self.mdmc_reduce != MDMCAverageMethod.SAMPLEWISE:
+            if _health.health_enabled(self):
+                self.tp, of_tp = saturating_add(self.tp, tp)
+                self.fp, of_fp = saturating_add(self.fp, fp)
+                self.tn, of_tn = saturating_add(self.tn, tn)
+                self.fn, of_fn = saturating_add(self.fn, fn)
+                _health.record_overflow(self, of_tp | of_fp | of_tn | of_fn)
+                return
             self.tp = self.tp + tp
             self.fp = self.fp + fp
             self.tn = self.tn + tn

@@ -1,14 +1,30 @@
 """``MetricCollection``: a dict of metrics with one lifecycle (counterpart of
-``metrics_tpu/collections.py`` without its fused programs, which wait for
-the engine). Each call goes to every member in turn; each member syncs in
-its own ``compute()``."""
+``metrics_tpu/collections.py``).
+
+``update``, ``forward`` and ``compute`` fuse every member that can run as a
+program into ONE program of the engine (``engine/cache.py``): one CUDA graph
+replay per batch on the card for all of them, so N stat-scores members
+format the same ``(preds, target)`` inside one launch sequence instead of N
+eager passes. Members that cannot (list states, eager policies, a failed
+program, a synced or pending-sync state) keep their own dispatch. Each
+member syncs in its own ``compute()``; with a ``torch.distributed`` world
+present ``compute`` is never fused.
+"""
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
+from metrics_tpu_torch.engine import _tree
+from metrics_tpu_torch.engine import bucketing as _bucketing
+from metrics_tpu_torch.engine import cache as _engine
 from metrics_tpu_torch.metric import Metric
-from metrics_tpu_torch.obs.warn import warn_once
+from metrics_tpu_torch.obs.warn import instance_token, warn_once
+from metrics_tpu_torch.parallel import comm
+from metrics_tpu_torch.resilience import health as _health
+from metrics_tpu_torch.utils.data import _squeeze_if_scalar
+from metrics_tpu_torch.utils.exceptions import NumericalHealthError
+from metrics_tpu_torch.utils.program import program_scope
 
 
 class MetricCollection(nn.ModuleDict):
@@ -23,6 +39,14 @@ class MetricCollection(nn.ModuleDict):
         postfix: string appended to all result keys.
 
     ``state_dict`` keys are ``"<member>.<state>"``, as in the JAX package.
+
+    The fused programs live in the process-wide engine cache: two
+    collections with the same members (clones too) share one program per
+    path; :meth:`compile_stats` shows the collection's dispatches. A member
+    whose ``compute`` cannot run as a program is left out of the fused
+    compute after one failed probe (for good once it has state, for now
+    before its first update); :meth:`reset` clears those exclusions, so the
+    next epoch probes again.
     """
 
     def __init__(
@@ -35,22 +59,310 @@ class MetricCollection(nn.ModuleDict):
         super().__init__()
         self.prefix = self._check_arg(prefix, "prefix")
         self.postfix = self._check_arg(postfix, "postfix")
+        self._warn_token = instance_token()
+        self._compile_stats = _engine.new_stats()
+        self._clear_fused()
         self.add_metrics(metrics, *additional_metrics)
 
+    def _clear_fused(self) -> None:
+        # failure flags and introspection handles of the three fused paths
+        # (the programs themselves live in the engine cache)
+        self._fused_keys: Tuple[str, ...] = ()
+        self._fused_fn: Optional[Any] = None
+        self._fused_failed = False
+        self._fused_fwd_keys: Tuple[str, ...] = ()
+        self._fused_fwd_fn: Optional[Any] = None
+        self._fused_fwd_failed = False
+        self._fused_cmp_keys: Tuple[str, ...] = ()
+        self._fused_cmp_fn: Optional[Any] = None
+        self._fused_cmp_failed = False
+        self._fused_cmp_probed: Optional[Tuple] = None
+        # key -> the member's _update_count when its compute failed the fused
+        # probe: 0 is provisional (retried once the member has state)
+        self._fused_cmp_excluded: Dict[str, int] = {}
+
+    # -- lifecycle ------------------------------------------------------
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
-        """Every member's ``forward``: accumulate and return the batch values."""
-        return {self._set_name(k): m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items(keep_base=True)}
+        """Every member's ``forward``: accumulate and return the batch values,
+        the fusable members' in one program."""
+        was_failed = self._fused_fwd_failed
+        fused_vals = self._fused_forward(args, kwargs)
+        try:
+            return {
+                self._set_name(k): fused_vals[k] if k in fused_vals else m(*args, **m._filter_kwargs(**kwargs))
+                for k, m in self.items(keep_base=True)
+            }
+        except Exception:
+            # the per-member retry raised too: a call-site error, which must
+            # not disable the fused path for later, correct, calls
+            self._fused_fwd_failed = was_failed
+            raise
 
     def update(self, *args: Any, **kwargs: Any) -> None:
-        for _, m in self.items(keep_base=True):
-            m.update(*args, **m._filter_kwargs(**kwargs))
+        was_failed = self._fused_failed
+        done = self._fused_update(args, kwargs)
+        try:
+            for k, m in self.items(keep_base=True):
+                if k not in done:
+                    m.update(*args, **m._filter_kwargs(**kwargs))
+        except Exception:
+            self._fused_failed = was_failed
+            raise
 
     def compute(self) -> Dict[str, Any]:
-        return {self._set_name(k): m.compute() for k, m in self.items(keep_base=True)}
+        """Every member's ``compute``, the fusable members' in one program."""
+        fused_vals = self._fused_compute()
+        return {
+            self._set_name(k): fused_vals[k] if k in fused_vals else m.compute() for k, m in self.items(keep_base=True)
+        }
+
+    def compute_async(self) -> Any:
+        """:meth:`compute` with one coalesced device-to-host copy for the
+        whole collection (:class:`~metrics_tpu_torch.engine.AsyncResult`)."""
+        from metrics_tpu_torch.engine.driver import async_compute
+
+        return async_compute(self)
 
     def reset(self) -> None:
         for _, m in self.items(keep_base=True):
             m.reset()
+        # probe the fused compute's exclusions again next epoch
+        self._fused_cmp_excluded = {}
+
+    # -- fused programs -------------------------------------------------
+    def _fusable_keys(self) -> Tuple[str, ...]:
+        keys = []
+        seen = set()
+        for k, m in self._modules.items():
+            if not (m._enable_jit and not m._jit_failed and not m.dist_sync_on_step and not m._has_list_state()):
+                continue
+            if _health.forces_eager(m):
+                continue  # dispatches eagerly by design; the others still fuse
+            # an instance under two keys must update twice: only its first
+            # key fuses, the others take the per-member path
+            if id(m) in seen:
+                continue
+            seen.add(id(m))
+            keys.append(k)
+        # one member gains nothing over its own program
+        return tuple(keys) if len(keys) >= 2 else ()
+
+    def _forward_fusable_keys(self) -> Tuple[str, ...]:
+        """Members whose whole ``forward`` (batch value and merge) fits one
+        program: the merge path of ``Metric.forward``, no sync."""
+        keys = []
+        for k in self._fusable_keys():
+            m = self._modules[k]
+            use_dance = m.full_state_update if m.full_state_update is not None else not m._states_mergeable
+            if use_dance or not m.compute_on_step or m._is_synced:
+                continue
+            keys.append(k)
+        return tuple(keys) if len(keys) >= 2 else ()
+
+    def _fused_forward(self, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> Dict[str, Any]:
+        """The merge-path members' forwards as one program; ``{key: batch
+        value}`` for those handled (the others fall through)."""
+        if self._fused_fwd_failed:
+            return {}
+        keys = self._forward_fusable_keys()
+        if not keys:
+            return {}
+        members = [self._modules[k] for k in keys]
+        states = {k: m._snapshot_state() for k, m in zip(keys, members)}
+        member_kwargs = {k: m._filter_kwargs(**kwargs) for k, m in zip(keys, members)}
+        try:
+            entry = _engine.fused_entry("fused_forward", keys, members)
+            self._fused_fwd_keys, self._fused_fwd_fn = keys, entry
+            vals, merged = entry.invoke(
+                "exact", members, self._compile_stats, states, args, member_kwargs, probe=not _engine.probed(members)
+            )
+        except _engine.FALLBACK_ERRORS:
+            self._fused_fwd_failed = True
+            for k, m in zip(keys, members):
+                m._restore_state(states[k])
+            return {}
+        except BaseException:
+            for k, m in zip(keys, members):
+                m._restore_state(states[k])
+            raise
+        _engine.mark_probed(members)
+        out: Dict[str, Any] = {}
+        for k, m in zip(keys, members):
+            m._restore_state(merged[k])
+            m._update_count += 1
+            m._computed = None
+            out[k] = m._forward_cache = _squeeze_if_scalar(vals[k])
+        self._post_fused_health(members)
+        return out
+
+    def _fused_update(self, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> Tuple[str, ...]:
+        """All fusable members' updates as one program; the keys handled."""
+        if self._fused_failed:
+            return ()
+        keys = self._fusable_keys()
+        if not keys:
+            return ()
+        members = [self._modules[k] for k in keys]
+        states = {k: m._snapshot_state() for k, m in zip(keys, members)}
+        member_kwargs = {k: m._filter_kwargs(**kwargs) for k, m in zip(keys, members)}
+        probe = not _engine.probed(members)
+        try:
+            entry = _engine.fused_entry("fused_update", keys, members)
+            self._fused_keys, self._fused_fn = keys, entry
+            spec = None
+            if all(m.jit_bucket == "pow2" and _bucketing.supports_bucketing(m) for m in members):
+                spec = _bucketing.input_spec(args, member_kwargs)
+            if spec is None:
+                new_states = entry.invoke("exact", members, self._compile_stats, states, args, member_kwargs, probe=probe)
+            else:
+                leaves, treedef, batched, pad = spec
+                p_args, p_kwargs = _tree.unflatten(treedef, _bucketing.pad_leaves(leaves, batched, pad))
+                pad_count = _engine.pad_count_tensor(pad, leaves[batched[0]].device)
+                new_states = entry.invoke(
+                    "bucketed", members, self._compile_stats, states, p_args, p_kwargs, pad_count, probe=probe
+                )
+        except _engine.FALLBACK_ERRORS:
+            self._fused_failed = True
+            for k, m in zip(keys, members):
+                m._restore_state(states[k])
+            return ()
+        except BaseException:
+            for k, m in zip(keys, members):
+                m._restore_state(states[k])
+            raise
+        _engine.mark_probed(members)
+        for k, m in zip(keys, members):
+            m._restore_state(new_states[k])
+            m._update_count += 1
+            m._computed = None
+        self._post_fused_health(members)
+        return keys
+
+    @staticmethod
+    def _post_fused_health(members: Any) -> None:
+        """The per-update host side of the health policies after a fused
+        dispatch: every "raise" member's check runs (and syncs its mirrors)
+        before the first error surfaces."""
+        first_err: Optional[NumericalHealthError] = None
+        for m in members:
+            if _health.health_enabled(m):
+                m._health_stats["batches_screened"] += 1
+                if m.on_bad_input == "raise":
+                    try:
+                        _health.raise_on_quarantine(m)
+                    except NumericalHealthError as err:
+                        first_err = first_err or err
+        if first_err is not None:
+            raise first_err
+
+    def _compute_fusable_keys(self) -> Tuple[str, ...]:
+        """Members whose compute fits the fused program: program-capable
+        tensor states, no sync configured or pending, no cached result."""
+        if comm.distributed_available():
+            return ()  # each member syncs inside its own compute()
+        keys = []
+        for k, m in self._modules.items():
+            excluded_at = self._fused_cmp_excluded.get(k)
+            if excluded_at is not None and (excluded_at > 0 or m._update_count == excluded_at):
+                continue
+            if not (m._enable_jit and not m._jit_failed and not m._has_list_state()) or m._compute_is_host_side:
+                continue
+            if (
+                m._is_synced
+                or m.dist_sync_fn is not None
+                or m._distributed_available_fn is not None
+                or m.process_group is not None
+                or m._computed is not None
+            ):
+                continue
+            keys.append(k)
+        return tuple(keys) if len(keys) >= 2 else ()
+
+    def _fused_compute(self, _warn: bool = True) -> Dict[str, Any]:
+        """The fusable members' computes as one program; ``{key: value}``
+        for those handled. Mirrors the wrapped compute: the before-update
+        warning, ``_computed`` caching, states untouched."""
+        if self._fused_cmp_failed:
+            return {}
+        keys = self._compute_fusable_keys()
+        if not keys:
+            return {}
+        members = [self._modules[k] for k in keys]
+        states = {k: m._snapshot_state() for k, m in zip(keys, members)}
+        for k, m in zip(keys, members) if _warn else ():
+            if m._update_count == 0:
+                warn_once(
+                    f"The ``compute`` method of metric {m.__class__.__name__}"
+                    " was called before the ``update`` method which may lead to errors,"
+                    " as metric states have not yet been updated.",
+                    UserWarning,
+                    key=("compute_before_update", self._warn_token, k),
+                )
+        probe_key = (keys, tuple(id(m) for m in members))
+        try:
+            entry = _engine.fused_entry("fused_compute", keys, members)
+            self._fused_cmp_keys, self._fused_cmp_fn = keys, entry
+            # the members' Python compute bodies run once per member set, so
+            # a warm program cannot skip their checks (Accuracy's mode)
+            vals = entry.invoke(
+                "exact", members, self._compile_stats, states, probe=self._fused_cmp_probed != probe_key
+            )
+            self._fused_cmp_probed = probe_key
+        except Exception as fused_err:  # noqa: BLE001 - probed per member and re-raised below
+            for k, m in zip(keys, members):
+                m._restore_state(states[k])
+            offenders = {k for k, m in zip(keys, members) if not self._compute_runs_as_program(m, states[k])}
+            if offenders:
+                for k in offenders:
+                    self._fused_cmp_excluded[k] = self._modules[k]._update_count
+                return self._fused_compute(_warn=False)
+            if isinstance(fused_err, _engine.FALLBACK_ERRORS):
+                self._fused_cmp_failed = True  # no single member reproduces it
+                return {}
+            raise
+        out: Dict[str, Any] = {}
+        for k, m in zip(keys, members):
+            m._restore_state(states[k])
+            m._computed = value = _squeeze_if_scalar(vals[k])
+            out[k] = value
+            if _health.health_enabled(m):
+                _health.check_compute_result(m, value)
+        return out
+
+    @staticmethod
+    def _compute_runs_as_program(m: Metric, state: Dict[str, Any]) -> bool:
+        """Whether one member's compute runs under the program guard."""
+        try:
+            with torch.no_grad(), program_scope():
+                m._restore_state(state)
+                m._compute_impl()
+            return True
+        except Exception:  # noqa: BLE001 - any failure marks the member
+            return False
+        finally:
+            m._restore_state(state)
+
+    # -- telemetry --------------------------------------------------------
+    def compile_stats(self) -> Dict[str, Any]:
+        """The collection's fused dispatches, and each member's own
+        :meth:`~Metric.compile_stats` under ``members``."""
+        out: Dict[str, Any] = dict(self._compile_stats)
+        out["members"] = {k: m.compile_stats() for k, m in self._modules.items()}
+        return out
+
+    def health_report(self) -> Dict[str, Any]:
+        """Numeric health counters summed over the members, whether any
+        member's last compute was not finite, and each member's report under
+        ``members``."""
+        members = {k: m.health_report() for k, m in self._modules.items()}
+        out: Dict[str, Any] = {}
+        for report in members.values():
+            for key, value in report.items():
+                if isinstance(value, int) and not isinstance(value, bool):
+                    out[key] = out.get(key, 0) + value
+        out["any_compute_nonfinite"] = any(r["last_compute_nonfinite"] for r in members.values())
+        out["members"] = members
+        return out
 
     def persistent(self, mode: bool = True) -> None:
         for _, m in self.items(keep_base=True):
@@ -148,6 +460,18 @@ class MetricCollection(nn.ModuleDict):
                 self[name] = metric
         else:
             raise ValueError("Unknown input to MetricCollection.")
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # the entry handles hold graphs; a copy finds its entries anew
+        state = super().__getstate__() if hasattr(super(), "__getstate__") else self.__dict__.copy()
+        state = dict(state)
+        state["_fused_fn"] = state["_fused_fwd_fn"] = state["_fused_cmp_fn"] = None
+        state["_compile_stats"] = _engine.new_stats()
+        return state
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        super().__setstate__(state)
+        self._warn_token = instance_token()
 
     @staticmethod
     def _check_arg(arg: Optional[str], name: str) -> Optional[str]:

@@ -1,0 +1,532 @@
+"""Process-wide cache of metric update programs (counterpart of
+``metrics_tpu/engine/cache.py``).
+
+The JAX engine turns ``update`` into a pure transition ``state, inputs ->
+state`` and compiles it with ``jax.jit``. The port keeps exactly that pure
+transition (``resilience/health.traced_update``) as one Python function and
+runs it two ways:
+
+* **On the CPU** it runs eagerly, under the in-program flag and its
+  host-sync guard (``utils/program.py``). That is what the tests hold
+  against the JAX package.
+* **On CUDA** it is captured once per program key into a
+  ``torch.cuda.CUDAGraph`` and replayed.
+
+**Shared entries.** Programs are cached under ``(kind, fingerprint)``. The
+fingerprint holds everything that can change the program: the class, the
+public configuration (simple values by value, tensors by content digest,
+other objects by pinned identity), the non-state buffers by content, and the
+state spec (names, dtypes, shapes, default contents, reductions). Under one
+entry a program key adds the variant and the inputs: each tensor's shape,
+dtype and device, and each non-tensor input by value (a CUDA graph bakes a
+Python scalar in, where ``jax.jit`` traces it). Every instance and clone
+with the same fingerprint shares the entry and its graphs.
+
+**What capture needs, in place of donation.** ``jax.jit`` can donate the
+state buffers and accumulate in place; a CUDA graph instead reads and writes
+fixed addresses. So a program owns *static* buffers: a copy of every input
+tensor (states and batch), made at capture, and the graph's output tensors,
+allocated from one memory pool shared by every program of the process
+(``torch.cuda.graph_pool_handle()``). A replay copies the caller's state and
+batch into the static inputs (``torch._foreach_copy_``), replays, and
+**clones the outputs**: the metric's state tensors are always fresh tensors
+of its own, never the graph's. That is the choice this module makes against
+aliasing: a state snapshot (``forward``'s, ``sync``'s, a user's reference)
+never changes under a later replay, and states stay "replaced, never
+written in place", on both devices. ``set_donation``, ``guard_donated_state``
+and ``rollback_state`` have no counterpart: nothing a program is given is
+ever consumed. A graph also reads tensors it was not given (a metric's
+defaults in the bucketing correction, a threshold buffer); the program keeps
+references to every tensor of the capturing instances, so they outlive it.
+
+**Warm-up and the Python-init probe.** A metric whose update is served by a
+replay never runs its Python ``update`` body, so attributes it sets
+(``Accuracy.mode``) would be skipped. Each instance's first dispatch
+therefore runs the transition eagerly (on the card, on a side stream): the
+probe. When the program key has no graph yet, that run is also the warm-up
+(the kernels' ``.so`` is built and loaded at first use) and the capture
+follows. An operation the program cannot hold raises
+:class:`~metrics_tpu_torch.utils.exceptions.JitIncompatibleError` (the guard,
+or a capture the toolkit refused), and the caller falls back to the eager
+update, as a failed trace does in JAX; a refused capture is remembered, so
+other instances go eager at once.
+
+**Launch counts.** A kernel wrapper counts its launches in Python, which a
+replay does not run: the capture records the registry launches it saw
+(``ops/registry.recording``) and every replay credits them.
+
+**Telemetry.** Each entry counts calls, ``compiles`` (captures on the card;
+first runs of a program key on the CPU), cache hits, retraces (programs
+beyond a variant's first) and bucketed calls; the same deltas go to the
+calling instance's ``compile_stats()``. :func:`cache_summary` aggregates.
+
+Out of this module for now: the serving bank entries, the encoder entries
+and the mesh-aware driver entries of the JAX engine.
+"""
+import hashlib
+import threading
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from metrics_tpu_torch.engine import _tree, bucketing
+from metrics_tpu_torch.ops import registry as _kernels
+from metrics_tpu_torch.resilience import health as _health
+from metrics_tpu_torch.utils.exceptions import JitIncompatibleError
+from metrics_tpu_torch.utils.program import program_scope
+
+#: Entries pin configuration objects and hold graphs and their buffers, so
+#: the cache is bounded; the least recently used entry goes first.
+MAX_ENTRIES = 512
+
+_CACHE: "OrderedDict[Any, SharedEntry]" = OrderedDict()
+_LOCK = threading.RLock()
+_POOLS: Dict[int, Any] = {}
+_SIDE_STREAMS: Dict[int, Any] = {}
+
+_STAT_KEYS = ("compiles", "cache_hits", "retraces", "bucketed_calls")
+
+#: Errors after which a metric runs its eager update instead of a program:
+#: the JAX engine's trace errors, as this package raises them.
+FALLBACK_ERRORS = (JitIncompatibleError, NotImplementedError, TypeError)
+
+
+def new_stats() -> Dict[str, int]:
+    return {k: 0 for k in _STAT_KEYS}
+
+
+def instance_stats(obj: Any) -> Dict[str, int]:
+    stats = obj.__dict__.get("_compile_stats")
+    if stats is None:
+        stats = new_stats()
+        obj._compile_stats = stats
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# fingerprints
+# ---------------------------------------------------------------------------
+_SIMPLE = (str, int, float, bool, bytes, type(None))
+
+# Lifecycle machinery bound per instance, and the host-level sync
+# configuration: it steers compute-time gathers outside every program, and
+# keying on it (ids, for callables) would give each instance with its own
+# sync callable a private program.
+_FP_SKIP = frozenset(
+    (
+        "update",
+        "compute",
+        "forward",
+        "reset",
+        "training",
+        "compute_on_step",
+        "dist_sync_on_step",
+        "process_group",
+        "dist_sync_fn",
+        "on_sync_error",
+    )
+)
+
+
+def _digest(x: torch.Tensor) -> Tuple:
+    a = x.detach().cpu().contiguous().numpy()
+    return ("tensor", str(x.dtype), tuple(x.shape), hashlib.sha1(a.tobytes()).hexdigest())
+
+
+def _attr_token(value: Any, pins: List[Any]) -> Tuple:
+    if isinstance(value, torch.Tensor):
+        return _digest(value)
+    if isinstance(value, np.ndarray):
+        return ("array", value.dtype.str, value.shape, hashlib.sha1(value.tobytes()).hexdigest())
+    if isinstance(value, _SIMPLE):
+        return ("val", type(value).__name__, repr(value))
+    if isinstance(value, (tuple, list)) and all(isinstance(x, _SIMPLE) for x in value):
+        return ("seq", type(value).__name__, repr(value))
+    # callables, sub-metrics, other objects: by identity, and pinned so the
+    # id cannot be recycled under the key
+    pins.append(value)
+    return ("id", id(value))
+
+
+def program_identity(metric: Any) -> Tuple[Any, Tuple]:
+    """Which program serves ``metric``: its fingerprint. Whose state is an
+    argument of every dispatch, never part of the program."""
+    return metric_fingerprint(metric)
+
+
+def metric_fingerprint(metric: Any) -> Tuple[Any, Tuple]:
+    """``(key, pins)`` for one instance, computed at its first dispatch and
+    kept: the configuration is frozen once the instance has dispatched
+    (build a new metric to change it)."""
+    cached = metric.__dict__.get("_engine_key")
+    if cached is not None:
+        return cached, metric.__dict__.get("_engine_key_pins", ())
+    pins: List[Any] = []
+    cfg = tuple(
+        (name, _attr_token(metric.__dict__[name], pins))
+        for name in sorted(metric.__dict__)
+        if not name.startswith("_") and name not in metric._defaults and name not in _FP_SKIP
+    )
+    buffers = tuple(
+        (name, _digest(buf))
+        for name, buf in sorted(metric._buffers.items())
+        if name not in metric._defaults and buf is not None
+    )
+    state_spec = []
+    for name, default in metric._defaults.items():
+        fx = metric._reductions[name]
+        fx_token = fx if (fx is None or isinstance(fx, str)) else _attr_token(fx, pins)
+        if isinstance(default, list):
+            state_spec.append((name, "list", fx_token))
+        else:
+            state_spec.append((name, _digest(default), fx_token))
+    key = (type(metric), cfg, buffers, tuple(state_spec))
+    metric._engine_key = key
+    metric._engine_key_pins = tuple(pins)
+    return key, tuple(pins)
+
+
+# ---------------------------------------------------------------------------
+# programs
+# ---------------------------------------------------------------------------
+def _static_token(x: Any) -> Any:
+    try:
+        hash(x)
+        return ("v", type(x).__name__, x)
+    except TypeError:
+        return ("id", id(x))
+
+
+def _program_key(variant: str, leaves: List[Any], spec: Any) -> Tuple:
+    sig = tuple(
+        (tuple(x.shape), x.dtype, x.device) if isinstance(x, torch.Tensor) else _static_token(x) for x in leaves
+    )
+    return (variant, spec, sig)
+
+
+def _cells(cell: Any) -> List[Any]:
+    return list(cell) if isinstance(cell, (list, tuple)) else [cell]
+
+
+def _instance_tensors(cell: Any) -> List[torch.Tensor]:
+    """Every tensor the capturing instances hold (defaults, buffers,
+    attributes): a graph may read any of them by address."""
+    out: List[torch.Tensor] = []
+    for m in _cells(cell):
+        for mod in m.modules():
+            out.extend(d for d in mod.__dict__.get("_defaults", {}).values() if isinstance(d, torch.Tensor))
+            out.extend(b for b in mod._buffers.values() if b is not None)
+            out.extend(v for v in mod.__dict__.values() if isinstance(v, torch.Tensor))
+            for delta in mod.__dict__.get("_zero_row_deltas", {}).values():
+                out.extend(delta.values())
+    return out
+
+
+def _pool(device: torch.device) -> Any:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _POOLS:
+        _POOLS[idx] = torch.cuda.graph_pool_handle()
+    return _POOLS[idx]
+
+
+def _side_stream(device: torch.device) -> Any:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SIDE_STREAMS:
+        _SIDE_STREAMS[idx] = torch.cuda.Stream(device=idx)
+    return _SIDE_STREAMS[idx]
+
+
+def _clone_all(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    out = [torch.empty_like(t) for t in tensors]
+    if out:
+        torch._foreach_copy_(out, tensors)
+    return out
+
+
+class _Graph:
+    """One captured program: the graph, its static input and output tensors,
+    the registry launches its capture recorded, and the tensors it reads
+    by address."""
+
+    __slots__ = ("graph", "static_in", "tensor_pos", "out_leaves", "out_spec", "launches", "pins", "nbytes")
+
+    def __init__(self, fn: Callable, cell: Any, leaves: List[Any], spec: Any, device: torch.device) -> None:
+        static = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
+        self.tensor_pos = [i for i, x in enumerate(static) if isinstance(x, torch.Tensor)]
+        self.static_in = [static[i] for i in self.tensor_pos]
+        self.pins = _instance_tensors(cell)
+        self.graph = torch.cuda.CUDAGraph()
+        with _kernels.recording() as launches:
+            with torch.cuda.graph(self.graph, pool=_pool(device), capture_error_mode="thread_local"):
+                with program_scope():
+                    out = fn(cell, *_tree.unflatten(spec, static))
+        self.launches = launches
+        self.out_leaves, self.out_spec = _tree.flatten(out)
+        self.nbytes = sum(t.numel() * t.element_size() for t in self.static_in)
+
+    def replay(self, leaves: List[Any]) -> Any:
+        torch._foreach_copy_(self.static_in, [leaves[i] for i in self.tensor_pos])
+        self.graph.replay()
+        _kernels.credit(self.launches)
+        tensors = [x for x in self.out_leaves if isinstance(x, torch.Tensor)]
+        fresh = iter(_clone_all(tensors))
+        return _tree.unflatten(
+            self.out_spec, [next(fresh) if isinstance(x, torch.Tensor) else x for x in self.out_leaves]
+        )
+
+
+_FAILED = "capture refused"
+
+
+class SharedEntry:
+    """One family of programs (its variants and input signatures) shared by
+    every instance with the same fingerprint."""
+
+    def __init__(self, key: Any, kind: str, pins: Tuple = ()) -> None:
+        self.key = key
+        self.kind = kind
+        self.calls = 0
+        self.traces = 0
+        self.cache_hits = 0
+        self.bucketed_calls = 0
+        self._variant_traces: Dict[str, int] = {}
+        self._programs: Dict[Tuple, Any] = {}
+        self._fns: Dict[str, Callable] = {}
+        self._pins = pins
+        self._lock = threading.RLock()
+
+    @property
+    def retraces(self) -> int:
+        return sum(max(0, n - 1) for n in self._variant_traces.values())
+
+    @property
+    def graphs(self) -> List[_Graph]:
+        return [p for p in self._programs.values() if isinstance(p, _Graph)]
+
+    def invoke(self, variant: str, cell: Any, stats: Optional[Dict[str, int]], *inputs: Any, probe: bool = False) -> Any:
+        """Run one variant on ``inputs``: a replay of its graph on the card
+        (captured at the key's first call, after an eager warm-up on a side
+        stream), the eager transition on the CPU. ``probe`` makes an
+        instance's first dispatch run the Python body even where a graph
+        exists. Raises :class:`JitIncompatibleError` where the program
+        cannot be captured."""
+        fn = self._fns[variant]
+        leaves, spec = _tree.flatten(inputs)
+        key = _program_key(variant, leaves, spec)
+        device = next((x.device for x in leaves if isinstance(x, torch.Tensor)), torch.device("cpu"))
+        program = self._programs.get(key)
+        if program == _FAILED:
+            raise JitIncompatibleError(f"the {self.kind} program {variant!r} could not be captured on {device}")
+        new = program is None
+        if device.type != "cuda":
+            with program_scope():
+                out = fn(cell, *inputs)
+            if new:
+                self._programs[key] = True
+        elif new:
+            out = self._warm_up(fn, cell, inputs, device)
+            with self._lock:
+                try:
+                    self._programs[key] = _Graph(fn, cell, leaves, spec, device)
+                except JitIncompatibleError:
+                    self._programs[key] = _FAILED
+                    raise
+                except RuntimeError as err:  # the toolkit refused a captured operation
+                    self._programs[key] = _FAILED
+                    raise JitIncompatibleError(f"CUDA graph capture of {self.kind} {variant!r} failed: {err}") from err
+        elif probe:
+            with program_scope():
+                out = fn(cell, *inputs)
+        else:
+            out = program.replay(leaves)
+        self._count(variant, new, stats)
+        return out
+
+    @staticmethod
+    def _warm_up(fn: Callable, cell: Any, inputs: Tuple, device: torch.device) -> Any:
+        side = _side_stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side), program_scope():
+            out = fn(cell, *inputs)
+        torch.cuda.current_stream(device).wait_stream(side)
+        return out
+
+    def _count(self, variant: str, new: bool, stats: Optional[Dict[str, int]]) -> None:
+        with self._lock:
+            self.calls += 1
+            bucketed = variant.startswith("bucketed")
+            self.bucketed_calls += bucketed
+            if new:
+                before = self._variant_traces.get(variant, 0)
+                self._variant_traces[variant] = before + 1
+                self.traces += 1
+            else:
+                self.cache_hits += 1
+        if stats is not None:
+            stats["bucketed_calls"] += bucketed
+            if new:
+                stats["compiles"] += 1
+                stats["retraces"] += before > 0
+            else:
+                stats["cache_hits"] += 1
+
+    def summary(self) -> Dict[str, Any]:
+        graphs = self.graphs
+        return {
+            "kind": self.kind,
+            "calls": self.calls,
+            "compiles": self.traces,
+            "cache_hits": self.cache_hits,
+            "retraces": self.retraces,
+            "bucketed_calls": self.bucketed_calls,
+            "graphs": len(graphs),
+            "failed_captures": sum(p == _FAILED for p in self._programs.values()),
+            "static_bytes": sum(g.nbytes for g in graphs),
+        }
+
+
+def _get_or_create(cache_key: Any, factory: Callable[[], SharedEntry]) -> SharedEntry:
+    with _LOCK:
+        entry = _CACHE.get(cache_key)
+        if entry is None:
+            entry = factory()
+            _CACHE[cache_key] = entry
+        _CACHE.move_to_end(cache_key)
+        while len(_CACHE) > MAX_ENTRIES:
+            _CACHE.popitem(last=False)
+        return entry
+
+
+# ---------------------------------------------------------------------------
+# single-metric update programs
+# ---------------------------------------------------------------------------
+def _make_metric_entry(key: Any, pins: Tuple) -> SharedEntry:
+    entry = SharedEntry(key, "metric_update", pins)
+
+    def _exact(inst, state, args, kwargs):
+        return _health.traced_update(inst, state, args, kwargs)
+
+    def _bucketed(inst, state, args, kwargs, pad_count):
+        return _health.traced_update(inst, state, args, kwargs, pad_count=pad_count)
+
+    entry._fns = {"exact": _exact, "bucketed": _bucketed}
+    return entry
+
+
+def probed(metrics: Any) -> bool:
+    """Whether every instance has run its Python-init probe."""
+    return all(m.__dict__.get("_engine_probed", False) for m in _cells(metrics))
+
+
+def mark_probed(metrics: Any) -> None:
+    for m in _cells(metrics):
+        m._engine_probed = True
+
+
+def pad_count_tensor(pad: int, device: torch.device) -> torch.Tensor:
+    """The pad row count as a device scalar (a fill, not a host copy)."""
+    return torch.full((), pad, dtype=torch.int64, device=device)
+
+
+def update_transition(
+    metric: Any, state: Dict[str, Any], args: Tuple[Any, ...], kwargs: Dict[str, Any]
+) -> Dict[str, Any]:
+    """Dispatch one metric update through the shared cache. Raises whatever
+    the program raises; ``Metric._update_impl`` owns the fallback."""
+    key, pins = metric_fingerprint(metric)
+    entry = _get_or_create(("metric_update", key), lambda: _make_metric_entry(key, pins))
+    stats = instance_stats(metric)
+    probe = not probed(metric)
+    spec = bucketing.bucket_spec(metric, args, kwargs)
+    if spec is None:
+        out = entry.invoke("exact", metric, stats, state, args, kwargs, probe=probe)
+    else:
+        leaves, treedef, batched, pad = spec
+        padded_args, padded_kwargs = _tree.unflatten(treedef, bucketing.pad_leaves(leaves, batched, pad))
+        device = leaves[batched[0]].device
+        out = entry.invoke(
+            "bucketed", metric, stats, state, padded_args, padded_kwargs, pad_count_tensor(pad, device), probe=probe
+        )
+    mark_probed(metric)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused collection programs
+# ---------------------------------------------------------------------------
+def _make_fused_entry(kind: str, keys: Tuple[str, ...], cache_key: Any, pins: Tuple) -> SharedEntry:
+    entry = SharedEntry(cache_key, kind, pins)
+
+    def _update(members, states, args, member_kwargs, pad_count=None):
+        return {
+            k: _health.traced_update(m, states[k], args, member_kwargs[k], pad_count=pad_count)
+            for k, m in zip(keys, members)
+        }
+
+    def _forward(members, states, args, member_kwargs):
+        vals: Dict[str, Any] = {}
+        merged: Dict[str, Any] = {}
+        for k, m in zip(keys, members):
+            batch_state = _health.traced_update(m, m.init_state(), args, member_kwargs[k])
+            m._restore_state(batch_state)
+            vals[k] = m._compute_impl()
+            merged[k] = m.merge_states(states[k], batch_state)
+        return vals, merged
+
+    def _compute(members, states):
+        vals: Dict[str, Any] = {}
+        for k, m in zip(keys, members):
+            m._restore_state(states[k])
+            vals[k] = m._compute_impl()
+        return vals
+
+    if kind == "fused_update":
+        entry._fns = {"exact": _update, "bucketed": _update}
+    elif kind == "fused_forward":
+        entry._fns = {"exact": _forward}
+    else:
+        entry._fns = {"exact": _compute}
+    return entry
+
+
+def fused_entry(kind: str, keys: Tuple[str, ...], members: List[Any]) -> SharedEntry:
+    """The shared entry of a collection's fused program, keyed by the member
+    names and every member's fingerprint: clones of one collection, and
+    collections with the same members, share it."""
+    member_keys: List[Any] = []
+    pins: List[Any] = []
+    for m in members:
+        k, p = metric_fingerprint(m)
+        member_keys.append(k)
+        pins.extend(p)
+    cache_key = (kind, tuple(keys), tuple(member_keys))
+    return _get_or_create(cache_key, lambda: _make_fused_entry(kind, tuple(keys), cache_key, tuple(pins)))
+
+
+# ---------------------------------------------------------------------------
+# introspection
+# ---------------------------------------------------------------------------
+def clear_cache() -> None:
+    """Drop every shared entry with its graphs. Instances keep their own
+    ``compile_stats()`` counters."""
+    with _LOCK:
+        _CACHE.clear()
+
+
+def cache_summary() -> Dict[str, Any]:
+    """Process-wide telemetry over every shared entry."""
+    with _LOCK:
+        entries = list(_CACHE.values())
+    keys = ("calls", "compiles", "cache_hits", "retraces", "bucketed_calls", "graphs", "failed_captures", "static_bytes")
+    totals = dict.fromkeys(keys, 0)
+    by_kind: Dict[str, Dict[str, int]] = {}
+    for e in entries:
+        s = e.summary()
+        kind = by_kind.setdefault(s["kind"], {"entries": 0, **dict.fromkeys(keys, 0)})
+        kind["entries"] += 1
+        for k in keys:
+            kind[k] += s[k]
+            totals[k] += s[k]
+    return {"entries": len(entries), **totals, "by_kind": by_kind}

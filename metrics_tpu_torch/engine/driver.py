@@ -1,0 +1,704 @@
+"""Device-resident evaluation driver and the async results plane
+(counterpart of ``metrics_tpu/engine/driver.py``).
+
+* **K steps per program.** :func:`drive` runs an evaluation epoch through one
+  program family of the engine cache (entry kind ``driver``): a CUDA graph of
+  ``K = steps_per_chunk`` consecutive fused update steps, replayed once per
+  chunk, where the JAX engine runs ``lax.scan`` over the whole epoch. Each
+  step is the same health-screened transition every per-step program runs
+  (``resilience/health.traced_update``), so the states equal the per-step
+  loop's, integer counts bit for bit.
+* **Ragged tails.** A short final batch is zero-padded to the chunk's batch
+  and its pad rows subtracted by the bucketing correction (the ``scan_pad``
+  variants), for row-additive members; a short final chunk is padded with
+  whole zero steps when a full chunk of its shape ran before.
+* **Host iterables stream.** CPU batches are stacked into ``[K, batch]``
+  chunks in pinned host memory, two buffers deep, and copied to the card on
+  a side stream while the previous chunk's graph replays.
+* **compute_in_trace** folds the members' computes into the last chunk's
+  program (the ``*_cmp`` variants); a member whose compute cannot run as a
+  program is computed on the host afterwards.
+* **Async results.** :func:`async_compute` (``Metric.compute_async`` and
+  ``MetricCollection.compute_async``) packs every result tensor into one
+  device buffer and starts ONE device-to-host copy into pinned memory behind
+  a CUDA event; :meth:`AsyncResult.result` waits for that event only.
+
+Members a chunk cannot carry keep their per-step contracts inside the same
+:func:`drive` call: list states, eager fallbacks, ``on_bad_input="raise"``
+(its per-update host check is the point) and the eager health policies.
+
+Out of this slice: ``drive_bank`` (ROADMAP §1 item 13), the mesh modes
+(``mesh``/``axis_name``/``in_specs``/``hierarchical_sync``, item 12) and
+drive snapshots (``snapshot_store``/``resume_from``, items 13-14); those
+arguments raise ``NotImplementedError``.
+"""
+import threading
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import torch
+
+from metrics_tpu_torch.engine import _tree
+from metrics_tpu_torch.engine import bucketing as _bucketing
+from metrics_tpu_torch.engine import cache as _cache
+from metrics_tpu_torch.resilience import health as _health
+from metrics_tpu_torch.utils.data import _squeeze_if_scalar
+
+__all__ = ["AsyncResult", "DriveResult", "async_compute", "drive", "fetch_stats", "reset_fetch_stats"]
+
+
+# ---------------------------------------------------------------------------
+# async coalesced results
+# ---------------------------------------------------------------------------
+_UNSET = object()
+_FETCH_LOCK = threading.Lock()
+_FETCH_STATS = {"async_fetches": 0, "coalesced_leaves": 0}
+_ALIGN = 16
+
+
+def fetch_stats() -> Dict[str, int]:
+    """``async_fetches``: resolved :class:`AsyncResult` handles, one
+    device-to-host copy each; ``coalesced_leaves``: the tensors they carried."""
+    with _FETCH_LOCK:
+        return dict(_FETCH_STATS)
+
+
+def reset_fetch_stats() -> None:
+    with _FETCH_LOCK:
+        _FETCH_STATS["async_fetches"] = 0
+        _FETCH_STATS["coalesced_leaves"] = 0
+
+
+class AsyncResult:
+    """A handle on a results tree whose copy to the host has started.
+
+    On the card the constructor packs every result tensor into one device
+    buffer (each at a 16-byte offset), starts one non-blocking copy into
+    pinned host memory and records an event. :meth:`result` waits for that
+    event, unpacks CPU tensors bitwise equal to the device values and caches
+    them: resolving twice costs one copy. CPU results need no copy.
+    """
+
+    __slots__ = ("_tree", "_host", "_source", "_n_leaves", "_lock", "_event", "_pinned", "_layout")
+
+    def __init__(self, tree: Any, source: str = "") -> None:
+        self._host: Any = _UNSET
+        self._source = source
+        self._lock = threading.Lock()
+        self._event = self._pinned = None
+        leaves, spec = _tree.flatten(tree)
+        self._n_leaves = len(leaves)
+        self._tree = (leaves, spec)
+        cuda = [x for x in leaves if isinstance(x, torch.Tensor) and x.is_cuda]
+        if not cuda:
+            self._layout = None
+            return
+        device = cuda[0].device
+        layout, offset = [], 0
+        for x in leaves:
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                n = x.numel() * x.element_size()
+                layout.append((offset, n, x.dtype, tuple(x.shape)))
+                offset += -(-n // _ALIGN) * _ALIGN
+            else:
+                layout.append(None)
+        packed = torch.empty(max(offset, 1), dtype=torch.uint8, device=device)
+        for x, slot in zip(leaves, layout):
+            if slot is not None and slot[1]:
+                packed[slot[0]:slot[0] + slot[1]].copy_(x.detach().contiguous().reshape(-1).view(torch.uint8))
+        self._pinned = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+        self._pinned.copy_(packed, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record()
+        self._layout = layout
+
+    def ready(self) -> bool:
+        """True when resolving would not wait for the device."""
+        return self._host is not _UNSET or self._event is None or self._event.query()
+
+    def result(self) -> Any:
+        """The results tree on the host (CPU tensors)."""
+        if self._host is _UNSET:
+            fetched = False
+            with self._lock:
+                if self._host is _UNSET:
+                    leaves, spec = self._tree
+                    if self._layout is not None:
+                        self._event.synchronize()
+                        leaves = [
+                            x if slot is None else self._unpack(slot) for x, slot in zip(leaves, self._layout)
+                        ]
+                    self._host = _tree.unflatten(spec, leaves)
+                    self._tree = None  # do not pin the device results
+                    fetched = True
+            if fetched:
+                with _FETCH_LOCK:
+                    _FETCH_STATS["async_fetches"] += 1
+                    _FETCH_STATS["coalesced_leaves"] += self._n_leaves
+        return self._host
+
+    def _unpack(self, slot: Tuple) -> torch.Tensor:
+        offset, n, dtype, shape = slot
+        return self._pinned[offset:offset + n].view(dtype).reshape(shape).clone()
+
+    def __repr__(self) -> str:
+        state = "resolved" if self._host is not _UNSET else ("ready" if self.ready() else "pending")
+        return f"AsyncResult(source={self._source!r}, leaves={self._n_leaves}, {state})"
+
+
+def async_compute(obj: Any) -> AsyncResult:
+    """``obj.compute()`` as an :class:`AsyncResult`: the compute dispatches
+    as usual (fused for a collection); only the copy is deferred."""
+    return AsyncResult(obj.compute(), source=type(obj).__name__)
+
+
+# ---------------------------------------------------------------------------
+# drive
+# ---------------------------------------------------------------------------
+class DriveResult:
+    """What one :func:`drive` did: ``steps`` consumed, ``chunks`` (program
+    replays or runs), the member keys driven in chunks (``fused_keys``) and
+    per step (``eager_keys``), and with ``compute_in_trace`` the ``values``."""
+
+    __slots__ = ("steps", "chunks", "fused_keys", "eager_keys", "values")
+
+    def __init__(self, steps: int, chunks: int, fused_keys: Tuple[str, ...], eager_keys: Tuple[str, ...], values: Any) -> None:
+        self.steps = steps
+        self.chunks = chunks
+        self.fused_keys = fused_keys
+        self.eager_keys = eager_keys
+        self.values = values
+
+    def __repr__(self) -> str:
+        return f"DriveResult(steps={self.steps}, chunks={self.chunks}, fused_keys={self.fused_keys}, eager_keys={self.eager_keys})"
+
+
+def _members_of(obj: Any) -> Tuple[Tuple[str, ...], List[Any]]:
+    """``(keys, members)``; a metric is a one-member collection keyed ``"_"``."""
+    from metrics_tpu_torch.collections import MetricCollection
+
+    if isinstance(obj, MetricCollection):
+        items = obj.items(keep_base=True)
+        return tuple(k for k, _ in items), [m for _, m in items]
+    return ("_",), [obj]
+
+
+def _scan_drivable(m: Any) -> bool:
+    """Can the member ride the chunk programs without losing a contract?"""
+    if not (m._enable_jit and not m._jit_failed and not m.dist_sync_on_step and not m._has_list_state()):
+        return False
+    if m._is_synced:
+        return False
+    if _health.health_enabled(m) and (_health.forces_eager(m) or m.on_bad_input == "raise"):
+        return False
+    return True
+
+
+def _steps_iter(batches: Iterable[Any]):
+    for item in batches:
+        yield tuple(item) if isinstance(item, (tuple, list)) else (item,)
+
+
+def _stacked_steps(batches: Any) -> Optional[Tuple[Tuple[torch.Tensor, ...], int]]:
+    """``(args, n_steps)`` when ``batches`` is a tuple of tensors sharing a
+    leading steps axis, else None (an iterable of steps)."""
+    if isinstance(batches, torch.Tensor):
+        batches = (batches,)
+    if not isinstance(batches, tuple) or not batches:
+        return None
+    if not all(isinstance(x, torch.Tensor) and x.ndim >= 1 for x in batches):
+        return None
+    n = int(batches[0].shape[0])
+    if any(int(x.shape[0]) != n for x in batches):
+        return None
+    return batches, n
+
+
+def _make_driver_entry(cache_key: Any, keys: Tuple[str, ...], compute_keys: Tuple[str, ...], pins: Tuple) -> _cache.SharedEntry:
+    entry = _cache.SharedEntry(cache_key, "driver", pins)
+
+    def _chunk(members, states, leaves, pads, treedef, compute):
+        steps = int(leaves[0].shape[0])
+        for k in range(steps):
+            args, kwargs = _tree.unflatten(treedef, [x[k] for x in leaves])
+            pad = None if pads is None else pads[k]
+            states = {
+                key: _health.traced_update(m, states[key], args, m._filter_kwargs(**kwargs), pad_count=pad)
+                for key, m in zip(keys, members)
+            }
+        if not compute:
+            return states
+        vals: Dict[str, Any] = {}
+        for key, m in zip(keys, members):
+            if key in compute_keys:
+                m._restore_state(states[key])
+                vals[key] = m._compute_impl()
+        return states, vals
+
+    entry._fns = {
+        "scan": lambda members, states, leaves, treedef: _chunk(members, states, leaves, None, treedef, False),
+        "scan_pad": lambda members, states, leaves, pads, treedef: _chunk(members, states, leaves, pads, treedef, False),
+        "scan_cmp": lambda members, states, leaves, treedef: _chunk(members, states, leaves, None, treedef, True),
+        "scan_pad_cmp": lambda members, states, leaves, pads, treedef: _chunk(members, states, leaves, pads, treedef, True),
+    }
+    return entry
+
+
+def _driver_entry(keys: Tuple[str, ...], members: List[Any], compute_keys: Tuple[str, ...]) -> _cache.SharedEntry:
+    member_keys, pins = [], []
+    for m in members:
+        k, p = _cache.metric_fingerprint(m)
+        member_keys.append(k)
+        pins.extend(p)
+    cache_key = ("driver", keys, tuple(member_keys), compute_keys)
+    return _cache._get_or_create(cache_key, lambda: _make_driver_entry(cache_key, keys, compute_keys, tuple(pins)))
+
+
+class _Staging:
+    """Pinned host buffers and device buffers for ``[K, ...]`` chunks of CPU
+    steps, two deep: the host fills one while the other's copy to the card
+    and the replay that reads it run. Copies go on a side stream."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.stream = torch.cuda.Stream(device=device)
+        self.slots: List[Dict[str, Any]] = [{}, {}]
+        self.turn = 0
+
+    def stage(self, steps: List[List[Any]]) -> Tuple[List[torch.Tensor], Any]:
+        slot = self.slots[self.turn]
+        self.turn ^= 1
+        cols = list(zip(*steps))
+        sig = tuple((len(col), tuple(col[0].shape), col[0].dtype) for col in cols)
+        if slot.get("sig") != sig:
+            slot.clear()
+            slot["sig"] = sig
+            slot["host"] = [torch.empty((len(c), *c[0].shape), dtype=c[0].dtype, pin_memory=True) for c in cols]
+            slot["dev"] = [torch.empty(h.shape, dtype=h.dtype, device=self.device) for h in slot["host"]]
+        if slot.get("copied") is not None:
+            slot["copied"].synchronize()  # the last copy out of these pinned buffers is done
+        for host, col in zip(slot["host"], cols):
+            for k, x in enumerate(col):
+                host[k].copy_(x)
+        with torch.cuda.stream(self.stream):
+            if slot.get("consumed") is not None:
+                self.stream.wait_event(slot["consumed"])  # the replay read the device buffers
+            for dev, host in zip(slot["dev"], slot["host"]):
+                dev.copy_(host, non_blocking=True)
+            slot["copied"] = torch.cuda.Event()
+            slot["copied"].record(self.stream)
+        return slot["dev"], slot
+
+    @staticmethod
+    def consumed(slot: Dict[str, Any]) -> None:
+        slot["consumed"] = torch.cuda.Event()
+        slot["consumed"].record()
+
+
+def _as_step_tensor(x: Any) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+
+
+def _ragged_pad(
+    leaves: List[Any], chunk_leaves0: List[Any], treedef: Any, chunk_treedef: Any, batched: Tuple[int, ...]
+) -> Optional[Tuple[List[Any], int]]:
+    """A short final batch zero-padded to the chunk's batch: ``(leaves,
+    pad)``, or None when the step is not the chunk's shape plus pad rows."""
+    if treedef != chunk_treedef or len(leaves) != len(chunk_leaves0) or not batched:
+        return None
+    batch = int(chunk_leaves0[batched[0]].shape[0])
+    pad = None
+    for i, (leaf, ref) in enumerate(zip(leaves, chunk_leaves0)):
+        if not isinstance(leaf, torch.Tensor) or not isinstance(ref, torch.Tensor):
+            if type(leaf) is not type(ref):  # python scalars stack like 0-d tensors
+                return None
+            continue
+        if leaf.dtype != ref.dtype:
+            return None
+        if i in batched:
+            if tuple(leaf.shape[1:]) != tuple(ref.shape[1:]) or leaf.shape[0] >= batch:
+                return None
+            step_pad = batch - int(leaf.shape[0])
+            if pad is not None and step_pad != pad:
+                return None
+            pad = step_pad
+        elif tuple(leaf.shape) != tuple(ref.shape):
+            return None
+    if pad is None:
+        return None
+    return _bucketing.pad_leaves(leaves, batched, pad), pad
+
+
+def _step_sig(leaves: List[Any], treedef: Any) -> Tuple:
+    # a python scalar is staged as a 0-d tensor: its type, not its value, keys the chunk
+    return (treedef, tuple((tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor) else ("py", type(x)) for x in leaves))
+
+
+def drive(
+    obj: Any,
+    batches: Any,
+    *,
+    compute_in_trace: bool = False,
+    axis_name: Optional[Any] = None,
+    mesh: Optional[Any] = None,
+    in_specs: Optional[Any] = None,
+    steps_per_chunk: int = 16,
+    hierarchical_sync: bool = False,
+    snapshot_store: Optional[Any] = None,
+    snapshot_every: Optional[int] = None,
+    snapshot_key: str = "drive",
+    resume_from: Optional[Any] = None,
+) -> DriveResult:
+    """Run one evaluation epoch through the engine's chunk programs.
+
+    Args:
+        obj: a ``Metric`` or ``MetricCollection``; its states accumulate as
+            if every batch had gone through ``update()``.
+        batches: a **stacked** tuple of tensors sharing a leading steps axis
+            (``(preds[N, B, ...], target[N, B])``), or a **host iterable** of
+            per-step argument tuples (CPU batches are staged through pinned
+            memory, two chunks deep).
+        compute_in_trace: fold the members' computes into the last chunk's
+            program; the values come back in ``DriveResult.values``.
+        steps_per_chunk: ``K``, the steps one program replay takes.
+        axis_name, mesh, in_specs, hierarchical_sync: the mesh modes
+            (ROADMAP §1 item 12), not ported yet.
+        snapshot_store, snapshot_every, snapshot_key, resume_from: drive
+            snapshots (ROADMAP §1 items 13-14), not ported yet.
+    """
+    if any(x is not None for x in (axis_name, mesh, in_specs)) or hierarchical_sync:
+        raise NotImplementedError(
+            "drive(mesh=, axis_name=, in_specs=, hierarchical_sync=) are the mesh modes of ROADMAP §1 item 12,"
+            " not ported yet; drive locally, one process per card."
+        )
+    if snapshot_store is not None or snapshot_every is not None or resume_from is not None:
+        raise NotImplementedError(
+            "drive snapshots (snapshot_store=, snapshot_every=, resume_from=) need the serving SpillStore of"
+            " ROADMAP §1 items 13-14, not ported yet."
+        )
+    if steps_per_chunk < 1:
+        raise ValueError(f"steps_per_chunk must be >= 1, got {steps_per_chunk}")
+    del snapshot_key
+    with torch.no_grad():
+        return _drive_local(obj, batches, compute_in_trace, steps_per_chunk)
+
+
+def _bind_states(fused: List[Tuple[str, Any]], states: Dict[str, Any], n_steps: int) -> None:
+    for k, m in fused:
+        m._restore_state(states[k])
+        m._update_count += n_steps
+        m._computed = None
+        if _health.health_enabled(m):
+            m._health_stats["batches_screened"] += n_steps
+
+
+def _compute_keys(fused: List[Tuple[str, Any]]) -> Tuple[str, ...]:
+    from metrics_tpu_torch.parallel import comm
+
+    if comm.distributed_available():
+        return ()
+    keys = []
+    for k, m in fused:
+        if (
+            m._compute_is_host_side
+            or m._is_synced
+            or m.dist_sync_fn is not None
+            or m._distributed_available_fn is not None
+            or m.process_group is not None
+        ):
+            continue
+        ok = m.__dict__.get("_drive_cmp_traceable")
+        if ok is None:
+            from metrics_tpu_torch.collections import MetricCollection
+
+            ok = m._drive_cmp_traceable = MetricCollection._compute_runs_as_program(m, m._snapshot_state())
+        if ok:
+            keys.append(k)
+    return tuple(keys)
+
+
+def _drive_local(obj: Any, batches: Any, compute_in_trace: bool, steps_per_chunk: int) -> DriveResult:
+    keys, members = _members_of(obj)
+    stats = _cache.instance_stats(obj)
+    ids: Dict[int, int] = {}
+    for m in members:
+        ids[id(m)] = ids.get(id(m), 0) + 1
+    fused = [(k, m) for k, m in zip(keys, members) if ids[id(m)] == 1 and _scan_drivable(m)]
+    fused_keys = {k for k, _ in fused}
+    eager = [(k, m) for k, m in zip(keys, members) if k not in fused_keys]
+
+    stacked = _stacked_steps(batches)
+    if stacked is not None:
+        args_tree, n_steps = stacked
+        if n_steps == 0:
+            return DriveResult(0, 0, (), tuple(k for k, _ in eager), obj.compute() if compute_in_trace else None)
+        step_iter: Any = iter(tuple(a[i] for a in args_tree) for i in range(n_steps))
+    else:
+        step_iter = _steps_iter(batches)
+    step0 = next(step_iter, None)
+    if step0 is None:
+        return DriveResult(0, 0, (), tuple(k for k, _ in eager), obj.compute() if compute_in_trace else None)
+
+    fused_members = [m for _, m in fused]
+    additive_ok = bool(fused) and all(_bucketing.supports_bucketing(m) for m in fused_members)
+    leaves0, treedef = _tree.flatten((step0, {}))
+    batched = _bucketing.batched_leaf_indices(leaves0)
+    compute_keys = _compute_keys(fused) if compute_in_trace and fused else ()
+
+    runner = _ChunkRunner(fused, eager, stats, compute_keys, treedef, batched, additive_ok, steps_per_chunk)
+    if stacked is not None and fused:
+        runner.run_stacked(args_tree, n_steps)
+    else:
+        runner.run_stream(step0, step_iter)
+    values = None
+    if compute_in_trace:
+        for k, m in fused:
+            if k in runner.values:
+                m._computed = _squeeze_if_scalar(runner.values[k])
+                if _health.health_enabled(m):
+                    _health.check_compute_result(m, m._computed)
+        values = obj.compute()
+    return DriveResult(
+        runner.n_steps, runner.n_chunks, tuple(k for k, _ in runner.fused), tuple(k for k, _ in runner.eager), values
+    )
+
+
+class _ChunkRunner:
+    """Drives the fused members chunk by chunk and the eager ones step by
+    step. On a fallback error the states reached so far are bound and the
+    remaining steps (the failed chunk's included) run per step."""
+
+    def __init__(self, fused, eager, stats, compute_keys, treedef, batched, additive_ok, k) -> None:
+        self.fused = list(fused)
+        self.eager = list(eager)
+        self.stats = stats
+        self.compute_keys = compute_keys
+        self.treedef = treedef
+        self.batched = batched
+        self.additive_ok = additive_ok
+        self.k = k
+        self.entry = (
+            _driver_entry(tuple(k_ for k_, _ in fused), [m for _, m in fused], compute_keys) if fused else None
+        )
+        self.states = {key: m._snapshot_state() for key, m in fused}
+        self.values: Dict[str, Any] = {}
+        self.n_steps = 0
+        self.n_chunks = 0
+        self.bound_steps = 0  # steps the carried states hold
+        self.moved: List[Any] = []  # fused members sent per step by a fallback
+        self.staging: Optional[_Staging] = None
+
+    # -- chunks -----------------------------------------------------------
+    def _dispatch(self, leaves: List[torch.Tensor], pads: Optional[List[int]], last: bool) -> None:
+        members = [m for _, m in self.fused]
+        cmp = last and bool(self.compute_keys)
+        variant = ("scan_pad" if pads is not None else "scan") + ("_cmp" if cmp else "")
+        inputs: Tuple[Any, ...] = (self.states, leaves)
+        if pads is not None:
+            inputs += (torch.tensor(pads, dtype=torch.int64).to(leaves[0].device),)
+        inputs += (self.treedef,)
+        probe = not _cache.probed(members)
+        try:
+            out = self.entry.invoke(variant, members, self.stats, *inputs, probe=probe)
+        except _cache.FALLBACK_ERRORS:
+            if not cmp:
+                raise
+            # the computes would not capture: this chunk without them, and
+            # the values from the host afterwards
+            self.compute_keys = ()
+            variant = variant[: -len("_cmp")]
+            out = self.entry.invoke(variant, members, self.stats, *inputs, probe=probe)
+            cmp = False
+        _cache.mark_probed(members)
+        if cmp:
+            self.states, self.values = out
+        else:
+            self.states = out
+        self.n_chunks += 1
+
+    # -- stacked epochs ------------------------------------------------------
+    def run_stacked(self, args_tree: Tuple[torch.Tensor, ...], n_steps: int) -> None:
+        stacked_leaves, _ = _tree.flatten((args_tree, {}))
+        k = min(self.k, n_steps)
+        batch = int(stacked_leaves[self.batched[0]].shape[1]) if self.batched else 0
+        pos = 0
+        while pos < n_steps:
+            span = min(k, n_steps - pos)
+            chunk = [x[pos:pos + span] for x in stacked_leaves]
+            pads = None
+            if span < k and self.additive_ok and self.batched:
+                # whole zero steps, so the K-step program replays again
+                chunk = [torch.cat([x, x.new_zeros((k - span, *x.shape[1:]))]) for x in chunk]
+                pads = [0] * span + [batch] * (k - span)
+            last = pos + span >= n_steps
+            try:
+                self._dispatch(chunk, pads, last)
+            except _cache.FALLBACK_ERRORS:
+                self._fall_back_from(pos, n_steps, lambda i: tuple(a[i] for a in args_tree))
+                return
+            pos += span
+            self.bound_steps = pos
+        self.n_steps = n_steps
+        _bind_states(self.fused, self.states, n_steps)
+        for i in range(n_steps):
+            for _, m in self.eager:
+                m.update(*tuple(a[i] for a in args_tree))
+
+    def _fall_back_from(self, pos: int, n_steps: int, step_at: Any) -> None:
+        new_eager = list(self.fused)
+        _bind_states(self.fused, self.states, pos)
+        for _, m in new_eager:
+            m._jit_failed = True
+        old_eager = list(self.eager)
+        self.eager = old_eager + new_eager
+        self.fused = []
+        for i in range(n_steps):
+            for _, m in (new_eager if i >= pos else []) + old_eager:
+                m.update(*step_at(i))
+        self.n_steps = n_steps
+        self.values = {}
+
+    # -- host iterables ------------------------------------------------------
+    def _stage(self, steps: List[List[Any]]) -> Tuple[List[torch.Tensor], Optional[Dict[str, Any]]]:
+        cols = [[_as_step_tensor(x) for x in col] for col in zip(*steps)]
+        device = next((m.device for _, m in self.fused), torch.device("cpu"))
+        if device.type == "cuda" and all(x.device.type == "cpu" for col in cols for x in col):
+            if self.staging is None:
+                self.staging = _Staging(device)
+            dev, slot = self.staging.stage([list(s) for s in zip(*cols)])
+            torch.cuda.current_stream(device).wait_event(slot["copied"])
+            return dev, slot
+        return [torch.stack([x.to(device) for x in col]) for col in cols], None
+
+    def run_stream(self, step0: Tuple[Any, ...], step_iter: Any) -> None:
+        chunk_sig: Optional[Tuple] = None
+        chunk_leaves0: Optional[List[Any]] = None
+        chunk_steps: List[List[Any]] = []
+        chunk_args: List[Tuple[Any, ...]] = []
+        chunk_pads: List[int] = []
+        family_full = 0
+        tail_steps: List[Tuple[Any, ...]] = []
+        # the chunk parked until the next is staged, so the last one can take
+        # the *_cmp variant
+        pending: Optional[Tuple[List[torch.Tensor], Optional[List[int]], Any, List[Tuple[Any, ...]]]] = None
+
+        def _run(staged, last: bool) -> bool:
+            leaves, pads, slot, args_list = staged
+            try:
+                self._dispatch(leaves, pads, last)
+            except _cache.FALLBACK_ERRORS:
+                self._stream_fallback(args_list)
+                return False
+            if slot is not None:
+                _Staging.consumed(slot)
+            self.bound_steps += len(args_list)
+            return True
+
+        def _flush(last: bool) -> None:
+            nonlocal pending, chunk_steps, chunk_args, chunk_pads
+            if chunk_steps:
+                leaves, slot = self._stage(chunk_steps)
+                staged = (leaves, chunk_pads if any(chunk_pads) else None, slot, chunk_args)
+                chunk_steps, chunk_args, chunk_pads = [], [], []
+                if not self.compute_keys:
+                    if self.fused:
+                        _run(staged, last)
+                    else:
+                        self._per_step(staged[3])
+                    staged = None
+                elif pending is not None:
+                    if self.fused:
+                        _run(pending, False)
+                    else:
+                        self._per_step(pending[3])
+                if staged is not None:
+                    pending = staged
+            if last and pending is not None:
+                if self.fused:
+                    _run(pending, not tail_steps)
+                else:
+                    self._per_step(pending[3])
+                pending = None
+
+        for step_args in _chain(step0, step_iter):
+            self.n_steps += 1
+            for _, m in self.eager:
+                m.update(*step_args)
+            if not self.fused:
+                continue
+            leaves, step_treedef = _tree.flatten((step_args, {}))
+            if step_treedef != self.treedef:
+                tail_steps.append(step_args)
+                continue
+            sig = _step_sig(leaves, step_treedef)
+            if chunk_sig is None or sig != chunk_sig:
+                folded = None
+                if chunk_sig is not None and self.additive_ok:
+                    folded = _ragged_pad(leaves, chunk_leaves0, step_treedef, self.treedef, self.batched)
+                if folded is not None:
+                    chunk_steps.append(folded[0])
+                    chunk_args.append(step_args)
+                    chunk_pads.append(folded[1])
+                    if len(chunk_steps) >= self.k:
+                        family_full += 1
+                        _flush(False)
+                    continue
+                if chunk_sig is not None:
+                    _flush(False)
+                    family_full = 0
+                chunk_sig, chunk_leaves0 = sig, list(leaves)
+            chunk_steps.append(list(leaves))
+            chunk_args.append(step_args)
+            chunk_pads.append(0)
+            if len(chunk_steps) >= self.k:
+                family_full += 1
+                _flush(False)
+        if (
+            self.fused
+            and chunk_steps
+            and self.additive_ok
+            and self.batched
+            and len(chunk_steps) < self.k
+            and family_full > 0
+        ):
+            # pad the short final chunk with whole zero steps so the K-step
+            # program replays again
+            batch = int(chunk_leaves0[self.batched[0]].shape[0])
+            zero_step = [
+                torch.zeros_like(_as_step_tensor(x)) if i in set(self.batched) else x
+                for i, x in enumerate(chunk_leaves0)
+            ]
+            while len(chunk_steps) < self.k:
+                chunk_steps.append(list(zero_step))
+                chunk_pads.append(batch)
+        _flush(True)
+        if self.fused:
+            _bind_states(self.fused, self.states, self.bound_steps)
+            for step_args in tail_steps:
+                for _, m in self.fused:
+                    m.update(*step_args)
+            if tail_steps:
+                self.values = {}
+
+    def _per_step(self, args_list: List[Tuple[Any, ...]]) -> None:
+        """Steps staged before a fallback, for the members it moved."""
+        for step_args in args_list:
+            for _, m in self.moved:
+                m.update(*step_args)
+
+    def _stream_fallback(self, args_list: List[Tuple[Any, ...]]) -> None:
+        """A chunk could not run as a program: bind the states so far, then
+        the fused members go per step, this chunk's steps first."""
+        _bind_states(self.fused, self.states, self.bound_steps)
+        for _, m in self.fused:
+            m._jit_failed = True
+        self.moved = self.fused
+        self.fused = []
+        self.eager.extend(self.moved)
+        self.values = {}
+        self._per_step(args_list)
+
+
+def _chain(first: Tuple[Any, ...], rest: Any):
+    yield first
+    yield from rest
+

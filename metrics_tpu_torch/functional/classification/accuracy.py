@@ -112,16 +112,16 @@ def _subset_accuracy_update(
     device = preds.device
     if mode == DataType.MULTILABEL:
         correct = (preds == target).all(dim=1).sum()
-        total = torch.tensor(target.shape[0], device=device)
+        total = torch.full((), target.shape[0], dtype=torch.int64, device=device)
     elif mode == DataType.MULTICLASS:
         correct = (preds * target).sum(dtype=torch.int64)
         total = target.sum(dtype=torch.int64)
     elif mode == DataType.MULTIDIM_MULTICLASS:
         sample_correct = (preds * target).sum(dim=(1, 2))
         correct = (sample_correct == target.shape[2]).sum()
-        total = torch.tensor(target.shape[0], device=device)
+        total = torch.full((), target.shape[0], dtype=torch.int64, device=device)
     else:
-        correct, total = torch.tensor(0, device=device), torch.tensor(0, device=device)
+        correct = total = torch.zeros((), dtype=torch.int64, device=device)
     return correct, total
 
 

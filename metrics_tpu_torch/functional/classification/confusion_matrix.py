@@ -7,6 +7,7 @@ import torch
 from metrics_tpu_torch.obs.warn import warn_once
 from metrics_tpu_torch.ops.confusion_counts import confusion_counts, multilabel_counts
 from metrics_tpu_torch.utils.checks import _input_format_classification
+from metrics_tpu_torch.utils.data import in_program
 from metrics_tpu_torch.utils.enums import DataType
 
 
@@ -42,7 +43,7 @@ def _confusion_matrix_compute(confmat: torch.Tensor, normalize: Optional[str] = 
         elif normalize == "all":
             confmat = confmat / confmat.sum()
         nan_mask = torch.isnan(confmat)
-        nan_count = int(nan_mask.sum().item())
+        nan_count = 0 if in_program() else int(nan_mask.sum().item())
         if nan_count:
             warn_once(
                 f"{nan_count} nan values found in confusion matrix have been replaced with zeros.",

@@ -1,14 +1,18 @@
 """Tweedie deviance score (counterpart of
 ``metrics_tpu/functional/regression/tweedie_deviance.py``). The domain checks
-read the values (host syncs), so they run on every update."""
+read the values (host syncs), so they run on every eager update and skip
+inside an engine program, as the JAX ones skip under tracing."""
 from typing import Tuple
 
 import torch
 
 from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.data import in_program
 
 
 def _validate_domain(preds: torch.Tensor, targets: torch.Tensor, power: float) -> None:
+    if in_program():
+        return
     if power == 1 and (bool((preds <= 0).any()) or bool((targets < 0).any())):
         raise ValueError(f"For power={power}, 'preds' has to be strictly positive and 'targets' cannot be negative.")
     if power == 2 and (bool((preds <= 0).any()) or bool((targets <= 0).any())):
@@ -43,7 +47,8 @@ def _tweedie_deviance_score_update(
         term_3 = torch.pow(preds, 2 - power) / (2 - power)
         deviance_score = 2 * (term_1 - term_2 + term_3)
 
-    return deviance_score.sum(), torch.tensor(targets.numel(), device=targets.device)
+    # a fill, not a host-to-device copy: the update runs inside a CUDA graph capture
+    return deviance_score.sum(), torch.full((), targets.numel(), dtype=torch.int64, device=targets.device)
 
 
 def _tweedie_deviance_score_compute(sum_deviance_score: torch.Tensor, num_observations: torch.Tensor) -> torch.Tensor:

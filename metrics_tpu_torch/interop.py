@@ -6,11 +6,10 @@ other is the accumulated state of a metric mid-stream. A JAX metric's (or
 numpy arrays under the same keys this package uses, so the conversion is
 per leaf. The attributes a metric learns during ``update`` (its
 ``_dynamic_state_attrs``, such as ``Accuracy.mode``) are not in a JAX
-``state_dict``; pass them as ``dynamic``. The counters of the JAX package's
-input-health guard (``_health_counts``, registered by the aggregators'
-``nan_strategy`` and by ``on_bad_input``) are left out: this package has
-no health guard yet, and its aggregators apply ``nan_strategy`` in the
-eager update.
+``state_dict``; pass them as ``dynamic``. The health counters
+(``_health_counts``, registered under ``on_bad_input`` and by the
+aggregators' ``nan_strategy``) carry across both ways like any state:
+both packages register them for the same configurations.
 
 Example::
 
@@ -23,9 +22,7 @@ from typing import Any, Dict, List, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from metrics_tpu_torch.metric import _encode_dynamic
-
-_HEALTH_STATE = "_health_counts"
+from metrics_tpu_torch.metric import _decode_dynamic, _encode_dynamic
 
 
 def _leaf(x: Any) -> torch.Tensor:
@@ -48,8 +45,23 @@ def state_from_jax(
     out: Dict[str, Any] = {
         key: [_leaf(x) for x in value] if isinstance(value, list) else _leaf(value)
         for key, value in jax_state.items()
-        if key.rsplit(".", 1)[-1] != _HEALTH_STATE
     }
     for key, value in (dynamic or {}).items():
         out[key] = _encode_dynamic(value)
+    return out
+
+
+def state_to_jax(port_state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The other way: this package's ``state_dict()`` as numpy leaves (lists
+    of arrays for list states) that the JAX package's ``load_state_dict``
+    takes. Learned attributes come back decoded (enums as this package's
+    enum); pass their ``.value`` to the JAX metric's attribute."""
+    out: Dict[str, Any] = {}
+    for key, value in port_state.items():
+        if isinstance(value, torch.Tensor):
+            out[key] = value.detach().cpu().numpy()
+        elif isinstance(value, list):
+            out[key] = [x.detach().cpu().numpy() for x in value]
+        else:
+            out[key] = _decode_dynamic(value)
     return out

@@ -1,6 +1,6 @@
-"""``Metric`` base class: state registry, lifecycle and cross-process sync
-(counterpart of ``metrics_tpu/metric.py``; the engine, health screening and
-tracing spans are not part of this package yet).
+"""``Metric`` base class: state registry, lifecycle, cross-process sync and
+the update engine (counterpart of ``metrics_tpu/metric.py``; its tracing
+spans are not part of this package yet).
 
 * A ``Metric`` is an ``nn.Module``. Tensor states are buffers on the
   metric's device; ``cat`` buffers are Python lists of tensors.
@@ -21,6 +21,13 @@ tracing spans are not part of this package yet).
   and the local state comes back afterwards (``sync``/``unsync``).
 * Arithmetic and comparison operators on metrics build a
   :class:`CompositionalMetric`; ``__hash__`` stays identity-based.
+* ``update`` runs through the engine (``metrics_tpu_torch/engine``): one
+  update program per (class, configuration, input shapes), shared by every
+  instance, replayed as a CUDA graph on the card and run eagerly on the CPU;
+  the value checks skip inside it. List states, ``jit_update=False``,
+  ``dist_sync_on_step=True`` and metrics whose program failed run the
+  eager update, value checks included.
+* ``on_bad_input`` screens NaN and ±Inf inputs (``resilience/health.py``).
 """
 import copy
 import enum
@@ -35,11 +42,13 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from metrics_tpu_torch.engine import cache as _engine
 from metrics_tpu_torch.obs.warn import instance_token, warn_once
 from metrics_tpu_torch.parallel import comm
+from metrics_tpu_torch.resilience import health as _health
 from metrics_tpu_torch.utils import enums as _enums
 from metrics_tpu_torch.utils.data import _squeeze_if_scalar, dim_zero_cat
-from metrics_tpu_torch.utils.exceptions import MetricsUserError, SyncError
+from metrics_tpu_torch.utils.exceptions import MetricsUserError, NumericalHealthError, SyncError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 _MERGEABLE_FX = ("sum", "max", "min", "cat")
@@ -104,6 +113,18 @@ class Metric(nn.Module):
         on_sync_error: ``"raise"`` propagates a failed sync as a
             :class:`SyncError`; ``"local"`` warns and computes on the
             rank-local state.
+        on_bad_input: what a NaN or ±Inf in the update inputs does:
+            ``"propagate"`` (no screening), ``"raise"`` (the update is
+            quarantined and :class:`NumericalHealthError` raised),
+            ``"skip"`` (the update is quarantined and counted) or
+            ``"mask"`` (the bad rows are dropped exactly). Counts in
+            :meth:`health_report`.
+        jit_update: run ``update`` through the engine's shared programs
+            (CUDA graphs on the card); False keeps the eager update and its
+            value checks.
+        jit_bucket: ``"pow2"`` pads the batch axis to powers of two, with an
+            exact correction, for the row-additive metrics; ``None`` keeps
+            exact shapes.
         device: where the states live and the kernels run; ``None`` is the
             GPU, and raises when CUDA is not available.
     """
@@ -117,6 +138,14 @@ class Metric(nn.Module):
     #: than the registered default: the sync exchanges their shapes first,
     #: as for cat states, since a rank that never updated keeps the default.
     _shape_polymorphic_states: FrozenSet[str] = frozenset()
+    #: ``compute`` needs concrete values, so a fused collection program
+    #: leaves it out.
+    _compute_is_host_side: bool = False
+    #: Opt-in to ``jit_bucket`` padding and the compiled ``"mask"``: every
+    #: batch row adds independently to every ``"sum"`` state, and axis 0 of
+    #: each tensor input of rank >= 1 is the batch axis
+    #: (``engine/bucketing.py``).
+    _batch_additive: bool = False
 
     def __init__(
         self,
@@ -125,6 +154,9 @@ class Metric(nn.Module):
         process_group: Optional[Any] = None,
         dist_sync_fn: Optional[Callable] = None,
         on_sync_error: str = "raise",
+        on_bad_input: str = "propagate",
+        jit_update: bool = True,
+        jit_bucket: Optional[str] = None,
         device: Optional[Union[str, torch.device]] = None,
     ) -> None:
         super().__init__()
@@ -135,6 +167,21 @@ class Metric(nn.Module):
         if on_sync_error not in SYNC_ERROR_POLICIES:
             raise ValueError(f"`on_sync_error` must be one of {SYNC_ERROR_POLICIES}, got {on_sync_error!r}")
         self.on_sync_error = on_sync_error
+        if on_bad_input not in _health.HEALTH_POLICIES:
+            raise ValueError(f"`on_bad_input` must be one of {_health.HEALTH_POLICIES}, got {on_bad_input!r}")
+        self.on_bad_input = on_bad_input
+        # what counts as bad: "nonfinite" (NaN and ±Inf) or "nan" (the
+        # aggregators' nan_strategy, where ±Inf is data); part of the program
+        self.health_screen = "nonfinite"
+        self._health_stats = _health.new_health_stats()
+        self._health_warn_on_bad = False
+        if jit_bucket not in (None, "pow2"):
+            raise ValueError(f"`jit_bucket` must be None or 'pow2', got {jit_bucket!r}")
+        self.jit_bucket = jit_bucket
+        self._enable_jit = jit_update
+        self._jit_failed = False
+        self._engine_probed = False
+        self._compile_stats = _engine.new_stats()
         if process_group is not None and dist_sync_fn is None and not isinstance(process_group, dist.ProcessGroup):
             # fail here, not in the first distributed compute(): the default gather needs a torch group
             raise ValueError(
@@ -158,6 +205,10 @@ class Metric(nn.Module):
         self._cache: Optional[Dict[str, Any]] = None
         # overrides the "is a distributed world present" check (in-process tests of a dist_sync_fn)
         self._distributed_available_fn: Optional[Callable] = None
+        if on_bad_input != "propagate":
+            # the counters are a "sum" state, registered only under a policy
+            # so the default keeps the reference's state set
+            _health.attach_state(self)
 
     @property
     def device(self) -> torch.device:
@@ -232,7 +283,7 @@ class Metric(nn.Module):
 
         def _run() -> Dict[str, Any]:
             with torch.no_grad():
-                self._inner_update(*args, **kwargs)
+                self._update_impl(*args, **kwargs)
             return self._snapshot_state()
 
         return self._with_state(state, _run)
@@ -352,10 +403,85 @@ class Metric(nn.Module):
             self._computed = None
             self._update_count += 1
             with torch.no_grad():
-                update(*args, **kwargs)
+                self._update_impl(*args, **kwargs)
 
         self._inner_update = update
         return wrapped_func
+
+    def _update_impl(self, *args: Any, **kwargs: Any) -> None:
+        """One update: through the engine's shared program where it can run
+        as one, else the eager update (with the value checks)."""
+        screened = _health.health_enabled(self)
+        if screened:
+            self._health_stats["batches_screened"] += 1
+        if (
+            not self._enable_jit
+            or self._jit_failed
+            or self.dist_sync_on_step
+            or self._has_list_state()
+            or (screened and _health.forces_eager(self))
+        ):
+            self._eager_update(screened, args, kwargs)
+            return
+        saved = self._snapshot_state()
+        try:
+            new_state = _engine.update_transition(self, saved, args, kwargs)
+        except _engine.FALLBACK_ERRORS:
+            self._jit_failed = True
+            self._restore_state(saved)
+            self._eager_update(screened, args, kwargs)
+            return
+        except BaseException:
+            self._restore_state(saved)
+            raise
+        self._restore_state(new_state)
+        if screened and self.on_bad_input == "raise":
+            _health.raise_on_quarantine(self)
+
+    def _eager_update(self, screened: bool, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> None:
+        if screened:
+            _health.eager_update(self, args, kwargs)
+        else:
+            self._inner_update(*args, **kwargs)
+
+    def _has_list_state(self) -> bool:
+        return any(isinstance(getattr(self, n), list) for n in self._defaults)
+
+    def _health_prescreen(self, args: Any, kwargs: Any) -> Any:
+        """Hook: normalize the update inputs before the non-finite screening
+        (runs only under a health policy). Identity here; the aggregators
+        flatten rank >= 2 values so ``"mask"`` drops elements."""
+        return args, kwargs
+
+    def compile_stats(self) -> Dict[str, Any]:
+        """This instance's engine telemetry: ``compiles`` (programs its
+        dispatches created: CUDA graph captures on the card), ``cache_hits``
+        (updates served by an existing program, perhaps captured by another
+        instance), ``retraces`` (programs beyond a variant's first) and
+        ``bucketed_calls``; with ``jit_enabled``, ``jit_failed`` (the metric
+        fell back to its eager update) and ``jit_bucket``. Process-wide:
+        ``metrics_tpu_torch.engine.cache_summary``."""
+        out: Dict[str, Any] = dict(self._compile_stats)
+        out["jit_enabled"] = self._enable_jit
+        out["jit_failed"] = self._jit_failed
+        out["jit_bucket"] = self.jit_bucket
+        return out
+
+    def health_report(self) -> Dict[str, Any]:
+        """Numerical-health telemetry: the device counters ``nan_count``,
+        ``inf_count``, ``rows_masked``, ``updates_quarantined`` and
+        ``overflow_events`` (a ``"sum"`` state: they reset, merge, sync and
+        checkpoint with the metric; 0 under ``"propagate"``), and the host
+        counters ``batches_screened`` and ``last_compute_nonfinite``."""
+        return _health.metric_report(self)
+
+    def compute_async(self) -> Any:
+        """:meth:`compute` with the device-to-host copy started at once and
+        coalesced: the returned :class:`~metrics_tpu_torch.engine.AsyncResult`
+        resolves with one copy of the whole result."""
+        from metrics_tpu_torch.engine.driver import async_compute
+
+        return async_compute(self)
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
@@ -378,6 +504,8 @@ class Metric(nn.Module):
                 distributed_available=self._distributed_available_fn,
             ):
                 self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+            if _health.health_enabled(self):
+                _health.check_compute_result(self, self._computed)
             return self._computed
 
         self._compute_impl = compute
@@ -393,6 +521,8 @@ class Metric(nn.Module):
         self._cache = None
         self._is_synced = False
         self._to_sync = True
+        # the "raise" mirrors follow the counters back to zero
+        _health.reset_seen_mirrors(self)
 
     # ------------------------------------------------------------------
     # cross-process sync
@@ -603,7 +733,8 @@ class Metric(nn.Module):
         for name, default in self._defaults.items():
             key = prefix + name
             if key not in state_dict:
-                if self._persistent[name]:
+                # a checkpoint from before a health policy keeps zero counters
+                if self._persistent[name] and name != _health.HEALTH_STATE:
                     missing_keys.append(key)
                 continue
             v = state_dict[key]
@@ -620,6 +751,8 @@ class Metric(nn.Module):
         for attr in self._dynamic_state_attrs:
             if prefix + attr in state_dict:
                 setattr(self, attr, _decode_dynamic(state_dict[prefix + attr]))
+        if _health.HEALTH_STATE in self._defaults:
+            _health.reset_seen_mirrors(self, getattr(self, _health.HEALTH_STATE).cpu().numpy())
         known = set(self._defaults) | set(self._dynamic_state_attrs)
         for key in state_dict:
             if key.startswith(prefix) and key[len(prefix):] not in known and "." not in key[len(prefix):]:
@@ -630,14 +763,24 @@ class Metric(nn.Module):
     # pickling / copying
     # ------------------------------------------------------------------
     def __getstate__(self) -> Dict[str, Any]:
-        """The instance's attributes without the wrappers ``__init__`` made:
-        they are closures over this instance (a copy would update the
+        """The instance's attributes without the wrappers ``__init__`` made
+        and without its engine key (a program cache is per process): the
+        wrappers are closures over this instance (a copy would update the
         original) and do not pickle. State tensors pickle as they are, with
         their device: a CUDA state comes back on CUDA, and ``_device`` with
         it (the JAX package turns its states into numpy instead). The process
         group is a handle to this process's communicator: a deep copy shares
         it, and a pickle leaves it out."""
-        skip = ("update", "compute", "_update_signature", "_inner_update", "_compute_impl")
+        skip = (
+            "update",
+            "compute",
+            "_update_signature",
+            "_inner_update",
+            "_compute_impl",
+            "_engine_key",
+            "_engine_key_pins",
+            "_zero_row_deltas",
+        )
         state = {k: v for k, v in self.__dict__.items() if k not in skip}
         if state.get("process_group") is not None:
             state["process_group"] = _ProcessLocal(state["process_group"])
@@ -660,10 +803,25 @@ class Metric(nn.Module):
                 )
             state = {**state, "process_group": group.handle}
         super().__setstate__(state)
+        for name, value in (
+            ("on_bad_input", "propagate"),
+            ("health_screen", "nonfinite"),
+            ("_health_warn_on_bad", False),
+            ("jit_bucket", None),
+            ("_enable_jit", True),
+            ("_jit_failed", False),
+            ("_engine_probed", False),
+        ):
+            self.__dict__.setdefault(name, value)
+        self.__dict__.setdefault("_health_stats", _health.new_health_stats())
         self._update_signature = inspect.signature(self.update)
         self.update = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute = self._wrap_compute(self.compute)  # type: ignore[method-assign]
         self._warn_token = instance_token()
+        # the program cache is this process's: the copy finds its entry anew
+        # and counts its own dispatches; the health counters describe the
+        # metric and travel with it
+        self._compile_stats = _engine.new_stats()
 
     def clone(self) -> "Metric":
         """A deep copy, with its own state and wrappers."""
@@ -823,7 +981,7 @@ class CompositionalMetric(Metric):
     ) -> None:
         operands = (metric_a, metric_b)
         device = next((x.device for x in operands if isinstance(x, (Metric, torch.Tensor))), None)
-        super().__init__(device=device)
+        super().__init__(device=device, jit_update=False)
         self.op = operator
         for name, x in zip(("metric_a", "metric_b"), operands):
             if isinstance(x, Metric):

@@ -11,11 +11,20 @@ There is no policy switch and no fallback. Each kernel wrapper calls
 :func:`count_launch` right after its launch succeeded, so
 :func:`kernel_stats` shows which path a run really took: it lists the ops
 that ran since the last reset, and no other.
+
+Inside a CUDA graph capture a wrapper's launch is recorded, not run: the
+engine wraps each capture in :func:`recording`, which takes the launches
+the capture saw out of the counts, and credits them with :func:`credit` on
+every replay of the graph (``engine/cache.py``). The counts therefore stay
+the launches the card ran.
 """
 import threading
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
 
 import torch
+
+from metrics_tpu_torch.utils.program import suspend_guard
 
 
 class KernelOp(NamedTuple):
@@ -67,8 +76,14 @@ def dispatch(name: str, *args: Any, **kwargs: Any) -> Any:
         return op.kernel(*args, **kwargs)
     if device.type == "cpu":
         _count(name, "plain_calls")
-        return op.plain(*args, **kwargs)
+        # on the card this op is one kernel that never syncs: its plain
+        # version's host-side work does not count against an update program
+        with suspend_guard():
+            return op.plain(*args, **kwargs)
     raise ValueError(f"kernel op {name!r} has no path for device {device}")
+
+
+_RECORDING = threading.local()
 
 
 def _count(name: str, key: str) -> None:
@@ -77,8 +92,33 @@ def _count(name: str, key: str) -> None:
 
 
 def count_launch(name: str) -> None:
-    """Called by a kernel wrapper once its kernel launched without error."""
+    """Called by a kernel wrapper once its kernel launched without error
+    (or, inside :func:`recording`, once it was recorded into a graph)."""
+    recorder = getattr(_RECORDING, "launches", None)
+    if recorder is not None:
+        recorder[name] = recorder.get(name, 0) + 1
+        return
     _count(name, "launches")
+
+
+@contextmanager
+def recording() -> Iterator[Dict[str, int]]:
+    """Collect the launches of the enclosed code into the yielded dict
+    instead of the counts (a CUDA graph capture, which runs nothing)."""
+    outer = getattr(_RECORDING, "launches", None)
+    launches: Dict[str, int] = {}
+    _RECORDING.launches = launches
+    try:
+        yield launches
+    finally:
+        _RECORDING.launches = outer
+
+
+def credit(launches: Dict[str, int]) -> None:
+    """Count ``launches`` (op -> n) as run: one replay of a captured graph."""
+    with _LOCK:
+        for name, n in launches.items():
+            _STATS.setdefault(name, {"launches": 0, "plain_calls": 0})["launches"] += n
 
 
 def kernel_stats() -> Dict[str, Dict[str, int]]:

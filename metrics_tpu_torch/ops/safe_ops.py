@@ -23,3 +23,17 @@ def kahan_add(total: torch.Tensor, comp: torch.Tensor, delta: torch.Tensor) -> T
     t = total + y
     comp = (t - total) - y
     return t, comp
+
+
+def saturating_add(acc: torch.Tensor, delta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Integer add that clamps at the dtype's maximum instead of wrapping.
+
+    ``delta`` is a non-negative counter increment. Returns ``(result,
+    overflowed)``: ``overflowed`` is a 0-d bool tensor, True when an element
+    would have wrapped past ``iinfo(acc.dtype).max``; those elements hold the
+    maximum, a visibly pegged count instead of a negative one. No host sync.
+    """
+    out = acc + delta
+    wrapped = out < acc  # with a non-negative delta, a decrease is a wrap
+    peak = torch.full_like(out, torch.iinfo(out.dtype).max)
+    return torch.where(wrapped, peak, out), wrapped.any()

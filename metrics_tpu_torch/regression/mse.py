@@ -29,6 +29,13 @@ class MeanSquaredError(Metric):
     is_differentiable = True
     higher_is_better = False
 
+    # row-additive error sums and element counts: eligible for `jit_bucket`
+    # padding and the compiled "mask", except under the Kahan carry, whose
+    # result depends on the order of the additions
+    @property
+    def _batch_additive(self) -> bool:
+        return not getattr(self, "compensated", False)
+
     def __init__(self, squared: bool = True, compensated: bool = False, **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self.squared = squared

@@ -4,14 +4,18 @@ the checks and normalization of classification inputs (counterpart of
 
 The value checks (negative labels, labels beyond ``num_classes``, non-binary
 targets) read concrete values, so each is one ``.item()`` host sync per
-update in eager PyTorch. They stay: they are the error contract.
+update in eager PyTorch. They are the eager error contract. Inside an engine
+program (:func:`~metrics_tpu_torch.utils.data.in_program`) they skip, as the
+JAX ones skip under tracing: the decisions then rest on shapes, dtypes and
+the arguments alone, so the formatting is a fixed program.
 """
 from typing import Optional, Tuple
 
 import torch
 
-from metrics_tpu_torch.utils.data import select_topk, to_onehot
+from metrics_tpu_torch.utils.data import in_program, select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
+from metrics_tpu_torch.utils.exceptions import JitIncompatibleError
 
 
 def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
@@ -31,6 +35,8 @@ def _basic_input_validation(
     preds_float = preds.is_floating_point()
     if preds.shape[:1] != target.shape[:1]:
         raise ValueError("`preds` and `target` disagree on the batch (first) dimension.")
+    if in_program():
+        return  # value checks need concrete values
     if target.min().item() < 0:
         raise ValueError("Negative values found in `target`; class labels must be >= 0.")
     if not preds_float and preds.min().item() < 0:
@@ -51,7 +57,7 @@ def _check_shape_and_type_consistency(preds: torch.Tensor, target: torch.Tensor)
                 "When `preds` and `target` have equal rank their shapes must match; "
                 f"received preds{tuple(preds.shape)} vs target{tuple(target.shape)}."
             )
-        if preds_float and target.max().item() > 1:
+        if preds_float and not in_program() and target.max().item() > 1:
             raise ValueError(
                 "Float `preds` with an equal-shaped `target` means probability inputs, so `target` may only hold 0s and 1s."
             )
@@ -113,7 +119,7 @@ def _check_num_classes_mc(
                 "With `multiclass=False` the class count implied by the input shapes must equal "
                 "`num_classes`, and here it does not."
             )
-        if num_classes <= target.max().item():
+        if not in_program() and num_classes <= target.max().item():
             raise ValueError("`target` contains a label outside the valid range [0, num_classes).")
         if preds.shape != target.shape and num_classes != implied_classes:
             raise ValueError("`preds` has a class dimension of different size than `num_classes`.")
@@ -162,7 +168,7 @@ def _check_classification_inputs(
                 "`multiclass=False` requires a 2-wide class dimension in `preds`, "
                 "but the inputs carry more than 2 classes."
             )
-        if target.max().item() >= implied_classes:
+        if not in_program() and target.max().item() >= implied_classes:
             raise ValueError("`target` references a class index beyond the class dimension of `preds`.")
 
     if num_classes:
@@ -217,6 +223,11 @@ def _input_format_classification(
             preds = select_topk(preds, top_k or 1)
         else:
             if num_classes is None:
+                if in_program():
+                    raise JitIncompatibleError(
+                        "Cannot infer `num_classes` from label values inside an update program;"
+                        " pass `num_classes` explicitly."
+                    )
                 num_classes = max(int(preds.max().item()), int(target.max().item())) + 1
             preds = to_onehot(preds, max(2, num_classes))
         target = to_onehot(target, max(2, int(num_classes)))

@@ -1,11 +1,15 @@
 """Tensor utilities: dim-0 reductions, one-hot, top-k, collection map,
-bincount and the threshold grid (counterpart of ``metrics_tpu/utils/data.py``)."""
+bincount and the threshold grid (counterpart of ``metrics_tpu/utils/data.py``).
+
+:func:`in_program` is the counterpart of ``is_tracing``: True while the
+update engine runs a transition (``utils/program.py``)."""
 from collections.abc import Mapping, Sequence
 from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
 
 from metrics_tpu_torch.ops.select_topk import select_topk_mask
+from metrics_tpu_torch.utils.program import in_program  # noqa: F401
 
 METRIC_EPS = 1e-6
 

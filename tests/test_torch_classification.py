@@ -254,8 +254,9 @@ def test_metric_without_device_needs_cuda():
 
 
 def test_input_errors_match_jax():
-    """The value checks raise what the JAX package's eager path raises (its
-    jitted module update skips them; the port's eager update keeps them)."""
+    """The value checks raise what the JAX package's eager path raises. Its
+    jitted module update skips them, and so does the port's engine update
+    (``tests/test_torch_engine.py``); the port's eager update keeps them."""
     preds = np.array([0, 1, 2])
     for target in (np.array([0, -1, 1]), np.array([0, 1, 9])):
         with pytest.raises(ValueError) as jax_err:
@@ -264,7 +265,7 @@ def test_input_errors_match_jax():
             ft.accuracy(torch.from_numpy(preds), torch.from_numpy(target), num_classes=3)
         assert str(port_err.value) == str(jax_err.value)
         with pytest.raises(ValueError, match=str(jax_err.value)[:20]):
-            mt.Accuracy(num_classes=3, device="cpu")(torch.from_numpy(preds), torch.from_numpy(target))
+            mt.Accuracy(num_classes=3, jit_update=False, device="cpu")(torch.from_numpy(preds), torch.from_numpy(target))
 
 
 def test_moving_a_metric_moves_its_defaults():

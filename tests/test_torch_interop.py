@@ -124,6 +124,48 @@ def test_new_metric_state_carries_across_from_jax(name, kwargs, kind):
         np.testing.assert_allclose(got, want, rtol=1e-5 if kind == "values" else 1e-6, atol=0)
 
 
+@pytest.mark.parametrize("name,kwargs", [("MeanMetric", {}), ("Accuracy", {"num_classes": C, "on_bad_input": "skip"})])
+def test_health_counters_carry_across_both_ways(name, kwargs):
+    """``_health_counts`` rides ``state_from_jax`` into the port and
+    ``state_to_jax`` back: after a NaN-laced stream split across the two
+    packages, each side's counters and value equal one package's over the
+    whole stream."""
+    rng = np.random.RandomState(3)
+    if name == "MeanMetric":
+        batches = [(rng.standard_normal(8).astype(np.float32),) for _ in range(4)]
+        batches[1][0][[2, 5]] = np.nan
+    else:
+        batches = list(_stream(seed=7))
+        batches[2][0][1, 0] = np.nan
+    whole = getattr(mj, name)(**kwargs)
+    for batch in batches:
+        whole.update(*map(jnp.asarray, batch))
+
+    jax_m = getattr(mj, name)(**kwargs)
+    for batch in batches[:2]:
+        jax_m.update(*map(jnp.asarray, batch))
+    jax_m.persistent(True)
+    port_m = getattr(mt, name)(device="cpu", **kwargs)
+    port_m.persistent(True)
+    dynamic = {"mode": jax_m.mode} if name == "Accuracy" else None
+    result = port_m.load_state_dict(mt.state_from_jax(jax_m.state_dict(), dynamic=dynamic))
+    assert not result.missing_keys and not result.unexpected_keys
+    np.testing.assert_array_equal(port_m._health_counts.numpy(), np.asarray(jax_m._health_counts))
+    port_m.update(*map(torch.from_numpy, batches[2]))
+
+    back = getattr(mj, name)(**kwargs)
+    back.persistent(True)
+    state = mt.state_to_jax(port_m.state_dict())
+    if name == "Accuracy":
+        back.mode = jax_m.mode
+        state.pop("mode")
+    back.load_state_dict(state)
+    back.update(*map(jnp.asarray, batches[3]))
+    np.testing.assert_array_equal(np.asarray(back._health_counts), np.asarray(whole._health_counts))
+    assert back.health_report()["nan_count"] == whole.health_report()["nan_count"] > 0
+    np.testing.assert_allclose(np.asarray(back.compute()), np.asarray(whole.compute()), rtol=1e-5)
+
+
 def test_port_state_dict_round_trip_and_validation():
     batches = _stream(seed=2, n_batches=2)
     src = mt.MetricCollection(_members(mt, device="cpu"))
