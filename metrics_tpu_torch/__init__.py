@@ -7,8 +7,12 @@ Ported so far: the streaming classification eval loop (``Accuracy``,
 sync on ``torch.distributed`` that every ``compute()`` runs, the curve and calibration metrics (``AUROC``,
 ``ROC``, ``PrecisionRecallCurve``, ``AveragePrecision``, ``AUC``, the binned
 curve family and ``CalibrationError``), the regression metrics (``MeanSquaredError``
-and the other ten of ``metrics_tpu/regression``) and the pairwise
-functionals, with their functional forms. Metrics live on the GPU unless a
+and the other ten of ``metrics_tpu/regression``) the pairwise
+functionals, the rest of classification (``CohenKappa``,
+``MatthewsCorrCoef``, ``JaccardIndex``, ``HingeLoss``, ``KLDivergence`` and
+``dice_score``) and the retrieval metrics (``RetrievalMAP``, ``RetrievalMRR``
+and six more), with their functional forms; ``deprecated`` holds the old
+names of those. Metrics live on the GPU unless a
 ``device`` is given; functionals run on their inputs' device. The six
 kernels of these paths (``confusion_counts``, ``multilabel_counts``,
 ``select_topk``, ``binned_counts``, ``binned_calibration``,
@@ -29,10 +33,15 @@ from metrics_tpu_torch.classification import (
     BinnedPrecisionRecallCurve,
     BinnedRecallAtFixedPrecision,
     CalibrationError,
+    CohenKappa,
     ConfusionMatrix,
     F1Score,
     FBetaScore,
     HammingDistance,
+    HingeLoss,
+    JaccardIndex,
+    KLDivergence,
+    MatthewsCorrCoef,
     Precision,
     PrecisionRecallCurve,
     Recall,
@@ -57,6 +66,17 @@ from metrics_tpu_torch.regression import (
     SymmetricMeanAbsolutePercentageError,
     TweedieDevianceScore,
 )
+from metrics_tpu_torch.retrieval import (
+    RetrievalFallOut,
+    RetrievalHitRate,
+    RetrievalMAP,
+    RetrievalMRR,
+    RetrievalMetric,
+    RetrievalNormalizedDCG,
+    RetrievalPrecision,
+    RetrievalRPrecision,
+    RetrievalRecall,
+)
 
 __all__ = [
     "AUC",
@@ -68,6 +88,7 @@ __all__ = [
     "BinnedRecallAtFixedPrecision",
     "CalibrationError",
     "CatMetric",
+    "CohenKappa",
     "CompositionalMetric",
     "ConfusionMatrix",
     "CosineSimilarity",
@@ -75,11 +96,15 @@ __all__ = [
     "F1Score",
     "FBetaScore",
     "HammingDistance",
+    "HingeLoss",
+    "JaccardIndex",
+    "KLDivergence",
+    "MatthewsCorrCoef",
     "MaxMetric",
     "MeanAbsoluteError",
     "MeanAbsolutePercentageError",
-    "MeanSquaredError",
     "MeanMetric",
+    "MeanSquaredError",
     "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
@@ -90,6 +115,15 @@ __all__ = [
     "R2Score",
     "ROC",
     "Recall",
+    "RetrievalFallOut",
+    "RetrievalHitRate",
+    "RetrievalMAP",
+    "RetrievalMRR",
+    "RetrievalMetric",
+    "RetrievalNormalizedDCG",
+    "RetrievalPrecision",
+    "RetrievalRPrecision",
+    "RetrievalRecall",
     "SpearmanCorrCoef",
     "Specificity",
     "StatScores",

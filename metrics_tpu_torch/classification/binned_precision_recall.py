@@ -3,15 +3,13 @@
 
 The state is three ``[C, T]`` counters whatever the number of samples. Each
 update counts its batch against every threshold in one launch of the
-``binned_counts`` kernel.
+``binned_counts`` kernel. The computes take every class's average precision
+and recall at precision in one pass over the stacked ``[C, T + 1]`` curves.
 """
 from typing import Any, List, Sequence, Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.functional.classification.average_precision import (
-    _average_precision_compute_with_precision_recall,
-)
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.ops.binned_counts import binned_stat_counts
 from metrics_tpu_torch.utils.data import METRIC_EPS, _linspace, to_onehot
@@ -20,23 +18,24 @@ from metrics_tpu_torch.utils.data import METRIC_EPS, _linspace, to_onehot
 def _recall_at_precision(
     precision: torch.Tensor, recall: torch.Tensor, thresholds: torch.Tensor, min_precision: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The highest recall with precision >= ``min_precision``, and its
-    threshold: the greatest ``(recall, precision, threshold)`` triple, in that
-    order, among those that qualify; ``(0, 1e6)`` when none does."""
+    """Per row of ``[C, T + 1]`` curves, the highest recall with precision >=
+    ``min_precision``, and its threshold: the greatest ``(recall, precision,
+    threshold)`` triple, in that order, among those that qualify; ``(0, 1e6)``
+    when none does. Three masked maxima along dim 1, for every class at once."""
     # precision and recall carry one appended point (1, 0) with no threshold
     n = thresholds.shape[0]
-    prec, rec = precision[:n], recall[:n]
+    prec, rec = precision[:, :n], recall[:, :n]
     ok = prec >= min_precision
-    rmax = torch.where(ok, rec, float("-inf")).max()
+    rmax = torch.where(ok, rec, float("-inf")).amax(dim=1, keepdim=True)
     tie_r = ok & (rec == rmax)
-    pmax = torch.where(tie_r, prec, float("-inf")).max()
+    pmax = torch.where(tie_r, prec, float("-inf")).amax(dim=1, keepdim=True)
     tie_rp = tie_r & (prec == pmax)
-    best_threshold = torch.where(tie_rp, thresholds, float("-inf")).max()
+    best_threshold = torch.where(tie_rp, thresholds, float("-inf")).amax(dim=1)
 
-    any_ok = ok.any()
-    max_recall = torch.where(any_ok, rmax, torch.zeros_like(rmax))
-    best_threshold = torch.where(any_ok, best_threshold, torch.zeros_like(best_threshold))
-    best_threshold = torch.where(max_recall == 0.0, torch.full_like(best_threshold, 1e6), best_threshold)
+    any_ok = ok.any(dim=1)
+    max_recall = torch.where(any_ok, rmax.squeeze(1), 0.0)
+    best_threshold = torch.where(any_ok, best_threshold, 0.0)
+    best_threshold = torch.where(max_recall == 0.0, 1e6, best_threshold)
     return max_recall, best_threshold
 
 
@@ -96,12 +95,17 @@ class BinnedPrecisionRecallCurve(Metric):
         self.FPs = self.FPs + fp.to(self.FPs.dtype)
         self.FNs = self.FNs + fn.to(self.FNs.dtype)
 
-    def compute(self) -> Union[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]]:
+    def _curves(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``[C, T + 1]`` precision and recall of every class; the last point
+        is precision 1, recall 0, as in ``precision_recall_curve``."""
         precisions = (self.TPs + METRIC_EPS) / (self.TPs + self.FPs + METRIC_EPS)
         recalls = self.TPs / (self.TPs + self.FNs + METRIC_EPS)
-        # the last point is precision 1, recall 0, as in precision_recall_curve
         precisions = torch.cat([precisions, torch.ones((self.num_classes, 1), dtype=precisions.dtype, device=precisions.device)], dim=1)
         recalls = torch.cat([recalls, torch.zeros((self.num_classes, 1), dtype=recalls.dtype, device=recalls.device)], dim=1)
+        return precisions, recalls
+
+    def compute(self) -> Union[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]]:
+        precisions, recalls = self._curves()
         if self.num_classes == 1:
             return precisions[0, :], recalls[0, :], self.thresholds
         return list(precisions), list(recalls), [self.thresholds for _ in range(self.num_classes)]
@@ -119,8 +123,10 @@ class BinnedAveragePrecision(BinnedPrecisionRecallCurve):
     """
 
     def compute(self) -> Union[List[torch.Tensor], torch.Tensor]:  # type: ignore[override]
-        precisions, recalls, _ = super().compute()
-        return _average_precision_compute_with_precision_recall(precisions, recalls, self.num_classes, average=None)
+        # every class's step integral in one [C, T] pass; for C > 1 a list of 0-d tensors
+        p, r = self._curves()
+        ap = -((r[:, 1:] - r[:, :-1]) * p[:, :-1]).sum(dim=1)
+        return ap[0] if self.num_classes == 1 else list(ap)
 
 
 class BinnedRecallAtFixedPrecision(BinnedPrecisionRecallCurve):
@@ -146,10 +152,7 @@ class BinnedRecallAtFixedPrecision(BinnedPrecisionRecallCurve):
         self.min_precision = min_precision
 
     def compute(self) -> Tuple[torch.Tensor, torch.Tensor]:  # type: ignore[override]
-        precisions, recalls, thresholds = super().compute()
+        recall, threshold = _recall_at_precision(*self._curves(), self.thresholds, self.min_precision)
         if self.num_classes == 1:
-            return _recall_at_precision(precisions, recalls, thresholds, self.min_precision)
-        recalls_at_p, thresholds_at_p = zip(
-            *(_recall_at_precision(precisions[i], recalls[i], thresholds[i], self.min_precision) for i in range(self.num_classes))
-        )
-        return torch.stack(recalls_at_p), torch.stack(thresholds_at_p)
+            return recall[0], threshold[0]
+        return recall, threshold

@@ -1,0 +1,35 @@
+"""Deprecated short names of the port's metrics (counterpart of
+``metrics_tpu/deprecated.py``). Each alias warns on construction and
+otherwise is its target. The JAX package's other aliases (``PSNR``,
+``SSIM``, ``FID``, ``KID``, ``IS``, ``LPIPS``, ``PIT``, ``PESQ``, ``STOI``,
+``SNR``, ``SDR``, ``SI_SDR``, ``SI_SNR``, ``MAP``) come with their modules.
+"""
+import warnings
+from typing import Any, Type
+
+from metrics_tpu_torch.classification import F1Score, FBetaScore, HingeLoss, JaccardIndex, MatthewsCorrCoef
+from metrics_tpu_torch.regression import PearsonCorrCoef, SpearmanCorrCoef
+
+
+def _deprecated_alias(name: str, target: Type) -> Type:
+    def __init__(self: Any, *args: Any, **kwargs: Any) -> None:  # noqa: N807
+        warnings.warn(
+            f"`{name}` was renamed to `{target.__name__}` in the reference API and will be"
+            " removed; use the new name.",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        target.__init__(self, *args, **kwargs)
+
+    return type(name, (target,), {"__init__": __init__, "__doc__": f"Deprecated alias of {target.__name__}."})
+
+
+F1 = _deprecated_alias("F1", F1Score)
+FBeta = _deprecated_alias("FBeta", FBetaScore)
+Hinge = _deprecated_alias("Hinge", HingeLoss)
+IoU = _deprecated_alias("IoU", JaccardIndex)
+MatthewsCorrcoef = _deprecated_alias("MatthewsCorrcoef", MatthewsCorrCoef)
+PearsonCorrcoef = _deprecated_alias("PearsonCorrcoef", PearsonCorrCoef)
+SpearmanCorrcoef = _deprecated_alias("SpearmanCorrcoef", SpearmanCorrCoef)
+
+__all__ = ["F1", "FBeta", "Hinge", "IoU", "MatthewsCorrcoef", "PearsonCorrcoef", "SpearmanCorrcoef"]

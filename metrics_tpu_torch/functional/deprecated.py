@@ -1,0 +1,35 @@
+"""Deprecated functional short names (counterpart of
+``metrics_tpu/functional/deprecated.py``), with the old misspelt
+``pairwise_manhatten_distance``. Each warns on call and forwards. The JAX
+package's audio and image aliases come with their modules.
+"""
+import functools
+import warnings
+from typing import Any, Callable
+
+from metrics_tpu_torch.functional.classification.f_beta import f1_score, fbeta_score
+from metrics_tpu_torch.functional.classification.hinge import hinge_loss
+from metrics_tpu_torch.functional.pairwise.manhattan import pairwise_manhattan_distance
+
+
+def _deprecated_fn(name: str, target: Callable) -> Callable:
+    @functools.wraps(target)
+    def wrapper(*args: Any, **kwargs: Any) -> Any:
+        warnings.warn(
+            f"`{name}` was renamed to `{target.__name__}` in the reference API and will be"
+            " removed; use the new name.",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return target(*args, **kwargs)
+
+    wrapper.__name__ = name
+    return wrapper
+
+
+f1 = _deprecated_fn("f1", f1_score)
+fbeta = _deprecated_fn("fbeta", fbeta_score)
+hinge = _deprecated_fn("hinge", hinge_loss)
+pairwise_manhatten_distance = _deprecated_fn("pairwise_manhatten_distance", pairwise_manhattan_distance)
+
+__all__ = ["f1", "fbeta", "hinge", "pairwise_manhatten_distance"]

@@ -728,8 +728,9 @@ class Metric(nn.Module):
         error_msgs: List[str],
     ) -> None:
         """Loads every state found in ``state_dict`` (onto this metric's
-        device, in its registered dtype); a persistent state that is absent
-        is a missing key."""
+        device, in its registered dtype; a ``_shape_polymorphic_states``
+        state in any shape); a persistent state that is absent is a missing
+        key."""
         for name, default in self._defaults.items():
             key = prefix + name
             if key not in state_dict:
@@ -742,7 +743,7 @@ class Metric(nn.Module):
                 setattr(self, name, [torch.as_tensor(x, device=self._device).clone() for x in v])
                 continue
             t = torch.as_tensor(v, device=self._device)
-            if t.shape != default.shape:
+            if t.shape != default.shape and name not in self._shape_polymorphic_states:
                 error_msgs.append(f"state {key!r}: shape {tuple(t.shape)} in the checkpoint, {tuple(default.shape)} here")
             elif t.is_floating_point() != default.is_floating_point():
                 error_msgs.append(f"state {key!r}: dtype {t.dtype} in the checkpoint, {default.dtype} here")

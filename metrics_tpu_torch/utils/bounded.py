@@ -6,7 +6,9 @@ A curve metric buffers every prediction and target until ``compute``. With
 ``[N, width]`` buffer per column) plus a ``count`` of the rows seen: memory
 is fixed and results stay exact. ``count`` keeps the true number of rows, and
 collecting raises if it ever passed the capacity, so rows are never dropped
-silently. Bounded buffers use ``dist_reduce_fx=None``.
+silently. A ``valid`` row mask drops rows on the way in (retrieval's
+``ignore_index``) with the shapes fixed, so the update still runs as one
+program. Bounded buffers use ``dist_reduce_fx=None``.
 """
 from typing import Any, Optional, Sequence, Tuple
 
@@ -59,6 +61,7 @@ class _BoundedSampleBufferMixin:
         capacity: Optional[int],
         num_classes: Optional[int] = None,
         specs: Optional[Sequence[BufferSpec]] = None,
+        warn: bool = True,
         warn_message: Optional[str] = None,
     ) -> None:
         if specs is None:  # the curve default: scores and integer labels
@@ -70,15 +73,16 @@ class _BoundedSampleBufferMixin:
             return
         for name, _, _ in self._buffer_specs:
             self.add_state(name, default=[], dist_reduce_fx="cat")
-        warn_once(
-            warn_message
-            or f"Metric `{type(self).__name__}` will save all targets and predictions in buffer."
-            " For large datasets this may lead to large memory footprint."
-        )
+        if warn:  # the curves and Spearman warn; retrieval does not
+            warn_once(
+                warn_message
+                or f"Metric `{type(self).__name__}` will save all targets and predictions in buffer."
+                " For large datasets this may lead to large memory footprint."
+            )
 
-    def _append_samples(self, *rows: torch.Tensor) -> None:
+    def _append_samples(self, *rows: torch.Tensor, valid: Optional[torch.Tensor] = None) -> None:
         if self.buffer_capacity is not None:
-            self._bounded_append(*rows)
+            self._bounded_append(*rows, valid=valid)
         else:
             for (name, _, _), value in zip(self._buffer_specs, rows):
                 getattr(self, name).append(value)
@@ -96,10 +100,11 @@ class _BoundedSampleBufferMixin:
             self.add_state(name, default=torch.zeros(shape, dtype=dtype or torch.get_default_dtype()), dist_reduce_fx=None)
         self.add_state("count", default=torch.tensor(0, dtype=torch.int32), dist_reduce_fx=None)
 
-    def _bounded_append(self, *rows: torch.Tensor) -> None:
+    def _bounded_append(self, *rows: torch.Tensor, valid: Optional[torch.Tensor] = None) -> None:
         """Write the rows at the current offset. Rows past the capacity go to
         a spare row that is cut off, while ``count`` keeps the true total, so
-        an overflow is found at collection."""
+        an overflow is found at collection. ``valid`` (``[n]`` bool) sends
+        the rows it clears to the spare row too, and they do not count."""
         rows = tuple(torch.atleast_1d(value) for value in rows)
         for (name, _, _), value in zip(self._buffer_specs, rows):
             buf = getattr(self, name)
@@ -109,14 +114,22 @@ class _BoundedSampleBufferMixin:
                     f" rows, but update produced rank-{value.ndim} rows." + CURVE_MULTILABEL_HINT
                 )
         n = rows[0].shape[0]
-        idx = (self.count + torch.arange(n, device=self.count.device)).clamp(max=self.buffer_capacity)
+        if valid is None:
+            idx = self.count + torch.arange(n, device=self.count.device)
+            n_new = n
+        else:
+            valid = torch.atleast_1d(valid).reshape(-1).bool()
+            kept_pos = self.count + torch.cumsum(valid.to(torch.int32), dim=0) - 1
+            idx = torch.where(valid, kept_pos, self.buffer_capacity)
+            n_new = valid.sum(dtype=torch.int32)
+        idx = idx.clamp(max=self.buffer_capacity)
         for (name, _, _), value in zip(self._buffer_specs, rows):
             buf = getattr(self, name)
             # states are replaced, never written in place: write into a copy with one spare row
             grown = torch.cat([buf, buf.new_zeros((1, *buf.shape[1:]))])
             grown.index_copy_(0, idx, value.to(buf.dtype))
             setattr(self, name, grown[: self.buffer_capacity])
-        self.count = self.count + n
+        self.count = self.count + n_new
 
     def _bounded_collect(self) -> Tuple[torch.Tensor, ...]:
         """The valid rows of each buffer; raises if the capacity was passed.

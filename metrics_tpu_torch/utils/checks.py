@@ -1,6 +1,6 @@
-"""Input validation: the shape check shared by the regression metrics, and
-the checks and normalization of classification inputs (counterpart of
-``metrics_tpu/utils/checks.py:23-272``).
+"""Input validation: the shape check shared by the regression metrics, the
+checks and normalization of classification inputs, and the retrieval
+checks (counterpart of ``metrics_tpu/utils/checks.py:23-272, 301-351``).
 
 The value checks (negative labels, labels beyond ``num_classes``, non-binary
 targets) read concrete values, so each is one ``.item()`` host sync per
@@ -245,3 +245,56 @@ def _input_format_classification(
         preds, target = preds.squeeze(-1), target.squeeze(-1)
 
     return preds.to(torch.int32), target.to(torch.int32), case
+
+
+def _is_integer(x: torch.Tensor) -> bool:
+    return not x.is_floating_point() and not x.is_complex() and x.dtype != torch.bool
+
+
+def _check_retrieval_target_and_prediction_types(
+    preds: torch.Tensor, target: torch.Tensor, allow_non_binary_target: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat float32 scores and int32 (float32 when graded) targets; the
+    binary check reads values, so it skips inside a program."""
+    if not (_is_integer(target) or target.dtype == torch.bool or target.is_floating_point()):
+        raise ValueError("retrieval `target` must be boolean, integer, or float typed")
+    if not preds.is_floating_point():
+        raise ValueError("retrieval `preds` must be floating-point relevance scores")
+    if not allow_non_binary_target and not in_program() and (target.max().item() > 1 or target.min().item() < 0):
+        raise ValueError("retrieval `target` must be binary (0/1) unless the metric explicitly allows graded relevance")
+    target = target.to(torch.float32) if target.is_floating_point() else target.to(torch.int32)
+    return preds.to(torch.float32).reshape(-1), target.reshape(-1)
+
+
+def _check_retrieval_functional_inputs(
+    preds: torch.Tensor, target: torch.Tensor, allow_non_binary_target: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The checks of a single-query retrieval functional."""
+    if preds.shape != target.shape:
+        raise ValueError("retrieval `preds` and `target` must share one shape")
+    if preds.numel() == 0 or preds.ndim == 0:
+        raise ValueError("retrieval inputs must be non-scalar and contain at least one element")
+    return _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
+
+
+def _check_retrieval_inputs(
+    indexes: torch.Tensor,
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    allow_non_binary_target: bool = False,
+    ignore_index: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The checks of a retrieval metric's update: flat int32 query ids,
+    scores and targets. ``ignore_index`` drops rows by a boolean mask, so it
+    runs eagerly (the bounded buffers drop them with a row mask instead)."""
+    if indexes.shape != preds.shape or preds.shape != target.shape:
+        raise ValueError("retrieval `indexes`, `preds` and `target` must all share one shape")
+    if not _is_integer(indexes):
+        raise ValueError("retrieval `indexes` must be integer typed (they identify queries)")
+    if ignore_index is not None:
+        valid = target != ignore_index
+        indexes, preds, target = indexes[valid], preds[valid], target[valid]
+    if indexes.numel() == 0 or indexes.ndim == 0:
+        raise ValueError("after `ignore_index` filtering, retrieval inputs must still be non-scalar with at least one element")
+    preds, target = _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
+    return indexes.to(torch.int32).reshape(-1), preds, target

@@ -1,5 +1,6 @@
 """Tensor utilities: dim-0 reductions, one-hot, top-k, collection map,
-bincount and the threshold grid (counterpart of ``metrics_tpu/utils/data.py``).
+bincount, query grouping and the threshold grid (counterpart of
+``metrics_tpu/utils/data.py``).
 
 :func:`in_program` is the counterpart of ``is_tracing``: True while the
 update engine runs a transition (``utils/program.py``)."""
@@ -102,6 +103,25 @@ def _squeeze_if_scalar(data: Any) -> Any:
 def _bincount(x: torch.Tensor, minlength: int) -> torch.Tensor:
     """Counts of ``0..minlength-1``: exactly ``minlength`` bins (larger values dropped)."""
     return torch.bincount(x.reshape(-1), minlength=minlength)[:minlength]
+
+
+def get_group_indexes(indexes: torch.Tensor) -> List[torch.Tensor]:
+    """Positions of each distinct value of ``indexes``, in order of first
+    appearance (a host-side loop, kept for the API; the retrieval metrics
+    group by sorting, ``functional/retrieval/_ranking.py``)."""
+    structure: dict = {}
+    for i, index in enumerate(indexes.reshape(-1).tolist()):
+        structure.setdefault(index, []).append(i)
+    return [torch.tensor(x, dtype=torch.int64) for x in structure.values()]
+
+
+def _cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    return torch.cumsum(x, dim=dim)
+
+
+def _flexible_bincount(x: torch.Tensor) -> torch.Tensor:
+    """Bincount of length ``max(x) + 1``, read from the data (host side)."""
+    return _bincount(x, int(x.max().item()) + 1)
 
 
 def _linspace(start: float, stop: float, num: int, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:

@@ -2,8 +2,13 @@
 batches: module metrics over several ``forward``/``update`` calls, the
 functional forms, and ``MetricCollection``. The port runs on ``device="cpu"``
 (the plain versions of its kernels). Counts must match exactly; float scores
-within 1e-6 relative (both packages score in float32). The JAX side counts
-in int64 or int32 depending on the x64 lane, so dtypes are compared by kind.
+(Jaccard and Dice among them) within 1e-6 relative (both packages score in
+float32); Cohen's kappa and MCC within 1e-6 relative or 1e-6 absolute (near
+0 each is a difference of two O(1) float32 values, whose last bits differ
+with the summation order); the float32 sums of the hinge loss and the KL
+divergence within 1e-5 relative. The JAX side counts in int64 or int32
+depending on the x64 lane (``CohenKappa`` and ``MatthewsCorrCoef`` keep
+int32 there, int64 in the port), so dtypes are compared by kind.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -37,13 +42,23 @@ def _batches(kind: str, seed: int, n_batches: int = 4):
         elif kind == "multilabel":
             preds = rng.random((n, N_CLASSES)).astype(np.float32)
             target = rng.integers(0, 2, (n, N_CLASSES))
+        elif kind in ("dist", "logdist"):  # two distributions over the classes (p, q)
+            a = rng.random((n, N_CLASSES)).astype(np.float32) + 0.05
+            b = rng.random((n, N_CLASSES)).astype(np.float32) + 0.05
+            if kind == "logdist":
+                a = np.log(a / a.sum(1, keepdims=True)).astype(np.float32)
+                b = np.log(b / b.sum(1, keepdims=True)).astype(np.float32)
+            preds, target = a, b
+        elif kind == "seg":  # [N, C, H, W] scores and [N, H, W] labels
+            preds = rng.standard_normal((n // 8, N_CLASSES, 4, 5)).astype(np.float32)
+            target = rng.integers(0, N_CLASSES, (n // 8, 4, 5))
         else:  # binary probabilities
             preds, target = rng.random(n).astype(np.float32), rng.integers(0, 2, n)
         out.append((preds, target))
     return out
 
 
-def _assert_close(got, want) -> None:
+def _assert_close(got, want, rtol: float = RTOL, atol: float = 0.0) -> None:
     got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     want = np.asarray(want)
     assert got.shape == want.shape
@@ -52,7 +67,7 @@ def _assert_close(got, want) -> None:
         np.testing.assert_array_equal(got, want)
     else:
         assert got.dtype.kind == "f"
-        np.testing.assert_allclose(got, want, rtol=RTOL, atol=0)
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
 
 
 # (name, input kind, constructor kwargs shared by both packages)
@@ -89,27 +104,49 @@ CASES = [
     ("HammingDistance", "logits", {}),
     ("HammingDistance", "multilabel", {"threshold": 0.3}),
     ("HammingDistance", "mdmc", {}),
+    ("CohenKappa", "logits", {"num_classes": N_CLASSES}),
+    ("CohenKappa", "labels", {"num_classes": N_CLASSES, "weights": "linear"}),
+    ("CohenKappa", "labels", {"num_classes": N_CLASSES, "weights": "quadratic"}),
+    ("CohenKappa", "binary", {"num_classes": 2, "weights": "none"}),
+    ("MatthewsCorrCoef", "logits", {"num_classes": N_CLASSES}),
+    ("MatthewsCorrCoef", "binary", {"num_classes": 2, "threshold": 0.3}),
+    ("JaccardIndex", "logits", {"num_classes": N_CLASSES}),
+    ("JaccardIndex", "labels", {"num_classes": N_CLASSES, "ignore_index": 2, "reduction": "none"}),
+    ("JaccardIndex", "seg", {"num_classes": N_CLASSES, "ignore_index": N_CLASSES - 1, "absent_score": 0.5}),
+    ("JaccardIndex", "binary", {"num_classes": 2, "reduction": "sum"}),
+    ("HingeLoss", "binary", {}),
+    ("HingeLoss", "logits", {"squared": True}),
+    ("HingeLoss", "logits", {"multiclass_mode": "one-vs-all"}),
+    ("KLDivergence", "dist", {}),
+    ("KLDivergence", "logdist", {"log_prob": True, "reduction": "sum"}),
+    ("KLDivergence", "dist", {"reduction": "none"}),
 ]
+
+# float32 sums: 1e-5 relative; kappa and MCC also 1e-6 absolute
+SUM_METRICS = ("HingeLoss", "KLDivergence")
+AGREEMENT_METRICS = ("CohenKappa", "MatthewsCorrCoef", "cohen_kappa", "matthews_corrcoef")
 
 
 @pytest.mark.parametrize("name,kind,kwargs", CASES, ids=[f"{c[0]}-{c[1]}-{i}" for i, c in enumerate(CASES)])
 def test_module_metric_matches_jax(name, kind, kwargs):
     jax_m = getattr(mj, name)(**kwargs)
     port_m = getattr(mt, name)(device="cpu", **kwargs)
+    rtol = 1e-5 if name in SUM_METRICS else RTOL
+    atol = 1e-6 if name in AGREEMENT_METRICS else 0.0
     for i, (preds, target) in enumerate(_batches(kind, seed=len(name) + len(kwargs))):
         if i % 2 == 0:  # forward: batch value and accumulation
-            _assert_close(port_m(torch.from_numpy(preds), torch.from_numpy(target)), jax_m(jnp.asarray(preds), jnp.asarray(target)))
+            _assert_close(port_m(torch.from_numpy(preds), torch.from_numpy(target)), jax_m(jnp.asarray(preds), jnp.asarray(target)), rtol, atol)
         else:
             port_m.update(torch.from_numpy(preds), torch.from_numpy(target))
             jax_m.update(jnp.asarray(preds), jnp.asarray(target))
-    _assert_close(port_m.compute(), jax_m.compute())
+    _assert_close(port_m.compute(), jax_m.compute(), rtol, atol)
     for state in jax_m._defaults:
         jv, pv = getattr(jax_m, state), getattr(port_m, state)
         if isinstance(jv, list):
             for pj, pp in zip(jv, pv):
-                _assert_close(pp, pj)
+                _assert_close(pp, pj, rtol)
         else:
-            _assert_close(pv, jv)
+            _assert_close(pv, jv, rtol)
     port_m.reset()
     assert all(int(torch.count_nonzero(torch.as_tensor(getattr(port_m, s)))) == 0 for s in port_m._defaults if not isinstance(getattr(port_m, s), list))
 
@@ -276,3 +313,140 @@ def test_moving_a_metric_moves_its_defaults():
     m.to("meta")
     m.reset()
     assert m.device.type == "meta" and m.confmat.device.type == "meta"
+
+
+# ---------------------------------------------------------------------------
+# the rest of classification: every functional over its argument grid
+# ---------------------------------------------------------------------------
+def _both(name, preds, target, rtol=RTOL, **kwargs):
+    """The functional ``name`` of both packages on one numpy batch: equal
+    values, or the same ValueError message."""
+    try:
+        want = getattr(fj, name)(jnp.asarray(preds), jnp.asarray(target), **kwargs)
+    except ValueError as err:
+        with pytest.raises(ValueError) as port_err:
+            getattr(ft, name)(torch.from_numpy(preds), torch.from_numpy(target), **kwargs)
+        assert str(port_err.value) == str(err), kwargs
+        return
+    atol = 1e-6 if name in AGREEMENT_METRICS else 0.0
+    _assert_close(getattr(ft, name)(torch.from_numpy(preds), torch.from_numpy(target), **kwargs), want, rtol, atol)
+
+
+@pytest.mark.parametrize("squared", [False, True])
+@pytest.mark.parametrize("mode", [None, "crammer-singer", "one-vs-all"])
+@pytest.mark.parametrize("kind", ["binary", "logits"])
+def test_hinge_loss_functional_matches_jax(kind, mode, squared):
+    preds, target = _batches(kind, seed=23, n_batches=1)[0]
+    if kind == "binary":
+        preds = preds * 4 - 2  # margins on both sides of 1
+    _both("hinge_loss", preds, target, rtol=1e-5, squared=squared, multiclass_mode=mode)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none", None])
+@pytest.mark.parametrize("log_prob", [False, True])
+def test_kl_divergence_functional_matches_jax(log_prob, reduction):
+    p, q = _batches("logdist" if log_prob else "dist", seed=29, n_batches=1)[0]
+    _both("kl_divergence", p, q, rtol=1e-5, log_prob=log_prob, reduction=reduction)
+
+
+@pytest.mark.parametrize("weights", [None, "linear", "quadratic"])
+@pytest.mark.parametrize("kind", ["logits", "labels", "binary", "mdmc"])
+def test_cohen_kappa_and_mcc_functionals_match_jax(kind, weights):
+    preds, target = _batches(kind, seed=31, n_batches=1)[0]
+    c = 2 if kind == "binary" else N_CLASSES
+    _both("cohen_kappa", preds, target, num_classes=c, weights=weights)
+    _both("matthews_corrcoef", preds, target, num_classes=c, threshold=0.5 if weights is None else 0.25)
+
+
+def test_kappa_and_mcc_edge_matrices_match_jax():
+    """Perfect agreement, one class only (MCC's zero denominator) and all wrong."""
+    for preds, target in (
+        (np.array([0, 1, 2, 1]), np.array([0, 1, 2, 1])),
+        (np.array([1, 1, 1, 1]), np.array([1, 1, 1, 1])),
+        (np.array([1, 0, 1, 0]), np.array([0, 1, 0, 1])),
+    ):
+        for weights in (None, "linear", "quadratic"):
+            _both("cohen_kappa", preds, target, num_classes=3, weights=weights)
+        _both("matthews_corrcoef", preds, target, num_classes=3)
+
+
+@pytest.mark.parametrize("reduction", ["elementwise_mean", "sum", "none"])
+@pytest.mark.parametrize("ignore_index", [None, 0, 3, N_CLASSES - 1, -1, N_CLASSES + 4])
+@pytest.mark.parametrize("kind", ["logits", "labels", "seg", "binary"])
+def test_jaccard_index_functional_matches_jax(kind, ignore_index, reduction):
+    preds, target = _batches(kind, seed=37, n_batches=1)[0]
+    c = 2 if kind == "binary" else N_CLASSES
+    if kind == "labels":
+        target = np.where(target == 4, 5, target)  # class 4 absent: its union is empty
+        preds = np.where(preds == 4, 5, preds)
+    for absent_score in (0.0, 0.25):
+        _both("jaccard_index", preds, target, num_classes=c, ignore_index=ignore_index, absent_score=absent_score, reduction=reduction)
+
+
+@pytest.mark.parametrize("reduction", ["elementwise_mean", "sum", "none"])
+@pytest.mark.parametrize("bg", [False, True])
+@pytest.mark.parametrize("kind", ["logits", "seg", "labels2d"])
+def test_dice_score_functional_matches_jax(kind, bg, reduction):
+    if kind == "labels2d":  # labels of one shape (C is preds.shape[1])
+        rng = np.random.default_rng(41)
+        preds, target = rng.integers(0, 5, (6, 9)), rng.integers(0, 5, (6, 9))
+        target[target == 3] = 4  # class 3 absent from target: no_fg_score
+        preds[preds == 2] = 1
+        target[target == 2] = 1  # class 2 absent from both
+    else:
+        preds, target = _batches(kind, seed=43, n_batches=1)[0]
+        target = np.where(target == 2, 1, target)
+    for nan_score, no_fg_score in ((0.0, 0.0), (0.5, 0.0), (0.0, -1.0), (0.75, 0.25)):
+        _both("dice_score", preds, target, bg=bg, nan_score=nan_score, no_fg_score=no_fg_score, reduction=reduction)
+
+
+def test_new_metrics_reject_what_jax_rejects():
+    """Constructor and input errors: same exception type and message."""
+    rng = np.random.default_rng(47)
+    bad_inputs = [
+        ("hinge_loss", rng.standard_normal((4, 3, 2)).astype(np.float32), rng.integers(0, 3, 4), {}),
+        ("hinge_loss", rng.standard_normal((4, 3)).astype(np.float32), rng.integers(0, 3, (4, 2)), {}),
+        ("hinge_loss", rng.standard_normal(4).astype(np.float32), rng.integers(0, 2, 5), {}),
+        ("hinge_loss", rng.standard_normal((4, 3)).astype(np.float32), rng.integers(0, 3, 5), {}),
+        ("hinge_loss", rng.standard_normal((4, 3)).astype(np.float32), rng.integers(0, 3, 4), {"multiclass_mode": "bogus"}),
+        ("kl_divergence", rng.random((4, 3, 2)).astype(np.float32), rng.random((4, 3, 2)).astype(np.float32), {}),
+        ("cohen_kappa", rng.integers(0, 3, 6), rng.integers(0, 3, 6), {"num_classes": 3, "weights": "cubic"}),
+    ]
+    for name, preds, target, kwargs in bad_inputs:
+        _both(name, preds, target, **kwargs)
+    with pytest.raises(RuntimeError) as jax_err:
+        fj.kl_divergence(jnp.ones((2, 3)), jnp.ones((2, 4)))
+    with pytest.raises(RuntimeError) as port_err:
+        ft.kl_divergence(torch.ones(2, 3), torch.ones(2, 4))
+    assert str(port_err.value) == str(jax_err.value)
+    for name, kwargs, exc in (
+        ("HingeLoss", {"multiclass_mode": "bogus"}, ValueError),
+        ("KLDivergence", {"log_prob": 1}, TypeError),
+        ("KLDivergence", {"reduction": "max"}, ValueError),
+        ("CohenKappa", {"num_classes": 3, "weights": "cubic"}, ValueError),
+    ):
+        with pytest.raises(exc) as jax_err:
+            getattr(mj, name)(**kwargs)
+        with pytest.raises(exc) as port_err:
+            getattr(mt, name)(device="cpu", **kwargs)
+        assert str(port_err.value) == str(jax_err.value)
+
+
+def test_new_confusion_metrics_run_the_confusion_counts_op_in_one_program():
+    """Cohen's kappa, MCC and Jaccard update through ``confusion_counts``
+    (its plain version here), inside an engine program: on the card that is
+    one kernel launch per update, in a CUDA graph."""
+    preds, target = _batches("seg", seed=53, n_batches=1)[0]
+    members = {
+        "kappa": mt.CohenKappa(num_classes=N_CLASSES, device="cpu"),
+        "mcc": mt.MatthewsCorrCoef(num_classes=N_CLASSES, device="cpu"),
+        "iou": mt.JaccardIndex(num_classes=N_CLASSES, ignore_index=0, device="cpu"),
+    }
+    mc = mt.MetricCollection(members)
+    mt.reset_kernel_stats()
+    for _ in range(2):
+        mc(torch.from_numpy(preds), torch.from_numpy(target))
+    stats = mt.kernel_stats()
+    assert stats["confusion_counts"]["plain_calls"] == 2 * len(members)
+    assert not any(m.compile_stats()["jit_failed"] for m in members.values())
+    assert not mc._fused_fwd_failed

@@ -310,3 +310,42 @@ def test_binned_family_runs_one_kernel_op_per_update():
     stats = mt.kernel_stats()
     assert stats["binned_counts"] == {"launches": 0, "plain_calls": 1}
     assert stats["binned_calibration"] == {"launches": 0, "plain_calls": 1}
+
+
+def _edge_class_batches(seed: int):
+    """Multilabel batches in which class 0 has no positive, class 1 no
+    negative, class 2's scores sit on two values (so many thresholds tie in
+    recall and precision) and class 3's precision never reaches 0.9."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in (40, 40, 33):
+        target = rng.integers(0, 2, (n, C))
+        preds = rng.random((n, C)).astype(np.float32)
+        target[:, 0] = 0
+        target[:, 1] = 1
+        preds[:, 2] = np.where(target[:, 2] == 1, 0.73, 0.21).astype(np.float32)
+        preds[:, 3] = (rng.random(n) * 0.3 + 0.7 * (1 - target[:, 3])).astype(np.float32)
+        out.append((preds, target))
+    return out
+
+
+@pytest.mark.parametrize("min_precision", [0.0, 0.5, 0.9, 1.0])
+@pytest.mark.parametrize("thresholds", [INT_THRESHOLDS, LIST_THRESHOLDS])
+def test_binned_vectorized_compute_matches_jax_on_edge_classes(thresholds, min_precision):
+    """The ``[C, T]`` compute of AP and recall at precision against the JAX
+    package's per-class loop: classes with no positive or no negative, ties
+    in recall at the best precision (the greatest tied threshold wins) and a
+    class where no threshold qualifies ``(0, 1e6)``. Per-class AP stays a list
+    of 0-d tensors, recall at precision two ``[C]`` tensors."""
+    batches = _edge_class_batches(seed=59)
+    port_ap = mt.BinnedAveragePrecision(num_classes=C, thresholds=thresholds, device="cpu")
+    jax_ap = mj.BinnedAveragePrecision(num_classes=C, thresholds=thresholds)
+    _run_both(port_ap, jax_ap, batches)
+    got = port_ap.compute()
+    assert isinstance(got, list) and all(v.ndim == 0 for v in got)
+    kwargs = {"num_classes": C, "thresholds": thresholds, "min_precision": min_precision}
+    port_r = mt.BinnedRecallAtFixedPrecision(device="cpu", **kwargs)
+    jax_r = mj.BinnedRecallAtFixedPrecision(**kwargs)
+    _run_both(port_r, jax_r, batches)
+    recall, threshold = port_r.compute()
+    assert recall.shape == threshold.shape == (C,)

@@ -91,18 +91,36 @@ NEW_METRICS = [
     ("SumMetric", {"compensated": True}, "values"),
     ("MeanMetric", {}, "values"),
     ("CatMetric", {}, "values"),
+    ("HingeLoss", {}, "scores"),
+    ("HingeLoss", {"multiclass_mode": "one-vs-all", "squared": True}, "scores"),
+    ("KLDivergence", {}, "dist"),  # a sum state
+    ("KLDivergence", {"reduction": "none"}, "dist"),  # a cat list state
+    ("CohenKappa", {"num_classes": C, "weights": "quadratic"}, "scores"),  # int32 confmat in JAX
+    ("MatthewsCorrCoef", {"num_classes": C}, "scores"),
+    ("JaccardIndex", {"num_classes": C, "ignore_index": 0}, "scores"),
+    ("RetrievalMAP", {}, "retrieval"),  # list states
+    ("RetrievalMAP", {"buffer_capacity": 200, "ignore_index": -1}, "retrieval"),  # bounded buffers
 ]
 
 
 @pytest.mark.parametrize("name,kwargs,kind", NEW_METRICS, ids=[f"{n}-{i}" for i, (n, _, _) in enumerate(NEW_METRICS)])
 def test_new_metric_state_carries_across_from_jax(name, kwargs, kind):
     """JAX updates batches 1-2; the port takes its state and updates 3-4; the
-    result equals JAX over batches 1-4 (scores within 1e-6, float sums 1e-5)."""
+    result equals JAX over batches 1-4 (scores within 1e-6 relative, kappa and
+    MCC also within 1e-6 absolute; float sums, hinge and KL 1e-5 relative)."""
     rng = np.random.default_rng(5)
     if kind == "values":
         batches = [(rng.standard_normal(11).astype(np.float32),) for _ in range(4)]
     elif kind == "multilabel":
         batches = [(rng.random((20, C)).astype(np.float32), rng.integers(0, 2, (20, C))) for _ in range(4)]
+    elif kind == "dist":
+        batches = [tuple(rng.random((20, C)).astype(np.float32) + 0.05 for _ in range(2)) for _ in range(4)]
+    elif kind == "retrieval":
+        batches = [
+            (np.round(rng.random(30), 1).astype(np.float32), rng.integers(-1, 2, 30), rng.integers(0, 6, 30)) for _ in range(4)
+        ]
+        if "ignore_index" not in kwargs:
+            batches = [(p, np.abs(t), x) for p, t, x in batches]
     else:
         batches = [(preds, target) for preds, target in _stream(seed=6)]
     jax_m = getattr(mj, name)(**kwargs)
@@ -120,11 +138,21 @@ def test_new_metric_state_carries_across_from_jax(name, kwargs, kind):
     assert got.shape == want.shape
     if name == "CatMetric":
         np.testing.assert_array_equal(got, want)
+    elif name in ("CohenKappa", "MatthewsCorrCoef"):  # near 0: a difference of two O(1) float32 values
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     else:
-        np.testing.assert_allclose(got, want, rtol=1e-5 if kind == "values" else 1e-6, atol=0)
+        np.testing.assert_allclose(got, want, rtol=1e-5 if kind in ("values", "dist") or name == "HingeLoss" else 1e-6, atol=0)
 
 
-@pytest.mark.parametrize("name,kwargs", [("MeanMetric", {}), ("Accuracy", {"num_classes": C, "on_bad_input": "skip"})])
+@pytest.mark.parametrize(
+    "name,kwargs",
+    [
+        ("MeanMetric", {}),
+        ("Accuracy", {"num_classes": C, "on_bad_input": "skip"}),
+        ("HingeLoss", {"on_bad_input": "skip"}),
+        ("CohenKappa", {"num_classes": C, "on_bad_input": "mask"}),
+    ],
+)
 def test_health_counters_carry_across_both_ways(name, kwargs):
     """``_health_counts`` rides ``state_from_jax`` into the port and
     ``state_to_jax`` back: after a NaN-laced stream split across the two
@@ -218,6 +246,21 @@ def test_port_and_chip_smoke_import_no_jax():
         *(f"metrics_tpu_torch/functional/classification/{m}.py" for m in ("auc", "auroc", "average_precision", "calibration_error", "precision_recall_curve", "roc")),
     }
     assert curve_slice <= scanned, sorted(curve_slice - scanned)
+    retrieval_slice = {
+        "metrics_tpu_torch/deprecated.py",
+        "metrics_tpu_torch/functional/deprecated.py",
+        "metrics_tpu_torch/functional/retrieval/_ranking.py",
+        *(f"metrics_tpu_torch/classification/{m}.py" for m in ("cohen_kappa", "hinge", "jaccard", "kl_divergence", "matthews_corrcoef")),
+        *(f"metrics_tpu_torch/functional/classification/{m}.py" for m in ("cohen_kappa", "dice", "hinge", "jaccard", "kl_divergence", "matthews_corrcoef")),
+        *(
+            f"metrics_tpu_torch/{pkg}retrieval/{m}.py"
+            for pkg in ("", "functional/")
+            for m in ("average_precision", "fall_out", "hit_rate", "ndcg", "precision", "r_precision", "recall", "reciprocal_rank")
+        ),
+        "metrics_tpu_torch/retrieval/base.py",
+        "metrics_tpu_torch/retrieval/_topk_base.py",
+    }
+    assert retrieval_slice <= scanned, sorted(retrieval_slice - scanned)
     offenders = [
         f"{path.relative_to(REPO)}: {mod}"
         for path in files

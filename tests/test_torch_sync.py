@@ -7,8 +7,11 @@ also the worker of real ``torch.distributed`` gloo runs on the CPU (2 ranks,
 and 3 ranks with a subgroup ``{0, 2}`` syncing while rank 1 syncs alone);
 each rank streams its share of the batches and syncs in ``compute()``, and
 its results are held against serial ``metrics_tpu`` over the ranks' batches
-in rank-major order. Counts must match bit for bit, scores within 1e-6
-relative, float sums within 1e-5 relative, cat states exactly. Every worker
+in rank-major order; a second world of 2 does so for ``JaccardIndex``,
+``CohenKappa`` and ``RetrievalNormalizedDCG`` (its rows are ``cat`` list
+states, gathered rank-major). Counts must match bit for bit, scores within 1e-6
+relative (kappa also within 1e-6 absolute), float sums within 1e-5
+relative, NDCG within 1e-6 absolute, cat states exactly. Every worker
 runs under a wall-clock limit of its own and is killed past it.
 """
 import copy
@@ -137,7 +140,26 @@ def _assert_matches(got: dict, want: dict, where: str) -> None:
 # ---------------------------------------------------------------------------
 # the worker (this file run as a script, one process per rank)
 # ---------------------------------------------------------------------------
-def _worker(rank: int, world: int, port: int, out_path: str) -> None:
+def _ranking_metrics(pkg, **kw):
+    """Jaccard, kappa and a list-state retrieval metric, in either package."""
+    return {
+        "iou": pkg.JaccardIndex(num_classes=C, ignore_index=0, **kw),
+        "kappa": pkg.CohenKappa(num_classes=C, weights="quadratic", **kw),
+        "ndcg": pkg.RetrievalNormalizedDCG(k=3, **kw),
+    }
+
+
+def _feed_ranking(metrics, batch, as_tensor) -> None:
+    """Classification members take the logits; NDCG ranks the rounded ``x``
+    scores of each sample within queries named by its label."""
+    metrics["iou"].update(as_tensor(batch["preds"]), as_tensor(batch["target"]))
+    metrics["kappa"].update(as_tensor(batch["preds"]), as_tensor(batch["target"]))
+    scores = np.round(batch["x"], 1).astype(np.float32)
+    relevant = (batch["y"] > 0).astype(np.int64)
+    metrics["ndcg"].update(as_tensor(scores), as_tensor(relevant), as_tensor(batch["target"]))
+
+
+def _worker(rank: int, world: int, port: int, out_path: str, mode: str = "collection") -> None:
     sys.path.insert(0, REPO)
     import metrics_tpu_torch as mt
 
@@ -147,7 +169,13 @@ def _worker(rank: int, world: int, port: int, out_path: str) -> None:
     data = _batches()
     as_tensor = torch.from_numpy
     results = {}
-    if world == 2:
+    if mode == "ranking":
+        metrics = _ranking_metrics(mt, device="cpu")
+        for i in _rank_batches(rank, world):
+            _feed_ranking(metrics, data[i], as_tensor)
+        results["ranking"] = {k: m.compute() for k, m in metrics.items()}
+        results["local_rows"] = len(torch.cat(metrics["ndcg"].preds))
+    elif world == 2:
         mine = _rank_batches(rank, world)
         mc, pure = _collection(mt, device="cpu"), _collection(mt, device="cpu")
         spearman, pearson = mt.SpearmanCorrCoef(device="cpu"), mt.PearsonCorrCoef(device="cpu")
@@ -198,7 +226,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_world(world: int, tmp_path) -> list:
+def _run_world(world: int, tmp_path, mode: str = "collection") -> list:
     """Start ``world`` workers, wait for each within its limit, and return
     their results; a worker that fails or outlives its limit fails the test
     with every worker's log."""
@@ -208,7 +236,7 @@ def _run_world(world: int, tmp_path) -> list:
     for rank in range(world):
         path = str(tmp_path / f"rank{rank}.pt")
         log = open(tmp_path / f"rank{rank}.log", "w+")
-        cmd = [sys.executable, os.path.abspath(__file__), str(rank), str(world), str(port), path]
+        cmd = [sys.executable, os.path.abspath(__file__), str(rank), str(world), str(port), path, mode]
         procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=REPO), log))
         paths.append(path)
     failures = []
@@ -272,6 +300,27 @@ def test_two_gloo_ranks_equal_serial_jax(tmp_path):
         _assert_matches(res["regression"], want_regression, f"rank {rank} regression")
         assert res["local_rows"] == lengths[rank]  # unsync gave the local buffer back
         assert "different dtypes or ranks" in res["lonely"], res["lonely"]
+
+
+def test_two_gloo_ranks_of_jaccard_kappa_and_ndcg_equal_serial_jax(tmp_path):
+    """Uneven shares (4 and 3 batches); the NDCG rows gather rank-major, so
+    the synced value is serial ``metrics_tpu``'s over that order."""
+    import jax.numpy as jnp
+
+    import metrics_tpu as mj
+
+    results = _run_world(2, tmp_path, mode="ranking")
+    serial = _ranking_metrics(mj)
+    for i in _rank_batches(0, 2, ranks=[0, 1]):
+        _feed_ranking(serial, _batches()[i], jnp.asarray)
+    want = {k: np.asarray(m.compute()) for k, m in serial.items()}
+    lengths = [sum(BATCH_SIZES[i] for i in _rank_batches(r, 2)) for r in range(2)]
+    for rank, res in enumerate(results):
+        got = res["ranking"]
+        np.testing.assert_allclose(got["iou"].numpy(), want["iou"], rtol=RTOL_SCORE, atol=0, err_msg=f"rank {rank} iou")
+        np.testing.assert_allclose(got["kappa"].numpy(), want["kappa"], rtol=RTOL_SCORE, atol=1e-6, err_msg=f"rank {rank} kappa")
+        np.testing.assert_allclose(got["ndcg"].numpy(), want["ndcg"], rtol=0, atol=1e-6, err_msg=f"rank {rank} ndcg")
+        assert res["local_rows"] == lengths[rank]  # unsync gave the local rows back
 
 
 def test_three_gloo_ranks_with_a_subgroup_equal_serial_jax(tmp_path):
@@ -625,4 +674,4 @@ def test_world_of_one_syncs_and_copies_share_the_process_group():
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    _worker(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], *sys.argv[5:6])
