@@ -9,7 +9,12 @@
    for bit, float sums within a stated tolerance) at the main path's
    shapes, on a ragged tail and on edge-case rows; then timed with CUDA
    events beside its bound, its plain version and (where one exists) a
-   single PyTorch call computing the same function. ``binned_counts`` is
+   single PyTorch call computing the same function. ``confusion_counts`` is
+   checked at C = 1, 2, 5, 20, 241 (the shared-memory route's limit), 242
+   and 1000, on uniform keys, segmentation runs and indices out of range,
+   in int32 and int64, at N = 0, 1, 4099 and 16,777,216, on views one
+   element past an allocation and mixed and narrow dtypes, and timed at
+   each C. ``binned_counts`` is
    also checked at T = 1, 5000 and 40,001 (the global-histogram path), on
    NaN, shuffled and log-spaced thresholds, equal preds, 81 classes, one
    row, 200,000 rows (partial rows and the finishing kernel) and on the CTR
@@ -252,6 +257,73 @@ def _topk_edge_rows(rng: np.random.Generator, rows: int, c: int) -> np.ndarray:
     return x
 
 
+# confusion_counts' sweep: C on both sides of the shared route's limit (241)
+CC_SWEEP_C = (1, 2, 5, 20, 241, 242, 1000)
+CC_SWEEP_N = (0, 1, 4099, 16_777_216)  # none, one, a ragged tail (N % 4 = 3), the segmentation batch
+
+
+def _run_labels(rng, n: int, c: int):
+    """Segmentation-shaped labels: one class per run of SEG_BLOCK samples,
+    class 0 on a third of the runs (the road), the rest uniform; predictions
+    equal to them but for SEG_ERROR of the samples."""
+    runs = (n + SEG_BLOCK - 1) // SEG_BLOCK
+    cls = np.where(rng.random(runs) < 1 / 3, 0, rng.integers(0, c, runs))
+    target = np.repeat(cls, SEG_BLOCK)[:n]
+    preds = np.where(rng.random(n) < SEG_ERROR, rng.integers(0, c, n), target)
+    return preds, target
+
+
+def _confusion_sweep(torch, rng) -> float:
+    """``confusion_counts`` against its plain version, bit for bit, at every C
+    of CC_SWEEP_C: uniform keys, segmentation runs and indices out of range,
+    int32 and int64, N of CC_SWEEP_N; views one element past an allocation
+    (not 16-byte aligned: one index per load); mixed and narrow dtypes (cast
+    to int64). Then the kernel's time
+    at each C on N = 16,777,216 int64 runs and uniform keys."""
+    from metrics_tpu_torch.ops import confusion_counts as cc
+
+    dev = torch.device("cuda")
+    big = CC_SWEEP_N[-1]
+    errs, routes, timed = [], {}, {}
+
+    def check(tag, p, t, c):
+        errs.append(_max_abs_err(torch, f"confusion_counts[{tag}]", cc._confusion_counts_cuda(p, t, c), cc._confusion_counts_plain(p, t, c)))
+
+    for c in CC_SWEEP_C:
+        route, copies = cc._confusion_route(c)
+        routes[c] = f"{route}/{copies}"
+        data = {
+            "uniform": (rng.integers(0, c, big), rng.integers(0, c, big)),
+            "runs": _run_labels(rng, big, c),
+            "out_of_range": (rng.integers(-3, c + 3, big), rng.integers(-3, c + 3, big)),
+        }
+        on_card = {dist: (torch.from_numpy(p).to(dev), torch.from_numpy(t).to(dev)) for dist, (p, t) in data.items()}
+        for dist, (p64, t64) in on_card.items():
+            for dtype in (torch.int32, torch.int64):
+                p, t = p64.to(dtype), t64.to(dtype)
+                for n in CC_SWEEP_N:
+                    check(f"c{c}/{dist}/{dtype}/n{n}", p[:n], t[:n], c)
+                if dist == "runs":
+                    for n in (4099, big):
+                        shifted = torch.cat([p.new_zeros(1), p[:n]])[1:]
+                        check(f"c{c}/runs/{dtype}/n{n}/offset_view", shifted, t[:n], c)
+                        check(f"c{c}/runs/{dtype}/n{n}/offset_views", shifted, torch.cat([t.new_zeros(1), t[:n]])[1:], c)
+        p64, t64 = on_card["runs"]
+        check(f"c{c}/runs/mixed", p64.int(), t64, c)
+        if c <= 255:
+            check(f"c{c}/runs/uint8", p64.to(torch.uint8), t64.to(torch.uint8), c)
+        timed[c] = tuple(
+            round(_cuda_ms(torch, lambda p=p, t=t: cc._confusion_counts_cuda(p, t, c), iters=10), 4)
+            for p, t in (on_card["runs"], on_card["uniform"])
+        )
+    bound_ms, _ = _bound_ms(2 * big * 8, 5 * big)
+    _log(
+        f"confusion_counts: bit-identical to plain on {len(errs)} cases; route/copies per C {routes}; ms at N={big} int64"
+        f" (segmentation runs, uniform keys) per C {timed}, against the byte bound {bound_ms:.4f} ms"
+    )
+    return max(errs)
+
+
 def check_and_time_kernels(torch, rng):
     from metrics_tpu_torch.ops import confusion_counts as cc
     from metrics_tpu_torch.ops import select_topk as st
@@ -261,17 +333,11 @@ def check_and_time_kernels(torch, rng):
     ml_c = COCO_VAL[1]
     records = {}
 
-    # confusion_counts: main-path shape, ragged tail, out-of-range indices
-    errs = []
+    # confusion_counts: main-path shape, then the sweep over both routes
     preds = torch.from_numpy(rng.integers(0, c, n)).to(dev)
     target = torch.from_numpy(rng.integers(0, c, n)).to(dev)
-    bad = torch.from_numpy(rng.integers(-3, c + 3, n)).to(dev)
-    for tag, (p, t) in {
-        "main": (preds, target),
-        "ragged": (preds[:RAGGED], target[:RAGGED]),
-        "out_of_range": (bad, target),
-    }.items():
-        errs.append(_max_abs_err(torch, f"confusion_counts[{tag}]", cc._confusion_counts_cuda(p, t, c), cc._confusion_counts_plain(p, t, c)))
+    err = _max_abs_err(torch, "confusion_counts[main]", cc._confusion_counts_cuda(preds, target, c), cc._confusion_counts_plain(preds, target, c))
+    errs = [err, _confusion_sweep(torch, rng)]
     ms = _cuda_ms(torch, lambda: cc._confusion_counts_cuda(preds, target, c))
     plain_ms = _cuda_ms(torch, lambda: cc._confusion_counts_plain(preds, target, c))
     library_ms = _cuda_ms(torch, lambda: torch.bincount(target * c + preds, minlength=c * c))
@@ -2043,10 +2109,15 @@ def run_ordinal_grading(torch, mt, rng):
     mc = mt.MetricCollection({"qwk": mt.CohenKappa(num_classes=5, weights="quadratic"), "lwk": mt.CohenKappa(num_classes=5, weights="linear")})
     batches = _batches(n)
     t0 = _reset_stats(torch, mt)
+    marks = [t0]  # each batch apart: its warm-up runs and captures are one-time costs
     for s, e in batches:
         mc(preds[s:e], target[s:e])
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
     result = mc.compute()
     seconds, stats = _read_stats(torch, mt, t0, {"confusion_counts": 2 * len(batches)})
+    batch_ms = [round((b - a) * 1e3, 3) for a, b in zip(marks, marks[1:])]
+    compute_ms = (t0 + seconds - marks[-1]) * 1e3
     _require_programs("ordinal grading", mc, forward=True, captured=True)
     for key in mc:
         if not np.array_equal(mc[key].confmat.cpu().numpy(), cm):
@@ -2058,7 +2129,8 @@ def run_ordinal_grading(torch, mt, rng):
         f"ordinal grading (9b): Kaggle Diabetic Retinopathy test size, {n} grades 0-4 in {len(batches)} batches:"
         f" 5 x 5 counts match the numpy oracle bit for bit; quadratic kappa={float(result['qwk']):.6f}, linear"
         f" kappa={float(result['lwk']):.6f} within 1e-6 of the float64 oracle; {seconds * 1e3 / len(batches):.3f} ms/batch"
-        f" (first batch and captures included); {_profile_note(prof)}; {_engine_note(mc)} (both captured);"
+        f" (first batch and captures included): per batch {batch_ms} ms, compute() {compute_ms:.3f} ms;"
+        f" {_profile_note(prof)}; {_engine_note(mc)} (both captured);"
         f" kernel_stats {stats}; phase {time.perf_counter() - t_phase:.1f} s"
     )
     return stats["confusion_counts"]["launches"]
@@ -2101,7 +2173,7 @@ def _dice_oracle(cm: np.ndarray) -> float:
     return float(score[1:].mean())
 
 
-def run_segmentation(torch, mt, rng):
+def run_segmentation(torch, mt, rng, smi: str):
     """Phase 9c: mIoU and per-class IoU at Cityscapes val size, Dice on the
     first batches; ``confusion_counts`` at 16,777,216 rows and C = 20. Then
     the kernel against its plain version and ``torch.bincount`` on one
@@ -2177,7 +2249,8 @@ def run_segmentation(torch, mt, rng):
         f" round trip runs inside); kernel_stats {stats}"
     )
 
-    # confusion_counts at this shape: the kernel against its plain version and torch.bincount (PERF.md row 1b)
+    # confusion_counts at this shape: the kernel against its plain version and torch.bincount (PERF.md row 1b);
+    # then the same shape in int32, and on uniform keys, where no warp aggregates
     p, t = pred.reshape(-1), target.reshape(-1)
     n = p.numel()
     err = _max_abs_err(torch, "confusion_counts[segmentation]", cc._confusion_counts_cuda(p, t, SEG_CLASSES), cc._confusion_counts_plain(p, t, SEG_CLASSES))
@@ -2185,13 +2258,30 @@ def run_segmentation(torch, mt, rng):
     plain_ms = _cuda_ms(torch, lambda: cc._confusion_counts_plain(p, t, SEG_CLASSES), iters=5)
     library_ms = _cuda_ms(torch, lambda: torch.bincount(t * SEG_CLASSES + p, minlength=SEG_CLASSES**2), iters=20)
     bound_ms, bound_by = _bound_ms(2 * n * 8 + SEG_CLASSES**2 * 8, 5 * n)
+    p32, t32 = p.int(), t.int()
+    ms32 = _cuda_ms(torch, lambda: cc._confusion_counts_cuda(p32, t32, SEG_CLASSES), iters=20)
+    bound32, _ = _bound_ms(2 * n * 4 + SEG_CLASSES**2 * 8, 5 * n)
+    pu = torch.randint(0, SEG_CLASSES, (n,), device="cuda", generator=gen)
+    tu = torch.randint(0, SEG_CLASSES, (n,), device="cuda", generator=gen)
+    err = max(err, _max_abs_err(torch, "confusion_counts[segmentation, uniform]", cc._confusion_counts_cuda(pu, tu, SEG_CLASSES), cc._confusion_counts_plain(pu, tu, SEG_CLASSES)))
+    ms_uniform = _cuda_ms(torch, lambda: cc._confusion_counts_cuda(pu, tu, SEG_CLASSES), iters=20)
+    library_uniform = _cuda_ms(torch, lambda: torch.bincount(tu * SEG_CLASSES + pu, minlength=SEG_CLASSES**2), iters=20)
     _log(
-        f"kernel confusion_counts at the segmentation shape (N={n}, C={SEG_CLASSES}, diagonal-heavy labels in 32-pixel runs):"
-        f" bit-identical to plain (max abs err {err}); ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (torch.bincount of"
-        f" target * C + preds) bound_ms={bound_ms:.4f} ({bound_by}); phase {time.perf_counter() - t_phase:.1f} s"
+        f"kernel confusion_counts at the segmentation shape (N={n}, C={SEG_CLASSES}, route {cc._confusion_route(SEG_CLASSES)},"
+        f" diagonal-heavy labels in 32-pixel runs): bit-identical to plain (max abs err {err}); ms={ms:.4f} plain_ms={plain_ms:.4f}"
+        f" library_ms={library_ms:.4f} (torch.bincount of target * C + preds) bound_ms={bound_ms:.4f} ({bound_by}), the kernel at"
+        f" {bound_ms / ms:.3f} of the bound and {library_ms / ms:.2f}x the library's speed; int32 inputs ms={ms32:.4f} against"
+        f" bound_ms={bound32:.4f} ({bound32 / ms32:.3f}); uniform keys ms={ms_uniform:.4f} ({bound_ms / ms_uniform:.3f} of the bound),"
+        f" library_ms={library_uniform:.4f}; {smi}; phase {time.perf_counter() - t_phase:.1f} s"
+    )
+    record = dict(
+        source="metrics_tpu_torch/csrc/confusion_counts.cu",
+        replaces="metrics_tpu/ops/confusion_counts.py:44",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        shape=f"N={n}, C={SEG_CLASSES} (Cityscapes labels)",
     )
     calls = {"confusion_counts@segmentation": lambda: cc._confusion_counts_cuda(p, t, SEG_CLASSES)}
-    return stats["confusion_counts"]["launches"], calls
+    return stats["confusion_counts"]["launches"], calls, record
 
 
 def _msmarco_stream(rng):
@@ -2331,7 +2421,7 @@ def run_passage_ranking(torch, mt, rng):
 # kernel wrappers' device-side names, as the profiler reports them; a
 # wrapper that runs several kernels per call lists them all
 KERNEL_SYMBOLS = {
-    "confusion_counts": ("confusion_counts_kernel",),
+    "confusion_counts": ("confusion_shared_kernel", "confusion_counts_kernel"),
     "multilabel_counts": ("multilabel_counts_kernel",),
     "select_topk": ("topk_mask_regs_kernel", "topk_mask_kernel", "topk_mask_f64_kernel"),
     "binned_counts": ("binned_hist_kernel", "binned_finish_kernel", "rank_thresholds_kernel"),
@@ -2452,8 +2542,9 @@ def main() -> int:
     t_new = time.perf_counter()
     extension_launches = run_classification_extension(torch, mt, rng, logits, target, host_stream)
     extension_launches += run_ordinal_grading(torch, mt, rng)
-    seg_launches, seg_calls = run_segmentation(torch, mt, rng)
+    seg_launches, seg_calls, seg_record = run_segmentation(torch, mt, rng, smi)
     calls.update(seg_calls)
+    records["confusion_counts@segmentation"] = seg_record
     run_passage_ranking(torch, mt, rng)
     torch.cuda.empty_cache()
     _log(f"phases 9a, 9b, 9c and 9e: {time.perf_counter() - t_new:.1f} s in all, oracles and data included")
@@ -2490,15 +2581,18 @@ def main() -> int:
     launches = {
         **{k: v["launches"] + sync_launches.get(k, 0) + engine_launches.get(k, 0) for k, v in main_stats.items()},
         "confusion_counts": main_stats["confusion_counts"]["launches"] + sync_launches.get("confusion_counts", 0)
-        + engine_launches.get("confusion_counts", 0) + extension_launches + seg_launches,
+        + engine_launches.get("confusion_counts", 0) + extension_launches,
+        "confusion_counts@segmentation": seg_launches,
         "multilabel_counts": ml_stats["multilabel_counts"]["launches"],
         "binned_counts": coco_stats["binned_counts"]["launches"] + ctr_stats["binned_counts"]["launches"],
         "binned_calibration": sum(stats["binned_calibration"]["launches"] for _, stats in calibration.values()),
         "pairwise_reduce": pairwise_launches,
     }
+    # a second shape of an op (``op@label``) is a record of its own, with its own launches
     kernels = [
         {
-            "name": name,
+            "name": name.split("@")[0],
+            "shape": rec["shape"],
             "route": "cuda",
             "source": rec["source"],
             "replaces": rec["replaces"],

@@ -3,15 +3,59 @@
 // confusion_counts replaces metrics_tpu/ops/confusion_counts.py
 // `_confusion_kernel` (wrapper `_confusion_counts_pallas`):
 //   confmat[t, p] = #{n : target[n] = t, preds[n] = p}, indices outside [0, C)
-//   dropped.
-//   Bound on an H100: bytes. It reads two int64 index vectors once and the
-//   wrapper zero-fills the int64 [C, C] output (at N = 8192, C = 1000: 131 KB
-//   read, 8 MB written, about 2.5 us at 3.35 TB/s); the work is N adds.
-//   Design: the TPU kernel built one-hot tiles in VMEM and contracted them on
-//   the MXU because a TPU has no scatter hardware. Hopper has native global
-//   atomics, so each thread takes one sample (grid-stride loop, coalesced
-//   reads) and adds 1 to its cell with a 64-bit atomicAdd. Cells are spread
-//   over C*C addresses, so contention stays low unless the data is skewed.
+//   dropped. The indices are int32 or int64, read as given.
+//   Bound on an H100: bytes. It reads two index vectors once and the wrapper
+//   zero-fills the int64 [C, C] output (at N = 16,777,216 int64 and C = 20:
+//   268 MB read, 80 us at 3.35 TB/s; at N = 8192, C = 1000 the 8 MB fill
+//   dominates, 2.4 us); the work is N adds.
+//   The TPU kernel built one-hot tiles in VMEM and contracted them on the
+//   MXU because a TPU has no scatter hardware; that is not carried over.
+//   Two routes, picked by C (the wrapper's `_confusion_route`):
+//   1. Shared (C * C * 4 bytes <= 232,448, the 227 KB of dynamic shared
+//      memory an H100 block may opt into: C <= 241, since 241^2 * 4 =
+//      232,324 and 242^2 * 4 = 234,256). The first design gave every sample
+//      a 64-bit global atomicAdd; on segmentation labels (C = 20, a third of
+//      the pixels on the road cell) some 5.6 million of them per call landed
+//      on one L2 address and serialized: 4.70 ms at N = 16,777,216, 4x
+//      torch.bincount and 59x the byte bound. Now each block of 512 threads
+//      keeps `copies` private C * C histograms of 32-bit counters in shared
+//      memory, warp w adding to copy w % copies, so warps do not contend
+//      for one cell; the wrapper gives 16 copies (one per warp), halved
+//      until they fit half an SM's shared memory (two blocks resident),
+//      and at least one. Each sample adds 1 to its cell with a shared-memory
+//      atomicAdd. The warp aggregation first planned (lanes of one key
+//      found with __match_any_sync, the lowest adding __popc of the group
+//      once) is built with -DMT_CC_MERGE=1 and timed against this by
+//      `python3 -m metrics_tpu_torch.ops.confusion_merge_probe`: with a
+//      copy per warp the loop waits on device memory and the shared
+//      atomics' conflicts hide behind it, so the merge saves nothing on
+//      segmentation runs and costs more than the atomics it saves on
+//      uniform keys, where nothing merges (PERF.md has the times). So it
+//      is off.
+//      The grid covers the SMs (as many blocks as are resident, fewer for
+//      small N, each taking an equal number of chunks); a chunk is 4 loads
+//      of each input per thread, all in flight before any is used, 16
+//      bytes each (2 int64 or 4 int32) where both inputs are 16-byte
+//      aligned, else one index; the last N % 2 or N % 4 samples of the
+//      16-byte route go to block 0's first threads. When a block is done it
+//      adds each nonzero cell, summed over its copies, to the caller-zeroed
+//      int64 output with one 64-bit atomicAdd: at most C * C global atomics
+//      per block, not one per sample.
+//      Exact with 32-bit counters: a counter counts at most the samples of
+//      its block, and a block takes ceil(chunks / resident) chunks of 2048 *
+//      V samples (plus block 0's tail of fewer than V). An H100 holds at
+//      least 132 resident blocks (one per SM), so a block passes 2^31 - 1
+//      samples only once N is about 132 * 2^31 = 2.8e11 indices per input:
+//      2.3 TB of int32 or 4.5 TB of int64, against the card's 80 GB. The
+//      launch refuses such an N (cudaErrorInvalidValue) rather than wrap.
+//      Integer sums are exact in any order, so every launch gives the same
+//      counts. The launch is a plain one, so a CUDA graph captures it; the
+//      shared-memory limit is raised once per device, outside any stream.
+//   2. Global (C > 241, as ImageNet's 1000): each thread takes one sample
+//      (grid-stride loop, coalesced reads) and adds 1 to its cell with a
+//      64-bit atomicAdd. Cells are spread over C * C addresses, so contention
+//      stays low unless the data is skewed; at C = 1000, N = 8192 the kernel
+//      is at the launch floor.
 //
 // multilabel_counts replaces metrics_tpu/ops/confusion_counts.py
 // `_multilabel_kernel` (wrapper `_multilabel_counts_pallas`):
@@ -57,13 +101,32 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;  // 16 blocks per SM is plenty for a grid-stride loop
+constexpr int kSmThreads = 512;       // shared route: 16 warps a block
+constexpr int kSmWarps = kSmThreads / 32;
+constexpr int kSmUnroll = 4;  // loads of each input in flight per thread before any is used
+#ifndef MT_CC_MERGE
+#define MT_CC_MERGE 0  // 1: warp-aggregated increments (__match_any_sync), for timing against the default
+#endif
 constexpr int kMlThreads = 256;
 constexpr int kMlTile = 16;       // columns per block: 4 lanes of 4, or up to 16 lanes of 1
 constexpr int kMlUnroll = 8;      // row steps whose loads are in flight before any is used
 constexpr int kMlMaxCluster = 16;  // chunks of a tile, one cluster (more than 8 is not portable)
 
-__global__ void confusion_counts_kernel(const int64_t* __restrict__ target,
-                                        const int64_t* __restrict__ preds, int64_t n,
+// Sets `attr` of `kernel` to `value` once per device (bit `device` of
+// `done`): each call costs host time on every launch of a path that is
+// host-bound.
+template <typename K>
+cudaError_t set_once(K* kernel, cudaFuncAttribute attr, int value, int device, std::atomic<unsigned long long>& done) {
+  const unsigned long long bit = 1ULL << (device & 63);
+  if (done.load() & bit) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, attr, value);
+  if (err != cudaSuccess) return err;
+  done.fetch_or(bit);
+  return cudaSuccess;
+}
+
+template <typename I>
+__global__ void confusion_counts_kernel(const I* __restrict__ target, const I* __restrict__ preds, int64_t n,
                                         int64_t c, unsigned long long* __restrict__ out) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
@@ -74,6 +137,145 @@ __global__ void confusion_counts_kernel(const int64_t* __restrict__ target,
       atomicAdd(out + t * c + p, 1ULL);
     }
   }
+}
+
+// V consecutive indices: one 16-byte load (V = 16 / sizeof(I)) or one index.
+template <int V>
+__device__ __forceinline__ void load_indices(const int64_t* p, int64_t i, int64_t (&v)[V]) {
+  if constexpr (V == 1) {
+    v[0] = p[i];
+  } else {
+    static_assert(V == 2, "16 bytes hold 2 int64");
+    const longlong2 q = reinterpret_cast<const longlong2*>(p)[i];
+    v[0] = q.x, v[1] = q.y;
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_indices(const int32_t* p, int64_t i, int32_t (&v)[V]) {
+  if constexpr (V == 1) {
+    v[0] = p[i];
+  } else {
+    static_assert(V == 4, "16 bytes hold 4 int32");
+    const int4 q = reinterpret_cast<const int4*>(p)[i];
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  }
+}
+
+// The cell t * c + p, or -1 where either index is outside [0, c).
+template <typename I>
+__device__ __forceinline__ int cell_of(I t, I p, int c) {
+  return (t >= 0 && t < c && p >= 0 && p < c) ? static_cast<int>(t) * c + static_cast<int>(p) : -1;
+}
+
+// The shared route: `copies` (a power of 2, at most kSmWarps) private
+// [c * c] histograms in dynamic shared memory; V indices per load.
+template <typename I, int V>
+__global__ void __launch_bounds__(kSmThreads) confusion_shared_kernel(
+    const I* __restrict__ target, const I* __restrict__ preds, int64_t n, int c, int copies,
+    unsigned long long* __restrict__ out) {
+  extern __shared__ unsigned hist[];  // [copies][c * c]
+  const int cells = c * c;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < copies * cells; i += kSmThreads) hist[i] = 0;
+  __syncthreads();
+  unsigned* mine = hist + ((tid >> 5) & (copies - 1)) * cells;
+  const int64_t nvec = n / V;
+  if (V > 1 && blockIdx.x == 0 && tid < n - nvec * V) {
+    const int key = cell_of(target[nvec * V + tid], preds[nvec * V + tid], c);
+    if (key >= 0) atomicAdd(mine + key, 1u);
+  }
+  constexpr int64_t step = int64_t{kSmThreads} * kSmUnroll;  // loads of each input per chunk
+  const int64_t chunks = (nvec + step - 1) / step;
+  for (int64_t ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
+    I t[kSmUnroll][V], p[kSmUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kSmUnroll; ++u) {
+      const int64_t i = ch * step + u * kSmThreads + tid;
+      if (i < nvec) {
+        load_indices<V>(target, i, t[u]);
+        load_indices<V>(preds, i, p[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) t[u][e] = p[u][e] = -1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSmUnroll; ++u) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int key = cell_of(t[u][e], p[u][e], c);
+#if MT_CC_MERGE
+        // every lane of the warp is here (the chunk loop is the same for the whole block)
+        const unsigned group = __match_any_sync(0xFFFFFFFFu, key);
+        if (key >= 0 && (tid & 31) == __ffs(group) - 1) atomicAdd(mine + key, static_cast<unsigned>(__popc(group)));
+#else
+        if (key >= 0) atomicAdd(mine + key, 1u);
+#endif
+      }
+    }
+  }
+  // each nonzero cell, summed over the copies, into the output
+  __syncthreads();
+  for (int i = tid; i < cells; i += kSmThreads) {
+    unsigned long long sum = 0;
+    for (int k = 0; k < copies; ++k) sum += hist[k * cells + i];
+    if (sum) atomicAdd(out + i, sum);
+  }
+}
+
+template <typename I, int V>
+cudaError_t launch_shared(int device, const I* target, const I* preds, int64_t n, int c, int copies,
+                          unsigned long long* out, cudaStream_t stream) {
+  static std::atomic<unsigned long long> raised{0};
+  static std::atomic<unsigned long long> resident_on[64];  // smem bytes << 32 | resident blocks; 0: not yet known
+  auto* kernel = confusion_shared_kernel<I, V>;
+  // the caller's route picks copies that fit; a request past the device's
+  // opt-in limit fails at the launch
+  const int64_t bytes = int64_t{copies} * c * c * static_cast<int64_t>(sizeof(unsigned));
+  if (bytes > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  const unsigned smem = static_cast<unsigned>(bytes);
+  cudaError_t err = cudaSuccess;
+  if (!(raised.load() & (1ULL << (device & 63)))) {
+    int limit = 0;
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err == cudaSuccess) err = set_once(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit, device, raised);
+    if (err != cudaSuccess) return err;
+  }
+  unsigned long long known = resident_on[device & 63].load();
+  if (known >> 32 != smem || (known & 0xFFFFFFFFu) == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSmThreads, smem);
+    if (err != cudaSuccess) return err;
+    known = static_cast<unsigned long long>(smem) << 32 | static_cast<unsigned>(sms * (per_sm > 0 ? per_sm : 1));
+    resident_on[device & 63].store(known);
+  }
+  const int64_t resident = static_cast<int64_t>(known & 0xFFFFFFFFu);
+  const int64_t step = int64_t{kSmThreads} * kSmUnroll;
+  const int64_t chunks = (n / V + step - 1) / step;
+  // blocks of an equal number of chunks each, no more than are resident
+  const int64_t per_block = chunks > resident ? (chunks + resident - 1) / resident : 1;
+  // no 32-bit counter may pass 2^31 - 1: a block counts at most this many samples
+  if (per_block * step * V + (V - 1) > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  int64_t blocks = (chunks + per_block - 1) / per_block;
+  if (blocks < 1) blocks = 1;
+  kernel<<<static_cast<unsigned>(blocks), kSmThreads, smem, stream>>>(target, preds, n, c, copies, out);
+  return cudaGetLastError();
+}
+
+template <typename I>
+cudaError_t launch_confusion(int device, const I* target, const I* preds, int64_t n, int64_t c, int copies,
+                             unsigned long long* out, cudaStream_t stream) {
+  if (copies == 0) {
+    int64_t blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    confusion_counts_kernel<I><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(target, preds, n, c, out);
+    return cudaGetLastError();
+  }
+  constexpr int V = 16 / sizeof(I);
+  const bool vec = (reinterpret_cast<uintptr_t>(target) | reinterpret_cast<uintptr_t>(preds)) % 16 == 0;
+  return vec ? launch_shared<I, V>(device, target, preds, n, static_cast<int>(c), copies, out, stream)
+             : launch_shared<I, 1>(device, target, preds, n, static_cast<int>(c), copies, out, stream);
 }
 
 // 4 or 1 consecutive int32 of one row.
@@ -173,20 +375,6 @@ __global__ void __launch_bounds__(kMlThreads) multilabel_counts_kernel(
   }
 }
 
-// Lets `kernel` (instance `which`: 0 or 1) run in clusters of more than 8
-// blocks, once per device: each call costs host time on every launch of a
-// path that is host-bound.
-template <typename K>
-cudaError_t allow_large_clusters(K* kernel, int device, int which) {
-  static std::atomic<unsigned long long> done[2];
-  const unsigned long long bit = 1ULL << (device & 63);
-  if (done[which].load() & bit) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  done[which].fetch_or(bit);
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
@@ -195,20 +383,28 @@ const char* mt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out: int64 [c, c], zeroed by the caller.
-int mt_confusion_counts(int device, const void* target, const void* preds, int64_t n, int64_t c,
-                        void* out, void* stream) {
+// target, preds: int32 (index_bytes 4) or int64 (8) [n]; copies: 0 for
+// the global route, else the shared route's histograms per block (a power
+// of 2, at most 16, with copies * c * c * 4 bytes within the device's
+// opt-in shared memory); out: int64 [c, c], zeroed by the caller.
+int mt_confusion_counts(int device, const void* target, const void* preds, int64_t n, int64_t c, int index_bytes,
+                        int copies, void* out, void* stream) {
+  const bool shared_ok = copies > 0 && copies <= kSmWarps && !(copies & (copies - 1)) && c <= 46340;
+  if (n < 0 || c < 1 || (index_bytes != 4 && index_bytes != 8) || (copies != 0 && !shared_ok)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (n > 0) {
-    int64_t blocks = (n + kThreads - 1) / kThreads;
-    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    confusion_counts_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int64_t*>(target), static_cast<const int64_t*>(preds), n, c,
-        static_cast<unsigned long long*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  auto* o = static_cast<unsigned long long*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      index_bytes == 8
+          ? launch_confusion(device, static_cast<const int64_t*>(target), static_cast<const int64_t*>(preds), n, c,
+                             copies, o, s)
+          : launch_confusion(device, static_cast<const int32_t*>(target), static_cast<const int32_t*>(preds), n, c,
+                             copies, o, s);
+  return static_cast<int>(err);
 }
 
 // preds, target: int32 [n, c] row-major; lanes: lanes per row (a power of
@@ -231,8 +427,11 @@ int mt_multilabel_counts(int device, const void* preds, const void* target, int6
   if (chunks > kMlMaxCluster) chunks = kMlMaxCluster;
   if (chunks < 1) chunks = 1;
   const int64_t rows = (n + chunks - 1) / chunks;
+  static std::atomic<unsigned long long> clusters_allowed[2];
   auto* kernel = vec ? multilabel_counts_kernel<4> : multilabel_counts_kernel<1>;
-  const cudaError_t prep = allow_large_clusters(kernel, device, vec);
+  // clusters of more than 8 blocks
+  const cudaError_t prep =
+      set_once(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1, device, clusters_allowed[vec]);
   if (prep != cudaSuccess) return static_cast<int>(prep);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(chunks));

@@ -33,8 +33,9 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 #: C entry -> argument types. Every entry returns ``cudaGetLastError()`` as int.
 _SIGNATURES: Dict[str, List] = {
-    # device, target, preds, n, num_classes, out [C*C] u64, stream
-    "mt_confusion_counts": [_INT, _P, _P, _I64, _I64, _P, _P],
+    # device, target, preds (int32 or int64 [N]), n, num_classes, bytes per index,
+    # histograms per block (0: the global route), out [C*C] u64, stream
+    "mt_confusion_counts": [_INT, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
     # device, preds i32 [N*C], target i32 [N*C], n, c, lanes per row, 16-byte loads,
     # out i64 [C*4] ([[tn, fp], [fn, tp]] per class), stream
     "mt_multilabel_counts": [_INT, _P, _P, _I64, _I64, _INT, _INT, _P, _P],

@@ -10,9 +10,12 @@
 
 Both return int64. The CUDA kernels are in ``csrc/confusion_counts.cu``;
 each has its plain PyTorch version here, which the CPU path runs and the
-kernel is held against bit for bit. The multilabel kernel writes the
-``[C, 2, 2]`` counts itself in one launch (a cluster per tile of up to 16
-columns); :func:`_multilabel_route` picks its lanes per row and load width.
+kernel is held against bit for bit. The multiclass kernel reads int32 and
+int64 indices as given and counts in shared memory up to C = 241, in 64-bit
+global atomics past it; :func:`_confusion_route` picks the route. The
+multilabel kernel writes the ``[C, 2, 2]`` counts itself in one launch (a
+cluster per tile of up to 16 columns); :func:`_multilabel_route` picks its
+lanes per row and load width.
 """
 from typing import Tuple
 
@@ -50,13 +53,50 @@ def _confusion_counts_plain(preds: torch.Tensor, target: torch.Tensor, num_class
     return bins[: c * c].reshape(c, c)
 
 
+#: Dynamic shared memory an H100 block may opt into (227 KB), and the warps
+#: of a block of the shared-route kernel (``kSmWarps`` in the source). The
+#: route is chosen here alone: the kernel takes the copies it is given, and a
+#: request past the device's opt-in limit fails at the launch, so both
+#: numbers must match the card and the source.
+_SMEM_BYTES = 232_448
+_SM_WARPS = 16
+
+
+def _confusion_route(c: int) -> Tuple[str, int]:
+    """``(route, histograms per block)`` of the multiclass kernel for ``c``
+    classes: ``("shared", copies)`` while one ``[c, c]`` histogram of 4-byte
+    counters fits a block's shared memory (c <= 241), with one copy per warp
+    halved until the copies fit half an SM's (two blocks resident), and at
+    least one; else ``("global", 0)``."""
+    per_copy = 4 * c * c
+    if per_copy > _SMEM_BYTES:
+        return "global", 0
+    copies = _SM_WARPS
+    while copies > 1 and copies * per_copy > _SMEM_BYTES // 2:
+        copies //= 2
+    return "shared", copies
+
+
+def _index_dtype(preds: torch.Tensor, target: torch.Tensor) -> torch.dtype:
+    """The dtype the kernel reads: int32 or int64 indices as given, anything
+    else (a mix, a narrower or unsigned type) cast to int64."""
+    if preds.dtype == target.dtype and preds.dtype in (torch.int32, torch.int64):
+        return preds.dtype
+    return torch.int64
+
+
 def _confusion_counts_cuda(preds: torch.Tensor, target: torch.Tensor, num_classes: int) -> torch.Tensor:
     lib = _build.library()
-    p = preds.to(torch.int64).contiguous()
-    t = target.to(torch.int64).contiguous()
+    dtype = _index_dtype(preds, target)
+    p = preds.to(dtype).contiguous()
+    t = target.to(dtype).contiguous()
+    _, copies = _confusion_route(num_classes)
     out = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=p.device)
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    err = lib.mt_confusion_counts(p.device.index, t.data_ptr(), p.data_ptr(), p.numel(), num_classes, out.data_ptr(), stream)
+    err = lib.mt_confusion_counts(
+        p.device.index, t.data_ptr(), p.data_ptr(), p.numel(), num_classes, p.element_size(), copies,
+        out.data_ptr(), stream,
+    )
     _build.check(lib, err, "confusion_counts kernel")
     _registry.count_launch("confusion_counts")
     return out

@@ -24,7 +24,13 @@ from metrics_tpu.ops.binned_counts import (
 from metrics_tpu.ops.select_topk import _topk_mask, _topk_mask_xla
 from metrics_tpu_torch import kernel_stats, reset_kernel_stats
 from metrics_tpu_torch.ops.binned_counts import _calibration_route, binned_calibration_counts, binned_stat_counts
-from metrics_tpu_torch.ops.confusion_counts import _multilabel_route, confusion_counts, multilabel_counts
+from metrics_tpu_torch.ops.confusion_counts import (
+    _confusion_route,
+    _index_dtype,
+    _multilabel_route,
+    confusion_counts,
+    multilabel_counts,
+)
 from metrics_tpu_torch.ops.select_topk import _topk_route, select_topk_mask
 from metrics_tpu_torch.utils.data import _linspace, select_topk
 
@@ -58,6 +64,78 @@ def test_confusion_counts_drop_out_of_range_like_the_kernel():
     _assert_same_counts(got, pallas)
     assert int(got.sum()) == 2
     assert not np.array_equal(got.numpy(), np.asarray(_confusion_counts_xla(jnp.asarray(preds), jnp.asarray(target), 3)))
+
+
+def _cityscapes_like(rng: np.random.Generator, n: int, c: int = 20):
+    """Segmentation-shaped labels: one class per run of 32 pixels, class 0
+    (the road) on a third of the runs, the rest uniform; predictions equal
+    to them but for 8% of the pixels."""
+    runs = (n + 31) // 32
+    cls = np.where(rng.random(runs) < 1 / 3, 0, rng.integers(0, c, runs))
+    target = np.repeat(cls, 32)[:n]
+    preds = np.where(rng.random(n) < 0.08, rng.integers(0, c, n), target)
+    return preds, target
+
+
+def test_confusion_counts_of_segmentation_runs_match_the_composition():
+    """The shape the shared-memory route was built for (C = 20, a third of
+    the pixels on one class, in runs): in-range inputs give the bincount
+    composition's counts."""
+    preds, target = _cityscapes_like(np.random.default_rng(10), 65_536)
+    got = confusion_counts(_t(preds), _t(target), num_classes=20)
+    _assert_same_counts(got, _confusion_counts_xla(jnp.asarray(preds), jnp.asarray(target), 20))
+    assert int(got[0, 0]) > 65_536 // 4  # the hot cell holds over a quarter of the pixels
+
+
+@pytest.mark.parametrize("n,c", [(4096, 20), (4093, 20), (4096, 241), (4096, 242)])
+def test_confusion_counts_of_segmentation_runs_match_pallas(n, c):
+    """Both sides of the shared route's limit (C = 241 fits, 242 does not), and a ragged N."""
+    preds, target = _cityscapes_like(np.random.default_rng(c + n), n, c)
+    got = confusion_counts(_t(preds), _t(target), num_classes=c)
+    _assert_same_counts(got, _confusion_counts_pallas(jnp.asarray(preds), jnp.asarray(target), num_classes=c, interpret=True))
+    assert int(got.sum()) == n
+
+
+@pytest.mark.parametrize("c", [1, 20, 241, 242, 1000])
+def test_confusion_counts_take_int32_and_int64_alike(c):
+    rng = np.random.default_rng(c)
+    preds, target = rng.integers(-2, c + 2, 3000), rng.integers(-2, c + 2, 3000)
+    got32 = confusion_counts(_t(preds).int(), _t(target).int(), num_classes=c)
+    got64 = confusion_counts(_t(preds), _t(target), num_classes=c)
+    assert got32.dtype == got64.dtype == torch.int64
+    torch.testing.assert_close(got32, got64, rtol=0, atol=0)
+    _assert_same_counts(got64, _confusion_counts_pallas(jnp.asarray(preds), jnp.asarray(target), num_classes=c, interpret=True))
+
+
+@pytest.mark.parametrize(
+    "c,want",
+    [
+        (1, ("shared", 16)),  # one histogram per warp
+        (20, ("shared", 16)),  # Cityscapes: 16 copies of 1.6 KB
+        (85, ("shared", 4)),  # 4 copies of 28,900 bytes fit half of 227 KB
+        (86, ("shared", 2)),
+        (170, ("shared", 1)),  # one copy over half of 227 KB: one block per SM
+        (241, ("shared", 1)),  # the limit: 241^2 * 4 = 232,324 <= 232,448
+        (242, ("global", 0)),  # 242^2 * 4 = 234,256: one global atomic per sample
+        (1000, ("global", 0)),  # ImageNet
+    ],
+)
+def test_confusion_route_picks_shared_histograms_up_to_241_classes(c, want):
+    assert _confusion_route(c) == want
+
+
+@pytest.mark.parametrize(
+    "preds,target,want",
+    [
+        (torch.int32, torch.int32, torch.int32),
+        (torch.int64, torch.int64, torch.int64),
+        (torch.int32, torch.int64, torch.int64),
+        (torch.uint8, torch.uint8, torch.int64),
+        (torch.int16, torch.int32, torch.int64),
+    ],
+)
+def test_confusion_kernel_reads_int32_and_int64_as_given(preds, target, want):
+    assert _index_dtype(torch.zeros(2, dtype=preds), torch.zeros(2, dtype=target)) == want
 
 
 @pytest.mark.parametrize("n,c", [(64, 4), (256, 16), (300, 130)])
