@@ -148,6 +148,37 @@
       retrieval metrics in one collection (eager: list states, as in JAX),
       and ``RetrievalMAP(buffer_capacity=6,980,000)``, its update captured,
       equal to the unbounded member bit for bit; no kernel.
+10. The wrappers, the state helpers and image quality (run after the
+   regression path, so that the engine phase captures its own programs),
+   each against a numpy oracle:
+   a. the wrappers over ImageNet-1k val: ``BootStrapper`` of top-5
+      accuracy and of ``MatthewsCorrCoef``, 100 multinomial replicates
+      each, which must run on the captured fast path (one CUDA graph per
+      input signature, replayed for every later batch; the run fails on a
+      fallback): every replicate's counts bit for bit against an oracle that
+      redraws the indices from a twin ``default_rng(seed)``, its value
+      within 1e-6 relative, mean/std/quantiles within 1e-6, with ms/batch,
+      device ms, host syncs, captures, the launches credited per replay
+      (``select_topk`` or ``confusion_counts`` 100 times each) and the peak
+      memory; a poisson ``BootStrapper`` (10 eager clones); ``MinMaxMetric``
+      through ``forward``; ``ClasswiseWrapper(Recall(average=None))`` (1000
+      keys); ``MetricTracker`` over the main path's collection for three
+      epochs at three noise levels, ``best_metric(return_step=True)`` per
+      member;
+   b. ``MultioutputWrapper(MeanAbsoluteError(), num_outputs=3)`` over
+      50,000 x 3 rows with 1% NaN rows, against numpy with those rows
+      dropped per output;
+   c. checkpoints on the card: the ImageNet collection saved after 3
+      batches (``save_metric_state``), resumed in a fresh collection and fed
+      the rest, bit-equal to the uninterrupted run; its state tree restored
+      into a CPU collection; a restore into a 999-class confusion matrix
+      refused with its state unchanged;
+   d. image quality at DIV2K validation size (100 RGB images of 1020 x
+      2040, batches of 4, made on the card): PSNR, SSIM and MS-SSIM, the
+      first two images' SSIM and MS-SSIM against a float64 scipy oracle
+      within 1e-5, each float32 value against the same metric in float64
+      on the card within 1e-5, with ms per update and per ``compute()``,
+      the compute's device time (the convolution's share) and peak memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
@@ -2418,6 +2449,491 @@ def run_passage_ranking(torch, mt, rng):
     )
 
 
+# ---------------------------------------------------------------------------
+# the wrappers, the state helpers and image quality (phases 11a-11d)
+# ---------------------------------------------------------------------------
+BOOTSTRAPS = 100
+POISSON_BOOTSTRAPS = 10
+BOOT_SEED = 42  # BootStrapper's default seed
+BOOT_QUANTILES = (0.025, 0.975)
+TRACKER_NOISE = (1.0, 0.0, 2.0)  # extra logit noise of each tracked epoch: the best epoch is the second
+REGRESSION_OUTPUTS = (50_000, 3)  # a 3-D position regression: samples, outputs
+NAN_SHARE = 0.01  # rows with a NaN in one output
+CHECKPOINT_AFTER = 3  # batches before the save
+DIV2K_VAL = (100, 3, 1020, 2040)  # DIV2K validation: images, channels, one crop shape with its 2040-pixel long side
+DIV2K_BATCH = 4
+DIV2K_NOISE = 0.05
+ORACLE_IMAGES = 2
+MS_SSIM_BETAS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+CONV_SYMBOLS = ("conv", "fprop", "xmma", "cudnn", "depthwise")  # the convolution's device kernels, by name
+
+
+def _bootstrap_oracle(per_sample, batches, b: int, strategy: str, sizes=None):
+    """Each replicate's sum of ``per_sample`` over its resamples and its
+    resampled row count, from a twin of the wrapper's host sampler (the same
+    draws in the same order)."""
+    twin = np.random.default_rng(BOOT_SEED)
+    sums, totals = np.zeros(b, np.int64), np.zeros(b, np.int64)
+    for s, e in batches:
+        n = e - s
+        if strategy == "multinomial":
+            idx = twin.integers(0, n, size=(b, n))
+            sums += per_sample[s + idx].sum(1)
+            totals += n
+        else:
+            for r in range(b):
+                rows = np.repeat(np.arange(n), twin.poisson(1.0, size=n))
+                sums[r] += per_sample[s + rows].sum()
+                totals[r] += len(rows)
+    return sums, totals
+
+
+def _mcc_bootstrap_oracle(target_np, pred1, batches, b: int, c: int):
+    """Each multinomial replicate's ``[C, C]`` confusion counts."""
+    twin = np.random.default_rng(BOOT_SEED)
+    cms = np.zeros((b, c * c), np.int64)
+    for s, e in batches:
+        idx = s + twin.integers(0, e - s, size=(b, e - s))
+        keys = target_np[idx] * c + pred1[idx]
+        for r in range(b):
+            cms[r] += np.bincount(keys[r], minlength=c * c)
+    return cms.reshape(b, c, c)
+
+
+def _bootstrap_stats(values: np.ndarray):
+    return {
+        "mean": values.mean(),
+        "std": values.std(ddof=1),
+        "quantile": np.quantile(values, BOOT_QUANTILES),
+    }
+
+
+def _check_bootstrap(name: str, result: dict, values: np.ndarray) -> None:
+    """The replicates' values within 1e-6 relative of the oracle's, then
+    their statistics within 1e-6."""
+    _close(f"{name} replicates", result["raw"], values, rtol=1e-6)
+    for key, want in _bootstrap_stats(values).items():
+        if key in result:
+            _close(f"{name} {key}", result[key], want, atol=1e-6)
+
+
+def _run_bootstrap(torch, mt, boot, logits, target, batches, expect: dict):
+    """Stream ImageNet-1k val through ``boot.update``, then ``compute()``;
+    ms/batch, the launches per op, the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = _reset_stats(torch, mt)
+    for s, e in batches:
+        boot.update(logits[s:e], target[s:e])
+    seconds, stats = _read_stats(torch, mt, t0, expect)
+    t1 = time.perf_counter()
+    result = boot.compute()
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    return result, seconds * 1e3 / len(batches), compute_s * 1e3, peak, stats
+
+
+def _bootstrap_note(torch, boot, logits, target, batches, ms_batch, compute_ms, peak, stats) -> str:
+    """Its programs, and a profile of a few more batches (after the checks)."""
+    from metrics_tpu_torch.engine import cache
+
+    tmpl = boot.compile_stats()["children"]["template"]
+    graphs = [
+        g for key, entry in list(cache._CACHE.items())
+        if key[0] == "bootstrap_update" and key[1] == boot._template._engine_key for g in entry.graphs
+    ]
+    per_replay = sorted({json.dumps(g.launches, sort_keys=True) for g in graphs})
+    prof = _measure_batches(torch, [lambda s=s, e=e: boot.update(logits[s:e], target[s:e]) for s, e in batches[:PHASE_PROFILE_BATCHES]])
+    return (
+        f"{ms_batch:.3f} ms/batch over the stream (first batch of each shape, its eager warm-up and capture included),"
+        f" compute() {compute_ms:.1f} ms; {_profile_note(prof, top=4)}; template programs: {tmpl['compiles']} captured,"
+        f" {tmpl['cache_hits']} cache hits, jit_failed {tmpl['jit_failed']}; launches credited per replay {per_replay};"
+        f" peak memory above the phase's start {peak / 2**30:.2f} GiB; kernel_stats {stats}"
+    )
+
+
+def run_wrappers_phase(torch, mt, logits, target, host_stream):
+    """Phase 11a: the wrappers over ImageNet-1k val. Returns the launches per op."""
+    n, c = IMAGENET_VAL
+    logits_np, target_np, oracle = host_stream
+    t_phase = time.perf_counter()
+    batches = _batches(n)
+    rows = np.arange(n)
+    t_score = logits_np[rows, target_np][:, None]
+    cols = np.arange(c)[None, :]
+    rank = (logits_np > t_score).sum(1) + ((logits_np == t_score) & (cols < target_np[:, None])).sum(1)
+    top5 = (rank < TOP_K).astype(np.int64)
+    pred1 = logits_np.argmax(1)
+    top1 = (pred1 == target_np).astype(np.int64)
+    launches = {"select_topk": 0, "confusion_counts": 0}
+    b = BOOTSTRAPS
+
+    # (1) top-5 accuracy, multinomial: the fast path, select_topk once per replicate
+    boot = mt.BootStrapper(
+        mt.Accuracy(num_classes=c, top_k=TOP_K), num_bootstraps=b, sampling_strategy="multinomial",
+        quantile=list(BOOT_QUANTILES), raw=True,
+    )
+    result, ms_batch, compute_ms, peak, stats = _run_bootstrap(
+        torch, mt, boot, logits, target, batches, {"select_topk": b * len(batches)}
+    )
+    _require_bootstrap_fast_path("BootStrapper(Accuracy(top_k=5))", boot, len(batches))
+    correct, totals = _bootstrap_oracle(top5, batches, b, "multinomial")
+    st = {k: v.cpu().numpy() for k, v in boot._stacked_state.items()}  # micro stat scores: tp = right, tp + fn = all
+    if not (np.array_equal(st["tp"], correct) and np.array_equal(st["tp"] + st["fn"], totals)):
+        raise AssertionError("bootstrap top-5 accuracy: replicate counts differ from the numpy oracle")
+    _check_bootstrap("bootstrap top-5 accuracy", result, correct / totals)
+    launches["select_topk"] += stats["select_topk"]["launches"]
+    _log(
+        f"wrappers (11a) BootStrapper(Accuracy(top_k=5)), {b} multinomial replicates over ImageNet-1k val ({n} x {c},"
+        f" {len(batches)} batches): every replicate's counts equal the numpy oracle's (indices redrawn from a twin"
+        f" default_rng({BOOT_SEED})) bit for bit, values within 1e-6 relative; mean={float(result['mean']):.6f}"
+        f" std={float(result['std']):.6f} quantiles={[round(float(q), 6) for q in result['quantile']]} within 1e-6;"
+        f" {_bootstrap_note(torch, boot, logits, target, batches, ms_batch, compute_ms, peak, stats)}"
+    )
+    del boot, st
+
+    # (2) MCC, multinomial: the fast path, confusion_counts once per replicate
+    boot = mt.BootStrapper(mt.MatthewsCorrCoef(num_classes=c), num_bootstraps=b, sampling_strategy="multinomial", raw=True)
+    result, ms_batch, compute_ms, peak, stats = _run_bootstrap(
+        torch, mt, boot, logits, target, batches, {"confusion_counts": b * len(batches)}
+    )
+    _require_bootstrap_fast_path("BootStrapper(MatthewsCorrCoef)", boot, len(batches))
+    cms = _mcc_bootstrap_oracle(target_np, pred1, batches, b, c)
+    if not np.array_equal(boot._stacked_state["confmat"].cpu().numpy(), cms):
+        raise AssertionError("bootstrap mcc: replicate confusion counts differ from the numpy oracle")
+    _check_bootstrap("bootstrap mcc", result, np.array([_mcc_oracle(cm) for cm in cms]))
+    launches["confusion_counts"] += stats["confusion_counts"]["launches"]
+    _log(
+        f"wrappers (11a) BootStrapper(MatthewsCorrCoef), {b} multinomial replicates over ImageNet-1k val: every"
+        f" replicate's {c} x {c} counts equal the numpy oracle's bit for bit, values within 1e-6 relative;"
+        f" mean={float(result['mean']):.6f} std={float(result['std']):.6f} within 1e-6;"
+        f" {_bootstrap_note(torch, boot, logits, target, batches, ms_batch, compute_ms, peak, stats)}"
+    )
+    del boot
+
+    # (3) top-1 accuracy, poisson (the default): eager clones
+    boot = mt.BootStrapper(mt.Accuracy(num_classes=c), num_bootstraps=POISSON_BOOTSTRAPS, raw=True, quantile=list(BOOT_QUANTILES))
+    result, ms_batch, compute_ms, peak, stats = _run_bootstrap(torch, mt, boot, logits, target, batches, {})
+    if boot._use_fast_path is not False or any(s["compiles"] for s in boot.compile_stats()["children"].values()):
+        raise AssertionError(f"poisson BootStrapper: expected eager clones, got {boot.compile_stats()}")
+    correct, totals = _bootstrap_oracle(top1, batches, POISSON_BOOTSTRAPS, "poisson")
+    counts = [(int(m.tp), int(m.tp + m.fn)) for m in boot.metrics]
+    if counts != list(zip(correct.tolist(), totals.tolist())):
+        raise AssertionError(f"poisson bootstrap: replicate counts {counts} differ from the oracle's")
+    _check_bootstrap("poisson bootstrap top-1 accuracy", result, correct / totals)
+    prof = _measure_batches(torch, [lambda s=s, e=e: boot.update(logits[s:e], target[s:e]) for s, e in batches[:PHASE_PROFILE_BATCHES]])
+    _log(
+        f"wrappers (11a) BootStrapper(Accuracy()), {POISSON_BOOTSTRAPS} poisson replicates (eager clones, as in JAX):"
+        f" counts equal the oracle's, values within 1e-6 relative, mean={float(result['mean']):.6f}"
+        f" std={float(result['std']):.6f}; {ms_batch:.3f} ms/batch, compute() {compute_ms:.1f} ms;"
+        f" {_profile_note(prof, top=2)}; peak memory above the phase's start {peak / 2**30:.2f} GiB"
+    )
+    del boot
+
+    # (4) MinMaxMetric through forward: the batch values fold into the trackers
+    mm = mt.MinMaxMetric(mt.Accuracy(num_classes=c))
+    lo, hi = np.inf, -np.inf
+    t0 = _reset_stats(torch, mt)
+    for s, e in batches:
+        out = mm(logits[s:e], target[s:e])
+        want = top1[s:e].mean()
+        lo, hi = min(lo, want), max(hi, want)
+        _close("minmax batch value", out["raw"], want, rtol=1e-6)
+        _close("minmax running max", out["max"], hi, rtol=1e-6)
+        _close("minmax running min", out["min"], lo, rtol=1e-6)
+    final = mm.compute()
+    seconds, _ = _read_stats(torch, mt, t0, {})
+    _close("minmax raw", final["raw"], top1.mean(), rtol=1e-6)
+    _close("minmax max", final["max"], max(hi, top1.mean()), rtol=1e-6)
+    _close("minmax min", final["min"], min(lo, top1.mean()), rtol=1e-6)
+
+    # (5) ClasswiseWrapper: 1000 per-class recalls
+    cw = mt.ClasswiseWrapper(mt.Recall(num_classes=c, average=None))
+    t1 = _reset_stats(torch, mt)
+    for s, e in batches:
+        cw.update(logits[s:e], target[s:e])
+    per_class = cw.compute()
+    cw_seconds, _ = _read_stats(torch, mt, t1, {})
+    cm = oracle["confmat"]
+    recall = np.diag(cm) / cm.sum(1)
+    if list(per_class) != [f"recall_{i}" for i in range(c)]:
+        raise AssertionError(f"classwise: keys {list(per_class)[:3]}...")
+    _close("classwise recall", torch.stack(list(per_class.values())), recall, rtol=1e-6)
+    _log(
+        f"wrappers (11a) MinMaxMetric(Accuracy()) through forward: {len(batches)} batch values and the running min/max"
+        f" equal the oracle's within 1e-6 ({seconds * 1e3 / len(batches):.3f} ms/batch, {_engine_note(mm._base_metric)});"
+        f" ClasswiseWrapper(Recall(average=None)): {len(per_class)} keys recall_0..recall_{c - 1}, equal the oracle's"
+        f" per-class recall within 1e-6 ({cw_seconds * 1e3 / len(batches):.3f} ms/batch)"
+    )
+
+    # (6) MetricTracker over the main path's collection, three epochs at three noise levels
+    tracker = mt.MetricTracker(_imagenet_collection(mt), maximize=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    want_steps, tracker_s = [], 0.0
+    t2 = _reset_stats(torch, mt)
+    for noise in TRACKER_NOISE:
+        epoch = logits + noise * torch.randn(logits.shape, generator=gen, device="cuda")
+        tracker.increment()
+        torch.cuda.synchronize()
+        t_epoch = time.perf_counter()
+        for s, e in batches:
+            tracker(epoch[s:e], target[s:e])
+        torch.cuda.synchronize()
+        tracker_s += time.perf_counter() - t_epoch
+        want_steps.append(_numpy_oracle(epoch.cpu().numpy(), target_np, c))
+        del epoch
+    _, tracker_stats = _read_stats(
+        torch, mt, t2, {"confusion_counts": len(TRACKER_NOISE) * len(batches), "select_topk": len(TRACKER_NOISE) * len(batches)}
+    )
+    steps_all = tracker.compute_all()
+    idx, best = tracker.best_metric(return_step=True)
+    for key in ("top1", "top5", "f1"):
+        values = np.array([w[key] for w in want_steps])
+        _close(f"tracker {key} per step", steps_all[key], values, rtol=1e-6)
+        if idx[key] != int(values.argmax()):
+            raise AssertionError(f"tracker best step of {key}: {idx[key]}, oracle {int(values.argmax())}")
+        _close(f"tracker best {key}", torch.tensor(best[key]), values.max(), rtol=1e-6)
+    if not np.array_equal(steps_all["confmat"].cpu().numpy(), np.stack([w["confmat"] for w in want_steps])) or "confmat" in best:
+        raise AssertionError("tracker: per-step confusion counts differ from the oracle, or a non-scalar member has a best value")
+    for op in ("select_topk", "confusion_counts"):
+        launches[op] += tracker_stats[op]["launches"]
+    _log(
+        f"wrappers (11a) MetricTracker over the main path's collection, {len(TRACKER_NOISE)} epochs of ImageNet-1k val"
+        f" at logit noise {TRACKER_NOISE}: per-step values within 1e-6 and counts bit for bit of the oracle's;"
+        f" best_metric(return_step=True) {idx}, {({k: round(v, 6) for k, v in best.items()})} matches;"
+        f" {tracker_s * 1e3 / (len(TRACKER_NOISE) * len(batches)):.3f} ms/batch (the noisy logits and the oracle outside"
+        f" the time; each epoch's clone captures anew); kernel_stats {tracker_stats}; phase {time.perf_counter() - t_phase:.1f} s"
+    )
+    return launches
+
+
+def _require_bootstrap_fast_path(name: str, boot, n_batches: int) -> None:
+    """The fast path ran: one program per input signature (the full batches
+    and the ragged tail), replayed for every other batch; no fallback."""
+    tmpl = boot.compile_stats()["children"]["template"]
+    if boot._use_fast_path is not True or tmpl["jit_failed"] or tmpl["compiles"] != 2 or tmpl["cache_hits"] != n_batches - 2:
+        raise AssertionError(f"{name}: not on the captured fast path: use_fast_path={boot._use_fast_path}, template {tmpl}")
+
+
+def run_multioutput_phase(torch, mt):
+    """Phase 11b: ``MultioutputWrapper(MeanAbsoluteError(), num_outputs=3)``
+    over 50,000 x 3 outputs, 1% of rows NaN in one output."""
+    rng = np.random.default_rng(SEED + 11)  # its own stream: the later phases keep their data
+    n, k = REGRESSION_OUTPUTS
+    target_np = rng.standard_normal((n, k)).astype(np.float32)
+    preds_np = (target_np + 0.1 * rng.standard_normal((n, k))).astype(np.float32)
+    bad = rng.choice(n, int(n * NAN_SHARE), replace=False)
+    preds_np[bad, rng.integers(0, k, len(bad))] = np.nan
+    want = [
+        np.abs(preds_np[:, o].astype(np.float64) - target_np[:, o])[~np.isnan(preds_np[:, o])].mean() for o in range(k)
+    ]
+    preds, target = torch.from_numpy(preds_np).cuda(), torch.from_numpy(target_np).cuda()
+    mo = mt.MultioutputWrapper(mt.MeanAbsoluteError(), num_outputs=k)
+    batches = _batches(n)
+    t0 = _reset_stats(torch, mt)
+    for s, e in batches:
+        mo.update(preds[s:e], target[s:e])
+    result = mo.compute()
+    seconds, _ = _read_stats(torch, mt, t0, {})
+    for o in range(k):
+        _close(f"multioutput mae output {o}", result[o], want[o], rtol=1e-5)
+    syncs = _host_syncs(torch, lambda: mo.update(preds[:BATCH], target[:BATCH]))
+    _log(
+        f"multioutput (11b): MultioutputWrapper(MeanAbsoluteError(), num_outputs={k}) over {n} rows x {k} outputs,"
+        f" {len(bad)} rows NaN in one output: each output's MAE within 1e-5 relative of numpy with its NaN rows dropped"
+        f" ({[round(float(v), 6) for v in result]}); {seconds * 1e3 / len(batches):.3f} ms/batch, {syncs} host syncs per"
+        f" batch (the kept counts of all outputs in one read)"
+    )
+
+
+def run_checkpoint_phase(torch, mt, logits, target):
+    """Phase 11c: checkpoints on the card. Returns the launches per op."""
+    import tempfile
+
+    from metrics_tpu_torch.utils import checkpoint as ckpt
+
+    batches = _batches(IMAGENET_VAL[0])
+    whole, first = _imagenet_collection(mt), _imagenet_collection(mt)
+    t0 = _reset_stats(torch, mt)
+    for s, e in batches:
+        whole.update(logits[s:e], target[s:e])
+    for s, e in batches[:CHECKPOINT_AFTER]:
+        first.update(logits[s:e], target[s:e])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "imagenet.pt")
+        t_save = time.perf_counter()
+        ckpt.save_metric_state(path, first)
+        save_ms = (time.perf_counter() - t_save) * 1e3
+        size = os.path.getsize(path)
+        resumed = _imagenet_collection(mt)
+        t_load = time.perf_counter()
+        ckpt.load_metric_state(path, resumed)
+        load_ms = (time.perf_counter() - t_load) * 1e3
+    for s, e in batches[CHECKPOINT_AFTER:]:
+        resumed.update(logits[s:e], target[s:e])
+    n_updates = 2 * len(batches)
+    _, stats = _read_stats(torch, mt, t0, {"confusion_counts": n_updates, "select_topk": n_updates})
+    device = whole["top1"].device  # the card: metrics live there unless told otherwise
+    if any(v.device.type != device.type for _, m in resumed.items() for v in m._snapshot_state().values()):
+        raise AssertionError(f"checkpoint: restored states are not on {device}")
+    want, got = whole.compute(), resumed.compute()
+    _same_values("checkpoint: the resumed collection against the uninterrupted one", got, want)
+
+    cpu = _imagenet_collection_with(mt, device="cpu")
+    for key, m in whole.items():
+        ckpt.restore_metric_state_pytree(cpu[key], ckpt.metric_state_pytree(m))
+    on_cpu = cpu.compute()
+    if not np.array_equal(on_cpu["confmat"].numpy(), want["confmat"].cpu().numpy()):
+        raise AssertionError("checkpoint: the cpu restore's counts differ")
+    for key in ("top1", "top5", "f1"):
+        _close(f"checkpoint cpu restore {key}", on_cpu[key], float(want[key]), rtol=1e-6)
+
+    fewer = IMAGENET_VAL[1] - 1
+    fewer_cm = mt.ConfusionMatrix(num_classes=fewer)
+    t1 = _reset_stats(torch, mt)
+    fewer_cm.update(target[:BATCH] % fewer, target[:BATCH] % fewer)
+    _read_stats(torch, mt, t1, {"confusion_counts": 1})
+    before = fewer_cm.confmat.clone()
+    try:
+        ckpt.restore_metric_state_pytree(fewer_cm, ckpt.metric_state_pytree(whole["confmat"]))
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError(f"checkpoint: a {fewer + 1}-class tree restored into a {fewer}-class ConfusionMatrix")
+    if not torch.equal(fewer_cm.confmat, before) or fewer_cm._update_count != 1:
+        raise AssertionError("checkpoint: the refused restore changed the target")
+    _log(
+        f"checkpoints (11c): the ImageNet-1k collection saved after {CHECKPOINT_AFTER} of {len(batches)} batches"
+        f" ({size / 2**20:.1f} MiB, save {save_ms:.1f} ms, load {load_ms:.1f} ms, weights_only), resumed on {device} and fed"
+        f" the rest equals the uninterrupted run bit for bit (counts and values); a tree taken on the card restores"
+        f" into a cpu collection with the same counts and values within 1e-6; a {fewer}-class ConfusionMatrix refuses it"
+        f" ({refused[:90]}...) and keeps its state; kernel_stats {stats}"
+    )
+    return {"confusion_counts": n_updates + 1, "select_topk": n_updates}
+
+
+def _ssim_maps_oracle(p: np.ndarray, t: np.ndarray, data_range: float = 1.0):
+    """Float64 SSIM and contrast-sensitivity maps of one ``[C, H, W]`` image:
+    separable gaussian windows (11 taps, sigma 1.5) with scipy's ``mirror``
+    edges, which is numpy's (and torch's) ``reflect``."""
+    from scipy.ndimage import correlate1d
+
+    x = np.arange(-5, 6, dtype=np.float64)
+    g = np.exp(-((x / 1.5) ** 2) / 2)
+    g /= g.sum()
+
+    def blur(a):
+        return correlate1d(correlate1d(a, g, axis=-2, mode="mirror"), g, axis=-1, mode="mirror")
+
+    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
+    mu_p, mu_t = blur(p), blur(t)
+    s_pp, s_tt, s_pt = blur(p * p) - mu_p**2, blur(t * t) - mu_t**2, blur(p * t) - mu_p * mu_t
+    cs = (2 * s_pt + c2) / (s_pp + s_tt + c2)
+    return (2 * mu_p * mu_t + c1) / (mu_p**2 + mu_t**2 + c1) * cs, cs
+
+
+def _image_oracle(p: np.ndarray, t: np.ndarray):
+    """SSIM and MS-SSIM of one image in float64 (SSIM is the first scale's)."""
+    sims, css = [], []
+    for _ in MS_SSIM_BETAS:
+        sim, cs = _ssim_maps_oracle(p, t)
+        sims.append(sim.mean())
+        css.append(cs.mean())
+        h, w = p.shape[-2] // 2 * 2, p.shape[-1] // 2 * 2
+        p = p[:, :h, :w].reshape(p.shape[0], h // 2, 2, w // 2, 2).mean((2, 4))
+        t = t[:, :h, :w].reshape(t.shape[0], h // 2, 2, w // 2, 2).mean((2, 4))
+    betas = np.array(MS_SSIM_BETAS)
+    return sims[0], np.prod(np.array(css[:-1]) ** betas[:-1]) * sims[-1] ** betas[-1]
+
+
+def run_image_phase(torch, mt, smi: str):
+    """Phase 11d: PSNR, SSIM and MS-SSIM at DIV2K validation size."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from metrics_tpu_torch.functional import multiscale_structural_similarity_index_measure as ms_ssim_fn
+    from metrics_tpu_torch.functional import structural_similarity_index_measure as ssim_fn
+
+    t_phase = time.perf_counter()
+    n, ch, h, w = DIV2K_VAL
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    target = torch.rand((n, ch, h, w), generator=gen, device="cuda")
+    preds = (target + DIV2K_NOISE * torch.randn((n, ch, h, w), generator=gen, device="cuda")).clamp_(0.0, 1.0)
+    bounds = _batches_of(n, DIV2K_BATCH)
+
+    # the first images against the float64 scipy oracle, per image
+    for i in range(ORACLE_IMAGES):
+        p_np, t_np = preds[i].double().cpu().numpy(), target[i].double().cpu().numpy()
+        want_ssim, want_ms = _image_oracle(p_np, t_np)
+        _close(f"div2k image {i} ssim", ssim_fn(preds[i : i + 1], target[i : i + 1], data_range=1.0), want_ssim, atol=1e-5)
+        _close(f"div2k image {i} ms-ssim", ms_ssim_fn(preds[i : i + 1], target[i : i + 1], data_range=1.0), want_ms, atol=1e-5)
+
+    # the same metrics in float64 on the card, a batch at a time (a whole-stream float64 compute would not fit)
+    sse64 = ssim_sum64 = 0.0
+    ms64 = []
+    for s, e in bounds:
+        p64, t64 = preds[s:e].double(), target[s:e].double()
+        sse64 += float(((p64 - t64) ** 2).sum())
+        ssim_sum64 += float(ssim_fn(p64, t64, data_range=1.0, reduction="sum"))
+        ms64.append(ms_ssim_fn(p64, t64, data_range=1.0, reduction="none"))
+        del p64, t64
+    want = {
+        "psnr": 10 * np.log10(1.0 / (sse64 / preds.numel())),
+        "ssim": ssim_sum64 / preds.numel(),
+        "ms_ssim": float(torch.cat(ms64).mean()),
+    }
+
+    lines = []
+    for key, make in (
+        ("psnr", lambda: mt.PeakSignalNoiseRatio(data_range=1.0)),
+        ("ssim", lambda: mt.StructuralSimilarityIndexMeasure(data_range=1.0)),
+        ("ms_ssim", lambda: mt.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0)),
+    ):
+        metric = make()
+        t0 = _reset_stats(torch, mt)
+        for s, e in bounds:
+            metric.update(preds[s:e], target[s:e])
+        update_s, _ = _read_stats(torch, mt, t0, {})
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        value = metric.compute()
+        torch.cuda.synchronize()
+        compute_ms = (time.perf_counter() - t1) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        _close(f"div2k {key} (float32) against float64", value, want[key], atol=1e-5)
+        for _ in range(PROFILE_ATTEMPTS):  # the profiler now and then records no device event
+            metric._computed = None
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                metric.compute()
+                torch.cuda.synchronize()
+            rows = _device_rows(prof)
+            if rows:
+                break
+        total_us = sum(r["device_us"] for r in rows)
+        conv_us = sum(r["device_us"] for r in rows if any(k in r["name"].lower() for k in CONV_SYMBOLS))
+        top = "; ".join(f"{r['device_us'] / 1e3:.3f} ms x{r['calls']} {r['name'][:50]}" for r in rows[:4])
+        lines.append(
+            f"{key}: {float(value):.6f} (float64 {want[key]:.6f}), update {update_s * 1e3 / len(bounds):.3f} ms,"
+            f" compute() {compute_ms:.1f} ms, compute's device time {total_us / 1e3:.3f} ms"
+            f" (convolution {conv_us / max(total_us, 1e-9):.1%}; top: {top}), compute's peak memory above the"
+            f" buffered stream {peak / 2**30:.2f} GiB; {_engine_note(metric)}"
+        )
+        del metric, value
+        torch.cuda.empty_cache()
+    _log(
+        f"image quality (11d): DIV2K val size, {n} RGB float32 images of {h} x {w} in batches of {DIV2K_BATCH}"
+        f" (made on the card, noise sigma {DIV2K_NOISE}); per-image SSIM and MS-SSIM of the first {ORACLE_IMAGES}"
+        f" within 1e-5 of the float64 scipy oracle; each metric's float32 value within 1e-5 of the same metric in"
+        f" float64 on the card (a batch at a time); {smi}: " + " | ".join(lines)
+        + f"; phase {time.perf_counter() - t_phase:.1f} s"
+    )
+    del preds, target
+    torch.cuda.empty_cache()
+
+
 # kernel wrappers' device-side names, as the profiler reports them; a
 # wrapper that runs several kernels per call lists them all
 KERNEL_SYMBOLS = {
@@ -2557,6 +3073,14 @@ def main() -> int:
     ctr_stats, (aurocs, ctr_scores, ctr_labels) = run_ctr_auroc(torch, mt, rng)
     pairwise_launches, pairwise_paths = run_pairwise_path(torch, mt, rng, embeddings)
     (nyu, depth_preds, depth_target, nyu_batches), (cos, student, teacher, feat_batches) = run_regression_path(torch, mt, rng)
+    # after the engine phase, whose captures must be its own: these phases share its collection's programs
+    t_new = time.perf_counter()
+    wrapper_launches = run_wrappers_phase(torch, mt, logits, target, host_stream)
+    run_multioutput_phase(torch, mt)
+    for op, n in run_checkpoint_phase(torch, mt, logits, target).items():
+        wrapper_launches[op] += n
+    run_image_phase(torch, mt, smi)
+    _log(f"phases 11a-11d: {time.perf_counter() - t_new:.1f} s in all, oracles and data included")
 
     def steps(metric, preds, labels, bounds):
         return [lambda s=s, e=e: metric(preds[s:e], labels[s:e]) for s, e in bounds[:PROFILE_BATCHES]]
@@ -2579,9 +3103,12 @@ def main() -> int:
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {
-        **{k: v["launches"] + sync_launches.get(k, 0) + engine_launches.get(k, 0) for k, v in main_stats.items()},
+        **{
+            k: v["launches"] + sync_launches.get(k, 0) + engine_launches.get(k, 0) + wrapper_launches.get(k, 0)
+            for k, v in main_stats.items()
+        },
         "confusion_counts": main_stats["confusion_counts"]["launches"] + sync_launches.get("confusion_counts", 0)
-        + engine_launches.get("confusion_counts", 0) + extension_launches,
+        + engine_launches.get("confusion_counts", 0) + extension_launches + wrapper_launches["confusion_counts"],
         "confusion_counts@segmentation": seg_launches,
         "multilabel_counts": ml_stats["multilabel_counts"]["launches"],
         "binned_counts": coco_stats["binned_counts"]["launches"] + ctr_stats["binned_counts"]["launches"],

@@ -11,8 +11,13 @@ and the other ten of ``metrics_tpu/regression``) the pairwise
 functionals, the rest of classification (``CohenKappa``,
 ``MatthewsCorrCoef``, ``JaccardIndex``, ``HingeLoss``, ``KLDivergence`` and
 ``dice_score``) and the retrieval metrics (``RetrievalMAP``, ``RetrievalMRR``
-and six more), with their functional forms; ``deprecated`` holds the old
-names of those. Metrics live on the GPU unless a
+and six more), with their functional forms, the wrappers
+(``BootStrapper``, ``ClasswiseWrapper``, ``MinMaxMetric``,
+``MultioutputWrapper``, ``MetricTracker``), the state helpers
+(``Metric.bind_state``, ``utils/checkpoint.py``) and image quality without
+networks (``PeakSignalNoiseRatio``, the two SSIMs, ``image_gradients``);
+``deprecated`` holds the old names of those, re-exported here with
+``SyncError`` and ``NumericalHealthError``. Metrics live on the GPU unless a
 ``device`` is given; functionals run on their inputs' device. The six
 kernels of these paths (``confusion_counts``, ``multilabel_counts``,
 ``select_topk``, ``binned_counts``, ``binned_calibration``,
@@ -50,6 +55,22 @@ from metrics_tpu_torch.classification import (
 )
 from metrics_tpu_torch import engine  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection
+from metrics_tpu_torch.deprecated import (
+    F1,
+    PSNR,
+    SSIM,
+    FBeta,
+    Hinge,
+    IoU,
+    MatthewsCorrcoef,
+    PearsonCorrcoef,
+    SpearmanCorrcoef,
+)
+from metrics_tpu_torch.image import (
+    MultiScaleStructuralSimilarityIndexMeasure,
+    PeakSignalNoiseRatio,
+    StructuralSimilarityIndexMeasure,
+)
 from metrics_tpu_torch.interop import state_from_jax, state_to_jax
 from metrics_tpu_torch.metric import CompositionalMetric, Metric
 from metrics_tpu_torch.ops.registry import kernel_stats, reset_kernel_stats
@@ -77,6 +98,14 @@ from metrics_tpu_torch.retrieval import (
     RetrievalRPrecision,
     RetrievalRecall,
 )
+from metrics_tpu_torch.utils.exceptions import NumericalHealthError, SyncError
+from metrics_tpu_torch.wrappers import (
+    BootStrapper,
+    ClasswiseWrapper,
+    MetricTracker,
+    MinMaxMetric,
+    MultioutputWrapper,
+)
 
 __all__ = [
     "AUC",
@@ -86,20 +115,27 @@ __all__ = [
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "BootStrapper",
     "CalibrationError",
     "CatMetric",
+    "ClasswiseWrapper",
     "CohenKappa",
     "CompositionalMetric",
     "ConfusionMatrix",
     "CosineSimilarity",
     "ExplainedVariance",
+    "F1",
     "F1Score",
+    "FBeta",
     "FBetaScore",
     "HammingDistance",
+    "Hinge",
     "HingeLoss",
+    "IoU",
     "JaccardIndex",
     "KLDivergence",
     "MatthewsCorrCoef",
+    "MatthewsCorrcoef",
     "MaxMetric",
     "MeanAbsoluteError",
     "MeanAbsolutePercentageError",
@@ -108,8 +144,16 @@ __all__ = [
     "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
+    "MetricTracker",
+    "MinMaxMetric",
     "MinMetric",
+    "MultiScaleStructuralSimilarityIndexMeasure",
+    "MultioutputWrapper",
+    "NumericalHealthError",
+    "PSNR",
+    "PeakSignalNoiseRatio",
     "PearsonCorrCoef",
+    "PearsonCorrcoef",
     "Precision",
     "PrecisionRecallCurve",
     "R2Score",
@@ -124,11 +168,15 @@ __all__ = [
     "RetrievalPrecision",
     "RetrievalRPrecision",
     "RetrievalRecall",
+    "SSIM",
     "SpearmanCorrCoef",
+    "SpearmanCorrcoef",
     "Specificity",
     "StatScores",
+    "StructuralSimilarityIndexMeasure",
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
+    "SyncError",
     "TweedieDevianceScore",
     "kernel_stats",
     "reset_kernel_stats",

@@ -60,6 +60,12 @@ first runs of a program key on the CPU), cache hits, retraces (programs
 beyond a variant's first) and bucketed calls; the same deltas go to the
 calling instance's ``compile_stats()``. :func:`cache_summary` aggregates.
 
+**Bootstrap entries.** ``BootStrapper``'s multinomial fast path advances
+its ``B`` replicates in one program (:func:`bootstrap_transition`): the
+JAX package vmaps the template's transition over a leading ``[B]`` axis;
+here the program loops over the replicates, since the kernel wrappers are
+ctypes launches with no batching rule.
+
 Out of this module for now: the serving bank entries, the encoder entries
 and the mesh-aware driver entries of the JAX engine.
 """
@@ -450,6 +456,56 @@ def update_transition(
             "bucketed", metric, stats, state, padded_args, padded_kwargs, pad_count_tensor(pad, device), probe=probe
         )
     mark_probed(metric)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# bootstrap replicate programs
+# ---------------------------------------------------------------------------
+def _make_bootstrap_entry(key: Any, pins: Tuple) -> SharedEntry:
+    entry = SharedEntry(key, "bootstrap_update", pins)
+
+    def _replicates(inst, stacked, idx, args, kwargs):
+        # one replicate after another: replicate b gathers its resampled
+        # batch (the rows idx[b]) and runs the template's transition on
+        # slice b of the stacked states. Its new states go into one [B, ...]
+        # output, so the gathered batch and the update's temporaries are
+        # freed before the next replicate and a capture holds one of each.
+        out: Dict[str, torch.Tensor] = {}
+        for b in range(idx.shape[0]):
+            rows = idx[b]
+            sel_args, sel_kwargs = _select_rows(args, kwargs, rows)
+            new = _health.traced_update(inst, {n: v[b] for n, v in stacked.items()}, sel_args, sel_kwargs)
+            for n, v in new.items():
+                if b == 0:
+                    out[n] = v.new_empty((idx.shape[0],) + tuple(v.shape))
+                out[n][b].copy_(v)
+        return out
+
+    entry._fns = {"exact": _replicates}
+    return entry
+
+
+def _select_rows(args: Tuple, kwargs: Dict[str, Any], rows: torch.Tensor) -> Tuple[Tuple, Dict[str, Any]]:
+    leaves, spec = _tree.flatten((args, kwargs))
+    return _tree.unflatten(spec, [x.index_select(0, rows) if isinstance(x, torch.Tensor) else x for x in leaves])
+
+
+def bootstrap_transition(
+    template: Any, stacked: Dict[str, torch.Tensor], idx: torch.Tensor, args: Tuple[Any, ...], kwargs: Dict[str, Any]
+) -> Dict[str, torch.Tensor]:
+    """Advance ``B = idx.shape[0]`` bootstrap replicates of ``template`` at
+    once: ``stacked`` holds each state with a leading ``[B]`` axis, and
+    replicate ``b`` updates on the batch rows ``idx[b]``. One program per
+    input signature, shared by every template with the same fingerprint
+    and ``B`` (a CUDA graph on the card); the template's
+    ``compile_stats()`` counts its captures and cache hits. ``idx`` must
+    already be on the device: a copy from the host cannot be captured."""
+    key, pins = metric_fingerprint(template)
+    b = int(idx.shape[0])
+    entry = _get_or_create(("bootstrap_update", key, b), lambda: _make_bootstrap_entry(key, pins))
+    out = entry.invoke("exact", template, instance_stats(template), stacked, idx, args, kwargs, probe=not probed(template))
+    mark_probed(template)
     return out
 
 

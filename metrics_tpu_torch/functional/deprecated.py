@@ -1,7 +1,7 @@
 """Deprecated functional short names (counterpart of
 ``metrics_tpu/functional/deprecated.py``), with the old misspelt
 ``pairwise_manhatten_distance``. Each warns on call and forwards. The JAX
-package's audio and image aliases come with their modules.
+package's audio aliases come with their modules.
 """
 import functools
 import warnings
@@ -9,6 +9,8 @@ from typing import Any, Callable
 
 from metrics_tpu_torch.functional.classification.f_beta import f1_score, fbeta_score
 from metrics_tpu_torch.functional.classification.hinge import hinge_loss
+from metrics_tpu_torch.functional.image.psnr import peak_signal_noise_ratio
+from metrics_tpu_torch.functional.image.ssim import structural_similarity_index_measure
 from metrics_tpu_torch.functional.pairwise.manhattan import pairwise_manhattan_distance
 
 
@@ -30,6 +32,8 @@ def _deprecated_fn(name: str, target: Callable) -> Callable:
 f1 = _deprecated_fn("f1", f1_score)
 fbeta = _deprecated_fn("fbeta", fbeta_score)
 hinge = _deprecated_fn("hinge", hinge_loss)
+psnr = _deprecated_fn("psnr", peak_signal_noise_ratio)
+ssim = _deprecated_fn("ssim", structural_similarity_index_measure)
 pairwise_manhatten_distance = _deprecated_fn("pairwise_manhatten_distance", pairwise_manhattan_distance)
 
-__all__ = ["f1", "fbeta", "hinge", "pairwise_manhatten_distance"]
+__all__ = ["f1", "fbeta", "hinge", "pairwise_manhatten_distance", "psnr", "ssim"]

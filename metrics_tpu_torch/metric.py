@@ -324,6 +324,55 @@ class Metric(nn.Module):
                 raise MetricsUserError(f"State {name!r} with dist_reduce_fx={fx!r} cannot be merged pairwise")
         return out
 
+    def bind_state(self, state: Dict[str, Any], update_count: Optional[int] = None) -> "Metric":
+        """Bind a state tree (tensors or numpy arrays) onto this instance,
+        the inverse of ``_snapshot_state`` for state held outside the metric.
+        Each state is checked against its registration (the names, list
+        against tensor, the shape unless the state is in
+        ``_shape_polymorphic_states``, float against integer) and cast to
+        the registered dtype on this metric's device; nothing is bound if a
+        check fails. ``update_count``, where given, becomes the number of
+        updates the lifecycle sees."""
+        cls = type(self).__name__
+        unknown = sorted(set(state) - set(self._defaults))
+        missing = sorted(set(self._defaults) - set(state))
+        if unknown or missing:
+            raise MetricsUserError(
+                f"bind_state on {cls}: state tree does not match the registered states"
+                f" (missing {missing}, unknown {unknown})."
+            )
+        bound: Dict[str, Any] = {}
+        for name, value in state.items():
+            default = self._defaults[name]
+            if isinstance(default, list) != isinstance(value, list):
+                raise MetricsUserError(
+                    f"bind_state on {cls}: state {name!r} kind (list vs array) does not match its registration."
+                )
+            if isinstance(default, list):
+                bound[name] = [torch.as_tensor(v, device=self._device) for v in value]
+                continue
+            t = torch.as_tensor(value, device=self._device)
+            if t.shape != default.shape and name not in self._shape_polymorphic_states:
+                raise MetricsUserError(
+                    f"bind_state on {cls}: state {name!r} has registered shape {tuple(default.shape)} but the"
+                    f" tree holds {tuple(t.shape)} — state from a different configuration?"
+                )
+            if t.is_floating_point() != default.is_floating_point():
+                raise MetricsUserError(
+                    f"bind_state on {cls}: state {name!r} is registered as {default.dtype} but the tree holds"
+                    f" {t.dtype} (float/integer kind mismatch)."
+                )
+            bound[name] = t.to(default.dtype)
+        self._restore_state(bound)
+        if update_count is not None:
+            self._update_count = int(update_count)
+        self._computed = None
+        self._is_synced = False
+        self._cache = None
+        counts = bound.get(_health.HEALTH_STATE)
+        _health.reset_seen_mirrors(self, None if counts is None else counts.cpu().numpy())
+        return self
+
     # ------------------------------------------------------------------
     # lifecycle: forward / update / compute / reset
     # ------------------------------------------------------------------
@@ -465,6 +514,9 @@ class Metric(nn.Module):
         out["jit_enabled"] = self._enable_jit
         out["jit_failed"] = self._jit_failed
         out["jit_bucket"] = self.jit_bucket
+        children = self._children()
+        if children:
+            out["children"] = {k: c.compile_stats() for k, c in children.items()}
         return out
 
     def health_report(self) -> Dict[str, Any]:
@@ -472,8 +524,19 @@ class Metric(nn.Module):
         ``inf_count``, ``rows_masked``, ``updates_quarantined`` and
         ``overflow_events`` (a ``"sum"`` state: they reset, merge, sync and
         checkpoint with the metric; 0 under ``"propagate"``), and the host
-        counters ``batches_screened`` and ``last_compute_nonfinite``."""
-        return _health.metric_report(self)
+        counters ``batches_screened`` and ``last_compute_nonfinite``. A
+        wrapper's inner metrics report under ``children``."""
+        out = _health.metric_report(self)
+        children = self._children()
+        if children:
+            out["children"] = {k: c.health_report() for k, c in children.items()}
+        return out
+
+    def _children(self) -> Dict[str, "Metric"]:
+        """Inner metrics whose reports this metric's :meth:`compile_stats`
+        and :meth:`health_report` nest under ``"children"``: the wrappers
+        override it. Empty for a plain metric."""
+        return {}
 
     def compute_async(self) -> Any:
         """:meth:`compute` with the device-to-host copy started at once and

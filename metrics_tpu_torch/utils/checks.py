@@ -1,6 +1,7 @@
 """Input validation: the shape check shared by the regression metrics, the
 checks and normalization of classification inputs, and the retrieval
-checks (counterpart of ``metrics_tpu/utils/checks.py:23-272, 301-351``).
+checks, the one-hot ``[C, -1]`` layout and the recursive ``allclose`` of the
+test helpers (counterpart of ``metrics_tpu/utils/checks.py``).
 
 The value checks (negative labels, labels beyond ``num_classes``, non-binary
 targets) read concrete values, so each is one ``.item()`` host sync per
@@ -9,8 +10,9 @@ program (:func:`~metrics_tpu_torch.utils.data.in_program`) they skip, as the
 JAX ones skip under tracing: the decisions then rest on shapes, dtypes and
 the arguments alone, so the formatting is a fixed program.
 """
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 from metrics_tpu_torch.utils.data import in_program, select_topk, to_onehot
@@ -245,6 +247,50 @@ def _input_format_classification(
         preds, target = preds.squeeze(-1), target.squeeze(-1)
 
     return preds.to(torch.int32), target.to(torch.int32), case
+
+
+def _input_format_classification_one_hot(
+    num_classes: int,
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    threshold: float = 0.5,
+    multilabel: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-hot ``[C, -1]`` layout of classification inputs: class scores
+    are argmaxed, integer labels one-hot encoded (unless ``multilabel``),
+    float preds of the target's rank thresholded."""
+    if preds.ndim not in (target.ndim, target.ndim + 1):
+        raise ValueError(
+            "one-hot formatting accepts equal-rank preds/target, or preds with exactly one extra (class) dimension"
+        )
+    if preds.ndim == target.ndim + 1:
+        preds = preds.argmax(dim=1)
+    if preds.ndim == target.ndim and _is_integer(preds) and num_classes > 1 and not multilabel:
+        preds = to_onehot(preds, num_classes=num_classes)
+        target = to_onehot(target, num_classes=num_classes)
+    elif preds.ndim == target.ndim and preds.is_floating_point():
+        preds = (preds >= threshold).to(torch.int32)
+    if preds.ndim > 1:
+        preds = preds.transpose(1, 0)
+        target = target.transpose(1, 0)
+    return preds.reshape(num_classes, -1), target.reshape(num_classes, -1)
+
+
+def _allclose_recursive(res1: Any, res2: Any, atol: float = 1e-8) -> bool:
+    """``allclose`` through tensors, arrays, dicts and sequences; strings and
+    other values by equality."""
+    if isinstance(res1, (torch.Tensor, np.ndarray)):
+        a = torch.as_tensor(res1)
+        b = torch.as_tensor(res2, device=a.device)
+        dtype = torch.promote_types(a.dtype, b.dtype)
+        return bool(torch.allclose(a.to(dtype), b.to(dtype), atol=atol))
+    if isinstance(res1, str):
+        return res1 == res2
+    if isinstance(res1, dict):
+        return all(_allclose_recursive(res1[k], res2[k], atol) for k in res1)
+    if isinstance(res1, (list, tuple)):
+        return all(_allclose_recursive(r1, r2, atol) for r1, r2 in zip(res1, res2))
+    return res1 == res2
 
 
 def _is_integer(x: torch.Tensor) -> bool:

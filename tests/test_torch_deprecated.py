@@ -1,7 +1,14 @@
 """The port's deprecated short names: each class alias warns on construction
 with the JAX package's ``DeprecationWarning`` text and then is its target;
 each functional alias warns on call and returns its target's value. Values
-equal the target's exactly (the same code runs)."""
+equal the target's exactly (the same code runs).
+
+The package roots: every name of ``metrics_tpu.__all__`` and
+``metrics_tpu.functional.__all__`` whose definition the port has resolves on
+the port's root too (the list is derived from the JAX roots, not written
+out)."""
+import importlib
+import types
 import warnings
 
 import jax.numpy as jnp
@@ -9,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+import metrics_tpu as mj
 import metrics_tpu.deprecated as dj
+import metrics_tpu.functional as fj
 import metrics_tpu.functional.deprecated as fdj
 import metrics_tpu_torch as mt
 import metrics_tpu_torch.deprecated as dt
@@ -21,6 +30,8 @@ LOGITS = RNG.standard_normal((30, 4)).astype(np.float32)
 LABELS = RNG.integers(0, 4, 30)
 X = RNG.standard_normal(30).astype(np.float32)
 Y = (X + RNG.standard_normal(30)).astype(np.float32)
+IMG = RNG.random((2, 3, 16, 16)).astype(np.float32)
+IMG_NOISY = np.clip(IMG + 0.1 * RNG.standard_normal(IMG.shape), 0, 1).astype(np.float32)
 
 # alias, target, constructor kwargs, inputs
 CLASSES = [
@@ -31,6 +42,8 @@ CLASSES = [
     ("MatthewsCorrcoef", "MatthewsCorrCoef", {"num_classes": 4}, (LOGITS, LABELS)),
     ("PearsonCorrcoef", "PearsonCorrCoef", {}, (X, Y)),
     ("SpearmanCorrcoef", "SpearmanCorrCoef", {}, (X, Y)),
+    ("PSNR", "PeakSignalNoiseRatio", {"data_range": 1.0}, (IMG_NOISY, IMG)),
+    ("SSIM", "StructuralSimilarityIndexMeasure", {"data_range": 1.0}, (IMG_NOISY, IMG)),
 ]
 
 
@@ -60,6 +73,8 @@ FUNCTIONS = [
     ("fbeta", "fbeta_score", (LOGITS, LABELS), {"num_classes": 4, "beta": 2.0}),
     ("hinge", "hinge_loss", (LOGITS, LABELS), {"multiclass_mode": "one-vs-all"}),
     ("pairwise_manhatten_distance", "pairwise_manhattan_distance", (LOGITS, LOGITS[:7]), {}),
+    ("psnr", "peak_signal_noise_ratio", (IMG_NOISY, IMG), {"data_range": 1.0}),
+    ("ssim", "structural_similarity_index_measure", (IMG_NOISY, IMG), {}),
 ]
 
 
@@ -70,3 +85,54 @@ def test_functional_alias_warns_like_jax_and_equals_its_target(alias, target, in
     assert port_msgs == jax_msgs
     assert getattr(fdt, alias).__name__ == alias
     assert torch.equal(got, getattr(ft, target)(*map(torch.from_numpy, inputs), **kwargs))
+
+
+def _defining_module(obj) -> str:
+    """Where a root name is defined: a deprecated function alias's module is
+    the one that wraps it (``functools.wraps`` copies the target's
+    ``__module__``); a class alias's is the module that built it."""
+    if isinstance(obj, types.ModuleType):
+        return obj.__name__
+    if isinstance(obj, types.FunctionType):
+        return obj.__globals__["__name__"]
+    return obj.__module__
+
+
+def _ported_names(jax_root):
+    """The names of ``jax_root.__all__`` whose defining module has a port
+    counterpart that defines the name too."""
+    out = []
+    for name in jax_root.__all__:
+        module = _defining_module(getattr(jax_root, name))
+        assert module.startswith("metrics_tpu.") or module == "metrics_tpu"
+        try:
+            port_module = importlib.import_module("metrics_tpu_torch" + module[len("metrics_tpu"):])
+        except ModuleNotFoundError:
+            continue
+        if hasattr(port_module, name):
+            out.append(name)
+    return out
+
+
+@pytest.mark.parametrize("roots", [(mj, mt), (fj, ft)], ids=["metrics_tpu", "functional"])
+def test_the_port_roots_export_every_ported_name_of_the_jax_roots(roots):
+    jax_root, port_root = roots
+    names = _ported_names(jax_root)
+    missing = [n for n in names if not hasattr(port_root, n) or n not in port_root.__all__]
+    assert not missing, f"ported but not exported at {port_root.__name__}: {missing}"
+    # the names the roots were missing, and this slice's
+    pinned = {
+        "metrics_tpu": [
+            "F1", "FBeta", "Hinge", "IoU", "MatthewsCorrcoef", "PearsonCorrcoef", "SpearmanCorrcoef", "SyncError",
+            "NumericalHealthError", "BootStrapper", "ClasswiseWrapper", "MinMaxMetric", "MultioutputWrapper",
+            "MetricTracker", "PeakSignalNoiseRatio", "StructuralSimilarityIndexMeasure",
+            "MultiScaleStructuralSimilarityIndexMeasure", "PSNR", "SSIM",
+        ],
+        "functional": [
+            "f1", "fbeta", "hinge", "pairwise_manhatten_distance", "image_gradients", "peak_signal_noise_ratio",
+            "structural_similarity_index_measure", "multiscale_structural_similarity_index_measure", "psnr", "ssim",
+        ],
+    }["metrics_tpu" if jax_root is mj else "functional"]
+    assert set(pinned) <= set(names)
+    for name in names:
+        assert getattr(port_root, name).__name__ == getattr(jax_root, name).__name__
