@@ -114,7 +114,8 @@
    fills included; one profile per call, so ``binned_counts`` at the CTR
    shape and ``confusion_counts`` at the segmentation shape are read
    apart), the launch floor (a one-element ``fill_``), and the device busy
-   share, host syncs and top device ops of batches of each path.
+   share (the union of the device events' intervals over the wall time),
+   host syncs and top device ops of batches of each path.
 9. The rest of classification and retrieval at full size (run right after
    the main path), each phase through ``MetricCollection.forward`` (the
    engine) and ``compute()``, held against a numpy float64 oracle, with its
@@ -179,15 +180,50 @@
       within 1e-5, each float32 value against the same metric in float64
       on the card within 1e-5, with ms per update and per ``compute()``,
       the compute's device time (the convolution's share) and peak memory.
+11. Generative evaluation, after the kernels' profiles, through networks
+   at full width with seeded random weights (the same draws as the JAX
+   package's ``random_*_params``), written to a temporary ``.npz`` and
+   loaded by the metrics as a user's weights would be:
+   a. FID, KID (100 subsets of 1000) and IS (10 splits) at CIFAR-10 test
+      size: 10,000 real and 10,000 generated uint8 images of 32 x 32 (smooth
+      seeded fields made on the card; the generated set shifted and
+      noised), batches of 500, resized to 299 x 299 by the TF1 matrices
+      into InceptionV3. Checks: 32 images' features and logits within rtol
+      1e-3, atol 2e-3 of a float64 copy of the network, and less their
+      batch mean within ``NET_CENTRED_RTOL`` of it, which the same forward
+      with TF32 on (the control) must miss; FID within 1e-5 of
+      ``scipy.linalg.sqrtm`` of ``S1 S2`` on the card's own features; the
+      Newton–Schulz FID within 1e-6 of a float64 re-statement of the
+      iteration, and its distance to the eigh value logged against
+      ``NEWTON_SCHULZ_FID_RTOL``; KID and IS within 1e-5 of numpy over the
+      same subsets and splits; ``update_stream`` over the real set in
+      chunks of 512 (a 272-row tail padded to 512) with exactly one
+      captured ``encode_acc`` program, replayed by a second FID, its
+      moments and FID within 1e-6 of ``update``'s; host batches, staged
+      from pinned memory, give the same moments bit for bit. Logged: images/s, ms
+      and summed kernel ms per batch, the busy share (the union of the
+      kernels' intervals over the wall) and any overlapping kernels, host
+      syncs, peak memory, each
+      ``compute()``'s ms, top device ops (the convolutions' share), the
+      multiply-add bound at 33.5e12 FMA/s, and one batch's forward in full
+      float32 against TF32 and ``channels_last``.
+   b. LPIPS, AlexNet and VGG16, over 1,000 pairs of 256 x 256 images in
+      [-1, 1] (the second the first plus a seeded perturbation), batches
+      of 50: 16 pairs within rtol 1e-4, atol 1e-5 of a float64 copy,
+      identical pairs 0 within 1e-6, the streamed mean within 1e-6 of the
+      per-pair mean; the same timings.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
 CUDA the script exits 2 and prints no result.
 """
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -410,11 +446,14 @@ def check_and_time_kernels(torch, rng):
     _log(f"multilabel_counts: bit-identical to plain on {len(ml_cases)} cases; lanes per row x load width per case {ml_routes}")
     ms = _cuda_ms(torch, lambda: cc._multilabel_counts_cuda(mp, mt_))
     plain_ms = _cuda_ms(torch, lambda: cc._multilabel_counts_plain(mp, mt_))
+    # one torch.bincount over the combined key (column, target, pred), as row 1 times its own
+    ml_cols = torch.arange(ml_c, device=dev, dtype=torch.int32)
+    library_ms = _cuda_ms(torch, lambda: torch.bincount(((ml_cols * 2 + mt_) * 2 + mp).view(-1), minlength=4 * ml_c))
     bound_ms, bound_by = _bound_ms(2 * n * ml_c * 4 + ml_c * 4 * 8, 3 * n * ml_c)
     records["multilabel_counts"] = dict(
         source="metrics_tpu_torch/csrc/confusion_counts.cu",
         replaces="metrics_tpu/ops/confusion_counts.py:109",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
         shape=f"N={n}, C={ml_c}",
     )
 
@@ -2028,7 +2067,34 @@ def _measure_batches(torch, steps):
     rows = _device_rows(prof)
     device_ms = sum(r["device_us"] for r in rows) / 1e3 / len(steps)
     events = sum(r["calls"] for r in rows) / len(steps)
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "events": events, "syncs": _host_syncs(torch, steps[0]), "rows": rows}
+    busy_us, overlaps = _device_busy(prof)
+    return {
+        "wall_ms": wall_ms, "device_ms": device_ms, "busy_ms": busy_us / 1e3 / len(steps), "overlaps": overlaps,
+        "events": events, "syncs": _host_syncs(torch, steps[0]), "rows": rows,
+    }
+
+
+def _device_busy(prof):
+    """The time at least one device event runs (the union of their intervals
+    in the trace), and the pairs of events that ran at once: (name of the
+    event that started while the other ran, name of the other) -> count.
+    Summed kernel time exceeds the busy time only where events overlap."""
+    import collections
+
+    intervals = sorted(
+        (evt.time_range.start, evt.time_range.end, evt.name)
+        for evt in prof.events()
+        if "CUDA" in str(getattr(evt, "device_type", "")) and evt.time_range.end > evt.time_range.start
+    )
+    busy, end, running = 0.0, float("-inf"), ""
+    overlaps = collections.Counter()
+    for start, stop, name in intervals:
+        if start < end:
+            overlaps[(name[:40], running[:40])] += 1
+        busy += max(0.0, stop - max(start, end))
+        if stop > end:
+            end, running = stop, name
+    return busy, overlaps
 
 
 def _profile_note(m, top: int = 0) -> str:
@@ -2038,8 +2104,21 @@ def _profile_note(m, top: int = 0) -> str:
     ops = "; ".join(f"{r['device_us'] / n:.1f} us x{r['calls'] / n:g} {r['name'][:60]}" for r in m["rows"][:top])
     return (
         f"profiled (mean of {n} warm batches): {m['wall_ms']:.3f} ms wall, {m['device_ms']:.3f} ms device,"
-        f" busy share {m['device_ms'] / m['wall_ms']:.3f}, {m['events']:.0f} device events, {m['syncs']} host syncs per batch"
+        f" busy share {m['busy_ms'] / m['wall_ms']:.3f}, {m['events']:.0f} device events, {m['syncs']} host syncs per batch"
+        + _overlap_note(m)
         + (f"; top device ops per batch: {ops}" if top else "")
+    )
+
+
+def _overlap_note(m) -> str:
+    """Where the summed kernel time exceeds the device's busy time by over 1%: by how
+    much, and which events ran at once (counts over the profiled batches)."""
+    if m["device_ms"] <= m["busy_ms"] * 1.01:  # rounding at the edges of back-to-back kernels
+        return ""
+    pairs = ", ".join(f"{a} beside {b} x{c}" for (a, b), c in m["overlaps"].most_common(3))
+    return (
+        f" (device busy {m['busy_ms']:.3f} ms, the union of the kernels' intervals: they overlap for"
+        f" {m['device_ms'] - m['busy_ms']:.3f} ms per batch, {sum(m['overlaps'].values())} overlapping starts: {pairs})"
     )
 
 
@@ -2934,6 +3013,517 @@ def run_image_phase(torch, mt, smi: str):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# generative evaluation: FID, KID and IS at CIFAR-10 size, LPIPS (12a, 12b)
+# ---------------------------------------------------------------------------
+CIFAR10_TEST = (10_000, 3, 32, 32)  # CIFAR-10 test split: images, channels, height, width
+GEN_BATCH = 500
+STREAM_CHUNK = 512  # update_stream's chunks: 19 of 512 and a 272-row tail padded to 512
+KID_SUBSETS, KID_SUBSET_SIZE = 100, 1000  # KernelInceptionDistance's defaults
+IS_SPLITS = 10
+GEN_SHIFT, GEN_NOISE = 24.0, 12.0  # the generated set: the real fields' statistics shifted, plus pixel noise
+NET_CHECK_IMAGES = 32
+# the network's features less their batch mean against float64, relative to the largest of them: a
+# float32 forward meets it, a TF32 one misses it (the control below), and so do an input normalized
+# as (x - 127.5) / 127.5 and a half-pixel resize (the controls of tests/test_torch_image_networks.py)
+NET_CENTRED_RTOL = 5e-3
+LPIPS_PAIRS = (1_000, 3, 256, 256)  # image pairs, channels, height, width
+LPIPS_BATCH = 50
+LPIPS_PERTURB = 0.2  # sigma of the second image's perturbation
+LPIPS_CHECK_PAIRS = 16
+FID_RTOL = 1e-5  # FID against the scipy oracle on the card's own features
+KID_IS_RTOL = 1e-5
+STREAM_RTOL = 1e-6
+
+
+def _smooth_fields(torch, gen, n: int, c: int, h: int, w: int, coarse: int = 4):
+    """``[n, c, h, w]`` float32 fields on the card, smooth at ``coarse`` x
+    ``coarse`` blocks (bilinear upsampling of seeded normals), about unit scale."""
+    import torch.nn.functional as F
+
+    base = torch.randn((n, c, coarse, coarse), generator=gen, device="cuda")
+    return F.interpolate(base, size=(h, w), mode="bilinear", align_corners=False)
+
+
+def _cifar_sets(torch):
+    """The real and generated uint8 image sets, made on the card."""
+    n, c, h, w = CIFAR10_TEST
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    real = (127.5 + 60.0 * _smooth_fields(torch, gen, n, c, h, w)).clamp_(0, 255).round_().to(torch.uint8)
+    fake = 127.5 + GEN_SHIFT + 60.0 * _smooth_fields(torch, gen, n, c, h, w)
+    fake = (fake + GEN_NOISE * torch.randn(fake.shape, generator=gen, device="cuda")).clamp_(0, 255).round_().to(torch.uint8)
+    return real, fake
+
+
+def _count_conv_macs(torch, forward) -> float:
+    """Multiply-adds of one call of ``forward`` in its convolutions, linear
+    layers and matmuls, counted from each call's output shape and weight
+    shape (run on the CPU, one sample)."""
+    import torch.nn.functional as F
+
+    macs = [0.0]
+    conv, linear, matmul = F.conv2d, F.linear, torch.matmul
+
+    def conv_count(x, weight, *args, **kwargs):
+        out = conv(x, weight, *args, **kwargs)
+        macs[0] += out.numel() * weight[0].numel()
+        return out
+
+    def linear_count(x, weight, *args, **kwargs):
+        out = linear(x, weight, *args, **kwargs)
+        macs[0] += out.numel() * weight.shape[1]
+        return out
+
+    def matmul_count(a, b, *args, **kwargs):
+        out = matmul(a, b, *args, **kwargs)
+        macs[0] += out.numel() * a.shape[-1]
+        return out
+
+    F.conv2d, F.linear, torch.matmul = conv_count, linear_count, matmul_count
+    try:
+        forward()
+    finally:
+        F.conv2d, F.linear, torch.matmul = conv, linear, matmul
+    return macs[0]
+
+
+def _fid_oracle(real: np.ndarray, fake: np.ndarray):
+    """FID in float64 numpy with ``scipy.linalg.sqrtm`` of ``S1 S2`` (real
+    part): the reference formula, independent of the metric's eigh path.
+    Also ``tr S1 + tr S2``, the scale FID is read against, and the
+    eigenvalue range of ``S1``."""
+    import scipy.linalg
+
+    mu1, mu2 = real.mean(0), fake.mean(0)
+    s1, s2 = np.cov(real, rowvar=False), np.cov(fake, rowvar=False)
+    covmean = scipy.linalg.sqrtm(s1 @ s2).real
+    fid = float(((mu1 - mu2) ** 2).sum() + np.trace(s1) + np.trace(s2) - 2 * np.trace(covmean))
+    eig = np.linalg.eigvalsh(s1)
+    return fid, float(np.trace(s1) + np.trace(s2)), (float(eig[0]), float(eig[-1]))
+
+
+def _newton_schulz_reference(torch, fid, iters: int) -> float:
+    """The JAX package's Newton–Schulz FID (``sharding/linalg.py``), written
+    out here in float64 torch on the card from the metric's moment states:
+    a check of the port's implementation of that algorithm, apart from how
+    far the algorithm itself lands from the eigh value."""
+
+    def moments(prefix: str):
+        n = float(getattr(fid, f"{prefix}_n"))
+        s = getattr(fid, f"{prefix}_sum") + getattr(fid, f"{prefix}_sum_c")
+        outer = getattr(fid, f"{prefix}_outer") + getattr(fid, f"{prefix}_outer_c")
+        mu = s / n
+        return mu, (outer - n * mu[:, None] * mu[None, :]) / (n - 1)
+
+    def sqrtm(a):
+        d = a.shape[0]
+        eye = torch.eye(d, dtype=a.dtype, device=a.device)
+        a = a + 1e-6 * torch.diagonal(a).sum() / d * eye
+        norm = a.pow(2).sum().sqrt()
+        y, z = a / norm, eye
+        for _ in range(iters):
+            t = 0.5 * (3.0 * eye - torch.mm(z, y))
+            y, z = torch.mm(y, t), torch.mm(t, z)
+        return y * norm.sqrt()
+
+    (mu1, s1), (mu2, s2) = moments("real"), moments("fake")
+    half = sqrtm(s1)
+    inner = half @ s2 @ half
+    covmean = sqrtm(0.5 * (inner + inner.T))
+    diff = mu1 - mu2
+    return float(diff @ diff + torch.diagonal(s1).sum() + torch.diagonal(s2).sum() - 2 * torch.diagonal(covmean).sum())
+
+
+def _kid_oracle(real: np.ndarray, fake: np.ndarray, real_idx: np.ndarray, fake_idx: np.ndarray):
+    """KID as the JAX package computes it, in float64 numpy: the unbiased
+    polynomial MMD (degree 3, gamma 1/d, coef 1) over the given subsets; std ddof 0."""
+    d = real.shape[1]
+    scores = []
+    for r, f in zip(real_idx, fake_idx):
+        x, y = real[r], fake[f]
+        m = len(r)
+        kxx, kyy, kxy = ((x @ x.T) / d + 1) ** 3, ((y @ y.T) / d + 1) ** 3, ((x @ y.T) / d + 1) ** 3
+        scores.append((kxx.sum() - np.trace(kxx) + kyy.sum() - np.trace(kyy)) / (m * (m - 1)) - 2 * kxy.sum() / m**2)
+    return float(np.mean(scores)), float(np.std(scores, ddof=0))
+
+
+def _is_oracle(logits: np.ndarray, splits: int, seed: int):
+    """Inception Score in float64 numpy: the seeded shuffle, torch.chunk's
+    ceil-sized splits, std ddof 1."""
+    x = logits[np.random.default_rng(seed).permutation(len(logits))]
+    x = x - x.max(1, keepdims=True)
+    log_p = x - np.log(np.exp(x).sum(1, keepdims=True))
+    p = np.exp(log_p)
+    size = -(-len(x) // splits)
+    scores = []
+    for s in range(0, len(x), size):
+        pc, lc = p[s : s + size], log_p[s : s + size]
+        scores.append(np.exp((pc * (lc - np.log(pc.mean(0, keepdims=True)))).sum(1).mean()))
+    return float(np.mean(scores)), float(np.std(scores, ddof=1))
+
+
+def _timed_updates(torch, metric, batches, **kwargs):
+    """Runs ``metric.update`` over ``batches``; returns (seconds, peak bytes above the start)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for b in batches:
+        metric.update(b, **kwargs)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+
+def _timed_compute(torch, metric, repeats: int = 1):
+    """``compute()``'s value and its ms, once per repeat (the first pays
+    one-time costs: libraries' handles, lazily loaded kernels)."""
+    times = []
+    for _ in range(repeats):
+        metric._computed = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = metric.compute()
+        torch.cuda.synchronize()
+        times.append(round((time.perf_counter() - t0) * 1e3, 1))
+    return value, times if repeats > 1 else times[0]
+
+
+def _conv_share(rows) -> str:
+    total = sum(r["device_us"] for r in rows)
+    conv = sum(r["device_us"] for r in rows if any(k in r["name"].lower() for k in CONV_SYMBOLS))
+    return f"convolution {conv / max(total, 1e-9):.1%} of device time"
+
+
+def _forward_note(torch, label: str, steps, images_per_step: int, macs_per_image: float, update_s: float, n_images: int) -> str:
+    """Throughput, the profile of a few batches and the multiply-add bound of one path."""
+    m = _measure_batches(torch, steps)
+    bound_ms = macs_per_image * images_per_step / CUDA_CORE_OPS_PER_S * 1e3
+    batch_ms = update_s * 1e3 * images_per_step / n_images
+    return (
+        f"{label}: {n_images / update_s:.0f} images/s ({batch_ms:.2f} ms per batch of"
+        f" {images_per_step}); {_profile_note(m, top=5)}; {_conv_share(m['rows'])}; multiply-add bound"
+        f" {bound_ms:.2f} ms per batch ({macs_per_image / 1e9:.3f} GMAC per image at 33.5e12 FMA/s, FP32 without TF32):"
+        f" the batch's device busy time (profiled) runs at {bound_ms / max(m['busy_ms'], 1e-9):.1%} of that bound, its"
+        f" ms per batch over the stream (not profiled) at {bound_ms / batch_ms:.1%}"
+    )
+
+
+@contextlib.contextmanager
+def _tf32_forward(torch, net):
+    """The network module's forwards with TF32 on, for cuDNN and cuBLAS: its
+    ``full_fp32`` scope swapped for one that turns TF32 on. Not an option of
+    the port: the measurement and the control of the float64 check use it."""
+
+    @contextlib.contextmanager
+    def tf32():
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        saved = matmul.allow_tf32
+        matmul.allow_tf32 = True
+        try:
+            with cudnn.flags(enabled=True, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic, allow_tf32=True):
+                yield
+        finally:
+            matmul.allow_tf32 = saved
+
+    saved_ctx = net.full_fp32
+    net.full_fp32 = tf32
+    try:
+        yield
+    finally:
+        net.full_fp32 = saved_ctx
+
+
+def _centred_err(got, want) -> float:
+    """The largest error of the features less their mean over the batch,
+    relative to the largest of those: a random-weight network's features
+    differ from image to image by about 1e-3 of their size, so this is the
+    part that FID's covariances read."""
+    g, w = got.double().cpu(), want.double().cpu()
+    g, w = g - g.mean(0), w - w.mean(0)
+    return float((g - w).abs().max() / w.abs().max())
+
+
+def _forward_variants(torch, net, ext, imgs) -> str:
+    """The open questions of the forward, measured on one batch: the shipped
+    full-float32 NCHW forward against the same with TF32 on and against
+    channels_last tensors (each by CUDA events, and the features' largest
+    relative change against the shipped ones). Neither variant is an option
+    of the port."""
+
+    def timed(fn):
+        fn()
+        return _cuda_ms(torch, fn, iters=5, warmup=1), fn()
+
+    shipped_ms, want = timed(lambda: ext(imgs))
+    with _tf32_forward(torch, net):
+        tf32_ms, tf32_out = timed(lambda: ext(imgs))
+    cl = net.InceptionV3Features(
+        {m: {k: (v.contiguous(memory_format=torch.channels_last) if v.ndim == 4 else v) for k, v in g.items()} for m, g in ext.params.items()},
+        ext.feature,
+    )
+    cl_ms, cl_out = timed(lambda: cl(imgs.contiguous(memory_format=torch.channels_last)))
+
+    def rel(a):
+        return float((a - want).abs().max() / want.abs().max())
+
+    n = imgs.shape[0]
+    return (
+        f"forward of {n} images, ms (CUDA events): full float32 NCHW (shipped) {shipped_ms:.2f}, TF32 on {tf32_ms:.2f}"
+        f" (features off by {rel(tf32_out):.2e} of the largest, {_centred_err(tf32_out, want):.2e} of the largest centred"
+        f" feature), channels_last {cl_ms:.2f} (off by {rel(cl_out):.2e}, centred {_centred_err(cl_out, want):.2e})"
+    )
+
+
+def run_generative_phase(torch, mt, smi: str) -> None:
+    """Phase 12a: FID, KID and IS at CIFAR-10 test-set size through the
+    InceptionV3 network at full width (seeded random weights), with
+    ``update_stream``; the checks run against float64 and numpy/scipy oracles."""
+    import concurrent.futures
+
+    from metrics_tpu_torch import engine
+    from metrics_tpu_torch.encoders import encoder_stats, reset_encoder_stats
+    from metrics_tpu_torch.image.networks import inception as net
+    from metrics_tpu_torch.sharding import NEWTON_SCHULZ_FID_RTOL
+
+    t_phase = time.perf_counter()
+    n = CIFAR10_TEST[0]
+    real, fake = _cifar_sets(torch)
+    bounds = _batches_of(n, GEN_BATCH)
+    real_b = [real[s:e] for s, e in bounds]
+    fake_b = [fake[s:e] for s, e in bounds]
+    params = net.random_inception_params(seed=SEED, device="cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_inception_")
+    path = os.path.join(tmp, "inception.npz")
+    net.save_inception_weights(params, path)
+    host_params = {m: {k: v.cpu() for k, v in g.items()} for m, g in params.items()}
+    macs = _count_conv_macs(torch, lambda: net.InceptionV3Features(host_params, "logits")(torch.zeros(1, 3, 32, 32)))
+
+    # the network: 32 images' features and logits against a float64 copy of the same module on the card
+    t_check = time.perf_counter()
+    ext = net.resolve_inception_extractor(2048, path)
+    ext64 = net.InceptionV3Features({m: {k: v.double() for k, v in g.items()} for m, g in ext.params.items()}, "2048")
+    imgs = real[:NET_CHECK_IMAGES]
+    logits = net.InceptionV3Features(ext.params, "logits_unbiased")
+    logits64 = net.InceptionV3Features(ext64.params, "logits_unbiased")
+    centred = {}
+    for tap, e32, e64 in (("2048", ext, ext64), ("logits_unbiased", logits, logits64)):
+        got, want = e32(imgs), e64(imgs)
+        _close(f"inception {tap} (float32) against float64", got, want.cpu().numpy(), rtol=1e-3, atol=2e-3)
+        # the features less their batch mean, which the check above cannot see: float32 must meet the
+        # bound, and the same forward with TF32 on (the control) must miss it
+        with _tf32_forward(torch, net):
+            tf32 = e32(imgs)
+        centred[tap] = (_centred_err(got, want), _centred_err(tf32, want))
+        if not centred[tap][0] <= NET_CENTRED_RTOL:
+            raise AssertionError(f"inception {tap} (float32) against float64, centred: {centred[tap][0]:.3e} > {NET_CENTRED_RTOL}")
+        if not centred[tap][1] > NET_CENTRED_RTOL:
+            raise AssertionError(
+                f"inception {tap}: the TF32 control is within {NET_CENTRED_RTOL} of float64 centred ({centred[tap][1]:.3e}):"
+                " the check cannot tell a float32 forward from a TF32 one"
+            )
+    del ext64, logits64
+    check_s = time.perf_counter() - t_check
+
+    t0 = _reset_stats(torch, mt)
+    fid = mt.FrechetInceptionDistance(feature=2048, weights_path=path)
+    kid = mt.KernelInceptionDistance(feature=2048, subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE, weights_path=path)
+    inception_score = mt.InceptionScore(feature="logits_unbiased", splits=IS_SPLITS, weights_path=path)
+    if fid.inception is not kid.inception:
+        raise AssertionError("FID and KID of one weights file do not share their extractor")
+    fid_real_s, fid_peak = _timed_updates(torch, fid, real_b, real=True)
+    fid_fake_s, _ = _timed_updates(torch, fid, fake_b, real=False)
+    kid_s, kid_peak = _timed_updates(torch, kid, real_b, real=True)
+    kid_s += _timed_updates(torch, kid, fake_b, real=False)[0]
+    is_s, _ = _timed_updates(torch, inception_score, fake_b)
+    _read_stats(torch, mt, t0, {})
+    _log(
+        f"generative (12a) updates: FID {2 * n / (fid_real_s + fid_fake_s):.0f} images/s, KID {2 * n / kid_s:.0f}, IS"
+        f" {n / is_s:.0f}; the phase so far {time.perf_counter() - t_phase:.1f} s"
+    )
+
+    fid_value, fid_compute_ms = _timed_compute(torch, fid)
+    kid_value, kid_compute_ms = _timed_compute(torch, kid, repeats=2)
+    is_value, is_compute_ms = _timed_compute(torch, inception_score, repeats=2)
+    fid_ns = mt.FrechetInceptionDistance(feature=2048, weights_path=path, matrix_sqrt="newton_schulz")
+    fid_ns.bind_state({name: getattr(fid, name) for name in fid._defaults}, update_count=fid._update_count)
+    ns_value, ns_compute_ms = _timed_compute(torch, fid_ns, repeats=2)
+    ns_rel = abs(float(ns_value) - float(fid_value)) / abs(float(fid_value))
+    _close("fid Newton-Schulz against the reference iteration in float64", ns_value, _newton_schulz_reference(torch, fid, fid_ns.sqrt_iters), rtol=1e-6)
+    real_f = torch.cat(kid.real_features).double().cpu().numpy()
+    fake_f = torch.cat(kid.fake_features).double().cpu().numpy()
+    want_is = _is_oracle(torch.cat(inception_score.features).double().cpu().numpy(), IS_SPLITS, 42)
+    _close("inception score (mean, std) against numpy", torch.stack(is_value), np.array(want_is), rtol=KID_IS_RTOL)
+
+    # update_stream over the real set: one captured encode_acc program, the moments and FID of update
+    engine.clear_cache()
+    reset_encoder_stats()
+    stream_chunks = [real[s:e] for s, e in _batches_of(n, STREAM_CHUNK)]
+    fid_s = mt.FrechetInceptionDistance(feature=2048, weights_path=path)
+    stream_results = []
+    # the first chunk warms up and captures; the other 19 (the 272-row tail padded to 512) replay
+    for chunks in (stream_chunks[:1], stream_chunks[1:]):
+        t0 = _reset_stats(torch, mt)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        result = fid_s.update_stream(chunks, real=True)
+        seconds, _ = _read_stats(torch, mt, t0, {})
+        stream_results.append((seconds, torch.cuda.max_memory_allocated() - base, result))
+    # another FID of the same extractor replays the same graph
+    mt.FrechetInceptionDistance(feature=2048, weights_path=path).update_stream(stream_chunks[:1], real=True)
+    summary = engine.cache_summary()["by_kind"].get("encode", {})
+    if (summary.get("graphs"), summary.get("compiles"), summary.get("failed_captures")) != (1, 1, 0):
+        raise AssertionError(f"update_stream: expected exactly one captured encode_acc program, got {summary}")
+    if sum(r.chunks for _, _, r in stream_results) != len(stream_chunks) or sum(r.rows for _, _, r in stream_results) != n:
+        raise AssertionError(f"update_stream: {[r for _, _, r in stream_results]}")
+    # relative in the max norm: a feature whose sum is near 0 (a channel the ReLUs keep at 0) has no relative digits
+    for name in ("real_sum", "real_outer", "real_n"):
+        got, want = getattr(fid_s, name).double(), getattr(fid, name).double()
+        err = float((got - want).abs().max() / want.abs().max())
+        if not err <= STREAM_RTOL:
+            raise AssertionError(f"update_stream {name} against update: {err:.3e} of its largest entry (bound {STREAM_RTOL})")
+    fid_s.bind_state(
+        {name: (getattr(fid, name) if name.startswith("fake") else getattr(fid_s, name)) for name in fid._defaults}
+    )
+    stream_value, _ = _timed_compute(torch, fid_s)
+    # host batches: pinned and copied on the copy stream before each replay, the same moments bit for bit
+    staged = [mt.FrechetInceptionDistance(feature=2048, weights_path=path) for _ in range(2)]
+    staged[0].update_stream([c.cpu() for c in stream_chunks[:2]], real=True)
+    staged[1].update_stream(stream_chunks[:2], real=True)
+    if not all(torch.equal(getattr(staged[0], k), getattr(staged[1], k)) for k in ("real_sum", "real_outer", "real_n")):
+        raise AssertionError("update_stream: host batches staged to the card give other moments than the same batches on the card")
+    if engine.cache_summary()["by_kind"]["encode"]["graphs"] != 1:
+        raise AssertionError(f"update_stream: host batches captured another program: {engine.cache_summary()}")
+    del staged
+    _log(f"generative (12a): update_stream FID {float(stream_value):.9e}, update's {float(fid_value):.9e}")
+    _close("update_stream FID against update's", stream_value, float(fid_value), rtol=STREAM_RTOL)
+    stream_stats = encoder_stats()
+
+    # profiles of a few warm batches: update (eager forward), and the stream's replays
+    update_note = _forward_note(
+        torch, "update (FID)", [lambda b=b: fid.update(b, real=True) for b in real_b[:PHASE_PROFILE_BATCHES]],
+        GEN_BATCH, macs, fid_real_s + fid_fake_s, 2 * n,
+    )
+    stream_note = _forward_note(
+        torch, "update_stream (replays)", [lambda c=c: fid_s.update_stream([c], real=True) for c in stream_chunks[:PHASE_PROFILE_BATCHES]],
+        STREAM_CHUNK, macs, stream_results[1][0], n - STREAM_CHUNK,
+    )
+    variants_note = _forward_variants(torch, net, fid.inception, real_b[0])
+    # the host oracles (scipy's sqrtm, 100 subsets' kernels) run after every timing: run beside them,
+    # their BLAS threads slowed the host side of the stream's capture tenfold
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        fid_future = pool.submit(_fid_oracle, real_f, fake_f)
+        kid_future = pool.submit(_kid_oracle, real_f, fake_f, *kid.subset_indices(n, n))
+        (want_fid, traces, eig_range), want_kid = fid_future.result(), kid_future.result()
+    _close("fid (eigh on the host) against the scipy sqrtm oracle", fid_value, want_fid, rtol=FID_RTOL)
+    _close("kid (mean, std) against numpy", torch.stack(kid_value), np.array(want_kid), rtol=KID_IS_RTOL)
+    if not float(fid_value) > 0.1 * traces:
+        raise AssertionError(f"FID {float(fid_value)} of the shifted generated set against tr S1 + tr S2 = {traces}: the sets are not apart")
+    # the gap between the Newton-Schulz and eigh values is the algorithm's on this spectrum (its eps
+    # shift and its convergence on the smallest eigenvalues), not the port's: the port's iteration is
+    # held to the reference iteration above; the gap is logged against the bound, which stays as it is
+    ns_note = (
+        f"Newton-Schulz {float(ns_value):.9e} (equal to the reference iteration within 1e-6), {ns_rel:.2e} relative to"
+        f" eigh: {'within' if ns_rel <= NEWTON_SCHULZ_FID_RTOL else 'OUTSIDE'} the bound {NEWTON_SCHULZ_FID_RTOL}"
+        f" (eigenvalues of S1 from {eig_range[0]:.3e} to {eig_range[1]:.3e}, tr S1 + tr S2 = {traces:.6e})"
+    )
+    shutil.rmtree(tmp, ignore_errors=True)
+    _log(
+        f"generative (12a): CIFAR-10 test size, {n} real and {n} generated uint8 images of 3 x 32 x 32 (made on the card,"
+        f" the generated set shifted by {GEN_SHIFT} and noised at sigma {GEN_NOISE}), batches of {GEN_BATCH}, each resized"
+        f" to 299 x 299 by the TF1 matrices, InceptionV3 at full width (seeded random weights, {macs / 1e9:.3f} GMAC per"
+        f" image); {smi}; features and logits of {NET_CHECK_IMAGES} images within rtol 1e-3, atol 2e-3 of a float64 copy,"
+        f" and less their batch mean within {NET_CENTRED_RTOL} of its largest (float32, TF32 control, by tap: {centred})"
+        f" ({check_s:.1f} s); FID {float(fid_value):.9e} within {FID_RTOL} of the scipy sqrtm oracle ({want_fid:.9e}),"
+        f" {ns_note}; KID {float(kid_value[0]):.6e} +- {float(kid_value[1]):.6e} ({KID_SUBSETS} subsets of"
+        f" {KID_SUBSET_SIZE}) and IS {float(is_value[0]):.9f} +- {float(is_value[1]):.6e} ({IS_SPLITS} splits) within"
+        f" {KID_IS_RTOL} of numpy over the same subsets and splits; update_stream's moments and FID within {STREAM_RTOL}"
+        f" of update's, one encode_acc program captured ({summary}); host batches staged from pinned memory give the"
+        f" same moments bit for bit; encoder_stats {stream_stats}"
+    )
+    _log(
+        f"generative (12a) timings: updates FID {2 * n / (fid_real_s + fid_fake_s):.0f} images/s (peak memory"
+        f" {fid_peak / 2**30:.2f} GiB above the start), KID {2 * n / kid_s:.0f} images/s (peak {kid_peak / 2**30:.2f} GiB),"
+        f" IS {n / is_s:.0f} images/s; update_stream's first chunk (eager warm-up and capture) {stream_results[0][0]:.2f} s"
+        f" (peak {stream_results[0][1] / 2**30:.2f} GiB above the start), then replays {(n - STREAM_CHUNK) / stream_results[1][0]:.0f}"
+        f" images/s (peak {stream_results[1][1] / 2**30:.2f} GiB); compute() first and warm, ms: FID eigh on the host"
+        f" {fid_compute_ms}, Newton-Schulz on the card {ns_compute_ms}, KID {kid_compute_ms}, IS {is_compute_ms}"
+    )
+    _log(f"generative (12a) {update_note}")
+    _log(f"generative (12a) {variants_note}")
+    _log(f"generative (12a) {stream_note}")
+    _log(f"generative (12a): phase {time.perf_counter() - t_phase:.1f} s, oracles and data included")
+    del fid, kid, inception_score, fid_ns, fid_s, real, fake, real_b, fake_b, stream_chunks
+    engine.clear_cache()
+    torch.cuda.empty_cache()
+
+
+def _lpips_pairs(torch):
+    n, c, h, w = LPIPS_PAIRS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    img1 = (0.6 * _smooth_fields(torch, gen, n, c, h, w, coarse=16)).clamp_(-1, 1)
+    img2 = (img1 + LPIPS_PERTURB * torch.randn(img1.shape, generator=gen, device="cuda")).clamp_(-1, 1)
+    return img1, img2
+
+
+def run_lpips_phase(torch, mt, smi: str) -> None:
+    """Phase 12b: LPIPS over 1,000 pairs of 256 x 256 images, AlexNet and VGG16."""
+    from metrics_tpu_torch.image.networks import lpips as net
+
+    t_phase = time.perf_counter()
+    img1, img2 = _lpips_pairs(torch)
+    bounds = _batches_of(LPIPS_PAIRS[0], LPIPS_BATCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lpips_")
+    lines = []
+    for name in ("alex", "vgg"):
+        path = os.path.join(tmp, f"{name}.npz")
+        host_params = net.random_lpips_params(name, seed=SEED, device="cpu")
+        net.save_lpips_weights(host_params, path)
+        host_net = net.LPIPSNetwork(host_params, name)
+        # per image: the pair's two images run as one batch
+        macs = _count_conv_macs(torch, lambda: host_net(torch.zeros(1, 3, 256, 256), torch.zeros(1, 3, 256, 256))) / 2
+        t0 = _reset_stats(torch, mt)
+        metric = mt.LearnedPerceptualImagePatchSimilarity(net=name, weights_path=path)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        for s, e in bounds:
+            metric.update(img1[s:e], img2[s:e])
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() - base
+        _read_stats(torch, mt, t0, {})
+        value, compute_ms = _timed_compute(torch, metric)
+        network = metric.net
+        per_pair = torch.cat([network(img1[s:e], img2[s:e]) for s, e in bounds])
+        _close(f"lpips {name}: the streamed mean against the per-pair mean", value, float(per_pair.double().mean()), rtol=1e-6)
+        k = LPIPS_CHECK_PAIRS
+        net64 = net.LPIPSNetwork({m: {p: v.double() for p, v in g.items()} for m, g in network.params.items()}, name)
+        _close(f"lpips {name}: {k} pairs (float32) against float64", per_pair[:k], net64(img1[:k], img2[:k]).cpu().numpy(), rtol=1e-4, atol=1e-5)
+        _close(f"lpips {name}: identical pairs", network(img1[:k], img1[:k]), np.zeros(k), atol=1e-6)
+        note = _forward_note(
+            torch, f"{name} update", [lambda s=s, e=e: metric.update(img1[s:e], img2[s:e]) for s, e in bounds[:PHASE_PROFILE_BATCHES]],
+            2 * LPIPS_BATCH, macs, update_s, 2 * LPIPS_PAIRS[0],
+        )
+        lines.append(
+            f"{name}: LPIPS {float(value):.6f}, {LPIPS_PAIRS[0] / update_s:.0f} pairs/s, compute() {compute_ms:.2f} ms,"
+            f" peak memory {peak / 2**30:.2f} GiB above the start; {note}"
+        )
+        del metric, network, net64, per_pair
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    _log(
+        f"lpips (12b): {LPIPS_PAIRS[0]} pairs of 3 x 256 x 256 images in [-1, 1] (made on the card, the second the first plus"
+        f" a perturbation of sigma {LPIPS_PERTURB}), batches of {LPIPS_BATCH} pairs, seeded random weights; the streamed"
+        f" mean within 1e-6 of the per-pair mean, {LPIPS_CHECK_PAIRS} pairs within rtol 1e-4, atol 1e-5 of a float64"
+        f" copy, identical pairs 0 within 1e-6; {smi}: " + " | ".join(lines)
+        + f"; phase {time.perf_counter() - t_phase:.1f} s"
+    )
+    del img1, img2
+    torch.cuda.empty_cache()
+
+
 # kernel wrappers' device-side names, as the profiler reports them; a
 # wrapper that runs several kernels per call lists them all
 KERNEL_SYMBOLS = {
@@ -2976,7 +3566,7 @@ def _profile_path(torch, label: str, steps, top: int) -> None:
         return
     _log(
         f"profile {label}: batch (mean of {len(steps)}) {m['wall_ms']:.2f} ms wall, {m['device_ms']:.3f} ms device,"
-        f" busy share {m['device_ms'] / m['wall_ms']:.3f}, {m['events']:.0f} device events, {m['syncs']} host syncs;"
+        f" busy share {m['busy_ms'] / m['wall_ms']:.3f}, {m['events']:.0f} device events, {m['syncs']} host syncs{_overlap_note(m)};"
         f" top device ops over the {len(steps)} batches:"
     )
     for r in m["rows"][:top]:
@@ -3100,6 +3690,11 @@ def main() -> int:
             "feature cosine similarity": steps(cos, student, teacher, feat_batches),
         },
     )
+    # after the kernels' profiles: these phases profile the network's batches themselves
+    t_new = time.perf_counter()
+    run_generative_phase(torch, mt, smi)
+    run_lpips_phase(torch, mt, smi)
+    _log(f"phases 12a-12b: {time.perf_counter() - t_new:.1f} s in all, oracles and data included")
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {

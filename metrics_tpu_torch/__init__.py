@@ -15,9 +15,13 @@ and six more), with their functional forms, the wrappers
 (``BootStrapper``, ``ClasswiseWrapper``, ``MinMaxMetric``,
 ``MultioutputWrapper``, ``MetricTracker``), the state helpers
 (``Metric.bind_state``, ``utils/checkpoint.py``) and image quality without
-networks (``PeakSignalNoiseRatio``, the two SSIMs, ``image_gradients``);
-``deprecated`` holds the old names of those, re-exported here with
-``SyncError`` and ``NumericalHealthError``. Metrics live on the GPU unless a
+networks (``PeakSignalNoiseRatio``, the two SSIMs, ``image_gradients``), and
+the embedding-based image metrics (``FrechetInceptionDistance``,
+``KernelInceptionDistance``, ``InceptionScore``,
+``LearnedPerceptualImagePatchSimilarity``) on torch InceptionV3 and LPIPS
+networks, with ``ShardedEncoder`` and its encode-then-accumulate stream on
+one device; ``deprecated`` holds the old names of those, re-exported here
+with ``SyncError`` and ``NumericalHealthError``. Metrics live on the GPU unless a
 ``device`` is given; functionals run on their inputs' device. The six
 kernels of these paths (``confusion_counts``, ``multilabel_counts``,
 ``select_topk``, ``binned_counts``, ``binned_calibration``,
@@ -57,6 +61,10 @@ from metrics_tpu_torch import engine  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.deprecated import (
     F1,
+    FID,
+    IS,
+    KID,
+    LPIPS,
     PSNR,
     SSIM,
     FBeta,
@@ -66,7 +74,12 @@ from metrics_tpu_torch.deprecated import (
     PearsonCorrcoef,
     SpearmanCorrcoef,
 )
+from metrics_tpu_torch.encoders import ShardedEncoder
 from metrics_tpu_torch.image import (
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    LearnedPerceptualImagePatchSimilarity,
     MultiScaleStructuralSimilarityIndexMeasure,
     PeakSignalNoiseRatio,
     StructuralSimilarityIndexMeasure,
@@ -128,12 +141,20 @@ __all__ = [
     "F1Score",
     "FBeta",
     "FBetaScore",
+    "FID",
+    "FrechetInceptionDistance",
     "HammingDistance",
     "Hinge",
     "HingeLoss",
+    "IS",
+    "InceptionScore",
     "IoU",
     "JaccardIndex",
+    "KID",
     "KLDivergence",
+    "KernelInceptionDistance",
+    "LPIPS",
+    "LearnedPerceptualImagePatchSimilarity",
     "MatthewsCorrCoef",
     "MatthewsCorrcoef",
     "MaxMetric",
@@ -169,6 +190,7 @@ __all__ = [
     "RetrievalRPrecision",
     "RetrievalRecall",
     "SSIM",
+    "ShardedEncoder",
     "SpearmanCorrCoef",
     "SpearmanCorrcoef",
     "Specificity",

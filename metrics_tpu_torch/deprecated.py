@@ -1,14 +1,21 @@
 """Deprecated short names of the port's metrics (counterpart of
 ``metrics_tpu/deprecated.py``). Each alias warns on construction and
-otherwise is its target. The JAX package's other aliases (``FID``, ``KID``,
-``IS``, ``LPIPS``, ``PIT``, ``PESQ``, ``STOI``, ``SNR``, ``SDR``,
-``SI_SDR``, ``SI_SNR``, ``MAP``) come with their modules.
+otherwise is its target. The JAX package's other aliases (``PIT``,
+``PESQ``, ``STOI``, ``SNR``, ``SDR``, ``SI_SDR``, ``SI_SNR``, ``MAP``) come
+with their modules.
 """
 import warnings
 from typing import Any, Type
 
 from metrics_tpu_torch.classification import F1Score, FBetaScore, HingeLoss, JaccardIndex, MatthewsCorrCoef
-from metrics_tpu_torch.image import PeakSignalNoiseRatio, StructuralSimilarityIndexMeasure
+from metrics_tpu_torch.image import (
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    LearnedPerceptualImagePatchSimilarity,
+    PeakSignalNoiseRatio,
+    StructuralSimilarityIndexMeasure,
+)
 from metrics_tpu_torch.regression import PearsonCorrCoef, SpearmanCorrCoef
 
 
@@ -34,5 +41,23 @@ PearsonCorrcoef = _deprecated_alias("PearsonCorrcoef", PearsonCorrCoef)
 SpearmanCorrcoef = _deprecated_alias("SpearmanCorrcoef", SpearmanCorrCoef)
 PSNR = _deprecated_alias("PSNR", PeakSignalNoiseRatio)
 SSIM = _deprecated_alias("SSIM", StructuralSimilarityIndexMeasure)
+FID = _deprecated_alias("FID", FrechetInceptionDistance)
+KID = _deprecated_alias("KID", KernelInceptionDistance)
+IS = _deprecated_alias("IS", InceptionScore)
+LPIPS = _deprecated_alias("LPIPS", LearnedPerceptualImagePatchSimilarity)
 
-__all__ = ["F1", "FBeta", "Hinge", "IoU", "MatthewsCorrcoef", "PSNR", "PearsonCorrcoef", "SSIM", "SpearmanCorrcoef"]
+__all__ = [
+    "F1",
+    "FBeta",
+    "FID",
+    "Hinge",
+    "IS",
+    "IoU",
+    "KID",
+    "LPIPS",
+    "MatthewsCorrcoef",
+    "PSNR",
+    "PearsonCorrcoef",
+    "SSIM",
+    "SpearmanCorrcoef",
+]

@@ -66,9 +66,19 @@ JAX package vmaps the template's transition over a leading ``[B]`` axis;
 here the program loops over the replicates, since the kernel wrappers are
 ctypes launches with no batching rule.
 
-Out of this module for now: the serving bank entries, the encoder entries
-and the mesh-aware driver entries of the JAX engine.
+**Encoder entries.** An encoder's forward (:func:`encoder_entry`, kind
+``encode``) is a program like an update: one per input signature, shared by
+every :class:`~metrics_tpu_torch.encoders.ShardedEncoder` with the same
+apply callable and parameter signature (the parameters are runtime data).
+Its ``encode_acc`` variant runs the forward and a consumer in one graph.
+cuDNN is captured with ``cudnn.benchmark`` off and TF32 off, in the warm-up
+as in the capture, and a refused capture raises: an encoder never falls
+back to an eager forward in silence.
+
+Out of this module for now: the serving bank entries and the mesh-aware
+driver entries of the JAX engine.
 """
+import contextlib
 import hashlib
 import threading
 from collections import OrderedDict
@@ -221,6 +231,8 @@ def _instance_tensors(cell: Any) -> List[torch.Tensor]:
     attributes): a graph may read any of them by address."""
     out: List[torch.Tensor] = []
     for m in _cells(cell):
+        if not isinstance(m, torch.nn.Module):  # an encoder: its graph pins its apply callable
+            continue
         for mod in m.modules():
             out.extend(d for d in mod.__dict__.get("_defaults", {}).values() if isinstance(d, torch.Tensor))
             out.extend(b for b in mod._buffers.values() if b is not None)
@@ -559,6 +571,60 @@ def fused_entry(kind: str, keys: Tuple[str, ...], members: List[Any]) -> SharedE
         pins.extend(p)
     cache_key = (kind, tuple(keys), tuple(member_keys))
     return _get_or_create(cache_key, lambda: _make_fused_entry(kind, tuple(keys), cache_key, tuple(pins)))
+
+
+# ---------------------------------------------------------------------------
+# encoder programs (metrics_tpu_torch.encoders)
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _encoder_capture_flags() -> Any:
+    """cuDNN as a capture needs it: ``benchmark`` off (its trial runs would
+    be captured) and TF32 off (the kernels chosen at capture are replayed)."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
+def _make_encoder_entry(cache_key: Any, pins: Tuple, consumer: Optional[Callable]) -> SharedEntry:
+    """One encoder program family (entry kind ``encode``); the cell is a
+    :class:`~metrics_tpu_torch.encoders.ShardedEncoder`. Variants:
+
+    * ``encode``: ``(params, *inputs) -> features``, the forward;
+    * ``encode_acc`` (only with a ``consumer``): ``(params, carry, valid,
+      *inputs) -> carry``, the forward and ``consumer(carry, features,
+      valid)`` in one program. ``valid`` is a float row mask (pad and
+      screened rows are 0), so ragged pow2-bucketed chunks share the
+      program of their bucket.
+
+    Both bodies run under :func:`_encoder_capture_flags`, so the warm-up and
+    the capture see the same cuDNN settings.
+    """
+    entry = SharedEntry(cache_key, "encode", pins)
+
+    def _encode(enc, params, *inputs):
+        with _encoder_capture_flags():
+            return enc._traced_apply(params, inputs)
+
+    def _encode_acc(enc, params, carry, valid, *inputs):
+        with _encoder_capture_flags():
+            return consumer(carry, enc._traced_apply(params, inputs), valid)
+
+    entry._fns = {"encode": _encode}
+    if consumer is not None:
+        entry._fns["encode_acc"] = _encode_acc
+    return entry
+
+
+def encoder_entry(encoder: Any, consumer: Optional[Callable] = None) -> SharedEntry:
+    """Shared entry for one encoder program family, keyed as in the JAX
+    engine: the encoder's program identity (apply callable, parameter
+    signature) and, for the fused streaming step, the consumer's identity.
+    Parameter values are runtime data, so cloned or rebuilt encoders of one
+    identity share one program per input signature."""
+    key, pins = encoder._program_key()
+    cache_key = ("encode", key, None if consumer is None else id(consumer))
+    all_pins = tuple(pins) + ((consumer,) if consumer is not None else ())
+    return _get_or_create(cache_key, lambda: _make_encoder_entry(cache_key, all_pins, consumer))
 
 
 # ---------------------------------------------------------------------------

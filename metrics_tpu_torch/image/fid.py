@@ -1,0 +1,357 @@
+"""Fréchet Inception Distance (counterpart of ``metrics_tpu/image/fid.py``).
+
+* **Pluggable feature extractor.** An int ``feature`` builds the InceptionV3
+  FID network (``image/networks/inception.py``) from local weights, on the
+  metric's device; any callable ``imgs -> [N, d]`` also serves. The
+  extractor follows the metric to its device (``InceptionV3Features.on``).
+* **Streaming sufficient statistics.** When ``feature_dim`` is known the
+  states are ``(sum x, sum x x^T, n)`` per distribution, O(d^2) memory,
+  named as in the JAX package (``{real,fake}_{sum,sum_c,outer,outer_c,n}``)
+  so ``state_dict``s cross between the packages. Without ``feature_dim``
+  the reference's buffer-of-features fallback is used.
+* **Float64 states on the card.** The moments accumulate in float64, as the
+  JAX package's do under ``jax_enable_x64``. On an H100 the ``f.T @ f`` of
+  a ``[512, 2048]`` batch is about 4.3 GFLOP in float64, tens of
+  microseconds at the FP64 tensor-core rate, beside an Inception forward of
+  tens of milliseconds. The ``_c`` states hold the two-sum error terms of
+  each addition, as in the JAX package, where they matter for float32.
+* **Matrix square root.** ``matrix_sqrt='eigh'`` (the default under
+  ``'auto'``) computes on the host in float64 through two symmetric
+  eigendecompositions, retrying with an ``eps`` diagonal offset when the
+  eigenvalues are not finite. ``'newton_schulz'`` runs the matmul-only
+  iteration on the card (``sharding/linalg.py``) and brings back only the
+  scalar.
+* **Streaming updates.** :meth:`FrechetInceptionDistance.update_stream`
+  runs the extractor and the moment accumulation as one captured program
+  per chunk signature (``encoders/stream.py``).
+
+``feature_sharding=`` and ``encoder_sharding=`` lay the states and the
+network over a device mesh: that is the sharded state plane, ROADMAP §1
+item 7, and they raise here.
+"""
+from functools import lru_cache
+from typing import Any, Callable, Iterable, Optional, Union
+
+import numpy as np
+import torch
+
+from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utils.data import dim_zero_cat
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
+
+
+def _resolve_feature_extractor(feature: Union[int, str], weights_path: Optional[str], device: torch.device) -> Any:
+    """int/str feature -> default InceptionV3 extractor (local weights) on ``device``."""
+    from metrics_tpu_torch.image.networks.inception import resolve_inception_extractor
+
+    return resolve_inception_extractor(feature, weights_path, device=device)
+
+
+def _sharding_unported(arg: str) -> MetricsUserError:
+    return MetricsUserError(
+        f"`{arg}` shards FID over a device mesh, which is the sharded state plane (ROADMAP §1 item 7),"
+        " not ported yet; leave it None (matrix_sqrt='newton_schulz' runs on one device without it)."
+    )
+
+
+def _extract(extractor: Any, imgs: Any, device: torch.device) -> torch.Tensor:
+    """Run ``extractor`` on its copy on ``device`` (the built-in networks
+    have one) and return ``[N, d]`` features on ``device``."""
+    if hasattr(extractor, "on"):
+        extractor = extractor.on(device)
+    features = torch.as_tensor(extractor(imgs))
+    if features.device != device:
+        features = features.to(device)
+    return _validate_features(features)
+
+
+def _validate_features(features: torch.Tensor) -> torch.Tensor:
+    """Extractor output must be ``[N, d]``."""
+    if features.ndim != 2:
+        raise MetricsUserError(
+            f"Expected the feature extractor to return a [N, d] array, got shape {tuple(features.shape)}"
+        )
+    return features
+
+
+@lru_cache(maxsize=None)
+def _moment_consumer_for(feature_dim: int) -> Callable:
+    """The ``(carry, features, valid) -> carry`` of :meth:`update_stream`,
+    memoized per feature dimension: the fused encode+accumulate program is
+    keyed by the consumer's identity, so every FID instance of one
+    dimensionality shares one program family."""
+
+    def consumer(carry, features, valid):
+        if features.ndim != 2 or features.shape[1] != feature_dim:
+            raise MetricsUserError(
+                f"Feature extractor returned shape {tuple(features.shape)}, expected [N, {feature_dim}]"
+            )
+        # multiplying by 1.0 is exact: an all-valid chunk adds what update() adds
+        f = features.to(carry["sum"].dtype) * valid[:, None].to(carry["sum"].dtype)
+        new = dict(carry)
+        for name, delta in (("sum", f.sum(dim=0)), ("outer", f.T @ f)):
+            acc = carry[name]
+            folded = acc + delta
+            new[name + "_c"] = carry[name + "_c"] + ((acc - folded) + delta)
+            new[name] = folded
+        new["n"] = carry["n"] + valid.sum().to(carry["n"].dtype)
+        return new
+
+    return consumer
+
+
+def _sqrtm_psd(mat: np.ndarray) -> np.ndarray:
+    """Symmetric PSD square root via eigendecomposition (host, float64)."""
+    vals, vecs = np.linalg.eigh(mat)
+    vals = np.clip(vals, 0.0, None)
+    return (vecs * np.sqrt(vals)) @ vecs.T
+
+
+def _compute_fid(
+    mu1: np.ndarray, sigma1: np.ndarray, mu2: np.ndarray, sigma2: np.ndarray, eps: float = 1e-6
+) -> float:
+    """d^2 = |mu1 - mu2|^2 + Tr(S1 + S2 - 2 sqrt(S1 S2)), host float64. The
+    trace of ``sqrtm(S1 S2)`` is that of ``sqrtm(S1^1/2 S2 S1^1/2)``, which
+    is symmetric PSD; with non-finite eigenvalues the computation is retried
+    with ``eps`` on both diagonals."""
+    diff = mu1 - mu2
+    s1_half = _sqrtm_psd(sigma1)
+    inner = s1_half @ sigma2 @ s1_half
+    vals = np.linalg.eigvalsh(inner)
+    if not np.all(np.isfinite(vals)):
+        offset = np.eye(sigma1.shape[0]) * eps
+        s1_half = _sqrtm_psd(sigma1 + offset)
+        inner = s1_half @ (sigma2 + offset) @ s1_half
+        vals = np.linalg.eigvalsh(inner)
+    tr_covmean = np.sum(np.sqrt(np.clip(vals, 0.0, None)))
+    return float(diff @ diff + np.trace(sigma1) + np.trace(sigma2) - 2 * tr_covmean)
+
+
+class FrechetInceptionDistance(Metric):
+    """FID between the feature distributions of real and generated images.
+
+    Args:
+        feature: an int (selects the default InceptionV3 tap of that
+            dimensionality, built from ``weights_path`` on the metric's
+            device) or a callable ``imgs -> [N, d]``.
+        feature_dim: dimensionality ``d`` of the extractor output; enables the
+            O(d^2) streaming-statistics states. Auto-set when ``feature`` is an
+            int.
+        weights_path: local ``.npz`` InceptionV3 weights (the JAX package's
+            files; see ``convert_torch_inception_checkpoint``); falls back to
+            ``$METRICS_TPU_INCEPTION_WEIGHTS``. Only used when ``feature`` is
+            an int.
+        feature_sharding: not ported (ROADMAP §1 item 7); must be None.
+        matrix_sqrt: ``'auto'`` and ``'eigh'`` (the host eigendecomposition)
+            or ``'newton_schulz'`` (the matmul-only iteration on the metric's
+            device; agrees with the host path to
+            ``sharding.NEWTON_SCHULZ_FID_RTOL``).
+        sqrt_iters: Newton–Schulz iteration count.
+        encoder_sharding: not ported (ROADMAP §1 item 7); must be None.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import FrechetInceptionDistance
+        >>> def extractor(imgs):  # any callable imgs -> [N, d]
+        ...     return imgs.float().reshape(imgs.shape[0], -1)[:, :8]
+        >>> fid = FrechetInceptionDistance(feature=extractor, feature_dim=8, device="cpu")
+        >>> gen = torch.Generator().manual_seed(0)
+        >>> fid.update(torch.rand(32, 3, 8, 8, generator=gen), real=True)
+        >>> fid.update(torch.rand(32, 3, 8, 8, generator=gen), real=False)
+        >>> print(round(float(fid.compute()), 2))
+        0.09
+    """
+
+    is_differentiable = False
+    higher_is_better = False
+
+    def __init__(
+        self,
+        feature: Union[int, Callable] = 2048,
+        feature_dim: Optional[int] = None,
+        weights_path: Optional[str] = None,
+        feature_sharding: Optional[Any] = None,
+        matrix_sqrt: str = "auto",
+        sqrt_iters: int = 40,
+        encoder_sharding: Optional[Any] = None,
+        **kwargs: Any,
+    ) -> None:
+        kwargs.setdefault("jit_update", False)  # extractor call is user code
+        kwargs.setdefault("compute_on_step", False)  # reference ``fid.py:215``
+        super().__init__(**kwargs)
+        if feature_sharding is not None:
+            raise _sharding_unported("feature_sharding")
+        if encoder_sharding is not None:
+            raise _sharding_unported("encoder_sharding")
+        if isinstance(feature, int):
+            feature = _resolve_feature_extractor(feature, weights_path, self.device)
+            if feature_dim is None:
+                feature_dim = feature.feature_dim  # O(d^2) streaming stats
+        if not callable(feature):
+            raise TypeError("Got unknown input to argument `feature`")
+        self.inception = feature
+        self.feature_dim = feature_dim
+        if matrix_sqrt not in ("auto", "eigh", "newton_schulz"):
+            raise ValueError(f"`matrix_sqrt` must be 'auto', 'eigh' or 'newton_schulz', got {matrix_sqrt!r}")
+        self.feature_sharding = None
+        self.encoder_sharding = None
+        self.matrix_sqrt = matrix_sqrt
+        self.sqrt_iters = int(sqrt_iters)
+        if feature_dim is None and matrix_sqrt == "newton_schulz":
+            raise MetricsUserError(
+                "feature_sharding / matrix_sqrt='newton_schulz' operate on the"
+                " O(d^2) streaming-statistics states and need `feature_dim`"
+                " (the buffer-of-features fallback has no fixed covariance"
+                " layout to shard)."
+            )
+        if feature_dim is not None:
+            d = int(feature_dim)
+            for prefix in ("real", "fake"):
+                for name, shape in (("sum", (d,)), ("sum_c", (d,)), ("outer", (d, d)), ("outer_c", (d, d))):
+                    self.add_state(f"{prefix}_{name}", default=torch.zeros(shape, dtype=torch.float64), dist_reduce_fx="sum")
+                self.add_state(f"{prefix}_n", default=torch.tensor(0), dist_reduce_fx="sum")
+        else:
+            self.add_state("real_features", default=[], dist_reduce_fx="cat")
+            self.add_state("fake_features", default=[], dist_reduce_fx="cat")
+
+    def _stream_encoder(self) -> Any:
+        """The encoder runtime the streaming driver runs: the extractor on
+        the metric's device, wrapped once. A built-in network keeps the
+        wrapper, so every FID sharing it (``resolve_inception_extractor``
+        shares them) shares its programs; any other callable's wrapper is
+        kept by this metric, as in the JAX package. The wrapper's identity
+        keys the fused program family."""
+        from metrics_tpu_torch.encoders import ShardedEncoder
+        from metrics_tpu_torch.image.networks._common import SharedNetwork
+
+        extractor = self.inception.on(self.device) if hasattr(self.inception, "on") else self.inception
+        holder = extractor if isinstance(extractor, SharedNetwork) else self
+        kept = holder.__dict__.setdefault("_stream_encoders", {})
+        key = str(self.device)
+        if key not in kept:
+            kept[key] = ShardedEncoder.from_callable(extractor, name=type(extractor).__name__, device=self.device)
+        return kept[key]
+
+    def __getstate__(self) -> dict:
+        state = super().__getstate__()
+        state.pop("_stream_encoders", None)  # its apply is a closure: rebuilt on demand
+        return state
+
+    def _moment_consumer(self) -> Callable:
+        """The ``(carry, features, valid) -> carry`` folding one chunk into
+        the moment states: the same accumulation :meth:`update` performs,
+        with pad and screened rows zeroed by ``valid``."""
+        return _moment_consumer_for(int(self.feature_dim))
+
+    def _moments(self, real: bool) -> dict:
+        prefix = "real" if real else "fake"
+        return {name: getattr(self, f"{prefix}_{name}") for name in ("sum", "sum_c", "outer", "outer_c", "n")}
+
+    def _store_moments(self, real: bool, carry: dict) -> None:
+        prefix = "real" if real else "fake"
+        for name, value in carry.items():
+            setattr(self, f"{prefix}_{name}", value)
+
+    def update_stream(self, batches: Iterable[Any], real: bool = True, **stream_kwargs: Any) -> Any:
+        """Stream image batches into the tracked distribution without ever
+        holding the feature corpus: each chunk runs one fused
+        encode+accumulate program (a CUDA graph per chunk signature on the
+        card), host batches are staged outside it, the ragged final chunk
+        is padded to a pow2 bucket, and this metric's ``on_bad_input``
+        policy screens raw images upstream of the encoder. Needs the
+        ``feature_dim`` states. Returns the
+        :class:`~metrics_tpu_torch.encoders.StreamResult`."""
+        if self.feature_dim is None:
+            raise MetricsUserError(
+                "update_stream accumulates into the O(d^2) streaming-"
+                "statistics states and needs `feature_dim` (the buffer-of-"
+                "features fallback materializes the corpus by definition)."
+            )
+        from metrics_tpu_torch.encoders import encode_stream
+
+        carry, result = encode_stream(
+            self._stream_encoder(),
+            batches,
+            self._moment_consumer(),
+            self._moments(real),
+            screen=self if self.on_bad_input != "propagate" else None,
+            source=type(self).__name__,
+            **stream_kwargs,
+        )
+        self._store_moments(real, carry)
+        self._update_count += result.chunks + result.batches_quarantined
+        self._computed = None
+        return result
+
+    def update(self, imgs: Any, real: bool = True) -> None:
+        """Extract features and fold them into the tracked distribution."""
+        features = _extract(self.inception, imgs, self.device)
+        if self.feature_dim is not None:
+            if features.shape[1] != self.feature_dim:
+                raise MetricsUserError(
+                    f"Feature extractor returned dim {features.shape[1]}, expected feature_dim={self.feature_dim}"
+                )
+            valid = torch.ones(features.shape[0], dtype=self.real_sum.dtype, device=features.device)
+            self._store_moments(real, self._moment_consumer()(self._moments(real), features, valid))
+        elif real:
+            self.real_features.append(features)
+        else:
+            self.fake_features.append(features)
+
+    @staticmethod
+    def _stats_from_moments(s: np.ndarray, outer: np.ndarray, n: int) -> tuple:
+        mu = s / n
+        cov = (outer - n * np.outer(mu, mu)) / (n - 1)
+        return mu, cov
+
+    @staticmethod
+    def _stats_from_features(features: np.ndarray) -> tuple:
+        n = features.shape[0]
+        mu = features.mean(axis=0)
+        diff = features - mu
+        cov = diff.T @ diff / (n - 1)
+        return mu, cov
+
+    def _resolved_sqrt(self) -> str:
+        return "newton_schulz" if self.matrix_sqrt == "newton_schulz" else "eigh"
+
+    def _compute_on_device(self) -> torch.Tensor:
+        """FID on the metric's device: the moments (with the two-sum terms
+        folded in) and both square roots by Newton–Schulz; only the scalar
+        is ever needed on the host."""
+        from metrics_tpu_torch.sharding import linalg as _linalg
+
+        mu1, cov1 = _linalg.covariance_from_sums(
+            self.real_sum + self.real_sum_c, self.real_outer + self.real_outer_c, self.real_n
+        )
+        mu2, cov2 = _linalg.covariance_from_sums(
+            self.fake_sum + self.fake_sum_c, self.fake_outer + self.fake_outer_c, self.fake_n
+        )
+        return _linalg.fid_from_moments(mu1, cov1, mu2, cov2, iters=self.sqrt_iters).to(torch.float32)
+
+    def compute(self) -> torch.Tensor:
+        """FID from the accumulated statistics: in float64 on the host, or
+        on the device by Newton–Schulz (``matrix_sqrt='newton_schulz'``)."""
+
+        def host(x: torch.Tensor) -> np.ndarray:
+            return x.detach().cpu().numpy().astype(np.float64)
+
+        if self.feature_dim is not None:
+            if int(self.real_n) < 2 or int(self.fake_n) < 2:
+                raise MetricsUserError("FID requires at least two samples in each distribution")
+            if self._resolved_sqrt() == "newton_schulz":
+                return self._compute_on_device()
+            mu1, cov1 = self._stats_from_moments(
+                host(self.real_sum) + host(self.real_sum_c), host(self.real_outer) + host(self.real_outer_c), int(self.real_n)
+            )
+            mu2, cov2 = self._stats_from_moments(
+                host(self.fake_sum) + host(self.fake_sum_c), host(self.fake_outer) + host(self.fake_outer_c), int(self.fake_n)
+            )
+        else:
+            real = host(dim_zero_cat(self.real_features))
+            fake = host(dim_zero_cat(self.fake_features))
+            if real.shape[0] < 2 or fake.shape[0] < 2:
+                raise MetricsUserError("FID requires at least two samples in each distribution")
+            mu1, cov1 = self._stats_from_features(real)
+            mu2, cov2 = self._stats_from_features(fake)
+        return torch.tensor(_compute_fid(mu1, cov1, mu2, cov2), dtype=torch.float32).to(self.device)

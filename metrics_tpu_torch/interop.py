@@ -1,7 +1,7 @@
-"""Carry metric state across from the JAX package.
+"""Carry metric state, and the networks' weights, across from the JAX package.
 
-This system has no weights; what a user carries from one framework to the
-other is the accumulated state of a metric mid-stream. A JAX metric's (or
+What a user carries from one framework to the other is mostly the
+accumulated state of a metric mid-stream. A JAX metric's (or
 ``MetricCollection``'s) ``state_dict()`` holds numpy leaves and lists of
 numpy arrays under the same keys this package uses, so the conversion is
 per leaf. The attributes a metric learns during ``update`` (its
@@ -16,6 +16,11 @@ Example::
     jax_acc.persistent(True)
     state = state_from_jax(jax_acc.state_dict(), dynamic={"mode": jax_acc.mode})
     port_acc.load_state_dict(state)
+
+The embedding metrics' networks have weights: :func:`inception_params_from_jax`
+and :func:`lpips_params_from_jax` turn the JAX package's parameter trees
+(numpy leaves, HWIO kernels) into the port's (OIHW kernels, the fc kernel
+``[out, in]``), the same tensors the shared ``.npz`` files load into.
 """
 from typing import Any, Dict, List, Mapping, Optional, Union
 
@@ -49,6 +54,31 @@ def state_from_jax(
     for key, value in (dynamic or {}).items():
         out[key] = _encode_dynamic(value)
     return out
+
+
+def inception_params_from_jax(
+    jax_params: Mapping[str, Mapping[str, Any]], dtype: torch.dtype = torch.float32, device: Any = "cuda"
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's InceptionV3 parameter tree (``random_inception_params``,
+    ``load_inception_weights``: HWIO kernels, fc ``[in, out]``) as the port's
+    (OIHW, fc ``[out, in]``) on ``device``, for ``InceptionV3Features``."""
+    from metrics_tpu_torch.image.networks.inception import params_from_file_layout
+
+    return params_from_file_layout(_numpy_tree(jax_params), dtype, device)
+
+
+def lpips_params_from_jax(
+    jax_params: Mapping[str, Mapping[str, Any]], net: str = "vgg", dtype: torch.dtype = torch.float32, device: Any = "cuda"
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's LPIPS parameter tree of ``net`` (HWIO kernels) as
+    the port's (OIHW) on ``device``, for ``LPIPSNetwork``."""
+    from metrics_tpu_torch.image.networks.lpips import params_from_file_layout
+
+    return params_from_file_layout(_numpy_tree(jax_params), net, dtype, device)
+
+
+def _numpy_tree(tree: Mapping[str, Mapping[str, Any]]) -> Dict[str, Dict[str, np.ndarray]]:
+    return {mod: {name: np.array(v, copy=True) for name, v in group.items()} for mod, group in tree.items()}
 
 
 def state_to_jax(port_state: Mapping[str, Any]) -> Dict[str, Any]:

@@ -126,7 +126,9 @@ def test_the_port_roots_export_every_ported_name_of_the_jax_roots(roots):
             "F1", "FBeta", "Hinge", "IoU", "MatthewsCorrcoef", "PearsonCorrcoef", "SpearmanCorrcoef", "SyncError",
             "NumericalHealthError", "BootStrapper", "ClasswiseWrapper", "MinMaxMetric", "MultioutputWrapper",
             "MetricTracker", "PeakSignalNoiseRatio", "StructuralSimilarityIndexMeasure",
-            "MultiScaleStructuralSimilarityIndexMeasure", "PSNR", "SSIM",
+            "MultiScaleStructuralSimilarityIndexMeasure", "PSNR", "SSIM", "FrechetInceptionDistance",
+            "KernelInceptionDistance", "InceptionScore", "LearnedPerceptualImagePatchSimilarity", "FID", "KID", "IS",
+            "LPIPS", "ShardedEncoder",
         ],
         "functional": [
             "f1", "fbeta", "hinge", "pairwise_manhatten_distance", "image_gradients", "peak_signal_noise_ratio",

@@ -261,6 +261,13 @@ def test_port_and_chip_smoke_import_no_jax():
         "metrics_tpu_torch/retrieval/_topk_base.py",
     }
     assert retrieval_slice <= scanned, sorted(retrieval_slice - scanned)
+    generative_slice = {
+        *(f"metrics_tpu_torch/image/networks/{m}.py" for m in ("__init__", "_common", "inception", "lpips")),
+        *(f"metrics_tpu_torch/image/{m}.py" for m in ("fid", "kid", "inception", "lpip")),
+        *(f"metrics_tpu_torch/sharding/{m}.py" for m in ("__init__", "linalg")),
+        *(f"metrics_tpu_torch/encoders/{m}.py" for m in ("__init__", "runtime", "stream")),
+    }
+    assert generative_slice <= scanned, sorted(generative_slice - scanned)
     offenders = [
         f"{path.relative_to(REPO)}: {mod}"
         for path in files
@@ -268,3 +275,51 @@ def test_port_and_chip_smoke_import_no_jax():
         if mod.split(".")[0] in ("jax", "jaxlib", "metrics_tpu")
     ]
     assert offenders == []
+
+
+def test_generative_entry_points_default_to_cuda():
+    """The embedding metrics, their networks' resolvers, weight loaders,
+    random-parameter functions and JAX-tree converters, and the encoder
+    runtime live on the card unless the caller names another device."""
+    from metrics_tpu_torch.encoders import ShardedEncoder
+    from metrics_tpu_torch.image.networks import inception as net_inception
+    from metrics_tpu_torch.image.networks import lpips as net_lpips
+    from metrics_tpu_torch.image.networks import resolve_inception_extractor
+    from metrics_tpu_torch.image.networks.lpips import resolve_lpips_network
+    from metrics_tpu_torch.interop import inception_params_from_jax, lpips_params_from_jax
+
+    def extractor(imgs):
+        return imgs.reshape(imgs.shape[0], -1)
+
+    makers = [
+        lambda: mt.FrechetInceptionDistance(feature=extractor, feature_dim=4),
+        lambda: mt.FrechetInceptionDistance(),
+        lambda: mt.KernelInceptionDistance(feature=extractor),
+        lambda: mt.InceptionScore(feature=extractor),
+        lambda: mt.LearnedPerceptualImagePatchSimilarity(net=lambda a, b: a),
+        lambda: ShardedEncoder(lambda params, x: x, ()),
+        lambda: ShardedEncoder.from_callable(extractor),
+    ]
+    if torch.cuda.is_available():
+        assert mt.InceptionScore(feature=extractor).device.type == "cuda"
+        assert ShardedEncoder.from_callable(extractor).device.type == "cuda"
+        assert net_lpips.LPIPSNetwork(net_lpips.random_lpips_params("alex", seed=0), "alex").device.type == "cuda"
+        return
+    for make in makers:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    weights = [
+        lambda: resolve_inception_extractor(2048, "unused.npz"),
+        lambda: resolve_lpips_network("vgg", "unused.npz"),
+        lambda: net_inception.random_inception_params(seed=0),
+        lambda: net_inception.load_inception_weights("unused.npz"),
+        lambda: net_inception.params_from_file_layout({}),
+        lambda: net_lpips.random_lpips_params("vgg", seed=0),
+        lambda: net_lpips.load_lpips_weights("unused.npz", "vgg"),
+        lambda: net_lpips.params_from_file_layout({}, "vgg"),
+        lambda: inception_params_from_jax({}),
+        lambda: lpips_params_from_jax({}, "vgg"),
+    ]
+    for make in weights:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
