@@ -212,6 +212,39 @@
       of 50: 16 pairs within rtol 1e-4, atol 1e-5 of a float64 copy,
       identical pairs 0 within 1e-6, the streamed mean within 1e-6 of the
       per-pair mean; the same timings.
+12. Text (phase 13, last), seeded synthetic corpora at the published sizes
+   of the test sets, words drawn from a Zipf-distributed vocabulary of
+   30,000, hypotheses the references with seeded substitutions, drops and
+   insertions (and, for translation, one reversed 3-word span); every
+   metric streams through ``forward`` (the first batch, held to the
+   functional on it) and ``update`` with its state on the card, then
+   ``compute()``; logged per metric: ms per update on the host clock, the
+   device ms, busy share, host syncs and host-to-device copies of three
+   profiled updates, ``compute()``'s ms and the peak memory:
+   a. WMT14 newstest2014 en-de size (3,003 segments, Poisson 25 words,
+      batches of 64): BLEU and SacreBLEU-13a (counters exact and scores
+      within 1e-6 of a clipped n-gram oracle), chrF++, TER and EED (a
+      second instance over the first 500 pairs within 1e-6 of the
+      functional on the CPU);
+   b. LibriSpeech test-clean size (2,620 utterances, about 5% word
+      errors): WER, CER, MER, WIL, WIP against a plain Python
+      (bit-parallel) Levenshtein, counts exact, scores within 1e-6;
+   c. CNN/DailyMail 3.0.0 test size (11,490 summaries of 3-4 sentences,
+      batches of 32): ROUGE-1/2/L/Lsum, ``accumulate="best"``; ROUGE-1
+      and -2 against a clipped overlap oracle, L and Lsum by the CPU prefix;
+   d. SQuAD v1.1 dev size (10,570 questions, 1-3 ground truths, 2%
+      unanswered and warned once, batches of 512): exact match and F1
+      against an oracle of the official normalization;
+   e. BERTScore on 13a's pairs through a seeded 17-layer encoder at
+      roberta-large width (float32, TF32 off) and a CRC32 word-hash
+      tokenizer, ``idf``, ``max_length=512``, batches of 64, four routes
+      (functional, streamed module, module with a ``ShardedEncoder``,
+      functional without length buckets): the first 64 pairs within 1e-5
+      of float64 numpy on the card's own embeddings, the module within
+      1e-6 and the other routes within 1e-5 of the functional, one
+      captured ``encode`` program per ``(rows, width)`` signature, pow2
+      buckets used, the baseline rescale exact; pairs/s, the encoder's
+      and the matching's device ms, the multiply-add bound's share.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
@@ -3524,6 +3557,696 @@ def run_lpips_phase(torch, mt, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the text metrics and BERTScore
+# ---------------------------------------------------------------------------
+TEXT_VOCAB = 30_000  # a Zipf-distributed word list
+TEXT_ZIPF = (1.0, 2.7)  # Zipf-Mandelbrot exponent and shift of the word ranks
+WMT14_NEWSTEST = 3_003  # WMT14 newstest2014 en-de: segments, one reference each
+MT_WORDS = 25  # mean words per segment (Poisson)
+MT_BATCH = 64
+MT_EDITS = (0.12, 0.05, 0.05)  # word substitution, drop and insertion rates of a hypothesis
+LIBRISPEECH_TEST_CLEAN = 2_620  # utterances
+ASR_WORDS = 20
+ASR_EDITS = (0.03, 0.01, 0.01)  # about 5% word errors
+CNNDM_TEST = 11_490  # CNN/DailyMail 3.0.0 test: summaries of 3-4 sentences, about 56 words
+SUM_BATCH = 32
+SQUAD_DEV = 10_570  # SQuAD v1.1 dev: questions
+QA_BATCH = 512
+QA_UNANSWERED = 0.02
+TEXT_PREFIX = 500  # pairs of the CPU-functional prefix checks
+TEXT_ATOL = 1e-6  # the JAX text tests' atol (tests/text/helpers.py)
+TEXT_PHASE_BUDGET_S = 180.0
+ROUGE_CUT = 2_000  # summaries ROUGE takes if the phase would pass its budget
+# BERTScore's user encoder at roberta-large width, cut to bert-score's default layer
+BERT_VOCAB, BERT_DIM, BERT_HEADS, BERT_FFN, BERT_POSITIONS, BERT_LAYERS = 50_265, 1024, 16, 4096, 514, 17
+BERT_MAX_LEN = 512
+BERT_BATCH = 64
+BERT_ORACLE_PAIRS = 64
+BERT_MACS_PER_TOKEN_LAYER = 4 * BERT_DIM * BERT_DIM + 2 * BERT_DIM * BERT_FFN  # 12.6M: q, k, v, out and the FFN
+BERT_BASELINE = ((0.30, 0.32, 0.31), (0.84, 0.85, 0.845))  # the seeded baseline CSV's rows (P, R, F1)
+
+
+class _Vocab:
+    """A Zipf-distributed vocabulary of lowercase letter strings (most
+    frequent first) and a seeded stream of words drawn from it, sampled in
+    bulk."""
+
+    def __init__(self, rng, size: int = TEXT_VOCAB) -> None:
+        letters = np.array(list("etaoinshrdlcumwfgypbvkjxqz"))
+        freq = 1.0 / np.arange(1, 27) ** 0.8
+        words, seen = [], set()
+        while len(words) < size:
+            w = "".join(rng.choice(letters, int(rng.integers(2, 10)), p=freq / freq.sum()))
+            if w not in seen:
+                seen.add(w)
+                words.append(w)
+        ranks = np.arange(size, dtype=np.float64)
+        p = 1.0 / (ranks + TEXT_ZIPF[1]) ** TEXT_ZIPF[0]
+        self.words, self.p, self.rng = np.array(words), p / p.sum(), rng
+        self._pool: list = []
+        self._at = 0
+
+    def draw(self, k: int) -> list:
+        if self._at + k > len(self._pool):
+            self._pool = self._pool[self._at :] + self.words[self.rng.choice(len(self.words), 1 << 20, p=self.p)].tolist()
+            self._at = 0
+        self._at += k
+        return self._pool[self._at - k : self._at]
+
+
+def _perturbed(rng, ref: list, vocab: "_Vocab", edits, reverse: bool = True) -> list:
+    """A hypothesis: the reference with seeded substitutions, drops and
+    insertions, and (with ``reverse``) one 3-word span reversed."""
+    sub, drop, ins = edits
+    out = []
+    for w in ref:
+        r = rng.random()
+        if r < sub:
+            out.extend(vocab.draw(1))
+        elif r >= sub + drop:
+            out.append(w)
+        if rng.random() < ins:
+            out.extend(vocab.draw(1))
+    if reverse and len(out) >= 3:
+        i = int(rng.integers(0, len(out) - 2))
+        out[i : i + 3] = out[i : i + 3][::-1]
+    return out
+
+
+def _text_pairs(rng, vocab: "_Vocab", n: int, mean_words: int, edits, punctuate: bool):
+    """``n`` (hypothesis, reference) strings; with ``punctuate`` (translation)
+    the first word is capitalized, some words carry a comma, the sentence ends
+    in a full stop and the hypothesis has a reversed 3-word span; without
+    (transcripts) it has only word errors."""
+    preds, refs = [], []
+    for k in np.maximum(1, rng.poisson(mean_words, n)):
+        ref = vocab.draw(int(k))
+        hyp = _perturbed(rng, ref, vocab, edits, reverse=punctuate)
+        if punctuate:
+            ref, hyp = (_punctuate(rng, s) for s in (ref, hyp))
+        refs.append(" ".join(ref))
+        preds.append(" ".join(hyp))
+    return preds, refs
+
+
+def _punctuate(rng, ws: list) -> list:
+    if not ws:
+        return ws
+    ws = [w + "," if rng.random() < 0.06 else w for w in ws]
+    ws[0] = ws[0].capitalize()
+    ws[-1] = ws[-1].rstrip(",") + "."
+    return ws
+
+
+def _ngram_counts(tokens: list, n: int) -> dict:
+    out: dict = {}
+    for i in range(len(tokens) - n + 1):
+        key = tuple(tokens[i : i + n])
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _bleu_oracle(preds: list, refs: list, tokenize, n_gram: int = 4):
+    """BLEU's counters (clipped n-gram matches, n-gram totals, lengths) and
+    its score, one reference per segment, in float64."""
+    num, den = np.zeros(n_gram), np.zeros(n_gram)
+    p_len = t_len = 0
+    for hyp, ref in zip(preds, refs):
+        h, r = tokenize(hyp), tokenize(ref)
+        p_len += len(h)
+        t_len += len(r)
+        for n in range(1, n_gram + 1):
+            hc, rc = _ngram_counts(h, n), _ngram_counts(r, n)
+            num[n - 1] += sum(min(c, rc.get(g, 0)) for g, c in hc.items())
+            den[n - 1] += sum(hc.values())
+    score = 0.0
+    if num.min() > 0:
+        bp = 1.0 if p_len > t_len else np.exp(1 - t_len / p_len)
+        score = bp * np.exp(np.mean(np.log(num / den)))
+    return num, den, p_len, t_len, score
+
+
+def _levenshtein(a, b) -> int:
+    """Edit distance with unit costs in plain Python: Myers' bit-parallel
+    algorithm (Hyyrö's formulation) on Python integers, a column of the DP
+    per token of ``b``; another algorithm than the port's numpy row-DP."""
+    if not a or not b:
+        return len(a) or len(b)
+    peq: dict = {}
+    for i, x in enumerate(a):
+        peq[x] = peq.get(x, 0) | (1 << i)
+    full, top = (1 << len(a)) - 1, 1 << (len(a) - 1)
+    pv, mv, score = full, 0, len(a)
+    for y in b:
+        eq = peq.get(y, 0)
+        xv = eq | mv
+        xh = (((eq & pv) + pv) ^ pv) | eq
+        ph = (mv | ~(xh | pv)) & full
+        mh = pv & xh
+        score += 1 if ph & top else -1 if mh & top else 0
+        ph = ((ph << 1) | 1) & full
+        mh = (mh << 1) & full
+        pv = (mh | ~(xv | ph)) & full
+        mv = ph & xv
+    return score
+
+
+def _rouge_n_oracle(preds: list, refs: list, n: int):
+    """Mean per-summary ROUGE-N F, precision and recall: clipped n-gram overlap
+    of the lowercased alphanumeric tokens."""
+    import re
+
+    rows = []
+    for hyp, ref in zip(preds, refs):
+        h, r = (_ngram_counts(re.sub(r"[^a-z0-9]+", " ", s.lower()).split(), n) for s in (hyp, ref))
+        hits = sum(min(c, r.get(g, 0)) for g, c in h.items())
+        hn, rn = sum(h.values()), sum(r.values())
+        prec, rec = (hits / hn, hits / rn) if hn and rn else (0.0, 0.0)
+        rows.append((2 * prec * rec / (prec + rec) if prec + rec else 0.0, prec, rec))
+    return np.mean(rows, axis=0)
+
+
+def _squad_normalize(s: str) -> list:
+    import re
+    import string
+
+    s = "".join(ch for ch in s.lower() if ch not in set(string.punctuation))
+    return re.sub(r"\b(a|an|the)\b", " ", s).split()
+
+
+def _squad_oracle(preds: dict, targets: list):
+    """Sums of exact match and token F1 (best over ground truths) and the count."""
+    em = f1 = 0.0
+    for t in targets:
+        if t["id"] not in preds:
+            continue
+        p = _squad_normalize(preds[t["id"]])
+        best_em = best_f1 = 0.0
+        for truth in t["answers"]["text"]:
+            g = _squad_normalize(truth)
+            best_em = max(best_em, float(p == g))
+            common = sum(min(p.count(w), g.count(w)) for w in set(p))
+            if not p or not g:
+                score = float(p == g)
+            elif common == 0:
+                score = 0.0
+            else:
+                prec, rec = common / len(p), common / len(g)
+                score = 2 * prec * rec / (prec + rec)
+            best_f1 = max(best_f1, score)
+        em += best_em
+        f1 += best_f1
+    return em, f1, len(targets)
+
+
+def _squad_corpus(rng, vocab: "_Vocab"):
+    """SQuAD v1.1 dev-size questions in its JSON layout: 1-3 ground truths of
+    1-4 words, predictions exact, overlapping or wrong, 2% unanswered."""
+    preds, targets = [], []
+    for q in range(SQUAD_DEV):
+        qid = f"q{q:05d}"
+        truths = [" ".join(vocab.draw(int(rng.integers(1, 5)))) for _ in range(int(rng.integers(1, 4)))]
+        targets.append({"answers": {"answer_start": [0] * len(truths), "text": truths}, "id": qid})
+        if rng.random() < QA_UNANSWERED:
+            continue
+        r = rng.random()
+        if r < 0.55:
+            answer = truths[0] if rng.random() < 0.5 else "The " + truths[-1].upper() + "."
+        elif r < 0.85:
+            answer = " ".join(_perturbed(rng, truths[0].split(), vocab, (0.3, 0.1, 0.3)))
+        else:
+            answer = " ".join(vocab.draw(3))
+        preds.append({"prediction_text": answer, "id": qid})
+    return preds, targets
+
+
+def _h2d_copies(torch, fn) -> int:
+    """Host-to-device copies ``fn`` makes, counted at the torch calls: a
+    tensor moved or copied from the CPU to the card, or made on the card
+    from host data. (The profiler's memcpy events miss some small pageable
+    copies.)"""
+    from torch.overrides import TorchFunctionMode
+
+    moves, made = {"to", "cuda", "copy_"}, {"tensor", "as_tensor"}
+    count = [0]
+
+    class _Count(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = getattr(func, "__name__", "")
+            if name in moves and len(args) >= 1:
+                src, dst = (args[1], args[0]) if name == "copy_" else (args[0], out)
+                moved = isinstance(src, torch.Tensor) and isinstance(dst, torch.Tensor)
+                count[0] += moved and src.device.type == "cpu" and dst.device.type == "cuda"
+            elif name in made and isinstance(out, torch.Tensor) and out.device.type == "cuda":
+                count[0] += not (args and isinstance(args[0], torch.Tensor) and args[0].device.type == "cuda")
+            return out
+
+    with _Count():
+        fn()
+    return count[0]
+
+
+def _text_update_note(torch, label: str, make, batches, stream_s: float, n_updates: int) -> str:
+    """ms per update on the host clock over the stream, then three warm
+    updates of a fresh instance: profiled (device ms, busy share, host
+    syncs) and counted (host-to-device copies per update)."""
+    metric = make()
+    metric.update(*batches[0])
+    steps = [lambda b=b: metric.update(*b) for b in batches[1 : 1 + PHASE_PROFILE_BATCHES]]
+    m = _measure_batches(torch, steps)
+    copies = sum(_h2d_copies(torch, step) for step in steps) / len(steps)
+    device = (
+        f"{m['device_ms']:.4f} ms device (profiled: {m['wall_ms']:.2f} ms wall, busy share {m['busy_ms'] / m['wall_ms']:.4f}"
+        if m["rows"] else f"device time not measured, no device event in the profile ({m['wall_ms']:.2f} ms wall"
+    )
+    return (
+        f"{label}: {stream_s * 1e3 / n_updates:.2f} ms per update on the host clock over the stream, {device},"
+        f" {m['syncs']} host syncs, {copies:g} host-to-device copies per update)"
+    )
+
+
+def _stream_text(torch, make, batches):
+    """``forward`` on the first batch, ``update`` on the rest, ``compute()``:
+    (metric, first-batch value, stream seconds, compute value, compute ms, peak bytes)."""
+    metric = make()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    first = metric(*batches[0])
+    for b in batches[1:]:
+        metric.update(*b)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    value, compute_ms = _timed_compute(torch, metric)
+    return metric, first, stream_s, value, compute_ms, torch.cuda.max_memory_allocated() - base
+
+
+def _on_card(name: str, value) -> None:
+    values = value.values() if isinstance(value, dict) else (value if isinstance(value, tuple) else (value,))
+    for v in values:
+        if v.device.type != "cuda":
+            raise AssertionError(f"{name}: a value on {v.device}, not on the card")
+
+
+def _text_close(name: str, got, want, atol: float = TEXT_ATOL) -> None:
+    if isinstance(want, dict):
+        for k in want:
+            _text_close(f"{name}[{k}]", got[k], want[k], atol)
+        return
+    if isinstance(want, tuple):
+        for i, (g, w) in enumerate(zip(got, want)):
+            _text_close(f"{name}[{i}]", g, w, atol)
+        return
+    _close(name, got, np.asarray(want.cpu().numpy() if hasattr(want, "cpu") else want, dtype=np.float64), atol=atol)
+
+
+def _text_sub_phase(torch, mt, label: str, metrics: dict, batches, prefix_batches, prefix_fns: dict) -> list:
+    """Streams each metric of ``metrics`` (name -> (maker, functional)), holds
+    its first batch's ``forward`` to the functional on that batch, and, for
+    the names in ``prefix_fns``, a second instance over the prefix batches to
+    the functional on the CPU; returns (name, value, note) rows."""
+    rows = []
+    for name, (make, functional) in metrics.items():
+        t0 = _reset_stats(torch, mt)
+        metric, first, stream_s, value, compute_ms, peak = _stream_text(torch, make, batches)
+        _read_stats(torch, mt, t0, {})
+        _on_card(f"{label} {name}", value)
+        _text_close(f"{label} {name}: the first batch's forward against the functional", first, functional(*batches[0]))
+        if name in prefix_fns:
+            prefix = make()
+            for b in prefix_batches:
+                prefix.update(*b)
+            flat = [sum((list(b[i]) for b in prefix_batches), []) for i in range(2)]
+            _text_close(f"{label} {name}: {TEXT_PREFIX} pairs on the card against the functional on the CPU", prefix.compute(), prefix_fns[name](*flat))
+        note = _text_update_note(torch, name, make, batches, stream_s, len(batches))
+        rows.append((name, metric, value, f"{note}; compute() {compute_ms:.2f} ms; peak {peak / 2**20:.2f} MiB above the start"))
+    return rows
+
+
+def _batched(xs, size: int) -> list:
+    return [xs[s : s + size] for s in range(0, len(xs), size)]
+
+
+def _round(v) -> str:
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{k}: {float(x):.6f}" for k, x in v.items()) + "}"
+    if isinstance(v, tuple):
+        return f"{float(v[0]):.6f} (and {v[1].numel()} sentence scores)"
+    return f"{float(v):.6f}"
+
+
+def run_translation(torch, mt, ft, vocab, rng) -> list:
+    """13a: machine translation at WMT14 newstest2014 (en-de) size."""
+    import re
+
+    preds, refs = _text_pairs(rng, vocab, WMT14_NEWSTEST, MT_WORDS, MT_EDITS, punctuate=True)
+    targets = [[r] for r in refs]
+    batches = list(zip(_batched(preds, MT_BATCH), _batched(targets, MT_BATCH)))
+    prefix_batches = list(zip(_batched(preds[:TEXT_PREFIX], MT_BATCH), _batched(targets[:TEXT_PREFIX], MT_BATCH)))
+    cpu = {"device": "cpu"}
+    metrics = {
+        "BLEUScore": (lambda: mt.BLEUScore(), lambda a, b: ft.bleu_score(a, b)),
+        "SacreBLEUScore(13a)": (lambda: mt.SacreBLEUScore(tokenize="13a"), lambda a, b: ft.sacre_bleu_score(a, b, tokenize="13a")),
+        "CHRFScore(chrF++)": (lambda: mt.CHRFScore(n_word_order=2), lambda a, b: ft.chrf_score(a, b, n_word_order=2)),
+        "TranslationEditRate": (lambda: mt.TranslationEditRate(), lambda a, b: ft.translation_edit_rate(a, b)),
+        "ExtendedEditDistance": (lambda: mt.ExtendedEditDistance(), lambda a, b: ft.extended_edit_distance(a, b)),
+    }
+    prefix_fns = {
+        "CHRFScore(chrF++)": lambda a, b: ft.chrf_score(a, b, n_word_order=2, **cpu),
+        "TranslationEditRate": lambda a, b: ft.translation_edit_rate(a, b, **cpu),
+        "ExtendedEditDistance": lambda a, b: ft.extended_edit_distance(a, b, **cpu),
+    }
+    rows = _text_sub_phase(torch, mt, "translation (13a)", metrics, batches, prefix_batches, prefix_fns)
+    # BLEU and SacreBLEU-13a against the clipped n-gram oracle (the corpus's only punctuation is "," and ".")
+    for name, tokenize in (("BLEUScore", str.split), ("SacreBLEUScore(13a)", lambda s: re.findall(r"[A-Za-z]+|[.,]", s))):
+        metric = next(m for n, m, _, _ in rows if n == name)
+        num, den, p_len, t_len, score = _bleu_oracle(preds, refs, tokenize)
+        for state, want in (("numerator", num), ("denominator", den), ("preds_len", p_len), ("target_len", t_len)):
+            _close(f"translation (13a) {name} {state}", getattr(metric, state), np.asarray(want, dtype=np.float64))
+        _close(f"translation (13a) {name} score", metric.compute(), score, atol=TEXT_ATOL)
+    return rows, len(batches), preds, refs
+
+
+def run_speech(torch, mt, ft, vocab, rng) -> list:
+    """13b: speech recognition at LibriSpeech test-clean size."""
+    preds, refs = _text_pairs(rng, vocab, LIBRISPEECH_TEST_CLEAN, ASR_WORDS, ASR_EDITS, punctuate=False)
+    batches = list(zip(_batched(preds, MT_BATCH), _batched(refs, MT_BATCH)))
+    metrics = {
+        name: (lambda cls=cls: getattr(mt, cls)(), lambda a, b, fn=fn: getattr(ft, fn)(a, b))
+        for name, cls, fn in (
+            ("WordErrorRate", "WordErrorRate", "word_error_rate"),
+            ("CharErrorRate", "CharErrorRate", "char_error_rate"),
+            ("MatchErrorRate", "MatchErrorRate", "match_error_rate"),
+            ("WordInfoLost", "WordInfoLost", "word_information_lost"),
+            ("WordInfoPreserved", "WordInfoPreserved", "word_information_preserved"),
+        )
+    }
+    rows = _text_sub_phase(torch, mt, "speech (13b)", metrics, batches, [], {})
+    # plain Python Levenshtein: counts exact, scores within 1e-6
+    w_err = sum(_levenshtein(h.split(), r.split()) for h, r in zip(preds, refs))
+    c_err = sum(_levenshtein(h, r) for h, r in zip(preds, refs))
+    n_ref = sum(len(r.split()) for r in refs)
+    n_hyp = sum(len(h.split()) for h in preds)
+    n_max = sum(max(len(h.split()), len(r.split())) for h, r in zip(preds, refs))
+    hits = n_max - w_err
+    want = {
+        "WordErrorRate": ({"errors": w_err, "total": n_ref}, w_err / n_ref),
+        "CharErrorRate": ({"errors": c_err, "total": sum(map(len, refs))}, c_err / sum(map(len, refs))),
+        "MatchErrorRate": ({"errors": w_err, "total": n_max}, w_err / n_max),
+        "WordInfoLost": ({"hits": hits, "target_total": n_ref, "preds_total": n_hyp}, 1 - hits / n_ref * hits / n_hyp),
+        "WordInfoPreserved": ({"hits": hits, "target_total": n_ref, "preds_total": n_hyp}, hits / n_ref * hits / n_hyp),
+    }
+    for name, metric, value, _ in rows:
+        counts, score = want[name]
+        for state, v in counts.items():
+            _close(f"speech (13b) {name} {state}", getattr(metric, state), float(v))
+        _close(f"speech (13b) {name} score", value, score, atol=TEXT_ATOL)
+    return rows, len(batches)
+
+
+def run_summarization(torch, mt, ft, vocab, rng, n: int) -> list:
+    """13c: summarization at CNN/DailyMail 3.0.0 test size (or its first ``n``)."""
+    preds, refs = [], []
+    for _ in range(n):
+        k = int(rng.integers(3, 5))  # sentences
+        lengths = np.maximum(3, rng.poisson(56 / k, k))
+        ref_s = [_punctuate(rng, vocab.draw(int(m))) for m in lengths]
+        hyp_s = [_punctuate(rng, _perturbed(rng, [w.rstrip(",.").lower() for w in s], vocab, MT_EDITS)) for s in ref_s]
+        refs.append(" ".join(" ".join(s) for s in ref_s))
+        preds.append(" ".join(" ".join(s) for s in hyp_s if s))
+    batches = list(zip(_batched(preds, SUM_BATCH), _batched(refs, SUM_BATCH)))
+    keys = ("rouge1", "rouge2", "rougeL", "rougeLsum")
+    prefix_batches = list(zip(_batched(preds[:TEXT_PREFIX], SUM_BATCH), _batched(refs[:TEXT_PREFIX], SUM_BATCH)))
+    metrics = {"ROUGEScore": (lambda: mt.ROUGEScore(rouge_keys=keys, accumulate="best"), lambda a, b: ft.rouge_score(a, b, rouge_keys=keys))}
+    prefix_fns = {"ROUGEScore": lambda a, b: ft.rouge_score(a, b, rouge_keys=keys, device="cpu")}
+    rows = _text_sub_phase(torch, mt, "summarization (13c)", metrics, batches, prefix_batches, prefix_fns)
+    value = rows[0][2]
+    for n_gram in (1, 2):
+        f, prec, rec = _rouge_n_oracle(preds, refs, n_gram)
+        for stat, want in (("fmeasure", f), ("precision", prec), ("recall", rec)):
+            _close(f"summarization (13c) rouge{n_gram}_{stat}", value[f"rouge{n_gram}_{stat}"], want, atol=TEXT_ATOL)
+    return rows, len(batches)
+
+
+def run_question_answering(torch, mt, ft, vocab, rng) -> list:
+    """13d: extractive QA at SQuAD v1.1 dev size."""
+    from metrics_tpu_torch.obs.warn import reset_warn_once
+
+    preds, targets = _squad_corpus(rng, vocab)
+    by_id = {q["id"]: q for q in preds}
+    t_batches = _batched(targets, QA_BATCH)
+    batches = [([by_id[t["id"]] for t in tb if t["id"] in by_id], tb) for tb in t_batches]
+    reset_warn_once("squad_unanswered_question")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rows = _text_sub_phase(torch, mt, "question answering (13d)", {"SQuAD": (lambda: mt.SQuAD(), lambda a, b: ft.squad(a, b))}, batches, [], {})
+    unanswered = [w for w in caught if "Unanswered question" in str(w.message)]
+    if len(unanswered) != 1:
+        raise AssertionError(f"question answering (13d): {len(unanswered)} unanswered-question warnings, expected one")
+    metric, value = rows[0][1], rows[0][2]
+    em, f1, total = _squad_oracle({q["id"]: q["prediction_text"] for q in preds}, targets)
+    _close("question answering (13d) exact-match sum", metric.exact_match, em, atol=1e-3)
+    _close("question answering (13d) F1 sum", metric.f1_score, f1, atol=1e-2)
+    if metric.total.dtype != torch.int64 or int(metric.total) != total:
+        raise AssertionError(f"question answering (13d): total {metric.total} ({metric.total.dtype}), expected {total} int64")
+    _close("question answering (13d) exact_match", value["exact_match"], 100 * em / total, atol=100 * TEXT_ATOL)
+    _close("question answering (13d) f1", value["f1"], 100 * f1 / total, atol=100 * TEXT_ATOL)
+    return rows, len(batches), SQUAD_DEV - len(preds)
+
+
+def _bert_encoder(torch, seed: int):
+    """A post-LayerNorm transformer encoder at roberta-large width (vocabulary
+    50,265, d = 1024, 16 heads, FFN 4096, 514 positions), cut to 17 layers,
+    float32, seeded random weights. Attention is ``scaled_dot_product_attention``
+    with an additive key mask (a large negative number, not -inf, so an
+    all-pad row stays finite): no nested-tensor fast path, so the forward
+    captures, and padding does not change the valid positions."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape, scale=0.02):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    d, h = BERT_DIM, BERT_HEADS
+    params = {
+        "tok": w(BERT_VOCAB, d), "pos": w(BERT_POSITIONS, d),
+        "ln0": (torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")),
+        "layers": [
+            {
+                "qkv": (w(3 * d, d), w(3 * d, scale=0.0)), "out": (w(d, d), w(d, scale=0.0)),
+                "ln1": (torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")),
+                "ff1": (w(BERT_FFN, d), w(BERT_FFN, scale=0.0)), "ff2": (w(d, BERT_FFN), w(d, scale=0.0)),
+                "ln2": (torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")),
+            }
+            for _ in range(BERT_LAYERS)
+        ],
+    }
+
+    def forward(input_ids, attention_mask):
+        n, length = input_ids.shape
+        x = params["tok"][input_ids] + params["pos"][:length][None]
+        x = F.layer_norm(x, (d,), *params["ln0"])
+        bias = ((1.0 - attention_mask.to(x.dtype)) * -1e9)[:, None, None, :]
+        for layer in params["layers"]:
+            q, k, v = F.linear(x, *layer["qkv"]).view(n, length, 3, h, d // h).permute(2, 0, 3, 1, 4)
+            a = F.scaled_dot_product_attention(q, k, v, attn_mask=bias).transpose(1, 2).reshape(n, length, d)
+            x = F.layer_norm(x + F.linear(a, *layer["out"]), (d,), *layer["ln1"])
+            x = F.layer_norm(x + F.linear(F.gelu(F.linear(x, *layer["ff1"])), *layer["ff2"]), (d,), *layer["ln2"])
+        return x
+
+    return forward
+
+
+def _bert_tokenizer(text, max_length):
+    """The own-tokenizer contract: a CRC32 hash of each word into the
+    vocabulary, between [CLS] (0) and [SEP] (2); padding id 1."""
+    import zlib
+
+    ids = np.ones((len(text), max_length), np.int64)
+    mask = np.zeros((len(text), max_length), np.int64)
+    for i, s in enumerate(text):
+        toks = [0] + [zlib.crc32(w.encode()) % (BERT_VOCAB - 3) + 3 for w in s.split()][: max_length - 2] + [2]
+        ids[i, : len(toks)] = toks
+        mask[i, : len(toks)] = 1
+    return {"input_ids": ids, "attention_mask": mask}
+
+
+def _bert_oracle(emb_p: np.ndarray, emb_t: np.ndarray, tok_p: dict, tok_t: dict, idf: dict, default: float):
+    """Float64 idf-weighted greedy cosine matching of each pair, [CLS] and
+    the last attended token left out (``tests/text/test_bert.py``'s oracle)."""
+    out = []
+    for i in range(len(emb_p)):
+        sides = []
+        for emb, tok in ((emb_p, tok_p), (emb_t, tok_t)):
+            keep = np.flatnonzero(tok["attention_mask"][i])[1:-1]
+            e = emb[i][keep].astype(np.float64)
+            sides.append((e / np.linalg.norm(e, axis=-1, keepdims=True), np.array([idf.get(int(t), default) for t in tok["input_ids"][i][keep]])))
+        (p, wp), (t, wt) = sides
+        sim = p @ t.T
+        prec, rec = (sim.max(1) * wp).sum() / wp.sum(), (sim.max(0) * wt).sum() / wt.sum()
+        out.append((prec, rec, 2 * prec * rec / (prec + rec)))
+    return np.array(out)
+
+
+def _bert_chunks(tok: dict) -> list:
+    """The ``(rows, width)`` of each pow2-bucketed encoder chunk of one side."""
+    from metrics_tpu_torch.engine.bucketing import next_pow2
+
+    out = []
+    for s in range(0, len(tok["input_ids"]), BERT_BATCH):
+        mask = tok["attention_mask"][s : s + BERT_BATCH]
+        rows = mask.shape[0] if mask.shape[0] >= BERT_BATCH else next_pow2(mask.shape[0])
+        out.append((rows, min(BERT_MAX_LEN, next_pow2(int(np.flatnonzero(mask.any(0))[-1]) + 1))))
+    return out
+
+
+def run_bert_score(torch, mt, ft, preds: list, refs: list, smi: str) -> str:
+    """13e: BERTScore at full width on 13a's pairs, four routes."""
+    from metrics_tpu_torch.encoders import ShardedEncoder, encoder_stats, reset_encoder_stats
+    from metrics_tpu_torch.engine import cache as engine_cache
+    from metrics_tpu_torch.functional.text.bert import _get_precision_recall_f1
+    from metrics_tpu_torch.image.networks._common import full_fp32
+
+    t_phase = time.perf_counter()
+    forward = _bert_encoder(torch, SEED)
+
+    def encoder(input_ids, attention_mask):
+        with torch.no_grad(), full_fp32():
+            return forward(input_ids, attention_mask)
+
+    n = len(preds)
+    kw = {"user_tokenizer": _bert_tokenizer, "idf": True, "max_length": BERT_MAX_LEN, "batch_size": BERT_BATCH}
+    tok_p, tok_t = _bert_tokenizer(preds, BERT_MAX_LEN), _bert_tokenizer(refs, BERT_MAX_LEN)
+    attended = [tok["attention_mask"].sum(1) for tok in (tok_p, tok_t)]
+    chunks_p, chunks_t = _bert_chunks(tok_p), _bert_chunks(tok_t)
+    signatures = set(chunks_p + chunks_t)
+    encoded_tokens = sum(rows * width for rows, width in chunks_p + chunks_t)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+    reset_encoder_stats()
+    plain, plain_s, plain_peak = timed(lambda: ft.bert_score(preds, refs, model=encoder, **kw))
+    buckets = encoder_stats()["bucketed_dispatches"]
+    if buckets <= 0:
+        raise AssertionError("bert score (13e): no pow2-bucketed encoder dispatch")
+
+    def streamed():
+        metric = mt.BERTScore(model=encoder, **kw)
+        for s in range(0, n, BERT_BATCH):
+            metric.update(preds[s : s + BERT_BATCH], refs[s : s + BERT_BATCH])
+        return metric.compute()
+
+    module, module_s, module_peak = timed(streamed)
+    probe = mt.BERTScore(model=encoder, **kw)
+    module_copies = _h2d_copies(torch, lambda: probe.update(preds[:BERT_BATCH], refs[:BERT_BATCH]))
+    engine_cache.clear_cache()
+    enc = ShardedEncoder.from_callable(encoder, name="roberta_large_17")
+
+    def sharded_stream():
+        metric = mt.BERTScore(encoder_sharding=enc, **kw)
+        for s in range(0, n, BERT_BATCH):
+            metric.update(preds[s : s + BERT_BATCH], refs[s : s + BERT_BATCH])
+        return metric.compute()
+
+    sharded, sharded_s, _ = timed(sharded_stream)
+    captures = engine_cache.encoder_entry(enc).summary()
+    if captures["compiles"] != len(signatures) or captures["graphs"] != len(signatures):
+        raise AssertionError(f"bert score (13e): {captures} captures for {len(signatures)} (rows, width) signatures")
+    unbucketed, unbucketed_s, unbucketed_peak = timed(lambda: ft.bert_score(preds, refs, model=encoder, length_bucketing=False, **kw))
+    for key in ("precision", "recall", "f1"):
+        _close(f"bert score (13e) module against the functional, {key}", np.asarray(module[key]), np.asarray(plain[key]), atol=1e-6)
+        _close(f"bert score (13e) ShardedEncoder route against the plain route, {key}", np.asarray(sharded[key]), np.asarray(plain[key]), atol=1e-5)
+        _close(f"bert score (13e) bucketing off against on, {key}", np.asarray(unbucketed[key]), np.asarray(plain[key]), atol=1e-5)
+
+    # the first 64 pairs against float64 numpy on the card's own embeddings (the chunk the functional encoded)
+    k = BERT_ORACLE_PAIRS
+    idf_counts: dict = {}
+    for ids, mask in zip(tok_t["input_ids"], tok_t["attention_mask"]):
+        for t in set(ids[mask.astype(bool)].tolist()):
+            idf_counts[t] = idf_counts.get(t, 0) + 1
+    idf = {t: np.log((n + 1) / (c + 1)) for t, c in idf_counts.items()}
+    embs = []
+    for tok, (_, width) in ((tok_p, chunks_p[0]), (tok_t, chunks_t[0])):
+        ids = torch.from_numpy(tok["input_ids"][:k, :width]).cuda()
+        mask = torch.from_numpy(tok["attention_mask"][:k, :width]).cuda()
+        embs.append(encoder(ids, mask).cpu().numpy())
+    oracle = _bert_oracle(embs[0], embs[1], {kk: v[:k] for kk, v in tok_p.items()}, {kk: v[:k] for kk, v in tok_t.items()}, idf, np.log(n + 1))
+    for col, key in enumerate(("precision", "recall", "f1")):
+        _close(f"bert score (13e) first {k} pairs against float64, {key}", np.asarray(plain[key][:k]), oracle[:, col], atol=1e-5)
+
+    # rescale with a seeded baseline CSV: (s - b) / (1 - b) with the last row
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bert_")
+    path = os.path.join(tmp, "baseline.csv")
+    with open(path, "w") as f:
+        f.write("LAYER,P,R,F\n" + "".join(f"{i},{a},{b},{c}\n" for i, (a, b, c) in enumerate(BERT_BASELINE)))
+    small = ft.bert_score(preds[:k], refs[:k], model=encoder, rescale_with_baseline=True, baseline_path=path, **kw)
+    raw = ft.bert_score(preds[:k], refs[:k], model=encoder, **kw)
+    shutil.rmtree(tmp, ignore_errors=True)
+    for col, key in enumerate(("precision", "recall", "f1")):
+        b = BERT_BASELINE[-1][col]
+        _close(f"bert score (13e) rescale, {key}", np.asarray(small[key]), (np.asarray(raw[key]) - b) / (1 - b), atol=1e-6)
+
+    # one chunk's encoder and matching on the device clock, and the profile of a few chunks
+    s0, p_w, t_w = slice(0, BERT_BATCH), chunks_p[0][1], chunks_t[0][1]
+    ids_p, m_p = (torch.from_numpy(tok_p[key][s0, :p_w]).cuda() for key in ("input_ids", "attention_mask"))
+    ids_t, m_t = (torch.from_numpy(tok_t[key][s0, :t_w]).cuda() for key in ("input_ids", "attention_mask"))
+    e_p, e_t = encoder(ids_p, m_p), encoder(ids_t, m_t)
+    encode_ms = _device_ms(torch, lambda: (encoder(ids_p, m_p), encoder(ids_t, m_t)))
+    match_ms = _device_ms(torch, lambda: _get_precision_recall_f1(e_p, e_t, m_p.float(), m_t.float(), torch.ones_like(m_p, dtype=torch.float32), torch.ones_like(m_t, dtype=torch.float32)))
+    prof = _measure_batches(torch, [lambda s=s: ft.bert_score(preds[s : s + BERT_BATCH], refs[s : s + BERT_BATCH], model=encoder, **kw) for s in range(0, PHASE_PROFILE_BATCHES * BERT_BATCH, BERT_BATCH)])
+    tokens = int(sum(a.sum() for a in attended))
+    attention_macs = sum(2 * int((a.astype(np.int64) ** 2).sum()) * BERT_DIM for a in attended) * BERT_LAYERS
+    macs = tokens * BERT_LAYERS * BERT_MACS_PER_TOKEN_LAYER + attention_macs
+    bound_s = macs / CUDA_CORE_OPS_PER_S
+    return (
+        f"bert score (13e): {n} pairs of 13a, own-model contract (CRC32 word hashes), a seeded {BERT_LAYERS}-layer encoder"
+        f" at roberta-large width (d {BERT_DIM}, {BERT_HEADS} heads, FFN {BERT_FFN}, vocabulary {BERT_VOCAB}), float32 with"
+        f" TF32 off, idf, max_length {BERT_MAX_LEN}, batches of {BERT_BATCH}; {smi}: functional {n / plain_s:.0f} pairs/s"
+        f" ({plain_s:.2f} s, peak {plain_peak / 2**30:.2f} GiB), module streamed {n / module_s:.0f} pairs/s ({module_s:.2f} s,"
+        f" peak {module_peak / 2**30:.2f} GiB, {module_copies} host-to-device copies an update), ShardedEncoder {n / sharded_s:.0f} pairs/s ({sharded_s:.2f} s;"
+        f" {captures['compiles']} captured encode programs for {len(signatures)} (rows, width) signatures,"
+        f" {captures['cache_hits']} replays), bucketing off {n / unbucketed_s:.0f} pairs/s ({unbucketed_s:.2f} s, peak"
+        f" {unbucketed_peak / 2**30:.2f} GiB); {buckets} bucketed dispatches; mean F1 {np.mean(plain['f1']):.6f}; checks: first"
+        f" {k} pairs within 1e-5 of float64, module within 1e-6 and the ShardedEncoder and unbucketed routes within 1e-5 of"
+        f" the functional, rescale exact; one chunk of {BERT_BATCH} pairs (widths {p_w} and {t_w}): encoder {encode_ms:.3f} ms"
+        f" device, matching {match_ms:.3f} ms device; {_profile_note(prof, top=5)}; multiply-add bound {bound_s * 1e3:.1f} ms"
+        f" ({tokens} attended tokens of {encoded_tokens} encoded, {macs / 1e12:.2f} T MAC with attention, at 33.5e12 FMA/s),"
+        f" {bound_s / plain_s:.1%} of the functional's time; phase {time.perf_counter() - t_phase:.1f} s"
+    )
+
+
+def run_text_phase(torch, mt, smi: str) -> None:
+    """Phase 13: the text metrics at the sizes of their test sets, and BERTScore."""
+    import metrics_tpu_torch.functional as ft
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    vocab = _Vocab(rng)
+    mt_rows, mt_updates, mt_preds, mt_refs = run_translation(torch, mt, ft, vocab, rng)
+    _log(f"translation (13a): {WMT14_NEWSTEST} segments (WMT14 newstest2014 en-de size), batches of {MT_BATCH} ({mt_updates} updates); {smi}: " + " | ".join(f"{name} {_round(v)}; {note}" for name, _, v, note in mt_rows))
+    asr_rows, asr_updates = run_speech(torch, mt, ft, vocab, rng)
+    _log(f"speech (13b): {LIBRISPEECH_TEST_CLEAN} utterances (LibriSpeech test-clean size), batches of {MT_BATCH} ({asr_updates} updates); {smi}: " + " | ".join(f"{name} {_round(v)}; {note}" for name, _, v, note in asr_rows))
+    n_sum = CNNDM_TEST
+    sum_rows, sum_updates = run_summarization(torch, mt, ft, vocab, rng, n_sum)
+    _log(f"summarization (13c): {n_sum} summaries (CNN/DailyMail 3.0.0 test size), batches of {SUM_BATCH} ({sum_updates} updates); {smi}: " + " | ".join(f"{name} {_round(v)}; {note}" for name, _, v, note in sum_rows))
+    qa_rows, qa_updates, unanswered = run_question_answering(torch, mt, ft, vocab, rng)
+    _log(f"question answering (13d): {SQUAD_DEV} questions (SQuAD v1.1 dev size, {unanswered} unanswered, warned once), batches of {QA_BATCH} ({qa_updates} updates); {smi}: " + " | ".join(f"{name} {_round(v)}; {note}" for name, _, v, note in qa_rows))
+    _log(run_bert_score(torch, mt, ft, mt_preds, mt_refs, smi))
+    torch.cuda.empty_cache()
+    _log(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all, oracles and data included")
+
+
 # kernel wrappers' device-side names, as the profiler reports them; a
 # wrapper that runs several kernels per call lists them all
 KERNEL_SYMBOLS = {
@@ -3695,6 +4418,7 @@ def main() -> int:
     run_generative_phase(torch, mt, smi)
     run_lpips_phase(torch, mt, smi)
     _log(f"phases 12a-12b: {time.perf_counter() - t_new:.1f} s in all, oracles and data included")
+    run_text_phase(torch, mt, smi)
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {

@@ -20,7 +20,10 @@ the embedding-based image metrics (``FrechetInceptionDistance``,
 ``KernelInceptionDistance``, ``InceptionScore``,
 ``LearnedPerceptualImagePatchSimilarity``) on torch InceptionV3 and LPIPS
 networks, with ``ShardedEncoder`` and its encode-then-accumulate stream on
-one device; ``deprecated`` holds the old names of those, re-exported here
+one device, and the text metrics (``BLEUScore``, ``SacreBLEUScore``,
+``CHRFScore``, ``TranslationEditRate``, ``ExtendedEditDistance``, the word
+error rate family, ``ROUGEScore``, ``SQuAD`` and ``BERTScore``, whose greedy
+matching runs on the card); ``deprecated`` holds the old names of those, re-exported here
 with ``SyncError`` and ``NumericalHealthError``. Metrics live on the GPU unless a
 ``device`` is given; functionals run on their inputs' device. The six
 kernels of these paths (``confusion_counts``, ``multilabel_counts``,
@@ -100,6 +103,21 @@ from metrics_tpu_torch.regression import (
     SymmetricMeanAbsolutePercentageError,
     TweedieDevianceScore,
 )
+from metrics_tpu_torch.text import (
+    BERTScore,
+    BLEUScore,
+    CharErrorRate,
+    CHRFScore,
+    ExtendedEditDistance,
+    MatchErrorRate,
+    ROUGEScore,
+    SacreBLEUScore,
+    SQuAD,
+    TranslationEditRate,
+    WordErrorRate,
+    WordInfoLost,
+    WordInfoPreserved,
+)
 from metrics_tpu_torch.retrieval import (
     RetrievalFallOut,
     RetrievalHitRate,
@@ -125,18 +143,23 @@ __all__ = [
     "AUROC",
     "Accuracy",
     "AveragePrecision",
+    "BERTScore",
+    "BLEUScore",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
     "BootStrapper",
+    "CHRFScore",
     "CalibrationError",
     "CatMetric",
+    "CharErrorRate",
     "ClasswiseWrapper",
     "CohenKappa",
     "CompositionalMetric",
     "ConfusionMatrix",
     "CosineSimilarity",
     "ExplainedVariance",
+    "ExtendedEditDistance",
     "F1",
     "F1Score",
     "FBeta",
@@ -155,6 +178,7 @@ __all__ = [
     "KernelInceptionDistance",
     "LPIPS",
     "LearnedPerceptualImagePatchSimilarity",
+    "MatchErrorRate",
     "MatthewsCorrCoef",
     "MatthewsCorrcoef",
     "MaxMetric",
@@ -179,6 +203,7 @@ __all__ = [
     "PrecisionRecallCurve",
     "R2Score",
     "ROC",
+    "ROUGEScore",
     "Recall",
     "RetrievalFallOut",
     "RetrievalHitRate",
@@ -189,7 +214,9 @@ __all__ = [
     "RetrievalPrecision",
     "RetrievalRPrecision",
     "RetrievalRecall",
+    "SQuAD",
     "SSIM",
+    "SacreBLEUScore",
     "ShardedEncoder",
     "SpearmanCorrCoef",
     "SpearmanCorrcoef",
@@ -199,7 +226,11 @@ __all__ = [
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
     "SyncError",
+    "TranslationEditRate",
     "TweedieDevianceScore",
+    "WordErrorRate",
+    "WordInfoLost",
+    "WordInfoPreserved",
     "kernel_stats",
     "reset_kernel_stats",
     "state_from_jax",

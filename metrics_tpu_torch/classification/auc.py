@@ -25,8 +25,8 @@ class AUC(Metric):
     def __init__(self, reorder: bool = False, **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self.reorder = reorder
-        self.add_state("x", default=[], dist_reduce_fx="cat")
-        self.add_state("y", default=[], dist_reduce_fx="cat")
+        self.add_state("x", default=[], dist_reduce_fx="cat", placeholder=torch.get_default_dtype())
+        self.add_state("y", default=[], dist_reduce_fx="cat", placeholder=torch.get_default_dtype())
 
     def update(self, x: torch.Tensor, y: torch.Tensor) -> None:
         x, y = _auc_update(x, y)

@@ -61,8 +61,8 @@ class CalibrationError(Metric):
                 self.add_state(name, torch.zeros(n_bins, dtype=torch.float32), dist_reduce_fx="sum")
             self.add_state("total", torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
         else:
-            self.add_state("confidences", [], dist_reduce_fx="cat")
-            self.add_state("accuracies", [], dist_reduce_fx="cat")
+            self.add_state("confidences", [], dist_reduce_fx="cat", placeholder=torch.get_default_dtype())
+            self.add_state("accuracies", [], dist_reduce_fx="cat", placeholder=torch.get_default_dtype())
 
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:
         confidences, accuracies = _ce_update(preds, target)

@@ -63,7 +63,8 @@ class StatScores(Metric):
                 self.add_state(s, default=torch.zeros(zeros_shape, dtype=torch.int64), dist_reduce_fx="sum")
         else:
             for s in ("tp", "fp", "tn", "fn"):
-                self.add_state(s, default=[], dist_reduce_fx="cat")
+                # rows of int64 counts: a sync in which no rank holds one gives int64
+                self.add_state(s, default=[], dist_reduce_fx="cat", placeholder=torch.int64)
 
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:
         tp, fp, tn, fn = _stat_scores_update(

@@ -33,7 +33,7 @@ import torch
 from metrics_tpu_torch.engine import _tree
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
-__all__ = ["ShardedEncoder", "encoder_stats", "reset_encoder_stats"]
+__all__ = ["ShardedEncoder", "count_bucketed_dispatch", "encoder_stats", "reset_encoder_stats"]
 
 _STATS_LOCK = threading.Lock()
 
@@ -79,6 +79,12 @@ def reset_encoder_stats() -> None:
 def count(key: str, n: int = 1) -> None:
     with _STATS_LOCK:
         _STATS[key] += n
+
+
+def count_bucketed_dispatch() -> None:
+    """One pow2-bucketed encoder launch (rows padded or the token axis
+    trimmed): `encode_stream`'s chunks and BERTScore's chunked corpus pass."""
+    count("bucketed_dispatches")
 
 
 def _mesh_unported(what: str) -> MetricsUserError:

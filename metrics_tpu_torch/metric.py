@@ -66,6 +66,36 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     return dev
 
 
+#: the wire codecs of the JAX package's ``add_state(sync_precision=)``
+SYNC_PRECISIONS = ("exact", "bf16", "int8")
+
+
+def _torch_dtype(dtype: Any) -> torch.dtype:
+    """A torch dtype from a torch, numpy or string dtype; TypeError for
+    anything else."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def _normalize_placeholder(name: str, placeholder: Any) -> Tuple[Tuple[int, ...], torch.dtype]:
+    """An ``add_state(placeholder=)`` declaration as the ``(shape, dtype)``
+    of a zero-length tensor: a dtype means 1-d samples (``(0,)``); a tensor,
+    array or spec with ``shape`` and ``dtype`` gives its row shape
+    (``(0, *shape[1:])``: the leading axis is the sample axis)."""
+    is_dtype = isinstance(placeholder, (torch.dtype, np.dtype, type, str))
+    shape = None if is_dtype else getattr(placeholder, "shape", None)
+    dtype = None if is_dtype else getattr(placeholder, "dtype", None)
+    try:
+        if shape is not None and dtype is not None:
+            return (0,) + tuple(shape)[1:], _torch_dtype(dtype)
+        return (0,), _torch_dtype(placeholder)
+    except TypeError as err:
+        raise ValueError(
+            f"`placeholder` for state {name!r} must be a dtype or a shaped spec/array, got {placeholder!r}"
+        ) from err
+
+
 def _encode_dynamic(value: Any) -> Any:
     """JSON-safe form of an attribute learned during update (enums by name and value)."""
     if isinstance(value, enum.Enum):
@@ -199,6 +229,8 @@ class Metric(nn.Module):
         self._defaults: Dict[str, Union[torch.Tensor, List]] = {}
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Union[str, Callable, None]] = {}
+        # list states' declared empty-gather (shape, dtype): add_state(placeholder=)
+        self._list_placeholders: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
         self._to_sync = True
         self._should_unsync = True
         self._is_synced = False
@@ -223,11 +255,47 @@ class Metric(nn.Module):
         default: Union[torch.Tensor, List, float, int, np.ndarray],
         dist_reduce_fx: Union[str, Callable, None] = None,
         persistent: bool = False,
+        placeholder: Optional[Any] = None,
+        sync_precision: str = "exact",
+        sharding: Optional[Any] = None,
     ) -> None:
         """Register a state: a tensor (any array-like is converted and put on
         the metric's device) or an empty list; ``dist_reduce_fx`` one of
         ``"sum"/"mean"/"max"/"min"/"cat"``, ``None`` (a sync stacks the
-        ranks' states) or a callable that takes that stack."""
+        ranks' states) or a callable that takes that stack.
+
+        ``placeholder`` (list states only) declares the dtype, and for
+        row-shaped samples the row shape, of the tensors the list will hold:
+        a dtype (``torch.int64``, ``np.int64``) or a tensor or array whose
+        trailing shape is the row's. While the list is empty it concatenates
+        to ``zeros((0, *row), dtype)``, in a sync as in :meth:`cat_state`, so
+        a sync in which every rank is empty gives that tensor; a rank that is
+        empty beside ranks that hold data takes their dtype.
+
+        ``sync_precision`` and ``sharding`` are accepted at the JAX package's
+        defaults (``"exact"``, ``None``), so that metrics written for it
+        construct; the quantized wire codecs (ROADMAP §1 item 9) and sharded
+        states (item 7) are not ported and raise."""
+        if sync_precision not in SYNC_PRECISIONS:
+            raise ValueError(
+                f"`sync_precision` for state {name!r} must be one of {SYNC_PRECISIONS}, got {sync_precision!r}"
+            )
+        if sync_precision != "exact":
+            raise MetricsUserError(
+                f"`sync_precision={sync_precision!r}` for state {name!r} selects a quantized wire codec, which is"
+                " not ported (ROADMAP §1 item 9); the port syncs every state exactly."
+            )
+        if sharding is not None:
+            raise MetricsUserError(
+                f"`sharding=` for state {name!r} lays the state out over a device mesh, which is the sharded state"
+                " plane (ROADMAP §1 item 7), not ported yet; the port keeps every state on one device."
+            )
+        if placeholder is not None:
+            if not isinstance(default, list):
+                raise ValueError(
+                    f"`placeholder` declares the empty-gather contribution of a LIST state; {name!r} has an array default."
+                )
+            self._list_placeholders[name] = _normalize_placeholder(name, placeholder)
         if isinstance(default, list):
             if default:
                 raise ValueError("state defaults that are lists must be empty")
@@ -247,6 +315,21 @@ class Metric(nn.Module):
         else:
             # saved by _save_to_state_dict below, under this metric's rules
             self.register_buffer(name, default.clone(), persistent=False)
+
+    def cat_state(self, name: str) -> torch.Tensor:
+        """List state ``name`` concatenated along dim 0 (a tensor after a
+        sync, as it is). An empty list gives its declared placeholder; with
+        none declared it raises, as :func:`dim_zero_cat` does."""
+        value = getattr(self, name)
+        if isinstance(value, list) and not value and name in self._list_placeholders:
+            return self._empty_leaf(name)
+        return dim_zero_cat(value)
+
+    def _empty_leaf(self, name: str) -> torch.Tensor:
+        """An empty list state's tensor: its declared placeholder, else a
+        zero-length float32 vector."""
+        shape, dtype = self._list_placeholders.get(name, ((0,), torch.float32))
+        return torch.zeros(shape, dtype=dtype, device=self._device)
 
     def _default_value(self, name: str) -> Union[torch.Tensor, List]:
         d = self._defaults[name]
@@ -592,13 +675,14 @@ class Metric(nn.Module):
     # ------------------------------------------------------------------
     def _sync_leaves(self, state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One tensor per state, in sorted state-name order: a list state is
-        concatenated, and an empty one is a zero-length float32 tensor (the
-        gather gives it the dtype of the ranks that hold data)."""
+        concatenated, and an empty one is its declared placeholder, else a
+        zero-length float32 tensor (the gather gives it the dtype of the
+        ranks that hold data)."""
         leaves = {}
         for name in sorted(self._reductions):
             v = state[name]
             if isinstance(v, list):
-                v = dim_zero_cat(v) if v else torch.zeros(0, device=self._device)
+                v = dim_zero_cat(v) if v else self._empty_leaf(name)
             leaves[name] = v
         return leaves
 
@@ -637,14 +721,16 @@ class Metric(nn.Module):
 
     def _reduce_gathered(self, gathered: Dict[str, List[torch.Tensor]]) -> Dict[str, Any]:
         """Each state's reduction over the ranks' tensors. A list state drops
-        the ranks that held nothing, and stays an empty list if none did."""
+        the ranks that held nothing; if none did, it is its declared
+        placeholder, or an empty list when it has none."""
         out: Dict[str, Any] = {}
         for name, parts in gathered.items():
             if isinstance(self._defaults[name], list):
-                parts = [p for p in parts if p.numel()]
-                if not parts:
-                    out[name] = []
+                held = [p for p in parts if p.numel()]
+                if not held:
+                    out[name] = comm.reduce_gathered(parts, self._reductions[name]) if name in self._list_placeholders else []
                     continue
+                parts = held
             out[name] = comm.reduce_gathered(parts, self._reductions[name])
         return out
 
@@ -875,6 +961,7 @@ class Metric(nn.Module):
             ("_enable_jit", True),
             ("_jit_failed", False),
             ("_engine_probed", False),
+            ("_list_placeholders", {}),
         ):
             self.__dict__.setdefault(name, value)
         self.__dict__.setdefault("_health_stats", _health.new_health_stats())

@@ -71,8 +71,12 @@ class _BoundedSampleBufferMixin:
         if capacity is not None:
             self._init_bounded_buffers(capacity, self._buffer_specs)
             return
-        for name, _, _ in self._buffer_specs:
-            self.add_state(name, default=[], dist_reduce_fx="cat")
+        for name, width, dtype in self._buffer_specs:
+            # the row layout the bounded path would register, as the empty-gather placeholder
+            shape = (0,) if not width or width == 1 else (0, width)
+            self.add_state(
+                name, default=[], dist_reduce_fx="cat", placeholder=torch.zeros(shape, dtype=dtype or torch.get_default_dtype())
+            )
         if warn:  # the curves and Spearman warn; retrieval does not
             warn_once(
                 warn_message

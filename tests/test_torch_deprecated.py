@@ -128,11 +128,16 @@ def test_the_port_roots_export_every_ported_name_of_the_jax_roots(roots):
             "MetricTracker", "PeakSignalNoiseRatio", "StructuralSimilarityIndexMeasure",
             "MultiScaleStructuralSimilarityIndexMeasure", "PSNR", "SSIM", "FrechetInceptionDistance",
             "KernelInceptionDistance", "InceptionScore", "LearnedPerceptualImagePatchSimilarity", "FID", "KID", "IS",
-            "LPIPS", "ShardedEncoder",
+            "LPIPS", "ShardedEncoder", "BERTScore", "BLEUScore", "CHRFScore", "CharErrorRate", "ExtendedEditDistance",
+            "MatchErrorRate", "ROUGEScore", "SQuAD", "SacreBLEUScore", "TranslationEditRate", "WordErrorRate",
+            "WordInfoLost", "WordInfoPreserved",
         ],
         "functional": [
             "f1", "fbeta", "hinge", "pairwise_manhatten_distance", "image_gradients", "peak_signal_noise_ratio",
             "structural_similarity_index_measure", "multiscale_structural_similarity_index_measure", "psnr", "ssim",
+            "bert_score", "bleu_score", "char_error_rate", "chrf_score", "extended_edit_distance", "match_error_rate",
+            "rouge_score", "sacre_bleu_score", "squad", "translation_edit_rate", "word_error_rate",
+            "word_information_lost", "word_information_preserved",
         ],
     }["metrics_tpu" if jax_root is mj else "functional"]
     assert set(pinned) <= set(names)

@@ -100,7 +100,48 @@ NEW_METRICS = [
     ("JaccardIndex", {"num_classes": C, "ignore_index": 0}, "scores"),
     ("RetrievalMAP", {}, "retrieval"),  # list states
     ("RetrievalMAP", {"buffer_capacity": 200, "ignore_index": -1}, "retrieval"),  # bounded buffers
+    ("WordErrorRate", {}, "text"),
+    ("CharErrorRate", {}, "text"),
+    ("MatchErrorRate", {}, "text"),
+    ("WordInfoLost", {}, "text"),
+    ("WordInfoPreserved", {}, "text"),
+    ("BLEUScore", {"smooth": True}, "text"),
+    ("SacreBLEUScore", {"tokenize": "13a"}, "text"),
+    ("CHRFScore", {"return_sentence_level_score": True}, "text"),  # a list state of sentence scores
+    ("TranslationEditRate", {"return_sentence_level_score": True}, "text"),
+    ("ExtendedEditDistance", {}, "text"),  # a list state
+    ("ROUGEScore", {"rouge_keys": ("rouge1", "rougeLsum")}, "text"),  # lists of per-sentence scalars
+    ("SQuAD", {}, "squad"),  # an int64 count
 ]
+
+
+def _text_batches(rng, n: int = 4, size: int = 3):
+    """Seeded hypothesis and reference strings, four batches of three."""
+    words = "the cat dog sat ran on a mat house big small red tree".split()
+    batches = []
+    for _ in range(n):
+        refs = [" ".join(rng.choice(words, rng.integers(3, 9))) for _ in range(size)]
+        hyps = [" ".join(w if rng.random() > 0.3 else str(rng.choice(words)) for w in r.split()) for r in refs]
+        batches.append((hyps, refs))
+    return batches
+
+
+def _squad_batches(rng, n: int = 4, size: int = 3):
+    batches = []
+    for b in range(n):
+        ids = [f"{b}-{i}" for i in range(size)]
+        truths = [str(rng.choice(["a red tree", "the big cat", "seven", "on the mat"])) for _ in ids]
+        preds = [{"prediction_text": t if rng.random() > 0.4 else "a dog", "id": q} for t, q in zip(truths, ids)]
+        batches.append((preds, [{"answers": {"text": [t]}, "id": q} for t, q in zip(truths, ids)]))
+    return batches
+
+
+def _as_numpy(value):
+    if isinstance(value, dict):
+        return {k: _as_numpy(v) for k, v in value.items()}
+    if isinstance(value, tuple):
+        return tuple(_as_numpy(v) for v in value)
+    return value.numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
 
 
 @pytest.mark.parametrize("name,kwargs,kind", NEW_METRICS, ids=[f"{n}-{i}" for i, (n, _, _) in enumerate(NEW_METRICS)])
@@ -121,19 +162,35 @@ def test_new_metric_state_carries_across_from_jax(name, kwargs, kind):
         ]
         if "ignore_index" not in kwargs:
             batches = [(p, np.abs(t), x) for p, t, x in batches]
+    elif kind == "text":
+        batches = _text_batches(rng)
+    elif kind == "squad":
+        batches = _squad_batches(rng)
     else:
         batches = [(preds, target) for preds, target in _stream(seed=6)]
+    strings = kind in ("text", "squad")
+    to_jax = (lambda b: b) if strings else (lambda b: tuple(map(jnp.asarray, b)))
+    to_port = (lambda b: b) if strings else (lambda b: tuple(map(torch.from_numpy, b)))
     jax_m = getattr(mj, name)(**kwargs)
     for batch in batches[:2]:
-        jax_m.update(*map(jnp.asarray, batch))
+        jax_m.update(*to_jax(batch))
     jax_m.persistent(True)
     port_m = getattr(mt, name)(device="cpu", **kwargs)
     port_m.persistent(True)
     result = port_m.load_state_dict(mt.state_from_jax(jax_m.state_dict()))
     assert not result.missing_keys and not result.unexpected_keys
     for batch in batches[2:]:
-        port_m.update(*map(torch.from_numpy, batch))
-        jax_m.update(*map(jnp.asarray, batch))
+        port_m.update(*to_port(batch))
+        jax_m.update(*to_jax(batch))
+    if strings:  # text scores: 1e-6 absolute on the unit scale (SQuAD's are percentages)
+        got, want = _as_numpy(port_m.compute()), _as_numpy(jax_m.compute())
+        flat_got = got if isinstance(got, dict) else dict(enumerate(got if isinstance(got, tuple) else (got,)))
+        flat_want = want if isinstance(want, dict) else dict(enumerate(want if isinstance(want, tuple) else (want,)))
+        assert flat_got.keys() == flat_want.keys()
+        for key in flat_want:
+            assert flat_got[key].shape == flat_want[key].shape, key
+            np.testing.assert_allclose(flat_got[key], flat_want[key], rtol=0, atol=1e-4 if name == "SQuAD" else 1e-6, err_msg=str(key))
+        return
     got, want = port_m.compute().numpy(), np.asarray(jax_m.compute())
     assert got.shape == want.shape
     if name == "CatMetric":
@@ -227,6 +284,23 @@ def _imported_modules(path: pathlib.Path):
             yield node.module
 
 
+def _import_time_modules(path: pathlib.Path):
+    """The modules a file imports when it is imported: every import outside
+    a function body (class bodies and ``if``/``try`` blocks included)."""
+
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(node, ast.Import):
+                yield from (alias.name for alias in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                yield node.module
+            yield from walk(ast.iter_child_nodes(node))
+
+    yield from walk(ast.parse(path.read_text(), filename=str(path)).body)
+
+
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted((REPO / "metrics_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
@@ -268,6 +342,22 @@ def test_port_and_chip_smoke_import_no_jax():
         *(f"metrics_tpu_torch/encoders/{m}.py" for m in ("__init__", "runtime", "stream")),
     }
     assert generative_slice <= scanned, sorted(generative_slice - scanned)
+    text_modules = ("bert", "bleu", "cer", "chrf", "eed", "mer", "rouge", "sacre_bleu", "squad", "ter", "wer", "wil", "wip")
+    text_slice = {
+        "metrics_tpu_torch/text/__init__.py",
+        "metrics_tpu_torch/functional/text/__init__.py",
+        "metrics_tpu_torch/functional/text/helper.py",
+        *(f"metrics_tpu_torch/{pkg}text/{m}.py" for pkg in ("", "functional/") for m in text_modules),
+    }
+    assert text_slice <= scanned, sorted(text_slice - scanned)
+    # the optional packages are imported where they are used, never when a module is
+    optional = [
+        f"{path.relative_to(REPO)}: {mod}"
+        for path in files
+        for mod in _import_time_modules(path)
+        if mod.split(".")[0] in ("nltk", "regex", "transformers")
+    ]
+    assert optional == []
     offenders = [
         f"{path.relative_to(REPO)}: {mod}"
         for path in files

@@ -169,7 +169,11 @@ def _worker(rank: int, world: int, port: int, out_path: str, mode: str = "collec
     data = _batches()
     as_tensor = torch.from_numpy
     results = {}
-    if mode == "ranking":
+    if mode == "placeholder":
+        results = _placeholder_world(mt, rank)
+    elif mode == "bert_score":
+        results = _bert_score_world(mt, rank)
+    elif mode == "ranking":
         metrics = _ranking_metrics(mt, device="cpu")
         for i in _rank_batches(rank, world):
             _feed_ranking(metrics, data[i], as_tensor)
@@ -218,6 +222,62 @@ def _worker(rank: int, world: int, port: int, out_path: str, mode: str = "collec
     dist.barrier()
     dist.destroy_process_group()
     torch.save(results, out_path)
+
+
+PLACEHOLDER_WIDTH = 5
+
+
+def _rows_metric(pkg, placeholder: bool):
+    """A metric with one ``cat`` list state of int64 rows of width 5, with
+    or without a declared placeholder."""
+
+    class Rows(pkg.Metric):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            spec = torch.zeros((0, PLACEHOLDER_WIDTH), dtype=torch.int64) if placeholder else None
+            self.add_state("rows", default=[], dist_reduce_fx="cat", placeholder=spec)
+
+        def update(self, x):
+            self.rows.append(x)
+
+        def compute(self):
+            return self.cat_state("rows") if placeholder else self.rows
+
+    return Rows
+
+
+def _placeholder_world(mt, rank: int) -> dict:
+    """Both ranks empty, then rank 0 alone holding rows: the declared
+    metric, the undeclared one and the raw gather of the placeholder."""
+    from metrics_tpu_torch.parallel import comm
+
+    declared, undeclared = _rows_metric(mt, True)(device="cpu"), _rows_metric(mt, False)(device="cpu")
+    out = {
+        "empty": declared.compute(),
+        "empty_undeclared": undeclared.compute(),
+        "empty_pure": declared.sync_state(declared.init_state())["rows"],
+        "gather": comm.gather_all_arrays(torch.zeros((0, PLACEHOLDER_WIDTH), dtype=torch.int64)),
+    }
+    declared.reset()
+    if rank == 0:
+        declared.update(torch.arange(3 * PLACEHOLDER_WIDTH, dtype=torch.int64).reshape(3, PLACEHOLDER_WIDTH))
+    out["one_holder"] = declared.compute()
+    return out
+
+
+def _bert_score_world(mt, rank: int) -> dict:
+    """Rank 0 holds three sentences and rank 1 none; then both empty."""
+    from tests.test_torch_bert_score import MAX_LEN, PREDS, TARGETS, port_model
+    from tests.text.test_bert import toy_tokenizer
+
+    metric = mt.BERTScore(model=port_model, user_tokenizer=toy_tokenizer, max_length=MAX_LEN, device="cpu")
+    if rank == 0:
+        metric.update(PREDS, TARGETS)
+    out = {"scores": metric.compute()}
+    metric.reset()
+    out["empty"] = metric.sync_state(metric.init_state())
+    out["empty_compute"] = metric.compute()
+    return out
 
 
 def _free_port() -> int:
@@ -671,6 +731,58 @@ def test_world_of_one_syncs_and_copies_share_the_process_group():
         assert loaded.process_group is None and pearson.process_group is group
     finally:
         dist.destroy_process_group()
+
+
+def test_all_empty_gather_gives_the_declared_placeholder_on_gloo(tmp_path):
+    """On a gloo world of two where no rank holds a row, a list state with
+    ``placeholder=`` syncs to its declared int64 ``[0, 5]`` (as ``compute``,
+    as ``sync_state`` and as the raw gather); without one it stays an empty
+    list; one holder beside an empty rank gives the holder's rows."""
+    results = _run_world(2, tmp_path, mode="placeholder")
+    rows = torch.arange(3 * PLACEHOLDER_WIDTH, dtype=torch.int64).reshape(3, PLACEHOLDER_WIDTH)
+    for rank, res in enumerate(results):
+        for key in ("empty", "empty_pure"):
+            assert res[key].dtype == torch.int64 and tuple(res[key].shape) == (0, PLACEHOLDER_WIDTH), (rank, key)
+        assert [tuple(g.shape) for g in res["gather"]] == [(0, PLACEHOLDER_WIDTH)] * 2
+        assert res["empty_undeclared"] == []
+        assert torch.equal(res["one_holder"], rows), rank
+
+
+def test_add_state_takes_the_jax_keywords():
+    """``placeholder=`` as a dtype (1-d samples), a numpy dtype or a shaped
+    tensor or array (its row shape); the JAX package's errors for anything
+    else and for an array default; ``sync_precision="exact"`` and
+    ``sharding=None`` construct, other values name their ROADMAP items."""
+    from metrics_tpu_torch.utils.exceptions import MetricsUserError
+
+    mj, mt = _packages()
+    m = _reductions_metric(mt)(device="cpu")
+    cases = {
+        "a": (torch.int32, ((0,), torch.int32)),
+        "b": (np.float64, ((0,), torch.float64)),
+        "c": (torch.zeros((7, 4), dtype=torch.int64), ((0, 4), torch.int64)),
+        "d": (np.zeros((1, 2, 3), np.float32), ((0, 2, 3), torch.float32)),
+    }
+    for name, (spec, want) in cases.items():
+        m.add_state(name, default=[], dist_reduce_fx="cat", placeholder=spec, sync_precision="exact", sharding=None)
+        assert m._list_placeholders[name] == want
+        got = m.cat_state(name)
+        assert tuple(got.shape) == want[0] and got.dtype == want[1]
+    for pkg, kw in ((mj, {}), (mt, {"device": "cpu"})):
+        other = _reductions_metric(pkg)(**kw)
+        with pytest.raises(ValueError, match="must be a dtype or a shaped spec/array, got 'rows'"):
+            other.add_state("bad", default=[], placeholder="rows")
+        with pytest.raises(ValueError, match="LIST state"):
+            other.add_state("bad", default=np.zeros(2), placeholder=np.int64)
+        with pytest.raises(ValueError, match="must be one of"):
+            other.add_state("bad", default=np.zeros(2), sync_precision="fp8")
+    with pytest.raises(MetricsUserError, match="item 9"):
+        m.add_state("q", default=np.zeros(2), sync_precision="bf16")
+    with pytest.raises(MetricsUserError, match="item 7"):
+        m.add_state("s", default=np.zeros(2), sharding="mp")
+    undeclared = _reductions_metric(mt)(device="cpu")
+    with pytest.raises(ValueError, match="No samples"):
+        undeclared.cat_state("rows")
 
 
 if __name__ == "__main__":
