@@ -245,6 +245,35 @@
       captured ``encode`` program per ``(rows, width)`` signature, pow2
       buckets used, the baseline rescale exact; pairs/s, the encoder's
       and the matching's device ms, the multiply-add bound's share.
+13. Audio and detection (phase 14, last), seeded data made on the card;
+   every audio metric streams through ``forward`` (the first batch, held
+   to its per-sample values) and ``update``, its ``compute()`` held to the
+   mean of every per-sample value within 1e-5 relative; logged as in
+   phase 13, with each metric's programs:
+   a. Libri2Mix test size (3,000 mixtures of 2 speakers, 8 kHz, every
+      utterance cut to 4 s, batches of 16): speech-like sources, estimates
+      through a seeded 16-tap FIR with seeded leakage and noise; PIT over
+      SI-SNR, then on the aligned estimates SI-SDR, SI-SNR, SNR, SDR
+      (``filter_length=512``; its batched LU refuses capture, so its update
+      runs eagerly, and the captures after it must still work), STOI
+      (eager and ``jit_update=True``) and ESTOI. The first 64 mixtures
+      against float64 numpy: closed forms within 1e-4 dB, PIT against a
+      brute force, SDR against ``scipy.linalg.solve_toeplitz`` within 1e-3
+      dB up to 25 dB (the error above logged), STOI and ESTOI within 2e-4
+      of ``tests/helpers/stoi_oracle.py``, the resampler within 1e-4 of
+      ``resample_poly``;
+   b. DNS Challenge 2020 synthetic no-reverb test size (150 clips of 10 s
+      at 16 kHz, seeded SNRs of 0-25 dB, batches of 10): SNR, SI-SDR, STOI
+      and ESTOI (the 875-tap resampler), the first 20 clips against the
+      same oracles; the PESQ constructor must raise its gate's error;
+   c. COCO val2017 size (5,000 images, 80 classes, 36,781 ground truths in
+      COCO's area split, 100 detections an image, batches of 16,
+      ``class_metrics``): ``MeanAveragePrecision`` on the card, with no host
+      sync and no host-to-device copy in an update, equal bit for bit to a
+      CPU instance on all 14 outputs, and a second instance over the
+      first 200 images within 1e-6 of ``tests/helpers/coco_oracle.py``;
+      update ms and its profile, state bytes, peak memory, ``compute()``
+      seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
@@ -4247,6 +4276,469 @@ def run_text_phase(torch, mt, smi: str) -> None:
     _log(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all, oracles and data included")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: audio and detection
+# ---------------------------------------------------------------------------
+LIBRI2MIX_TEST = 3_000  # Libri2Mix test set (8 kHz, "min"): mixtures of 2 speakers
+SEP_FS, SEP_SAMPLES = 8_000, 32_000  # every utterance cut to 4 s (the real ones vary)
+SEP_BATCH = 16
+SEP_FIR_TAPS = 16
+SEP_FILTER_LENGTH = 512
+SEP_LEVELS = {"fir": (-2.5, -0.7), "leak": (-1.8, -0.4), "noise": (-1.8, -0.4)}  # log10 ranges, relative to the source
+DNS_TEST = 150  # DNS Challenge (Interspeech 2020) synthetic no-reverb test set: clips
+DNS_FS, DNS_SAMPLES = 16_000, 160_000  # 10 s at 16 kHz
+DNS_BATCH = 10
+DNS_SNR_DB = (0.0, 25.0)
+AUDIO_ORACLE = (64, 20)  # mixtures of 14a and clips of 14b held to the float64 oracles
+AUDIO_DB_ATOL = 1e-4
+SDR_DB_ATOL, SDR_ORACLE_MAX_DB = 1e-3, 25.0  # float32 SDR within 1e-3 dB where the oracle is at most 25 dB
+STOI_ATOL = 2e-4  # the JAX suite's float32 STOI tolerance (tests/audio/test_stoi.py)
+RESAMPLE_ATOL = 1e-4
+STREAM_MEAN_RTOL = 1e-5
+COCO_VAL2017 = (5_000, 80, 36_781)  # images, classes, ground-truth boxes
+COCO_IMAGE = (640.0, 480.0)
+COCO_AREAS = ((0.41, 4.0**2, 32.0**2), (0.34, 32.0**2, 96.0**2), (0.24, 96.0**2, 350.0**2))  # COCO's split: share, area range
+COCO_TOP_CLASS = 0.3  # share of the most frequent class (person in COCO)
+COCO_DETECTIONS = 100  # per image, Detectron's cap
+COCO_COPIES = 1.3  # detections that copy a ground truth, per ground truth
+MAP_BATCH = 16
+MAP_ORACLE_IMAGES = 200
+MAP_ORACLE_ATOL = 1e-6
+
+
+def _speech_like(torch, gen, n: int, samples: int, fs: int):
+    """``[n, samples]`` band-structured modulated noise on the card, the
+    speech stand-in of ``tests/audio/test_stoi.py``, each signal with its own
+    seeded syllable rate (2-6 Hz), carrier (100-400 Hz) and phase."""
+    def draw(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, 1, generator=gen, device="cuda")
+
+    t = torch.arange(samples, device="cuda", dtype=torch.float32) / fs
+    env = 0.5 + 0.5 * torch.sin(2 * np.pi * draw(2.0, 6.0) * t + draw(0.0, 2 * np.pi))
+    return env * (torch.randn(n, samples, generator=gen, device="cuda") + 0.3 * torch.sin(2 * np.pi * draw(100.0, 400.0) * t))
+
+
+def _log_uniform(torch, gen, n: int, lo: float, hi: float):
+    return 10 ** (lo + (hi - lo) * torch.rand(n, 1, generator=gen, device="cuda"))
+
+
+def _rms(torch, x):
+    return torch.sqrt(torch.mean(x * x, dim=-1, keepdim=True))
+
+
+def _separation_data(torch, ft):
+    """Libri2Mix-sized separation stream: sources ``[N, 2, T]`` and estimates,
+    each estimate a source in a seeded speaker order through a seeded 16-tap
+    FIR, plus leakage of the other source and noise at seeded levels; and
+    the estimates aligned by PIT, batch by batch."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    n, spk, t = LIBRI2MIX_TEST, 2, SEP_SAMPLES
+    sources = _speech_like(torch, gen, n * spk, t, SEP_FS).reshape(n, spk, t)
+    order = torch.rand(n, spk, generator=gen, device="cuda").argsort(dim=1)
+    permuted = torch.take_along_dim(sources, order[..., None], dim=1).reshape(n * spk, t)
+    taps = _log_uniform(torch, gen, n * spk, *SEP_LEVELS["fir"]) * torch.randn(n * spk, SEP_FIR_TAPS, generator=gen, device="cuda")
+    taps[:, 0] = 1.0
+    filtered = torch.nn.functional.conv1d(
+        torch.nn.functional.pad(permuted, (SEP_FIR_TAPS - 1, 0))[None], taps.flip(-1)[:, None, :], groups=n * spk
+    )[0]
+    other = permuted.reshape(n, spk, t).flip(1).reshape(n * spk, t)
+    rms = _rms(torch, permuted)
+    estimates = (
+        filtered
+        + _log_uniform(torch, gen, n * spk, *SEP_LEVELS["leak"]) * other
+        + _log_uniform(torch, gen, n * spk, *SEP_LEVELS["noise"]) * rms * torch.randn(n * spk, t, generator=gen, device="cuda")
+    ).reshape(n, spk, t)
+    del permuted, filtered, other
+    bounds = [(s, min(s + SEP_BATCH, n)) for s in range(0, n, SEP_BATCH)]
+    raw = [(estimates[s:e], sources[s:e]) for s, e in bounds]
+    aligned = []
+    for est, src in raw:
+        _, perm = ft.permutation_invariant_training(est, src, ft.scale_invariant_signal_noise_ratio)
+        aligned.append((ft.pit_permutate(est, perm), src))
+    torch.cuda.synchronize()
+    return raw, aligned
+
+
+def _dns_data(torch):
+    """DNS-Challenge-sized enhancement stream: clean speech-like clips and
+    noisy copies at seeded SNRs from 0 to 25 dB, batches ``[10, 160000]``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    clean = _speech_like(torch, gen, DNS_TEST, DNS_SAMPLES, DNS_FS)
+    noise = torch.randn(DNS_TEST, DNS_SAMPLES, generator=gen, device="cuda")
+    snr_db = DNS_SNR_DB[0] + (DNS_SNR_DB[1] - DNS_SNR_DB[0]) * torch.rand(DNS_TEST, 1, generator=gen, device="cuda")
+    noisy = clean + noise * (_rms(torch, clean) / _rms(torch, noise)) * 10 ** (-snr_db / 20)
+    return [(noisy[s : s + DNS_BATCH], clean[s : s + DNS_BATCH]) for s in range(0, DNS_TEST, DNS_BATCH)]
+
+
+def _per_sample(torch, fn, batches):
+    """``fn`` on every batch: its values as float64 numpy, one vector per batch."""
+    return [fn(*b).double().cpu().numpy().reshape(-1) for b in batches]
+
+
+def _snr_oracles(p: np.ndarray, t: np.ndarray):
+    """Closed forms in float64 over the last axis: SNR, SI-SDR, SI-SNR."""
+    eps32 = np.finfo(np.float32).eps
+
+    def si_sdr(p, t):
+        alpha = (np.sum(p * t, -1, keepdims=True) + eps32) / (np.sum(t * t, -1, keepdims=True) + eps32)
+        ts = alpha * t
+        return 10 * np.log10((np.sum(ts * ts, -1) + eps32) / (np.sum((ts - p) ** 2, -1) + eps32))
+
+    snr = 10 * np.log10((np.sum(t * t, -1) + eps32) / (np.sum((t - p) ** 2, -1) + eps32))
+    centred = (p - p.mean(-1, keepdims=True), t - t.mean(-1, keepdims=True))
+    return {"snr": snr, "si_sdr": si_sdr(p, t), "si_snr": si_sdr(*centred)}
+
+
+def _sdr_oracle(p: np.ndarray, t: np.ndarray, filter_length: int) -> np.ndarray:
+    """Filter-invariant SDR in float64 with a Levinson solve of the Toeplitz
+    system (``scipy.linalg.solve_toeplitz``), one signal at a time."""
+    from scipy.linalg import solve_toeplitz
+
+    out = []
+    for pi, ti in zip(p.reshape(-1, p.shape[-1]), t.reshape(-1, t.shape[-1])):
+        pi, ti = pi / np.linalg.norm(pi), ti / np.linalg.norm(ti)
+        n_fft = 1 << int(np.ceil(np.log2(2 * len(ti))))
+        tf, pf = np.fft.rfft(ti, n_fft), np.fft.rfft(pi, n_fft)
+        acf = np.fft.irfft(np.abs(tf) ** 2, n_fft)[:filter_length]
+        xcorr = np.fft.irfft(np.conj(tf) * pf, n_fft)[:filter_length]
+        coh = xcorr @ solve_toeplitz(acf, xcorr)
+        out.append(10 * np.log10(coh / (1 - coh)))
+    return np.asarray(out)
+
+
+def _pit_oracle(est: np.ndarray, src: np.ndarray):
+    """Brute force over both speaker orders: best mean SI-SNR and its permutation."""
+    from itertools import permutations
+
+    perms = list(permutations(range(src.shape[1])))
+    scores = np.stack([np.mean([_snr_oracles(est[:, p[j]], src[:, j])["si_snr"] for j in range(len(p))], axis=0) for p in perms], 1)
+    best = scores.argmax(1)
+    return scores[np.arange(len(best)), best], np.asarray(perms)[best]
+
+
+def _stream_audio(torch, mt, label: str, metrics: dict, batches, per_sample: dict, require_programs) -> list:
+    """Streams each metric of ``metrics`` (name -> maker): ``forward`` on
+    the first batch (held to the per-sample values of that batch), ``update``
+    on the rest, ``compute()`` (held to the mean of every per-sample value);
+    no repo kernel launches; returns (name, value, note) rows."""
+    rows = []
+    for name, make in metrics.items():
+        values = per_sample[name.split(" ")[0]]
+        t0 = _reset_stats(torch, mt)
+        metric, first, stream_s, value, compute_ms, peak = _stream_text(torch, make, batches)
+        _read_stats(torch, mt, t0, {})
+        _on_card(f"{label} {name}", value)
+        _close(f"{label} {name}: the first batch's forward against its per-sample values", first, values[0].mean(), atol=AUDIO_DB_ATOL)
+        _close(f"{label} {name}: the streamed mean against the mean of the per-sample values", value, np.concatenate(values).mean(), rtol=STREAM_MEAN_RTOL)
+        if name in require_programs:
+            _require_programs(f"{label} {name}", metric)
+        note = _text_update_note(torch, name, make, batches, stream_s, len(batches))
+        rows.append((name, value, f"{note}; compute() {compute_ms:.2f} ms; peak {peak / 2**20:.1f} MiB above the start; {_engine_note(metric)}"))
+    return rows
+
+
+def _audio_oracle_checks(torch, ft, label: str, est, src, fs: int, values: dict, sdr: bool) -> str:
+    """The first mixtures or clips against float64 numpy: the SNR family's
+    closed forms, SDR (where asked) against ``solve_toeplitz``, STOI and
+    ESTOI against ``tests/helpers/stoi_oracle.py``; returns a note."""
+    from tests.helpers.stoi_oracle import stoi_oracle
+
+    p, t = est.double().cpu().numpy(), src.double().cpu().numpy()
+    n = p.reshape(-1, p.shape[-1]).shape[0]
+    for key, want in _snr_oracles(p, t).items():
+        if key in values:
+            _close(f"{label} {key}: the first {n} signals against the float64 closed form", values[key][:n], want.reshape(-1), atol=AUDIO_DB_ATOL)
+    note = ""
+    if sdr:
+        want = _sdr_oracle(p, t, SEP_FILTER_LENGTH)
+        low = want <= SDR_ORACLE_MAX_DB
+        err = np.abs(values["sdr"][:n] - want)
+        _close(f"{label} sdr: the first {n} signals at most {SDR_ORACLE_MAX_DB:g} dB against solve_toeplitz", values["sdr"][:n][low], want[low], atol=SDR_DB_ATOL)
+        note += (
+            f"SDR against solve_toeplitz: max error {err[low].max():.2e} dB over {int(low.sum())} signals at most {SDR_ORACLE_MAX_DB:g} dB,"
+            f" {err[~low].max() if (~low).any() else 0.0:.2e} dB over {int((~low).sum())} above (oracle {want.min():.1f} to {want.max():.1f} dB); "
+        )
+    for key, extended in (("stoi", False), ("estoi", True)):
+        want = np.asarray([stoi_oracle(ti, pi, fs, extended) for pi, ti in zip(p.reshape(n, -1), t.reshape(n, -1))])
+        _close(f"{label} {key}: the first {n} signals against the numpy oracle", values[key][:n], want, atol=STOI_ATOL)
+        note += f"{key.upper()} max error {np.abs(values[key][:n] - want).max():.2e} against the oracle; "
+    return note
+
+
+def _resampler_check(torch, x, fs: int) -> float:
+    """The port's resampler on the card against ``scipy.signal.resample_poly``
+    with the Octave Kaiser filter; the max abs error."""
+    from metrics_tpu_torch.functional.audio.stoi import _resample
+    from tests.helpers.stoi_oracle import resample_oct
+
+    got = _resample(x, fs).cpu().numpy()
+    want = np.stack([resample_oct(row, 10000, fs) for row in x.double().cpu().numpy()])
+    _close(f"resampler at {fs} Hz against resample_poly", got, want, atol=RESAMPLE_ATOL)
+    return float(np.abs(got - want).max())
+
+
+def run_separation(torch, mt, ft, smi: str) -> str:
+    """14a: Libri2Mix test size, 8 kHz, 2 speakers: PIT, then the aligned estimates."""
+    t_sub = time.perf_counter()
+    raw, aligned = _separation_data(torch, ft)
+    data_s = time.perf_counter() - t_sub
+    fns = {
+        "pit": lambda e, s: ft.permutation_invariant_training(e, s, ft.scale_invariant_signal_noise_ratio)[0],
+        "si_sdr": ft.scale_invariant_signal_distortion_ratio,
+        "si_snr": ft.scale_invariant_signal_noise_ratio,
+        "snr": ft.signal_noise_ratio,
+        "sdr": lambda e, s: ft.signal_distortion_ratio(e, s, filter_length=SEP_FILTER_LENGTH),
+        "stoi": lambda e, s: ft.short_time_objective_intelligibility(e, s, SEP_FS),
+        "estoi": lambda e, s: ft.short_time_objective_intelligibility(e, s, SEP_FS, extended=True),
+    }
+    per_sample = {k: _per_sample(torch, fn, raw if k == "pit" else aligned) for k, fn in fns.items()}
+    values = {k: np.concatenate(v) for k, v in per_sample.items()}
+    rows = _stream_audio(torch, mt, "separation (14a)", {"pit": lambda: mt.PermutationInvariantTraining(ft.scale_invariant_signal_noise_ratio)}, raw, per_sample, {"pit"})
+    rows += _stream_audio(
+        torch, mt, "separation (14a)",
+        {
+            "si_sdr": lambda: mt.ScaleInvariantSignalDistortionRatio(),
+            "si_snr": lambda: mt.ScaleInvariantSignalNoiseRatio(),
+            "snr": lambda: mt.SignalNoiseRatio(),
+            "sdr": lambda: mt.SignalDistortionRatio(filter_length=SEP_FILTER_LENGTH),
+            "stoi": lambda: mt.ShortTimeObjectiveIntelligibility(SEP_FS),
+            "stoi (jit_update=True)": lambda: mt.ShortTimeObjectiveIntelligibility(SEP_FS, jit_update=True),
+            "estoi": lambda: mt.ShortTimeObjectiveIntelligibility(SEP_FS, extended=True),
+        },
+        # SDR's batched LU (MAGMA at this shape) refuses capture: its update falls back to eager, logged
+        aligned, per_sample, {"si_sdr", "si_snr", "snr", "stoi (jit_update=True)"},
+    )
+    t_oracle = time.perf_counter()
+    m = AUDIO_ORACLE[0]
+    est = torch.cat([b[0] for b in raw])[:m].double().cpu().numpy()
+    src = torch.cat([b[1] for b in raw])[:m].double().cpu().numpy()
+    best, perm = _pit_oracle(est, src)
+    got_best, got_perm = ft.permutation_invariant_training(
+        torch.cat([b[0] for b in raw])[:m], torch.cat([b[1] for b in raw])[:m], ft.scale_invariant_signal_noise_ratio
+    )
+    if not np.array_equal(got_perm.cpu().numpy(), perm):
+        raise AssertionError("separation (14a) pit: permutations differ from the brute force")
+    _close(f"separation (14a) pit: the first {m} mixtures against the brute force", got_best, best, atol=AUDIO_DB_ATOL)
+    est_a = torch.cat([b[0] for b in aligned])[:m]
+    src_a = torch.cat([b[1] for b in aligned])[:m]
+    note = _audio_oracle_checks(torch, ft, "separation (14a)", est_a, src_a, SEP_FS, values, sdr=True)
+    resample_err = _resampler_check(torch, src_a[:2].reshape(-1, SEP_SAMPLES), SEP_FS)
+    n_batches = len(raw)
+    spread = {k: (float(v.min()), float(v.max())) for k, v in values.items() if k in ("si_sdr", "sdr")}
+    return (
+        f"separation (14a): {LIBRI2MIX_TEST} mixtures of 2 speakers (Libri2Mix test size, 8 kHz; reduced: every utterance"
+        f" {SEP_SAMPLES / SEP_FS:g} s), batches of {SEP_BATCH} ({n_batches} updates); data {data_s:.1f} s; per-signal range"
+        f" SI-SDR {spread['si_sdr'][0]:.1f} to {spread['si_sdr'][1]:.1f} dB, SDR {spread['sdr'][0]:.1f} to {spread['sdr'][1]:.1f} dB; {smi}: "
+        + " | ".join(f"{name} {float(v):.6f}; {n}" for name, v, n in rows)
+        + f" || oracles on the first {m} mixtures ({time.perf_counter() - t_oracle:.1f} s): PIT permutations equal the brute force; {note}"
+        f"resampler at 8 kHz max error {resample_err:.2e}"
+    )
+
+
+def run_enhancement(torch, mt, ft, smi: str) -> str:
+    """14b: DNS Challenge synthetic no-reverb test size, 16 kHz: SNR, SI-SDR,
+    STOI and ESTOI on the 875-tap resampler path; the PESQ gate."""
+    t_sub = time.perf_counter()
+    batches = _dns_data(torch)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t_sub
+    fns = {
+        "snr": ft.signal_noise_ratio,
+        "si_sdr": ft.scale_invariant_signal_distortion_ratio,
+        "stoi": lambda p, t: ft.short_time_objective_intelligibility(p, t, DNS_FS),
+        "estoi": lambda p, t: ft.short_time_objective_intelligibility(p, t, DNS_FS, extended=True),
+    }
+    per_sample = {k: _per_sample(torch, fn, batches) for k, fn in fns.items()}
+    values = {k: np.concatenate(v) for k, v in per_sample.items()}
+    rows = _stream_audio(
+        torch, mt, "enhancement (14b)",
+        {
+            "snr": lambda: mt.SignalNoiseRatio(),
+            "si_sdr": lambda: mt.ScaleInvariantSignalDistortionRatio(),
+            "stoi": lambda: mt.ShortTimeObjectiveIntelligibility(DNS_FS),
+            "estoi": lambda: mt.ShortTimeObjectiveIntelligibility(DNS_FS, extended=True),
+        },
+        batches, per_sample, {"snr", "si_sdr"},
+    )
+    try:
+        mt.PerceptualEvaluationSpeechQuality(DNS_FS, "wb")
+        raise AssertionError("enhancement (14b): PESQ constructed without the pesq wheel")
+    except ModuleNotFoundError as err:
+        gate = str(err)
+    t_oracle = time.perf_counter()
+    m = AUDIO_ORACLE[1]
+    noisy, clean = torch.cat([b[0] for b in batches])[:m], torch.cat([b[1] for b in batches])[:m]
+    note = _audio_oracle_checks(torch, ft, "enhancement (14b)", noisy, clean, DNS_FS, values, sdr=False)
+    resample_err = _resampler_check(torch, clean[:2], DNS_FS)
+    return (
+        f"enhancement (14b): {DNS_TEST} clips of {DNS_SAMPLES / DNS_FS:g} s at 16 kHz (DNS Challenge 2020 synthetic no-reverb"
+        f" test size), SNR {DNS_SNR_DB[0]:g}-{DNS_SNR_DB[1]:g} dB, batches of {DNS_BATCH} ({len(batches)} updates); data {data_s:.1f} s; {smi}: "
+        + " | ".join(f"{name} {float(v):.6f}; {n}" for name, v, n in rows)
+        + f" || oracles on the first {m} clips ({time.perf_counter() - t_oracle:.1f} s): {note}resampler at 16 kHz max error"
+        f" {resample_err:.2e} || PESQ gated: {gate}"
+    )
+
+
+def _coco_data(torch):
+    """COCO val2017-sized detections on the card: 36,781 ground truths over
+    5,000 images (about Poisson, mean 7.36 an image), COCO's area split, one
+    class at 30%; 100 detections an image: jittered copies of the ground
+    truths (1.3 a ground truth, 90% with the right label) and seeded false
+    positives, with seeded scores. Returns the flat tensors and the
+    per-image counts."""
+    rng = np.random.default_rng(SEED + 14)
+    n_img, n_cls, n_gt = COCO_VAL2017
+    gt_counts = np.bincount(rng.integers(0, n_img, n_gt), minlength=n_img)
+    gt_off = np.concatenate([[0], np.cumsum(gt_counts)[:-1]])
+    j = np.arange(COCO_DETECTIONS)[None, :]
+    copies = j < np.minimum(COCO_DETECTIONS, np.round(COCO_COPIES * gt_counts))[:, None]
+    src = np.where(copies, gt_off[:, None] + j % np.maximum(gt_counts, 1)[:, None], 0).reshape(-1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda", dtype=torch.float64)
+
+    def labels(n):
+        top = rand(n) < COCO_TOP_CLASS
+        return torch.where(top, 0, torch.randint(1, n_cls, (n,), generator=gen, device="cuda"))
+
+    def boxes(n):
+        shares = torch.tensor([s for s, _, _ in COCO_AREAS], device="cuda", dtype=torch.float64)
+        kind = torch.multinomial(shares, n, replacement=True, generator=gen)
+        lo = torch.log(torch.tensor([a for _, a, _ in COCO_AREAS], device="cuda", dtype=torch.float64))[kind]
+        hi = torch.log(torch.tensor([b for _, _, b in COCO_AREAS], device="cuda", dtype=torch.float64))[kind]
+        area = torch.exp(lo + (hi - lo) * rand(n))
+        aspect = torch.exp(np.log(0.5) + np.log(4.0) * rand(n))
+        w = torch.sqrt(area * aspect).clamp(max=COCO_IMAGE[0])
+        h = torch.sqrt(area / aspect).clamp(max=COCO_IMAGE[1])
+        x, y = (COCO_IMAGE[0] - w) * rand(n), (COCO_IMAGE[1] - h) * rand(n)
+        return torch.stack([x, y, x + w, y + h], dim=1)
+
+    gt_boxes, gt_labels = boxes(n_gt), labels(n_gt)
+    n_det = n_img * COCO_DETECTIONS
+    copy = torch.from_numpy(copies.reshape(-1)).cuda()
+    src_t = torch.from_numpy(src).cuda()
+    base = gt_boxes[src_t]
+    size = (base[:, 2:] - base[:, :2]).repeat(1, 2)
+    jittered = base + 0.08 * size * torch.randn(n_det, 4, generator=gen, device="cuda", dtype=torch.float64)
+    x1, x2 = torch.minimum(jittered[:, 0], jittered[:, 2]), torch.maximum(jittered[:, 0], jittered[:, 2]) + 1
+    y1, y2 = torch.minimum(jittered[:, 1], jittered[:, 3]), torch.maximum(jittered[:, 1], jittered[:, 3]) + 1
+    det_boxes = torch.where(copy[:, None], torch.stack([x1, y1, x2, y2], 1), boxes(n_det))
+    det_labels = torch.where(copy & (rand(n_det) < 0.9), gt_labels[src_t], labels(n_det))
+    det_scores = torch.sigmoid(torch.where(copy, 1.0, -1.0) + torch.randn(n_det, generator=gen, device="cuda", dtype=torch.float64))
+    flat = {
+        "det_boxes": det_boxes.float(), "det_scores": det_scores.float(), "det_labels": det_labels,
+        "gt_boxes": gt_boxes.float(), "gt_labels": gt_labels,
+    }
+    return flat, gt_counts.tolist(), [COCO_DETECTIONS] * n_img
+
+
+def _coco_images(torch, flat, gt_counts, det_counts, device: str):
+    """Per-image (preds, target) dicts of views into the flat tensors on ``device``."""
+    f = {k: v.to(device) for k, v in flat.items()}
+    split = {k: torch.split(v, det_counts if k.startswith("det") else gt_counts) for k, v in f.items()}
+    preds = [{"boxes": b, "scores": s, "labels": l} for b, s, l in zip(split["det_boxes"], split["det_scores"], split["det_labels"])]
+    targets = [{"boxes": b, "labels": l} for b, l in zip(split["gt_boxes"], split["gt_labels"])]
+    return preds, targets
+
+
+def run_detection(torch, mt, smi: str) -> str:
+    """14c: COCO val2017 size: 5,000 images, 80 classes, 100 detections an
+    image, batches of 16, ``class_metrics=True``: the card's result against a
+    CPU instance's bit for bit, the first 200 images against the numpy COCO
+    oracle; ``update`` makes no host sync."""
+    from tests.helpers.coco_oracle import coco_eval
+
+    t_sub = time.perf_counter()
+    flat, gt_counts, det_counts = _coco_data(torch)
+    preds, targets = _coco_images(torch, flat, gt_counts, det_counts, "cuda")
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t_sub
+    n_img = len(preds)
+    bounds = [(s, min(s + MAP_BATCH, n_img)) for s in range(0, n_img, MAP_BATCH)]
+    t0 = _reset_stats(torch, mt)
+    card = mt.MeanAveragePrecision(class_metrics=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_stream = time.perf_counter()
+    for s, e in bounds:
+        card.update(preds[s:e], targets[s:e])
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t_stream
+    value, compute_ms = _timed_compute(torch, card)
+    peak = torch.cuda.max_memory_allocated() - base
+    _read_stats(torch, mt, t0, {})
+    _on_card("detection (14c) map", value)
+    probe = mt.MeanAveragePrecision(class_metrics=True)
+    syncs = _host_syncs(torch, lambda: probe.update(preds[:MAP_BATCH], targets[:MAP_BATCH]))
+    copies = _h2d_copies(torch, lambda: probe.update(preds[:MAP_BATCH], targets[:MAP_BATCH]))
+    if syncs or copies:
+        raise AssertionError(f"detection (14c): an update made {syncs} host syncs and {copies} host-to-device copies")
+    note = _text_update_note(
+        torch, "update", lambda: mt.MeanAveragePrecision(class_metrics=True),
+        [(preds[s:e], targets[s:e]) for s, e in bounds[:1 + PHASE_PROFILE_BATCHES]], stream_s, len(bounds),
+    )
+    state_bytes = sum(x.numel() * x.element_size() for name in ("detection_boxes", "detection_scores", "detection_labels", "groundtruth_boxes", "groundtruth_labels") for x in getattr(card, name))
+
+    t_cpu = time.perf_counter()
+    cpu_preds, cpu_targets = _coco_images(torch, flat, gt_counts, det_counts, "cpu")
+    cpu = mt.MeanAveragePrecision(class_metrics=True, device="cpu")
+    for s, e in bounds:
+        cpu.update(cpu_preds[s:e], cpu_targets[s:e])
+    cpu_t0 = time.perf_counter()
+    cpu_value = cpu.compute()
+    cpu_compute_s = time.perf_counter() - cpu_t0
+    for k, w in cpu_value.items():
+        g = value[k].cpu()
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"detection (14c) {k}: the card's {g} differs from the CPU instance's {w}")
+    cpu_s = time.perf_counter() - t_cpu
+
+    t_oracle = time.perf_counter()
+    m = MAP_ORACLE_IMAGES
+    small = mt.MeanAveragePrecision(class_metrics=True)
+    for s in range(0, m, MAP_BATCH):
+        small.update(preds[s : min(s + MAP_BATCH, m)], targets[s : min(s + MAP_BATCH, m)])
+    got = small.compute()
+    as_np = [{k: v.double().numpy() if v.is_floating_point() else v.numpy() for k, v in d.items()} for d in cpu_preds[:m]]
+    gts = [{k: v.double().numpy() if v.is_floating_point() else v.numpy() for k, v in d.items()} for d in cpu_targets[:m]]
+    want = coco_eval(as_np, gts, class_metrics=True)
+    for k, w in want.items():
+        _close(f"detection (14c) {k}: the first {m} images against the numpy COCO oracle", got[k], np.asarray(w), atol=MAP_ORACLE_ATOL)
+    oracle_s = time.perf_counter() - t_oracle
+    scalars = {k: round(float(v), 6) for k, v in value.items() if v.ndim == 0}
+    return (
+        f"detection (14c): {n_img} images, {COCO_VAL2017[1]} classes, {sum(gt_counts)} ground truths, {sum(det_counts)} detections"
+        f" (COCO val2017 size), batches of {MAP_BATCH} ({len(bounds)} updates), class_metrics; data {data_s:.1f} s; {smi}:"
+        f" {scalars}; {note}; an update checked for {syncs} host syncs and {copies} host-to-device copies; states"
+        f" {state_bytes / 1e6:.1f} MB on the card, peak {peak / 2**20:.1f} MiB above the start; compute() {compute_ms / 1e3:.1f} s"
+        f" (one copy to pinned host memory, then the host float64 evaluation); the CPU instance's compute() {cpu_compute_s:.1f} s, equal bit for bit on"
+        f" all {len(value)} outputs ({cpu_s:.1f} s with its updates); the first {m} images within {MAP_ORACLE_ATOL:g} of the numpy"
+        f" COCO oracle ({oracle_s:.1f} s)"
+    )
+
+
+def run_audio_detection_phase(torch, mt, smi: str) -> None:
+    """Phase 14: speech separation, speech enhancement and COCO detection at their test-set sizes."""
+    import metrics_tpu_torch.functional as ft
+
+    t_phase = time.perf_counter()
+    t_sub = time.perf_counter()
+    _log(run_separation(torch, mt, ft, smi))
+    _log(f"phase 14a: {time.perf_counter() - t_sub:.1f} s")
+    torch.cuda.empty_cache()
+    t_sub = time.perf_counter()
+    _log(run_enhancement(torch, mt, ft, smi))
+    _log(f"phase 14b: {time.perf_counter() - t_sub:.1f} s")
+    torch.cuda.empty_cache()
+    t_sub = time.perf_counter()
+    _log(run_detection(torch, mt, smi))
+    _log(f"phase 14c: {time.perf_counter() - t_sub:.1f} s")
+    torch.cuda.empty_cache()
+    _log(f"phases 14a-14c: {time.perf_counter() - t_phase:.1f} s in all, oracles and data included")
+
+
 # kernel wrappers' device-side names, as the profiler reports them; a
 # wrapper that runs several kernels per call lists them all
 KERNEL_SYMBOLS = {
@@ -4419,6 +4911,7 @@ def main() -> int:
     run_lpips_phase(torch, mt, smi)
     _log(f"phases 12a-12b: {time.perf_counter() - t_new:.1f} s in all, oracles and data included")
     run_text_phase(torch, mt, smi)
+    run_audio_detection_phase(torch, mt, smi)
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {

@@ -23,7 +23,12 @@ networks, with ``ShardedEncoder`` and its encode-then-accumulate stream on
 one device, and the text metrics (``BLEUScore``, ``SacreBLEUScore``,
 ``CHRFScore``, ``TranslationEditRate``, ``ExtendedEditDistance``, the word
 error rate family, ``ROUGEScore``, ``SQuAD`` and ``BERTScore``, whose greedy
-matching runs on the card); ``deprecated`` holds the old names of those, re-exported here
+matching runs on the card), and the audio and detection metrics
+(``SignalNoiseRatio``, ``ScaleInvariantSignalNoiseRatio``,
+``SignalDistortionRatio``, ``ScaleInvariantSignalDistortionRatio``,
+``PermutationInvariantTraining``, ``ShortTimeObjectiveIntelligibility``,
+the ``PerceptualEvaluationSpeechQuality`` gate and COCO
+``MeanAveragePrecision``); ``deprecated`` holds the old names of those, re-exported here
 with ``SyncError`` and ``NumericalHealthError``. Metrics live on the GPU unless a
 ``device`` is given; functionals run on their inputs' device. The six
 kernels of these paths (``confusion_counts``, ``multilabel_counts``,
@@ -35,6 +40,15 @@ bucketing, fused collection programs, non-finite screening
 (``on_bad_input``), ``engine.drive`` and ``compute_async``.
 """
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
+from metrics_tpu_torch.audio import (
+    PerceptualEvaluationSpeechQuality,
+    PermutationInvariantTraining,
+    ScaleInvariantSignalDistortionRatio,
+    ScaleInvariantSignalNoiseRatio,
+    ShortTimeObjectiveIntelligibility,
+    SignalDistortionRatio,
+    SignalNoiseRatio,
+)
 from metrics_tpu_torch.classification import (
     AUC,
     AUROC,
@@ -68,8 +82,16 @@ from metrics_tpu_torch.deprecated import (
     IS,
     KID,
     LPIPS,
+    MAP,
+    PESQ,
+    PIT,
     PSNR,
+    SDR,
+    SI_SDR,
+    SI_SNR,
+    SNR,
     SSIM,
+    STOI,
     FBeta,
     Hinge,
     IoU,
@@ -77,6 +99,7 @@ from metrics_tpu_torch.deprecated import (
     PearsonCorrcoef,
     SpearmanCorrcoef,
 )
+from metrics_tpu_torch.detection import MeanAveragePrecision
 from metrics_tpu_torch.encoders import ShardedEncoder
 from metrics_tpu_torch.image import (
     FrechetInceptionDistance,
@@ -178,12 +201,14 @@ __all__ = [
     "KernelInceptionDistance",
     "LPIPS",
     "LearnedPerceptualImagePatchSimilarity",
+    "MAP",
     "MatchErrorRate",
     "MatthewsCorrCoef",
     "MatthewsCorrcoef",
     "MaxMetric",
     "MeanAbsoluteError",
     "MeanAbsolutePercentageError",
+    "MeanAveragePrecision",
     "MeanMetric",
     "MeanSquaredError",
     "MeanSquaredLogError",
@@ -195,10 +220,14 @@ __all__ = [
     "MultiScaleStructuralSimilarityIndexMeasure",
     "MultioutputWrapper",
     "NumericalHealthError",
+    "PESQ",
+    "PIT",
     "PSNR",
     "PeakSignalNoiseRatio",
     "PearsonCorrCoef",
     "PearsonCorrcoef",
+    "PerceptualEvaluationSpeechQuality",
+    "PermutationInvariantTraining",
     "Precision",
     "PrecisionRecallCurve",
     "R2Score",
@@ -214,10 +243,20 @@ __all__ = [
     "RetrievalPrecision",
     "RetrievalRPrecision",
     "RetrievalRecall",
+    "SDR",
+    "SI_SDR",
+    "SI_SNR",
+    "SNR",
     "SQuAD",
     "SSIM",
+    "STOI",
     "SacreBLEUScore",
+    "ScaleInvariantSignalDistortionRatio",
+    "ScaleInvariantSignalNoiseRatio",
     "ShardedEncoder",
+    "ShortTimeObjectiveIntelligibility",
+    "SignalDistortionRatio",
+    "SignalNoiseRatio",
     "SpearmanCorrCoef",
     "SpearmanCorrcoef",
     "Specificity",

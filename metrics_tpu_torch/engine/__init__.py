@@ -12,7 +12,7 @@ instance, captured as a CUDA graph on the card and run eagerly on the CPU.
 
 Introspection: ``Metric.compile_stats()``, :func:`cache_summary`,
 :func:`clear_cache`, :func:`fetch_stats`. ``persist`` and ``warmup`` of the
-JAX engine are ROADMAP §1 item 15.
+JAX engine are ROADMAP §1 item 10.
 """
 from metrics_tpu_torch.engine.bucketing import (  # noqa: F401
     bucket_spec,

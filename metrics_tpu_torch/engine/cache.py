@@ -249,6 +249,28 @@ def _pool(device: torch.device) -> Any:
     return _POOLS[idx]
 
 
+def _end_refused_capture(device: torch.device, stream: Any) -> None:
+    """Leave a refused capture behind. When an operation invalidates a
+    capture, ``torch.cuda.graph`` raises from ``cudaStreamEndCapture``
+    before it ends the allocators' recording to the pool and before it puts
+    the caller's stream back: the pool stays recording (every later capture
+    into it fails with "beginAllocateToPool: already recording to
+    mempool_id"), the caching allocator holds freed blocks for a capture
+    that never ends, and later work runs on the capture stream. So: end the
+    caching allocator's recording where one is left (a capture that ended
+    cleanly left none, and the call raises), restore ``stream``, and give
+    later captures a fresh pool; the graphs captured before keep theirs."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+    if end is not None:
+        try:
+            end(idx, _pool(device))
+        except RuntimeError:
+            pass
+    torch.cuda.set_stream(stream)
+    _POOLS[idx] = torch.cuda.graph_pool_handle()
+
+
 def _side_stream(device: torch.device) -> Any:
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _SIDE_STREAMS:
@@ -346,13 +368,16 @@ class SharedEntry:
         elif new:
             out = self._warm_up(fn, cell, inputs, device)
             with self._lock:
+                stream = torch.cuda.current_stream(device)
                 try:
                     self._programs[key] = _Graph(fn, cell, leaves, spec, device)
                 except JitIncompatibleError:
                     self._programs[key] = _FAILED
+                    _end_refused_capture(device, stream)
                     raise
                 except RuntimeError as err:  # the toolkit refused a captured operation
                     self._programs[key] = _FAILED
+                    _end_refused_capture(device, stream)
                     raise JitIncompatibleError(f"CUDA graph capture of {self.kind} {variant!r} failed: {err}") from err
         elif probe:
             with program_scope():

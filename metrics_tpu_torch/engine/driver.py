@@ -27,9 +27,9 @@ Members a chunk cannot carry keep their per-step contracts inside the same
 :func:`drive` call: list states, eager fallbacks, ``on_bad_input="raise"``
 (its per-update host check is the point) and the eager health policies.
 
-Out of this slice: ``drive_bank`` (ROADMAP §1 item 13), the mesh modes
-(``mesh``/``axis_name``/``in_specs``/``hierarchical_sync``, item 12) and
-drive snapshots (``snapshot_store``/``resume_from``, items 13-14); those
+Out of this slice: ``drive_bank`` (ROADMAP §1 item 8), the mesh modes
+(``mesh``/``axis_name``/``in_specs``/``hierarchical_sync``, item 7) and
+drive snapshots (``snapshot_store``/``resume_from``, item 10); those
 arguments raise ``NotImplementedError``.
 """
 import threading
@@ -361,19 +361,19 @@ def drive(
             program; the values come back in ``DriveResult.values``.
         steps_per_chunk: ``K``, the steps one program replay takes.
         axis_name, mesh, in_specs, hierarchical_sync: the mesh modes
-            (ROADMAP §1 item 12), not ported yet.
+            (ROADMAP §1 item 7), not ported yet.
         snapshot_store, snapshot_every, snapshot_key, resume_from: drive
-            snapshots (ROADMAP §1 items 13-14), not ported yet.
+            snapshots (ROADMAP §1 item 10), not ported yet.
     """
     if any(x is not None for x in (axis_name, mesh, in_specs)) or hierarchical_sync:
         raise NotImplementedError(
-            "drive(mesh=, axis_name=, in_specs=, hierarchical_sync=) are the mesh modes of ROADMAP §1 item 12,"
+            "drive(mesh=, axis_name=, in_specs=, hierarchical_sync=) are the mesh modes of ROADMAP §1 item 7,"
             " not ported yet; drive locally, one process per card."
         )
     if snapshot_store is not None or snapshot_every is not None or resume_from is not None:
         raise NotImplementedError(
             "drive snapshots (snapshot_store=, snapshot_every=, resume_from=) need the serving SpillStore of"
-            " ROADMAP §1 items 13-14, not ported yet."
+            " ROADMAP §1 item 10, not ported yet."
         )
     if steps_per_chunk < 1:
         raise ValueError(f"steps_per_chunk must be >= 1, got {steps_per_chunk}")

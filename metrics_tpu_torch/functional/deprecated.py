@@ -1,12 +1,14 @@
 """Deprecated functional short names (counterpart of
 ``metrics_tpu/functional/deprecated.py``), with the old misspelt
-``pairwise_manhatten_distance``. Each warns on call and forwards. The JAX
-package's audio aliases come with their modules.
+``pairwise_manhatten_distance``. Each warns on call and forwards.
 """
 import functools
 import warnings
 from typing import Any, Callable
 
+from metrics_tpu_torch.functional.audio.pit import permutation_invariant_training
+from metrics_tpu_torch.functional.audio.sdr import scale_invariant_signal_distortion_ratio, signal_distortion_ratio
+from metrics_tpu_torch.functional.audio.snr import scale_invariant_signal_noise_ratio, signal_noise_ratio
 from metrics_tpu_torch.functional.classification.f_beta import f1_score, fbeta_score
 from metrics_tpu_torch.functional.classification.hinge import hinge_loss
 from metrics_tpu_torch.functional.image.psnr import peak_signal_noise_ratio
@@ -32,8 +34,25 @@ def _deprecated_fn(name: str, target: Callable) -> Callable:
 f1 = _deprecated_fn("f1", f1_score)
 fbeta = _deprecated_fn("fbeta", fbeta_score)
 hinge = _deprecated_fn("hinge", hinge_loss)
+pit = _deprecated_fn("pit", permutation_invariant_training)
 psnr = _deprecated_fn("psnr", peak_signal_noise_ratio)
+sdr = _deprecated_fn("sdr", signal_distortion_ratio)
+si_sdr = _deprecated_fn("si_sdr", scale_invariant_signal_distortion_ratio)
+si_snr = _deprecated_fn("si_snr", scale_invariant_signal_noise_ratio)
+snr = _deprecated_fn("snr", signal_noise_ratio)
 ssim = _deprecated_fn("ssim", structural_similarity_index_measure)
 pairwise_manhatten_distance = _deprecated_fn("pairwise_manhatten_distance", pairwise_manhattan_distance)
 
-__all__ = ["f1", "fbeta", "hinge", "pairwise_manhatten_distance", "psnr", "ssim"]
+__all__ = [
+    "f1",
+    "fbeta",
+    "hinge",
+    "pairwise_manhatten_distance",
+    "pit",
+    "psnr",
+    "sdr",
+    "si_sdr",
+    "si_snr",
+    "snr",
+    "ssim",
+]

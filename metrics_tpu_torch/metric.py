@@ -698,8 +698,11 @@ class Metric(nn.Module):
                 name: comm.gather_all_arrays(
                     leaf,
                     group,
-                    # fixed by registration, so the same on every rank
-                    fixed_shape=not isinstance(self._defaults[name], list)
+                    # fixed by registration, so the same on every rank; a
+                    # leaf that is not a registered state (a subclass's
+                    # packing) has a shape of its own on each rank
+                    fixed_shape=name in self._defaults
+                    and not isinstance(self._defaults[name], list)
                     and self._reductions[name] in comm.SIMPLE_REDUCTIONS
                     and name not in self._shape_polymorphic_states,
                 )

@@ -350,12 +350,19 @@ def test_port_and_chip_smoke_import_no_jax():
         *(f"metrics_tpu_torch/{pkg}text/{m}.py" for pkg in ("", "functional/") for m in text_modules),
     }
     assert text_slice <= scanned, sorted(text_slice - scanned)
+    audio_modules = ("__init__", "pesq", "pit", "sdr", "snr", "stoi")
+    audio_detection_slice = {
+        "metrics_tpu_torch/functional/audio/_host.py",
+        *(f"metrics_tpu_torch/{pkg}audio/{m}.py" for pkg in ("", "functional/") for m in audio_modules),
+        *(f"metrics_tpu_torch/detection/{m}.py" for m in ("__init__", "_box_ops", "map")),
+    }
+    assert audio_detection_slice <= scanned, sorted(audio_detection_slice - scanned)
     # the optional packages are imported where they are used, never when a module is
     optional = [
         f"{path.relative_to(REPO)}: {mod}"
         for path in files
         for mod in _import_time_modules(path)
-        if mod.split(".")[0] in ("nltk", "regex", "transformers")
+        if mod.split(".")[0] in ("nltk", "regex", "transformers", "pesq")
     ]
     assert optional == []
     offenders = [

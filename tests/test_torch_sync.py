@@ -9,7 +9,8 @@ each rank streams its share of the batches and syncs in ``compute()``, and
 its results are held against serial ``metrics_tpu`` over the ranks' batches
 in rank-major order; a second world of 2 does so for ``JaccardIndex``,
 ``CohenKappa`` and ``RetrievalNormalizedDCG`` (its rows are ``cat`` list
-states, gathered rank-major). Counts must match bit for bit, scores within 1e-6
+states, gathered rank-major), and a third for ``MeanAveragePrecision``,
+whose per-image states must keep their image boundaries (bit for bit). Counts must match bit for bit, scores within 1e-6
 relative (kappa also within 1e-6 absolute), float sums within 1e-5
 relative, NDCG within 1e-6 absolute, cat states exactly. Every worker
 runs under a wall-clock limit of its own and is killed past it.
@@ -173,6 +174,8 @@ def _worker(rank: int, world: int, port: int, out_path: str, mode: str = "collec
         results = _placeholder_world(mt, rank)
     elif mode == "bert_score":
         results = _bert_score_world(mt, rank)
+    elif mode == "detection":
+        results = _detection_world(mt, rank)
     elif mode == "ranking":
         metrics = _ranking_metrics(mt, device="cpu")
         for i in _rank_batches(rank, world):
@@ -278,6 +281,33 @@ def _bert_score_world(mt, rank: int) -> dict:
     out["empty"] = metric.sync_state(metric.init_state())
     out["empty_compute"] = metric.compute()
     return out
+
+
+DETECTION_SPLIT = (7, 4)  # images of rank 0 and rank 1
+
+
+def _detection_images():
+    from tests.helpers.detection_scenes import detection_scenes
+
+    return detection_scenes(31, sum(DETECTION_SPLIT))
+
+
+def _detection_world(mt, rank: int) -> dict:
+    """mAP over this rank's images, synced in ``compute()`` and through the
+    pure ``sync_state``; the images left on this rank after the unsync."""
+    preds, targets = _detection_images()
+    lo = sum(DETECTION_SPLIT[:rank])
+    mine = slice(lo, lo + DETECTION_SPLIT[rank])
+    m = mt.MeanAveragePrecision(class_metrics=True, device="cpu")
+    m.update(
+        [{k: torch.from_numpy(v) for k, v in p.items()} for p in preds[mine]],
+        [{k: torch.from_numpy(v) for k, v in t.items()} for t in targets[mine]],
+    )
+    return {
+        "map": m.compute(),
+        "pure": m.compute_state(m.sync_state(m._snapshot_state())),
+        "local_images": len(m.detection_boxes),
+    }
 
 
 def _free_port() -> int:
@@ -746,6 +776,32 @@ def test_all_empty_gather_gives_the_declared_placeholder_on_gloo(tmp_path):
         assert [tuple(g.shape) for g in res["gather"]] == [(0, PLACEHOLDER_WIDTH)] * 2
         assert res["empty_undeclared"] == []
         assert torch.equal(res["one_holder"], rows), rank
+
+
+def test_two_gloo_ranks_of_map_keep_image_boundaries(tmp_path):
+    """``MeanAveragePrecision`` on a gloo world of two (7 and 4 images, some
+    without detections or ground truth): each per-image state travels as
+    rows and per-image lengths, so both ranks' ``compute()`` and pure
+    ``sync_state`` equal serial JAX over the 11 images bit for bit."""
+    import jax.numpy as jnp
+
+    import metrics_tpu as mj
+
+    results = _run_world(2, tmp_path, mode="detection")
+    preds, targets = _detection_images()
+    ref = mj.MeanAveragePrecision(class_metrics=True)
+    ref.update(
+        [{k: jnp.asarray(v) for k, v in p.items()} for p in preds],
+        [{k: jnp.asarray(v) for k, v in t.items()} for t in targets],
+    )
+    want = {k: np.asarray(v) for k, v in ref.compute().items()}
+    for rank, res in enumerate(results):
+        for key in ("map", "pure"):
+            got = res[key]
+            assert list(got) == list(want), (rank, key)
+            for k, w in want.items():
+                np.testing.assert_array_equal(got[k].numpy().reshape(w.shape), w, err_msg=f"rank {rank} {key} {k}")
+        assert res["local_images"] == DETECTION_SPLIT[rank]
 
 
 def test_add_state_takes_the_jax_keywords():
