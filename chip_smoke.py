@@ -212,7 +212,7 @@
       of 50: 16 pairs within rtol 1e-4, atol 1e-5 of a float64 copy,
       identical pairs 0 within 1e-6, the streamed mean within 1e-6 of the
       per-pair mean; the same timings.
-12. Text (phase 13, last), seeded synthetic corpora at the published sizes
+12. Text (phase 13), seeded synthetic corpora at the published sizes
    of the test sets, words drawn from a Zipf-distributed vocabulary of
    30,000, hypotheses the references with seeded substitutions, drops and
    insertions (and, for translation, one reversed 3-word span); every
@@ -245,7 +245,7 @@
       captured ``encode`` program per ``(rows, width)`` signature, pow2
       buckets used, the baseline rescale exact; pairs/s, the encoder's
       and the matching's device ms, the multiply-add bound's share.
-13. Audio and detection (phase 14, last), seeded data made on the card;
+13. Audio and detection (phase 14), seeded data made on the card;
    every audio metric streams through ``forward`` (the first batch, held
    to its per-sample values) and ``update``, its ``compute()`` held to the
    mean of every per-sample value within 1e-5 relative; logged as in
@@ -274,6 +274,25 @@
       first 200 images within 1e-6 of ``tests/helpers/coco_oracle.py``;
       update ms and its profile, state bytes, peak memory, ``compute()``
       seconds.
+14. Observability (phase 15, last): the main path's collection, its
+   programs already captured, streams ImageNet-1k val five passes each
+   way: the event bus off; the bus on with unfenced tracing, which must
+   give bitwise the same results, capture nothing new, keep the engine's
+   counters, make 0 host syncs, emit one ``cache_hit`` event per replay,
+   no ``kernel`` event and one ``forward`` span per batch; and fenced
+   tracing, whose mean ``forward`` span must be at least the profiled
+   device ms of a batch. ms/batch of each way. Then the run's events
+   written with ``to_jsonl`` and counted by ``validate_jsonl``,
+   ``prometheus_text(mc)`` parsed line by line, ``obs.snapshot()``'s
+   ``kernels`` against ``kernel_stats()``, ``obs.snapshot(mc)`` against
+   ``mc.obs_snapshot()`` and every legacy report, one new capture whose
+   ``kernel`` events are its warm-up's and its capture's launches, a seeded
+   ``ShardedEncoder`` stream of three chunks with a ragged tail (three
+   ``encode`` events, their rows the real rows) and a NaN batch into a
+   captured ``on_bad_input="raise"`` metric (one ``quarantine`` event,
+   ``path="compiled"``, before the raise). The sync phase also holds each
+   rank's ``sync_report()`` to the syncs and gathers it made, its bytes
+   received to the other rank's bytes sent.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
@@ -1543,8 +1562,26 @@ def _sync_rank(rank: int, port: int, out_path: str) -> None:
         t0 = _reset_stats(torch, mt)
         _stream_into(mc, data, bounds)
         seconds, stats = _read_stats(torch, mt, t0, {"select_topk": 3 * len(bounds), "confusion_counts": len(bounds)})
-        synced, sync_ms, collectives = _timed_computes(torch, mt, mc, on=True)
+        from metrics_tpu_torch.parallel import comm
+
+        gathers = {"n": 0}
+        gather = comm.gather_all_arrays
+
+        def counted_gather(*args, **kwargs):
+            gathers["n"] += 1
+            return gather(*args, **kwargs)
+
+        comm.gather_all_arrays = counted_gather
+        try:
+            synced, sync_ms, collectives = _timed_computes(torch, mt, mc, on=True)
+        finally:
+            comm.gather_all_arrays = gather
         local, local_ms, local_collectives = _timed_computes(torch, mt, mc, on=False)
+        reports = {
+            name: (type(m).__name__, m.sync_report())
+            for name, m in mc.named_modules()
+            if isinstance(m, mt.Metric)
+        }
         if local_collectives:
             raise AssertionError(f"rank {rank}: the local compute ran {local_collectives} collectives")
         dist.barrier()
@@ -1560,6 +1597,8 @@ def _sync_rank(rank: int, port: int, out_path: str) -> None:
             "sync_ms": sync_ms,
             "local_ms": local_ms,
             "collectives": collectives,
+            "gathers": gathers["n"],
+            "reports": reports,
         },
         out_path,
     )
@@ -1629,6 +1668,32 @@ def _same_as(name: str, got: dict, want: dict, exact: bool = False) -> None:
             raise AssertionError(f"{name} {key}: {g.tolist()} vs {w.tolist()} (rtol {rtol})")
 
 
+def _check_sync_reports(rank: int, rec: dict, other: dict) -> str:
+    """Each metric's ``sync_report()`` on one rank against the syncs and
+    gathers that rank made: ``syncs`` one per synced ``compute()`` (none
+    for an operator's composition, whose operands sync), ``attempts`` the
+    ``gather_all_arrays`` calls in all, ``bytes_received`` the other
+    rank's ``bytes_sent``, and the last outcome ``complete``."""
+    attempts = sent = 0
+    for name, (cls, report) in rec["reports"].items():
+        composed = cls == "CompositionalMetric"
+        want_syncs = 0 if composed else SYNC_REPEATS
+        if report["syncs"] != want_syncs or report["last_sync_outcome"] != (None if composed else "complete"):
+            raise AssertionError(f"sync phase rank {rank} {name}: sync_report {report}, {want_syncs} syncs made")
+        if report["bytes_received"] != other["reports"][name][1]["bytes_sent"]:
+            raise AssertionError(
+                f"sync phase rank {rank} {name}: received {report['bytes_received']} bytes, the other rank sent"
+                f" {other['reports'][name][1]['bytes_sent']}"
+            )
+        if report["degraded_local"] or (not composed and report["bytes_sent"] <= 0):
+            raise AssertionError(f"sync phase rank {rank} {name}: sync_report {report}")
+        attempts += report["attempts"]
+        sent += report["bytes_sent"]
+    if attempts != rec["gathers"]:
+        raise AssertionError(f"sync phase rank {rank}: sync_report attempts {attempts}, gathers made {rec['gathers']}")
+    return f"{len(rec['reports'])} metrics, {attempts} attempts = gathers made, {sent} bytes sent, received as the other rank sent"
+
+
 def run_sync_phase(torch, mt, smi: str):
     """The cross-process sync at full width. (a) Two ranks on the one card
     join a gloo group over TCP loopback, each with its metrics on ``cuda:0``;
@@ -1647,6 +1712,7 @@ def run_sync_phase(torch, mt, smi: str):
         if rec["devices"] != ["cuda"] or min(rec["launches"].values()) <= 0:
             raise AssertionError(f"sync phase rank {rank}: results on {rec['devices']}, launches {rec['launches']}")
     _same_as("sync phase: rank 1 against rank 0", ranks[1]["synced"], ranks[0]["synced"], exact=True)
+    report_notes = [_check_sync_reports(rank, rec, ranks[1 - rank]) for rank, rec in enumerate(ranks)]
 
     data = _sync_stream(torch)
     mc = _sync_collection(mt)
@@ -1676,7 +1742,8 @@ def run_sync_phase(torch, mt, smi: str):
         _log(
             f"sync phase rank {rank} (gloo, {SYNC_WORLD} ranks on cuda:0, {len(_sync_batches(rank))} batches in"
             f" {rec['stream_s']:.2f} s): compute() with the sync {ms(rec['sync_ms'])}, without {ms(rec['local_ms'])};"
-            f" {rec['collectives']:.0f} collectives per synced compute(); launches {rec['launches']}; {smi}"
+            f" {rec['collectives']:.0f} collectives per synced compute(); launches {rec['launches']};"
+            f" sync_report {report_notes[rank]}; {smi}"
         )
     _log(
         f"sync phase NCCL world size 1: compute() with the sync {ms(nccl_ms)}, without {ms(serial_ms)};"
@@ -4739,6 +4806,282 @@ def run_audio_detection_phase(torch, mt, smi: str) -> None:
     _log(f"phases 14a-14c: {time.perf_counter() - t_phase:.1f} s in all, oracles and data included")
 
 
+OBS_PASSES = 5  # passes of the ImageNet stream per observability mode; the median is logged
+OBS_NEW_ROWS = 1000  # rows of the batch that makes phase 15's one new capture
+ENCODE_CHUNKS = (512, 512, 300)  # phase 15's encoder stream: two full chunks and a ragged tail
+ENCODE_WIDTH = (512, 128)  # input features, output features
+
+
+def _encode_apply(params, x):
+    return x @ params["w"]
+
+
+def _encode_consumer(carry, feats, valid):
+    return {"s": carry["s"] + (feats * valid[:, None]).sum(0), "n": carry["n"] + valid.sum()}
+
+
+def _obs_pass(torch, mc, logits, target, bounds):
+    """One pass of the ImageNet stream through ``mc.forward``, then ``compute()``."""
+    mc.reset()
+    for s, e in bounds:
+        mc(logits[s:e], target[s:e])
+    return mc.compute()
+
+
+def _obs_mode(torch, mt, mc, logits, target, bounds):
+    """``OBS_PASSES`` passes: the last result, the median ms per batch on
+    the host clock (compute included), and the engine's counters before and
+    after."""
+    before = mt.engine.cache_summary()
+    times, result = [], None
+    for _ in range(OBS_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = _obs_pass(torch, mc, logits, target, bounds)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / len(bounds))
+    return result, sorted(times)[len(times) // 2], before, mt.engine.cache_summary()
+
+
+def _engine_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in ("calls", "compiles", "cache_hits", "retraces", "graphs", "failed_captures")}
+
+
+def _check_prometheus(text: str) -> int:
+    """Every sample line parses as ``name{labels} value`` under a TYPE line
+    of its family; returns the sample count."""
+    import re
+
+    typed, samples = set(), 0
+    pattern = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*",?)*\})? (\S+)$')
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            typed.add(line.split()[2])
+            continue
+        m = pattern.match(line)
+        if m is None or m.group(1) not in typed:
+            raise AssertionError(f"phase 15: Prometheus line does not parse: {line!r}")
+        float(m.group(5))
+        samples += 1
+    return samples
+
+
+def _check_snapshot(mt, mc) -> None:
+    """``obs.snapshot(mc)`` equals ``mc.obs_snapshot()``, and each section
+    equals the legacy report it stands for."""
+    snap = mt.obs.snapshot(mc)
+    if snap != mc.obs_snapshot():
+        raise AssertionError("phase 15: obs.snapshot(mc) differs from mc.obs_snapshot()")
+    if snap["fused_compile"] != {k: v for k, v in mc.compile_stats().items() if k != "members"}:
+        raise AssertionError(f"phase 15: fused_compile {snap['fused_compile']} vs compile_stats()")
+    for surface, method in (("sync", "sync_report"), ("health", "health_report")):
+        legacy = {k: v for k, v in getattr(mc, method)().items() if k != "members"}
+        if snap[surface] != legacy:
+            raise AssertionError(f"phase 15: snapshot {surface} {snap[surface]} vs {method}() {legacy}")
+    for key, m in mc.items(keep_base=True):
+        member = snap["members"][key]
+        for surface, method in (("compile", "compile_stats"), ("sync", "sync_report"), ("health", "health_report")):
+            if member[surface] != getattr(m, method)():
+                raise AssertionError(f"phase 15: member {key} {surface} differs from {method}()")
+
+
+def _obs_capture_check(torch, mt, mc, logits, target) -> str:
+    """One new capture of the main path's fused forward (a batch of a new
+    shape): one ``compile`` event, and ``kernel`` events exactly the
+    warm-up's launches plus the launches the capture recorded."""
+    graphs_before = {id(g) for g in mc._fused_fwd_fn.graphs}
+    with mt.obs.capture() as events:
+        _reset_stats(torch, mt)
+        mc(logits[:OBS_NEW_ROWS], target[:OBS_NEW_ROWS])
+        torch.cuda.synchronize()
+    warm = {op: r["launches"] for op, r in mt.kernel_stats().items()}
+    (graph,) = [g for g in mc._fused_fwd_fn.graphs if id(g) not in graphs_before]
+    kinds = [e.kind for e in events]
+    for op in set(warm) | set(graph.launches):
+        got = len([e for e in events if e.kind == "kernel" and e.data["op"] == op and e.data["path"] == "cuda"])
+        if got != warm.get(op, 0) + graph.launches.get(op, 0):
+            raise AssertionError(f"phase 15: {got} kernel events of {op} at a capture, {warm} warm-up and {graph.launches} captured launches")
+    # a program beyond the variant's first is a retrace; the variant's earlier
+    # programs were captured with the bus off, so this one has no signature to
+    # diff against, and a second new shape is named against this one
+    programs = [e for e in events if e.kind in ("compile", "retrace")]
+    if len(programs) != 1 or kinds.count("cache_hit") or kinds.count("forward") != 1:
+        raise AssertionError(f"phase 15: events of one new capture {kinds}")
+    with mt.obs.capture(kinds=("retrace",)) as second:
+        mc(logits[:OBS_NEW_ROWS // 2], target[:OBS_NEW_ROWS // 2])
+    if len(second) != 1 or second[0].data["explain"]["changed"] != ["avals"]:
+        raise AssertionError(f"phase 15: a second new shape's retrace events {[e.data for e in second]}")
+    return (
+        f"one new capture ({OBS_NEW_ROWS} rows): a {programs[0].kind} event"
+        f" {programs[0].data.get('explain', {}).get('changed', '')}, {kinds.count('kernel')} kernel events ="
+        f" warm-up {warm} + captured {graph.launches}; a second ({OBS_NEW_ROWS // 2} rows): retrace"
+        f" {second[0].data['explain']['detail']}"
+    )
+
+
+def _obs_encoder_check(torch, mt) -> str:
+    """A seeded ``ShardedEncoder`` stream of three chunks with a ragged tail
+    on the card: three ``encode`` events, their rows the real rows."""
+    from metrics_tpu_torch.encoders import ShardedEncoder, encode_stream
+
+    rng = np.random.default_rng(SEED + 15)
+    d_in, d_out = ENCODE_WIDTH
+    enc = ShardedEncoder(_encode_apply, {"w": torch.from_numpy(rng.standard_normal((d_in, d_out), dtype=np.float32)).cuda()}, name="obs_mlp")
+    chunks = [rng.standard_normal((n, d_in), dtype=np.float32) for n in ENCODE_CHUNKS]
+    carry0 = {"s": torch.zeros(d_out, device="cuda"), "n": torch.zeros((), device="cuda")}
+    with mt.obs.capture(kinds=("encode",)) as events:
+        carry, result = encode_stream(enc, chunks, _encode_consumer, carry0)
+    rows = sum(ENCODE_CHUNKS)
+    # float64 numpy of the same sum; the card's float32 matmul within 1e-4 of its largest entry
+    want = np.concatenate(chunks).astype(np.float64).sum(0) @ enc.params["w"].double().cpu().numpy()
+    got = carry["s"].double().cpu().numpy()
+    if len(events) != len(ENCODE_CHUNKS) or sum(e.data["rows"] for e in events) != rows or result.rows != rows:
+        raise AssertionError(f"phase 15: encode events {[e.data for e in events]} for chunks {ENCODE_CHUNKS}")
+    if int(carry["n"]) != rows or np.abs(got - want).max() > 1e-4 * np.abs(want).max():
+        raise AssertionError(f"phase 15: encoder stream sum differs from numpy (max abs err {np.abs(got - want).max()})")
+    return f"encode events {[(e.data['rows'], e.data['bucket']) for e in events]} (rows, bucket), {enc.compile_stats()}"
+
+
+def _obs_quarantine_check(torch, mt) -> str:
+    """A NaN batch into an ``on_bad_input="raise"`` metric whose update is a
+    graph replay: one ``quarantine`` event with ``path="compiled"``, before
+    the raise."""
+    m = mt.MeanSquaredError(on_bad_input="raise")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    preds = torch.rand(BATCH, device="cuda", generator=gen)
+    target = torch.rand(BATCH, device="cuda", generator=gen)
+    m.update(preds, target)  # the probe, a warm-up and the capture (or a hit on another instance's graph)
+    m.update(preds, target)  # a replay
+    bad = preds.clone()
+    bad[BATCH // 2] = float("nan")
+    with mt.obs.capture(kinds=("quarantine",)) as events:
+        try:
+            m.update(bad, target)
+        except mt.NumericalHealthError:
+            pass
+        else:
+            raise AssertionError("phase 15: the NaN batch did not raise")
+    stats = m.compile_stats()
+    if stats["jit_failed"] or stats["cache_hits"] < 2:
+        raise AssertionError(f"phase 15: the raise-policy updates were not graph replays: {stats}")
+    if [(e.data["path"], e.data["nan_count"], e.data["policy"]) for e in events] != [("compiled", 1, "raise")]:
+        raise AssertionError(f"phase 15: quarantine events {[e.data for e in events]}")
+    return f"quarantine event {events[0].data} after {stats['cache_hits']} replays"
+
+
+def run_observability_phase(torch, mt, smi: str, mc, logits, target) -> dict:
+    """Phase 15: the main path's collection (its programs captured by the
+    main path) streams ImageNet-1k val three ways: the bus off; the bus on
+    with unfenced tracing, which must capture nothing new, keep the
+    engine's counters, make 0 host syncs a batch and give bitwise the same
+    results, with an event per replay and a ``forward`` span per batch; and
+    fenced tracing, whose mean ``forward`` span must cover the profiled
+    device time of a batch. Then the exporters, the snapshot, one new
+    capture's ``kernel`` events, an encoder stream and a compiled
+    quarantine. Returns the launches of the bus-on passes."""
+    obs = mt.obs
+    t_phase = time.perf_counter()
+    bounds = _batches(IMAGENET_VAL[0])
+    obs.disable()
+    obs.disable_tracing()
+    obs.bus.clear()
+    obs.trace.clear()
+
+    # (1) the bus off
+    off, off_ms, before_off, after_off = _obs_mode(torch, mt, mc, logits, target, bounds)
+    off_syncs = _host_syncs(torch, lambda: _obs_pass(torch, mc, logits, target, bounds))
+
+    # (2) the bus on, unfenced tracing
+    obs.enable()
+    obs.enable_tracing(fence=False)
+    t0 = _reset_stats(torch, mt)
+    on, on_ms, before_on, after_on = _obs_mode(torch, mt, mc, logits, target, bounds)
+    _, on_stats = _read_stats(torch, mt, t0, {"select_topk": OBS_PASSES * len(bounds), "confusion_counts": OBS_PASSES * len(bounds)})
+    events = obs.events()
+    summary = obs.bus.summary()
+    by_kind = summary["by_kind"]
+    spans = obs.span_summary()
+    obs.bus.clear()
+    obs.trace.clear()
+    on_syncs = _host_syncs(torch, lambda: _obs_pass(torch, mc, logits, target, bounds))
+    obs.bus.clear()
+    obs.trace.clear()
+    delta = _engine_delta(before_on, after_on)
+    for key in off:
+        if not torch.equal(on[key], off[key]):
+            raise AssertionError(f"phase 15: {key} with the bus on differs from the bus off (bitwise)")
+    if delta["compiles"] or delta["retraces"] or delta["graphs"] or delta["failed_captures"]:
+        raise AssertionError(f"phase 15: the bus on changed the programs: {delta}")
+    if on_syncs or off_syncs:
+        raise AssertionError(f"phase 15: host syncs a pass: {off_syncs} with the bus off, {on_syncs} on")
+    if len([e for e in events if e.kind == "cache_hit"]) != delta["cache_hits"] or delta["cache_hits"] != delta["calls"]:
+        raise AssertionError(f"phase 15: {by_kind.get('cache_hit', 0)} cache_hit events for {delta}")
+    if by_kind.get("compile", 0) != delta["compiles"] or by_kind.get("kernel", 0) or by_kind.get("retrace", 0):
+        raise AssertionError(f"phase 15: events {by_kind} for {delta}")
+    forward = [e for e in events if e.kind == "forward"]
+    if len(forward) != OBS_PASSES * len(bounds) or any(e.source != "MetricCollection" for e in forward):
+        raise AssertionError(f"phase 15: {len(forward)} forward spans for {OBS_PASSES * len(bounds)} batches")
+    if summary["dropped"] or summary["subscriber_errors"]:
+        raise AssertionError(f"phase 15: the ring dropped events or a subscriber failed: {summary}")
+
+    # (3) fenced tracing against the profiled device time of a batch
+    obs.enable_tracing(fence=True)
+    fenced, fenced_ms, before_f, after_f = _obs_mode(torch, mt, mc, logits, target, bounds)
+    fenced_span_ms = obs.span_summary()["forward"]["MetricCollection"]["mean_s"] * 1e3
+    obs.disable()
+    obs.disable_tracing()
+    for key in off:
+        if not torch.equal(fenced[key], off[key]):
+            raise AssertionError(f"phase 15: {key} under fenced tracing differs from the bus off (bitwise)")
+    if _engine_delta(before_f, after_f)["compiles"]:
+        raise AssertionError("phase 15: fenced tracing captured a program")
+    # the bus off once more, last: the first way ran first after the phases before
+    off_again, off_again_ms, _, _ = _obs_mode(torch, mt, mc, logits, target, bounds)
+    if any(not torch.equal(off_again[key], off[key]) for key in off):
+        raise AssertionError("phase 15: the bus off again differs from the bus off (bitwise)")
+    mc.reset()
+    profiled = _measure_batches(torch, [lambda s=s, e=e: mc(logits[s:e], target[s:e]) for s, e in bounds])
+    if fenced_span_ms < profiled["device_ms"]:
+        raise AssertionError(f"phase 15: the fenced forward span {fenced_span_ms:.3f} ms is below the device time {profiled['device_ms']:.3f} ms")
+
+    # the exporters, the snapshot and the registry's section
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "events.jsonl")
+        written = obs.to_jsonl(path, events)
+        if written != len(events) or obs.validate_jsonl(path) != written:
+            raise AssertionError(f"phase 15: {written} JSONL lines for {len(events)} events")
+    samples = _check_prometheus(obs.prometheus_text(mc))
+    kernels = obs.snapshot()["kernels"]
+    stats = mt.kernel_stats()
+    if kernels["by_op"] != stats or kernels["launches"] != sum(r["launches"] for r in stats.values()):
+        raise AssertionError(f"phase 15: snapshot kernels {kernels} vs kernel_stats() {stats}")
+    _check_snapshot(mt, mc)
+
+    capture_note = _obs_capture_check(torch, mt, mc, logits, target)
+    encoder_note = _obs_encoder_check(torch, mt)
+    quarantine_note = _obs_quarantine_check(torch, mt)
+    obs.disable()
+    obs.bus.clear()
+    obs.trace.clear()
+    torch.cuda.empty_cache()
+    _log(
+        f"phase 15 observability: ImageNet-1k val, {len(bounds)} batches a pass, median of {OBS_PASSES} passes:"
+        f" {off_ms:.3f} ms/batch with the bus off, {on_ms:.3f} with the bus on and unfenced tracing, {fenced_ms:.3f}"
+        f" fenced, {off_again_ms:.3f} with the bus off again; host syncs a pass {off_syncs} off, {on_syncs} on; with the bus on: engine delta {delta}, events"
+        f" {by_kind}, forward span mean {spans['forward']['MetricCollection']['mean_s'] * 1e3:.3f} ms (unfenced);"
+        f" results bitwise equal; fenced forward span mean {fenced_span_ms:.3f} ms against the profiled device"
+        f" {profiled['device_ms']:.3f} ms a batch (busy {profiled['busy_ms']:.3f} ms, wall {profiled['wall_ms']:.3f} ms);"
+        f" launches with the bus on {({op: r['launches'] for op, r in on_stats.items()})}; {smi}"
+    )
+    _log(
+        f"phase 15 exporters: {len(events)} events to JSONL, validated; {samples} Prometheus samples parsed;"
+        f" snapshot kernels agree with kernel_stats(); obs.snapshot(mc) equals mc.obs_snapshot() and every legacy"
+        f" report; {capture_note}; {encoder_note}; {quarantine_note}"
+    )
+    _log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return {op: on_stats[op]["launches"] for op in ("select_topk", "confusion_counts")}
+
+
 # kernel wrappers' device-side names, as the profiler reports them; a
 # wrapper that runs several kernels per call lists them all
 KERNEL_SYMBOLS = {
@@ -4912,15 +5255,18 @@ def main() -> int:
     _log(f"phases 12a-12b: {time.perf_counter() - t_new:.1f} s in all, oracles and data included")
     run_text_phase(torch, mt, smi)
     run_audio_detection_phase(torch, mt, smi)
+    obs_launches = run_observability_phase(torch, mt, smi, mc, logits, target)
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {
         **{
             k: v["launches"] + sync_launches.get(k, 0) + engine_launches.get(k, 0) + wrapper_launches.get(k, 0)
+            + obs_launches.get(k, 0)
             for k, v in main_stats.items()
         },
         "confusion_counts": main_stats["confusion_counts"]["launches"] + sync_launches.get("confusion_counts", 0)
-        + engine_launches.get("confusion_counts", 0) + extension_launches + wrapper_launches["confusion_counts"],
+        + engine_launches.get("confusion_counts", 0) + extension_launches + wrapper_launches["confusion_counts"]
+        + obs_launches["confusion_counts"],
         "confusion_counts@segmentation": seg_launches,
         "multilabel_counts": ml_stats["multilabel_counts"]["launches"],
         "binned_counts": coco_stats["binned_counts"]["launches"] + ctr_stats["binned_counts"]["launches"],

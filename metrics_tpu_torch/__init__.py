@@ -37,7 +37,9 @@ kernels of these paths (``confusion_counts``, ``multilabel_counts``,
 first use. Updates run through the engine (``metrics_tpu_torch.engine``):
 shared update programs, replayed as CUDA graphs on the card, with pow2
 bucketing, fused collection programs, non-finite screening
-(``on_bad_input``), ``engine.drive`` and ``compute_async``.
+(``on_bad_input``), ``engine.drive`` and ``compute_async``. ``obs`` is the
+observability layer: the event bus, lifecycle spans, the retrace
+explainer, ``obs.snapshot()`` and the JSONL and Prometheus exporters.
 """
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.audio import (
@@ -75,6 +77,7 @@ from metrics_tpu_torch.classification import (
     StatScores,
 )
 from metrics_tpu_torch import engine  # noqa: F401
+from metrics_tpu_torch import obs  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.deprecated import (
     F1,

@@ -9,6 +9,10 @@ eager passes. Members that cannot (list states, eager policies, a failed
 program, a synced or pending-sync state) keep their own dispatch. Each
 member syncs in its own ``compute()``; with a ``torch.distributed`` world
 present ``compute`` is never fused.
+
+``forward``, ``update`` and ``compute`` each run in one span (source
+``MetricCollection``) while tracing or the event bus is on; a fenced
+``forward`` or ``update`` span waits for the members' states.
 """
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple, Union
 
@@ -19,6 +23,8 @@ from metrics_tpu_torch.engine import _tree
 from metrics_tpu_torch.engine import bucketing as _bucketing
 from metrics_tpu_torch.engine import cache as _engine
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.obs import bus as _obs_bus
+from metrics_tpu_torch.obs import trace as _obs_trace
 from metrics_tpu_torch.obs.warn import instance_token, warn_once
 from metrics_tpu_torch.parallel import comm
 from metrics_tpu_torch.resilience import health as _health
@@ -85,6 +91,16 @@ class MetricCollection(nn.ModuleDict):
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Every member's ``forward``: accumulate and return the batch values,
         the fusable members' in one program."""
+        if not _obs_trace.active():
+            return self._forward_impl(*args, **kwargs)
+        with _obs_trace.span("forward", "MetricCollection", payload=self._member_states):
+            return self._forward_impl(*args, **kwargs)
+
+    def _member_states(self) -> list:
+        """Every member's states: what a fenced span waits for."""
+        return [m._snapshot_state() for m in self._modules.values()]
+
+    def _forward_impl(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         was_failed = self._fused_fwd_failed
         fused_vals = self._fused_forward(args, kwargs)
         try:
@@ -99,6 +115,13 @@ class MetricCollection(nn.ModuleDict):
             raise
 
     def update(self, *args: Any, **kwargs: Any) -> None:
+        if not _obs_trace.active():
+            self._update_members(*args, **kwargs)
+            return
+        with _obs_trace.span("update", "MetricCollection", payload=self._member_states):
+            self._update_members(*args, **kwargs)
+
+    def _update_members(self, *args: Any, **kwargs: Any) -> None:
         was_failed = self._fused_failed
         done = self._fused_update(args, kwargs)
         try:
@@ -111,6 +134,12 @@ class MetricCollection(nn.ModuleDict):
 
     def compute(self) -> Dict[str, Any]:
         """Every member's ``compute``, the fusable members' in one program."""
+        if not _obs_trace.active():
+            return self._compute_members()
+        with _obs_trace.span("compute", "MetricCollection"):
+            return self._compute_members()
+
+    def _compute_members(self) -> Dict[str, Any]:
         fused_vals = self._fused_compute()
         return {
             self._set_name(k): fused_vals[k] if k in fused_vals else m.compute() for k, m in self.items(keep_base=True)
@@ -216,10 +245,21 @@ class MetricCollection(nn.ModuleDict):
                 new_states = entry.invoke("exact", members, self._compile_stats, states, args, member_kwargs, probe=probe)
             else:
                 leaves, treedef, batched, pad = spec
+                batch = int(leaves[batched[0]].shape[0])
+                if _obs_bus.enabled():
+                    _bucketing.emit_bucket_event("fused_update", batch, pad)
                 p_args, p_kwargs = _tree.unflatten(treedef, _bucketing.pad_leaves(leaves, batched, pad))
                 pad_count = _engine.pad_count_tensor(pad, leaves[batched[0]].device)
                 new_states = entry.invoke(
-                    "bucketed", members, self._compile_stats, states, p_args, p_kwargs, pad_count, probe=probe
+                    "bucketed",
+                    members,
+                    self._compile_stats,
+                    states,
+                    p_args,
+                    p_kwargs,
+                    pad_count,
+                    probe=probe,
+                    bucket=batch + pad,
                 )
         except _engine.FALLBACK_ERRORS:
             self._fused_failed = True
@@ -350,19 +390,73 @@ class MetricCollection(nn.ModuleDict):
         out["members"] = {k: m.compile_stats() for k, m in self._modules.items()}
         return out
 
+    @staticmethod
+    def _sync_aggregate(members: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+        """Cross-member sync aggregates of member reports already in hand:
+        numeric counters summed (``max_dequant_error`` a max), codec counts
+        summed, missing ranks unioned."""
+        out: Dict[str, Any] = {}
+        missing: set = set()
+        codec_counts: Dict[str, int] = {}
+        for report in members.values():
+            for key, value in report.items():
+                if key == "max_dequant_error":
+                    out[key] = max(out.get(key, 0.0), value)
+                elif isinstance(value, (int, float)) and not isinstance(value, bool):
+                    out[key] = out.get(key, 0) + value
+            for codec, count in report.get("codec_counts", {}).items():
+                codec_counts[codec] = codec_counts.get(codec, 0) + count
+            missing.update(report["missing_ranks"])
+        if codec_counts:
+            out["codec_counts"] = codec_counts
+        out["missing_ranks"] = sorted(missing)
+        return out
+
+    def sync_report(self) -> Dict[str, Any]:
+        """Sync counters summed over the members (each syncs in its own
+        ``compute()``), the union of their missing ranks, and each member's
+        report under ``members``."""
+        members = {k: m.sync_report() for k, m in self._modules.items()}
+        out = self._sync_aggregate(members)
+        out["members"] = members
+        return out
+
+    @staticmethod
+    def _health_aggregate(members: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+        """Numeric health counters summed over member reports already in
+        hand, and whether any member's last compute was not finite."""
+        out: Dict[str, Any] = {}
+        for report in members.values():
+            for key, value in report.items():
+                if isinstance(value, (int, float)) and not isinstance(value, bool):
+                    out[key] = out.get(key, 0) + value
+        out["any_compute_nonfinite"] = any(r["last_compute_nonfinite"] for r in members.values())
+        return out
+
     def health_report(self) -> Dict[str, Any]:
         """Numeric health counters summed over the members, whether any
         member's last compute was not finite, and each member's report under
         ``members``."""
         members = {k: m.health_report() for k, m in self._modules.items()}
-        out: Dict[str, Any] = {}
-        for report in members.values():
-            for key, value in report.items():
-                if isinstance(value, int) and not isinstance(value, bool):
-                    out[key] = out.get(key, 0) + value
-        out["any_compute_nonfinite"] = any(r["last_compute_nonfinite"] for r in members.values())
+        out = self._health_aggregate(members)
         out["members"] = members
         return out
+
+    def obs_snapshot(self) -> Dict[str, Any]:
+        """Every telemetry surface of the collection in one dict:
+        ``members`` maps each key to the member's :meth:`Metric.obs_snapshot`;
+        ``fused_compile`` is the collection's own fused dispatches (the
+        non-``members`` half of :meth:`compile_stats`); ``sync`` and
+        ``health`` are the cross-member aggregates, built from the member
+        sections, so each member report runs once."""
+        members = {k: m.obs_snapshot() for k, m in self._modules.items()}
+        return {
+            "class": "MetricCollection",
+            "fused_compile": dict(self._compile_stats),
+            "sync": self._sync_aggregate({k: s["sync"] for k, s in members.items()}),
+            "health": self._health_aggregate({k: s["health"] for k, s in members.items()}),
+            "members": members,
+        }
 
     def persistent(self, mode: bool = True) -> None:
         for _, m in self.items(keep_base=True):

@@ -32,6 +32,7 @@ import torch
 
 from metrics_tpu_torch.encoders import runtime as _runtime
 from metrics_tpu_torch.engine import bucketing as _bucketing
+from metrics_tpu_torch.obs import bus as _bus
 from metrics_tpu_torch.resilience import health as _health
 
 __all__ = ["StreamResult", "encode_stream"]
@@ -115,6 +116,15 @@ def _screen_batch(
         _bump_health(screen, nan_i, inf_i)
         return inputs, None, 0
     n_bad = int(bad.sum())
+    if _bus.enabled():
+        _bus.emit(
+            "quarantine",
+            source=type(screen).__name__ if screen is not None else "encode_stream",
+            policy=policy,
+            nan_count=nan_i,
+            inf_count=inf_i,
+            path="pre_encode",
+        )
     if policy == "raise":
         _bump_health(screen, nan_i, inf_i, quarantined=1)
         raise _health.NumericalHealthError(
@@ -221,12 +231,12 @@ def encode_stream(
             screens raw inputs upstream of the encoder (None: no screening).
         bucket_rows: pad the batch axis to pow2 buckets (default) so ragged
             final chunks reuse the full chunk's program.
-        source: a label for the chunk's telemetry (the bus events of the
-            JAX driver); kept for the API.
+        source: the ``source`` of the chunks' ``encode`` events (default:
+            the screening metric's class, else the encoder's name).
 
     Returns ``(final_carry, StreamResult)``.
     """
-    del source
+    label = source or (type(screen).__name__ if screen is not None else encoder.name)
     policy = getattr(screen, "on_bad_input", "propagate") if screen is not None else "propagate"
     nan_only = getattr(screen, "health_screen", "nonfinite") == "nan"
     result = StreamResult()
@@ -245,4 +255,6 @@ def encode_stream(
             # bucketed = the batch axis was padded (bucket vs the raw row
             # count: a health-masked row is screening, not bucketing)
             _runtime.count("bucketed_dispatches")
+        if _bus.enabled():
+            _bus.emit("encode", source=label, encoder=encoder.name, rows=n_real, bucket=bucket, fused=True)
     return carry, result

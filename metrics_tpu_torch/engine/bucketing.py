@@ -37,9 +37,18 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from metrics_tpu_torch.engine import _tree
+from metrics_tpu_torch.obs import bus as _bus
 
 #: spec = (leaves, treedef, batched_leaf_indices, pad_count)
 BucketSpec = Tuple[List[Any], Any, Tuple[int, ...], int]
+
+
+def emit_bucket_event(source: str, batch: int, pad: int) -> None:
+    """One ``bucketed`` event (no-op while the bus is off): which batch
+    went to which pow2 bucket, at the cost of how many pad rows. ``batch``
+    and ``pad`` are Python ints taken from shapes."""
+    if _bus.enabled():
+        _bus.emit("bucketed", source=source, batch=batch, pad=pad, bucket=batch + pad)
 
 
 def next_pow2(n: int) -> int:

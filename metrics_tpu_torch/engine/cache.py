@@ -59,6 +59,10 @@ replay does not run: the capture records the registry launches it saw
 first runs of a program key on the CPU), cache hits, retraces (programs
 beyond a variant's first) and bucketed calls; the same deltas go to the
 calling instance's ``compile_stats()``. :func:`cache_summary` aggregates.
+While the event bus records, the host-side counting after each dispatch
+(never the captured transition) emits ``compile``, ``cache_hit`` or
+``retrace``; a retrace carries the explainer's verdict
+(``obs/explain.py``), from signatures built only while the bus is on.
 
 **Bootstrap entries.** ``BootStrapper``'s multinomial fast path advances
 its ``B`` replicates in one program (:func:`bootstrap_transition`): the
@@ -88,6 +92,8 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.engine import _tree, bucketing
+from metrics_tpu_torch.obs import bus as _bus
+from metrics_tpu_torch.obs import explain as _explain
 from metrics_tpu_torch.ops import registry as _kernels
 from metrics_tpu_torch.resilience import health as _health
 from metrics_tpu_torch.utils.exceptions import JitIncompatibleError
@@ -102,7 +108,9 @@ _LOCK = threading.RLock()
 _POOLS: Dict[int, Any] = {}
 _SIDE_STREAMS: Dict[int, Any] = {}
 
-_STAT_KEYS = ("compiles", "cache_hits", "retraces", "bucketed_calls")
+#: The JAX package's per-instance keys; ``donated_bytes`` stays 0 (nothing
+#: a program is given is consumed).
+_STAT_KEYS = ("compiles", "cache_hits", "retraces", "donated_bytes", "bucketed_calls")
 
 #: Errors after which a metric runs its eager update instead of a program:
 #: the JAX engine's trace errors, as this package raises them.
@@ -336,6 +344,8 @@ class SharedEntry:
         self._fns: Dict[str, Callable] = {}
         self._pins = pins
         self._lock = threading.RLock()
+        # the last dispatch signature per variant, for the retrace explainer
+        self._obs_sigs: Dict[str, Dict[str, Any]] = {}
 
     @property
     def retraces(self) -> int:
@@ -345,13 +355,22 @@ class SharedEntry:
     def graphs(self) -> List[_Graph]:
         return [p for p in self._programs.values() if isinstance(p, _Graph)]
 
-    def invoke(self, variant: str, cell: Any, stats: Optional[Dict[str, int]], *inputs: Any, probe: bool = False) -> Any:
+    def invoke(
+        self,
+        variant: str,
+        cell: Any,
+        stats: Optional[Dict[str, int]],
+        *inputs: Any,
+        probe: bool = False,
+        bucket: Optional[int] = None,
+    ) -> Any:
         """Run one variant on ``inputs``: a replay of its graph on the card
         (captured at the key's first call, after an eager warm-up on a side
         stream), the eager transition on the CPU. ``probe`` makes an
         instance's first dispatch run the Python body even where a graph
-        exists. Raises :class:`JitIncompatibleError` where the program
-        cannot be captured."""
+        exists; ``bucket`` (the padded batch of a bucketed dispatch) goes
+        into the explainer's signature. Raises :class:`JitIncompatibleError`
+        where the program cannot be captured."""
         fn = self._fns[variant]
         leaves, spec = _tree.flatten(inputs)
         key = _program_key(variant, leaves, spec)
@@ -385,6 +404,8 @@ class SharedEntry:
         else:
             out = program.replay(leaves)
         self._count(variant, new, stats)
+        if _bus.enabled():
+            self._emit_dispatch(variant, new, cell, leaves, bucket)
         return out
 
     @staticmethod
@@ -414,6 +435,39 @@ class SharedEntry:
                 stats["retraces"] += before > 0
             else:
                 stats["cache_hits"] += 1
+
+    def _obs_context(self, cell: Any) -> Tuple[str, Tuple]:
+        """The events' ``source`` and the signature's ``screening``, by
+        entry kind: one metric instance as the cell (its class; its health
+        policy, screen and bucketing), an encoder (its name; screening
+        happens upstream of it), or a member list (the kind; each member's
+        class and policy)."""
+        if self.kind in ("metric_update", "bootstrap_update"):
+            return type(cell).__name__, (
+                getattr(cell, "on_bad_input", "propagate"),
+                getattr(cell, "health_screen", "nonfinite"),
+                getattr(cell, "jit_bucket", None),
+            )
+        if self.kind == "encode":
+            return getattr(cell, "name", None) or type(cell).__name__, ()
+        return self.kind, tuple((type(m).__name__, getattr(m, "on_bad_input", "propagate")) for m in _cells(cell))
+
+    def _emit_dispatch(self, variant: str, new: bool, cell: Any, leaves: List[Any], bucket: Optional[int]) -> None:
+        """``cache_hit``, ``compile`` or ``retrace`` for one dispatch (the
+        bus known on). Shapes, dtypes and Python values only: nothing reads
+        a tensor."""
+        source, screening = self._obs_context(cell)
+        if not new:
+            _bus.emit("cache_hit", source=source, entry_kind=self.kind, variant=variant)
+            return
+        sig = _explain.signature(leaves, bucket=bucket, screening=screening)
+        with self._lock:
+            is_retrace = self._variant_traces.get(variant, 0) > 1
+            explanation = _explain.record_and_explain(self._obs_sigs, variant, sig, is_retrace)
+        if is_retrace:
+            _bus.emit("retrace", source=source, entry_kind=self.kind, variant=variant, traces=1, explain=explanation)
+        else:
+            _bus.emit("compile", source=source, entry_kind=self.kind, variant=variant, traces=1)
 
     def summary(self) -> Dict[str, Any]:
         graphs = self.graphs
@@ -487,10 +541,21 @@ def update_transition(
         out = entry.invoke("exact", metric, stats, state, args, kwargs, probe=probe)
     else:
         leaves, treedef, batched, pad = spec
+        batch = int(leaves[batched[0]].shape[0])
+        if _bus.enabled():
+            bucketing.emit_bucket_event(type(metric).__name__, batch, pad)
         padded_args, padded_kwargs = _tree.unflatten(treedef, bucketing.pad_leaves(leaves, batched, pad))
         device = leaves[batched[0]].device
         out = entry.invoke(
-            "bucketed", metric, stats, state, padded_args, padded_kwargs, pad_count_tensor(pad, device), probe=probe
+            "bucketed",
+            metric,
+            stats,
+            state,
+            padded_args,
+            padded_kwargs,
+            pad_count_tensor(pad, device),
+            probe=probe,
+            bucket=batch + pad,
         )
     mark_probed(metric)
     return out

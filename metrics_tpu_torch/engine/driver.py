@@ -23,6 +23,9 @@
   device buffer and starts ONE device-to-host copy into pinned memory behind
   a CUDA event; :meth:`AsyncResult.result` waits for that event only.
 
+While tracing or the event bus is on, :func:`drive` runs in one ``drive``
+span, and a resolved :class:`AsyncResult` emits one ``fetch`` event.
+
 Members a chunk cannot carry keep their per-step contracts inside the same
 :func:`drive` call: list states, eager fallbacks, ``on_bad_input="raise"``
 (its per-update host check is the point) and the eager health policies.
@@ -40,6 +43,8 @@ import torch
 from metrics_tpu_torch.engine import _tree
 from metrics_tpu_torch.engine import bucketing as _bucketing
 from metrics_tpu_torch.engine import cache as _cache
+from metrics_tpu_torch.obs import bus as _bus
+from metrics_tpu_torch.obs import trace as _trace
 from metrics_tpu_torch.resilience import health as _health
 from metrics_tpu_torch.utils.data import _squeeze_if_scalar
 
@@ -134,6 +139,9 @@ class AsyncResult:
                 with _FETCH_LOCK:
                     _FETCH_STATS["async_fetches"] += 1
                     _FETCH_STATS["coalesced_leaves"] += self._n_leaves
+                # no lock held here: a subscriber may call fetch_stats()
+                if _bus.enabled():
+                    _bus.emit("fetch", source=self._source, leaves=self._n_leaves, coalesced=True)
         return self._host
 
     def _unpack(self, slot: Tuple) -> torch.Tensor:
@@ -379,7 +387,11 @@ def drive(
         raise ValueError(f"steps_per_chunk must be >= 1, got {steps_per_chunk}")
     del snapshot_key
     with torch.no_grad():
-        return _drive_local(obj, batches, compute_in_trace, steps_per_chunk)
+        if not _trace.active():
+            return _drive_local(obj, batches, compute_in_trace, steps_per_chunk)
+        _, members = _members_of(obj)
+        with _trace.span("drive", type(obj).__name__, payload=lambda: [m._snapshot_state() for m in members]):
+            return _drive_local(obj, batches, compute_in_trace, steps_per_chunk)
 
 
 def _bind_states(fused: List[Tuple[str, Any]], states: Dict[str, Any], n_steps: int) -> None:

@@ -1,6 +1,5 @@
 """``Metric`` base class: state registry, lifecycle, cross-process sync and
-the update engine (counterpart of ``metrics_tpu/metric.py``; its tracing
-spans are not part of this package yet).
+the update engine (counterpart of ``metrics_tpu/metric.py``).
 
 * A ``Metric`` is an ``nn.Module``. Tensor states are buffers on the
   metric's device; ``cat`` buffers are Python lists of tensors.
@@ -28,6 +27,10 @@ spans are not part of this package yet).
   ``dist_sync_on_step=True`` and metrics whose program failed run the
   eager update, value checks included.
 * ``on_bad_input`` screens NaN and ±Inf inputs (``resilience/health.py``).
+* Observability (``obs/``): ``forward``, ``update``, ``compute`` and
+  ``sync`` each run in a span while tracing or the event bus is on (one
+  bool read each when both are off); :meth:`sync_report` counts the syncs,
+  and :meth:`obs_snapshot` gathers the three reports.
 """
 import copy
 import enum
@@ -43,9 +46,12 @@ import torch.distributed as dist
 from torch import nn
 
 from metrics_tpu_torch.engine import cache as _engine
+from metrics_tpu_torch.obs import bus as _obs_bus
+from metrics_tpu_torch.obs import trace as _obs_trace
 from metrics_tpu_torch.obs.warn import instance_token, warn_once
 from metrics_tpu_torch.parallel import comm
 from metrics_tpu_torch.resilience import health as _health
+from metrics_tpu_torch.resilience import new_sync_stats
 from metrics_tpu_torch.utils import enums as _enums
 from metrics_tpu_torch.utils.data import _squeeze_if_scalar, dim_zero_cat
 from metrics_tpu_torch.utils.exceptions import MetricsUserError, NumericalHealthError, SyncError
@@ -197,6 +203,7 @@ class Metric(nn.Module):
         if on_sync_error not in SYNC_ERROR_POLICIES:
             raise ValueError(f"`on_sync_error` must be one of {SYNC_ERROR_POLICIES}, got {on_sync_error!r}")
         self.on_sync_error = on_sync_error
+        self._sync_stats = new_sync_stats()
         if on_bad_input not in _health.HEALTH_POLICIES:
             raise ValueError(f"`on_bad_input` must be one of {_health.HEALTH_POLICIES}, got {on_bad_input!r}")
         self.on_bad_input = on_bad_input
@@ -461,6 +468,13 @@ class Metric(nn.Module):
     # ------------------------------------------------------------------
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Accumulate the batch into the state and (optionally) return the batch value."""
+        if not _obs_trace.active():
+            return self._forward_impl(*args, **kwargs)
+        # a fenced span waits for the batch value, so it covers the device work
+        with _obs_trace.span("forward", type(self).__name__, payload=lambda: self._forward_cache):
+            return self._forward_impl(*args, **kwargs)
+
+    def _forward_impl(self, *args: Any, **kwargs: Any) -> Any:
         if self._is_synced:
             raise MetricsUserError(
                 "The Metric shouldn't be synced when performing ``forward``. HINT: Did you forget to call ``unsync``?"
@@ -535,7 +549,11 @@ class Metric(nn.Module):
             self._computed = None
             self._update_count += 1
             with torch.no_grad():
-                self._update_impl(*args, **kwargs)
+                if not _obs_trace.active():
+                    self._update_impl(*args, **kwargs)
+                    return
+                with _obs_trace.span("update", type(self).__name__, payload=self._snapshot_state):
+                    self._update_impl(*args, **kwargs)
 
         self._inner_update = update
         return wrapped_func
@@ -615,11 +633,44 @@ class Metric(nn.Module):
             out["children"] = {k: c.health_report() for k, c in children.items()}
         return out
 
+    def sync_report(self) -> Dict[str, Any]:
+        """Host-level sync telemetry, the JAX package's keys: ``syncs``,
+        ``attempts``, ``bytes_sent``/``bytes_received``, ``degraded_local``
+        and ``last_sync_outcome`` (``"complete"``, ``"local"``,
+        ``"failed"``, None before the first sync) as the port's sync counts
+        them; the retry, timeout, integrity, partial and codec counters stay
+        0 until ROADMAP §1 item 9 (``resilience.new_sync_stats``). The
+        counters live with the instance: ``pickle``, ``clone`` and
+        ``deepcopy`` keep them. A wrapper's inner metrics report under
+        ``children``."""
+        out: Dict[str, Any] = dict(self._sync_stats)
+        out["missing_ranks"] = list(self._sync_stats["missing_ranks"])
+        out["codec_counts"] = dict(self._sync_stats["codec_counts"])
+        out["on_sync_error"] = self.on_sync_error
+        out["process_group"] = getattr(self.process_group, "name", None)
+        children = self._children()
+        if children:
+            out["children"] = {k: c.sync_report() for k, c in children.items()}
+        return out
+
     def _children(self) -> Dict[str, "Metric"]:
-        """Inner metrics whose reports this metric's :meth:`compile_stats`
-        and :meth:`health_report` nest under ``"children"``: the wrappers
-        override it. Empty for a plain metric."""
+        """Inner metrics whose reports this metric's :meth:`compile_stats`,
+        :meth:`sync_report` and :meth:`health_report` nest under
+        ``"children"``: the wrappers override it. Empty for a plain metric."""
         return {}
+
+    def obs_snapshot(self) -> Dict[str, Any]:
+        """Every telemetry surface of this instance in one dict (the metric
+        face of :func:`metrics_tpu_torch.obs.snapshot`): ``class``, and the
+        ``compile``, ``sync`` and ``health`` sections, each the dict
+        :meth:`compile_stats`, :meth:`sync_report` and :meth:`health_report`
+        return. Wrapper children ride inside each section, once."""
+        return {
+            "class": type(self).__name__,
+            "compile": self.compile_stats(),
+            "sync": self.sync_report(),
+            "health": self.health_report(),
+        }
 
     def compute_async(self) -> Any:
         """:meth:`compute` with the device-to-host copy started at once and
@@ -630,8 +681,7 @@ class Metric(nn.Module):
         return async_compute(self)
 
     def _wrap_compute(self, compute: Callable) -> Callable:
-        @functools.wraps(compute)
-        def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+        def compute_body(*args: Any, **kwargs: Any) -> Any:
             if self._update_count == 0:
                 warn_once(
                     f"The ``compute`` method of metric {self.__class__.__name__}"
@@ -653,6 +703,13 @@ class Metric(nn.Module):
             if _health.health_enabled(self):
                 _health.check_compute_result(self, self._computed)
             return self._computed
+
+        @functools.wraps(compute)
+        def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            if not _obs_trace.active():
+                return compute_body(*args, **kwargs)
+            with _obs_trace.span("compute", type(self).__name__, payload=lambda: self._computed):
+                return compute_body(*args, **kwargs)
 
         self._compute_impl = compute
         return wrapped_func
@@ -690,37 +747,56 @@ class Metric(nn.Module):
         self, leaves: Dict[str, torch.Tensor], group: Optional[Any], dist_sync_fn: Optional[Callable]
     ) -> Optional[Dict[str, List[torch.Tensor]]]:
         """Every rank's tensor for each leaf, or None when the gather failed
-        and ``on_sync_error="local"`` says to keep the rank-local state."""
+        and ``on_sync_error="local"`` says to keep the rank-local state.
+        Counts into :meth:`sync_report`; a failure emits ``sync_degrade``
+        (``outcome`` ``failed`` or ``local``) while the bus records."""
+        stats = self._sync_stats
+        stats["syncs"] += 1
+        stats["last_sync_outcome"] = "failed"  # until the gather returns
         try:
             if dist_sync_fn is not None:
-                return {name: list(dist_sync_fn(leaf, group=group)) for name, leaf in leaves.items()}
-            return {
-                name: comm.gather_all_arrays(
-                    leaf,
-                    group,
-                    # fixed by registration, so the same on every rank; a
-                    # leaf that is not a registered state (a subclass's
-                    # packing) has a shape of its own on each rank
-                    fixed_shape=name in self._defaults
-                    and not isinstance(self._defaults[name], list)
-                    and self._reductions[name] in comm.SIMPLE_REDUCTIONS
-                    and name not in self._shape_polymorphic_states,
-                )
-                for name, leaf in leaves.items()
-            }
+                gathered = {name: list(dist_sync_fn(leaf, group=group)) for name, leaf in leaves.items()}
+            else:
+                gathered = {
+                    name: comm.gather_all_arrays(
+                        leaf,
+                        group,
+                        # fixed by registration, so the same on every rank; a
+                        # leaf that is not a registered state (a subclass's
+                        # packing) has a shape of its own on each rank
+                        fixed_shape=name in self._defaults
+                        and not isinstance(self._defaults[name], list)
+                        and self._reductions[name] in comm.SIMPLE_REDUCTIONS
+                        and name not in self._shape_polymorphic_states,
+                        report=stats,
+                    )
+                    for name, leaf in leaves.items()
+                }
         except (ValueError, TypeError, MetricsUserError):
             raise  # programming errors, not sync failures
         except Exception as err:  # noqa: BLE001 - a collective or a custom gather failed; reclassified
             if self.on_sync_error == "raise":
+                if _obs_bus.enabled():
+                    _obs_bus.emit(
+                        "sync_degrade", source=type(self).__name__, policy="raise", outcome="failed", error=str(err)
+                    )
                 if isinstance(err, SyncError):
                     raise
                 raise SyncError(f"Gathering the states failed: {err}") from err
+            stats["degraded_local"] += 1
+            stats["last_sync_outcome"] = "local"
+            if _obs_bus.enabled():
+                _obs_bus.emit(
+                    "sync_degrade", source=type(self).__name__, policy=self.on_sync_error, outcome="local", error=str(err)
+                )
             rank_zero_warn(
                 f"Distributed sync of {self.__class__.__name__} failed; keeping the rank-local state"
                 f" (on_sync_error={self.on_sync_error!r}). Original error: {err}",
                 UserWarning,
             )
             return None
+        stats["last_sync_outcome"] = "complete"
+        return gathered
 
     def _reduce_gathered(self, gathered: Dict[str, List[torch.Tensor]]) -> Dict[str, Any]:
         """Each state's reduction over the ranks' tensors. A list state drops
@@ -760,7 +836,11 @@ class Metric(nn.Module):
         if not should_sync or not is_distributed:
             return
         self._cache = self._snapshot_state()
-        self._sync_dist(dist_sync_fn, process_group=process_group)
+        if not _obs_trace.active():
+            self._sync_dist(dist_sync_fn, process_group=process_group)
+        else:
+            with _obs_trace.span("sync", type(self).__name__, payload=self._snapshot_state):
+                self._sync_dist(dist_sync_fn, process_group=process_group)
         self._is_synced = True
 
     def unsync(self, should_unsync: bool = True) -> None:
@@ -968,13 +1048,14 @@ class Metric(nn.Module):
         ):
             self.__dict__.setdefault(name, value)
         self.__dict__.setdefault("_health_stats", _health.new_health_stats())
+        self.__dict__.setdefault("_sync_stats", new_sync_stats())
         self._update_signature = inspect.signature(self.update)
         self.update = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute = self._wrap_compute(self.compute)  # type: ignore[method-assign]
         self._warn_token = instance_token()
         # the program cache is this process's: the copy finds its entry anew
-        # and counts its own dispatches; the health counters describe the
-        # metric and travel with it
+        # and counts its own dispatches; the sync and health counters
+        # describe the metric and travel with it
         self._compile_stats = _engine.new_stats()
 
     def clone(self) -> "Metric":

@@ -17,6 +17,13 @@ engine wraps each capture in :func:`recording`, which takes the launches
 the capture saw out of the counts, and credits them with :func:`credit` on
 every replay of the graph (``engine/cache.py``). The counts therefore stay
 the launches the card ran.
+
+While the event bus records, every dispatch that Python runs emits one
+``kernel`` event (``op``, ``path`` ``cuda`` or ``plain``, ``reason``): each
+plain call on the CPU, each eager launch on the card and each launch a
+capture records. A graph replay runs no Python and emits none; its launches
+are credited in :func:`kernel_stats`. (The JAX package emits at trace time,
+so there too a compiled program's later runs emit nothing.)
 """
 import threading
 from contextlib import contextmanager
@@ -24,6 +31,7 @@ from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
 
 import torch
 
+from metrics_tpu_torch.obs import bus as _bus
 from metrics_tpu_torch.utils.program import suspend_guard
 
 
@@ -51,6 +59,12 @@ def register(op: KernelOp) -> KernelOp:
     return op
 
 
+def registered_ops() -> Tuple[str, ...]:
+    """The names of the registered ops, sorted."""
+    with _LOCK:
+        return tuple(sorted(_REGISTRY))
+
+
 def get_op(name: str) -> KernelOp:
     try:
         return _REGISTRY[name]
@@ -73,9 +87,13 @@ def dispatch(name: str, *args: Any, **kwargs: Any) -> Any:
         raise ValueError(f"kernel op {name!r} does not take these inputs: {why}")
     device = _device_of(args, kwargs)
     if device.type == "cuda":
+        if _bus.enabled():
+            _bus.emit("kernel", source=name, op=name, path="cuda", reason="cuda_input")
         return op.kernel(*args, **kwargs)
     if device.type == "cpu":
         _count(name, "plain_calls")
+        if _bus.enabled():
+            _bus.emit("kernel", source=name, op=name, path="plain", reason="cpu_input")
         # on the card this op is one kernel that never syncs: its plain
         # version's host-side work does not count against an update program
         with suspend_guard():

@@ -17,11 +17,20 @@ shape records of the uneven path.
 
 A process with no initialised default group is a world of one: the gather
 returns the local tensor. An initialised world of size 1 still gathers.
+
+Telemetry: a gather given a ``report`` (a metric's sync counters,
+``resilience.new_sync_stats``) counts one ``attempts`` and the bytes of
+its all-gathers, this rank's buffer in ``bytes_sent`` and the other
+ranks' in ``bytes_received``; while the event bus records it emits one
+``sync_attempt`` event with the ``world`` size and this process's
+``rank``.
 """
-from typing import Any, Callable, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 import torch.distributed as dist
+
+from metrics_tpu_torch.obs import bus as _bus
 
 #: reductions of states whose shape is fixed by registration: one collective each
 SIMPLE_REDUCTIONS = ("sum", "mean", "max", "min")
@@ -56,11 +65,16 @@ def process_index(group: Optional[Any] = None) -> int:
     return dist.get_rank(group) if distributed_available() else 0
 
 
-def _all_gather_flat(x: torch.Tensor, group: Optional[Any]) -> List[torch.Tensor]:
+def _all_gather_flat(x: torch.Tensor, group: Optional[Any], report: Optional[Dict[str, Any]] = None) -> List[torch.Tensor]:
     """One ``all_gather`` of ``x`` flattened: every rank's buffer, flat."""
     flat = x.reshape(-1).contiguous()
-    out = [torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
+    world = dist.get_world_size(group)
+    out = [torch.empty_like(flat) for _ in range(world)]
     dist.all_gather(out, flat, group=group)
+    if report is not None:
+        nbytes = flat.numel() * flat.element_size()
+        report["bytes_sent"] += nbytes
+        report["bytes_received"] += nbytes * (world - 1)
     return out
 
 
@@ -72,7 +86,9 @@ def _shape_record(x: torch.Tensor) -> torch.Tensor:
     return torch.tensor(record + [0] * (3 + _MAX_DIMS - len(record)), dtype=torch.int64, device=x.device)
 
 
-def gather_all_arrays(x: torch.Tensor, group: Optional[Any] = None, fixed_shape: bool = False) -> List[torch.Tensor]:
+def gather_all_arrays(
+    x: torch.Tensor, group: Optional[Any] = None, fixed_shape: bool = False, report: Optional[Dict[str, Any]] = None
+) -> List[torch.Tensor]:
     """Every rank's ``x``, in rank order, on ``x``'s device.
 
     Args:
@@ -80,15 +96,20 @@ def gather_all_arrays(x: torch.Tensor, group: Optional[Any] = None, fixed_shape:
         group: a ``torch.distributed.ProcessGroup``; the default group when None.
         fixed_shape: every rank's ``x`` has the same shape and dtype by
             registration; skips the shape exchange (one collective, not two).
+        report: sync counters to count the attempt and its bytes into.
     """
     if not distributed_available():
         return [x]
     if group is not None and dist.get_rank(group) < 0:
         raise ValueError("this process is not a member of the `process_group` it was asked to gather over")
+    if report is not None:
+        report["attempts"] += 1
+    if _bus.enabled():
+        _bus.emit("sync_attempt", source="torch.distributed", world=dist.get_world_size(group), rank=dist.get_rank(group))
     if fixed_shape:
-        return [o.reshape(x.shape) for o in _all_gather_flat(x, group)]
+        return [o.reshape(x.shape) for o in _all_gather_flat(x, group, report)]
 
-    records = torch.stack(_all_gather_flat(_shape_record(x), group)).tolist()
+    records = torch.stack(_all_gather_flat(_shape_record(x), group, report)).tolist()
     holders = [r for r in records if r[0]]
     if not holders:  # every rank's leaf is empty
         return [x for _ in records]
@@ -100,11 +121,11 @@ def gather_all_arrays(x: torch.Tensor, group: Optional[Any] = None, fixed_shape:
     max_shape = [max(r[3 + d] for r in holders) for d in range(ndim)]
     shapes = [r[3 : 3 + ndim] if r[0] else [0, *max_shape[1:]] for r in records]
     if all(s == max_shape for s in shapes):
-        return [o.reshape(max_shape) for o in _all_gather_flat(x, group)]
+        return [o.reshape(max_shape) for o in _all_gather_flat(x, group, report)]
     padded = torch.zeros(max_shape, dtype=dtype, device=x.device)
     if x.numel():
         padded[tuple(slice(0, d) for d in x.shape)] = x
-    gathered = _all_gather_flat(padded, group)
+    gathered = _all_gather_flat(padded, group, report)
     return [g.reshape(max_shape)[tuple(slice(0, d) for d in s)] for g, s in zip(gathered, shapes)]
 
 

@@ -30,6 +30,12 @@ vector of six slots, registered when a policy is active. It rides
 ``forward`` merges, checkpoints, clones and the cross-process sync like any
 state. ``health_screen`` says what is bad: ``"nonfinite"`` (NaN and ±Inf)
 or ``"nan"`` (the aggregators' ``nan_strategy``, where ±Inf is data).
+
+While the event bus records, a contaminated update that reaches the host
+emits a ``quarantine`` event: ``path="eager"`` from :func:`eager_update`,
+``path="compiled"`` from :func:`raise_on_quarantine`'s host check. A
+captured ``"skip"`` or ``"mask"`` update emits none: nothing reads its
+counters on the host (the JAX package emits none there either).
 """
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -37,6 +43,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.engine import _tree
+from metrics_tpu_torch.obs import bus as _obs_bus
 from metrics_tpu_torch.utils.exceptions import JitIncompatibleError, NumericalHealthError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -362,6 +369,17 @@ def eager_update(inst: Any, args: Tuple, kwargs: Dict[str, Any]) -> None:
         inst._inner_update(*args, **kwargs)
         _bump()
         return
+    if _obs_bus.enabled():
+        # one event per contaminated update, whatever the policy does with it
+        _obs_bus.emit(
+            "quarantine",
+            source=type(inst).__name__,
+            policy=policy,
+            nan_count=nan_i,
+            inf_count=inf_i,
+            update_index=inst._update_count,
+            path="eager",
+        )
     if policy == "raise":
         _bump(quarantined=1)
         counts = getattr(inst, HEALTH_STATE).cpu()
@@ -434,6 +452,16 @@ def raise_on_quarantine(metric: Any) -> None:
         cleared = cur.clone()
         cleared[SLOT_LAST_BAD] = 0
         setattr(metric, HEALTH_STATE, cleared)
+        if _obs_bus.enabled():
+            _obs_bus.emit(
+                "quarantine",
+                source=type(metric).__name__,
+                policy="raise",
+                nan_count=nan_i,
+                inf_count=inf_i,
+                update_index=metric._update_count,
+                path="compiled",
+            )
         raise NumericalHealthError(_raise_message(metric, metric._update_count, nan_i, inf_i))
 
 

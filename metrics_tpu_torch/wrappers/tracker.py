@@ -135,8 +135,20 @@ class MetricTracker:
     def compile_stats(self) -> Dict[str, Any]:
         return {"steps": {f"step_{i}": m.compile_stats() for i, m in enumerate(self._steps)}}
 
+    def sync_report(self) -> Dict[str, Any]:
+        return {"steps": {f"step_{i}": m.sync_report() for i, m in enumerate(self._steps)}}
+
     def health_report(self) -> Dict[str, Any]:
         return {"steps": {f"step_{i}": m.health_report() for i, m in enumerate(self._steps)}}
+
+    def obs_snapshot(self) -> Dict[str, Any]:
+        """One snapshot per tracked step, newest last, each the full
+        ``obs_snapshot()`` of that step's metric or collection."""
+        return {
+            "class": "MetricTracker",
+            "n_steps": self.n_steps,
+            "steps": {f"step_{i}": m.obs_snapshot() for i, m in enumerate(self._steps)},
+        }
 
     def _check_for_increment(self, method: str) -> None:
         if not self._increment_called:

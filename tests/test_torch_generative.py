@@ -413,7 +413,7 @@ def test_sharded_encoder_from_callable_and_stats():
     enc.encode(x)
     other = ShardedEncoder(_apply, {"w": torch.zeros(12, 8)}, name="mlp2")  # same identity, other weights
     np.testing.assert_array_equal(other(x).numpy(), np.zeros((6, 8), np.float32))
-    assert enc.compile_stats() == {"compiles": 1, "cache_hits": 1, "retraces": 0, "bucketed_calls": 0}
+    assert enc.compile_stats() == {"compiles": 1, "cache_hits": 1, "retraces": 0, "donated_bytes": 0, "bucketed_calls": 0}
     assert other.compile_stats()["cache_hits"] == 1
     wrapped = ShardedEncoder.from_callable(lambda t: t * 2, name="double", device="cpu")
     np.testing.assert_array_equal(wrapped(x).numpy(), (x * 2).numpy())
