@@ -32,7 +32,14 @@
    on a single bin (every confidence 0.999, as from an over-confident
    classifier; timed beside the main shape), at N = 50,000 and 4,194,304
    (the cooperative grid), and every case but the atomics route's (past 64
-   bins) is launched twice and must be bit-identical.
+   bins) is launched twice and must be bit-identical. The class windows of
+   the sharded state plane (phase 16c): ``confusion_counts`` with
+   ``rows=(5225, 5225)`` at C = 10,450 and N = 4,180 (and other windows,
+   the empty one and the shared route's), ``multilabel_counts`` with
+   ``cols=(9979, 9978)`` at [4,162, 19,957] (and a 16-byte-aligned
+   window), each against its plain version and the slice of the
+   whole-matrix kernel, timed beside ``torch.bincount`` of the window's
+   fused index.
 3. The main path: a ``MetricCollection`` of top-1 and top-5 accuracy,
    macro-F1 and the confusion matrix streams ImageNet-1k validation at full
    size (50,000 samples, 1000 classes, batches of 8192) through ``forward``,
@@ -293,6 +300,31 @@
    ``path="compiled"``, before the raise). The sync phase also holds each
    rank's ``sync_report()`` to the syncs and gathers it made, its bytes
    received to the other rank's bytes sent.
+15. Sharded states (phase 16, last). The card is one device, so the mesh
+   paths run two ways. (a) An NCCL group of one in this process, a
+   ``(1, 1)`` ``("dp", "mp")`` ``DeviceMesh``: the main path's collection
+   with ``drive(axis_name="dp")`` over 8 steps of 6,250 ImageNet-1k rows,
+   and a ``ConfusionMatrix(class_sharding="mp")`` + macro
+   ``StatScores(class_sharding="mp")`` collection with ``drive(mesh=,
+   in_specs=P(None, "dp"))`` over ImageNet-21K-P val (10,450 classes,
+   125 steps of 4,180): each bit for bit against its local drive, its
+   chunks captured, 0 host syncs in the timed drive, and whether the NCCL
+   collective ran inside the capture (``mesh_sync``). (b) Four gloo ranks
+   on ``cuda:0`` (this script run with ``--shard-rank``) on a ``(2, 2)``
+   mesh, each given the whole seeded epochs: the ImageNet-21K-P
+   collection, each rank's ``[5225, 10450]`` shard equal to its rows of an
+   ``np.bincount`` oracle, ``compute()`` equal to the oracle, resident bytes
+   half the total; Open Images V6 val image-level labels (19,957 classes,
+   10 steps of 4,162) through a class-split multilabel ``ConfusionMatrix``,
+   each rank's columns against an oracle; FID with ``feature_sharding="mp"``
+   at d = 2048 over 10,000 + 10,000 seeded features (each dp group half of
+   them) within 1e-6 of the unsharded Newton–Schulz value and of its
+   float64 re-statement; the main path's collection with
+   ``axis_name="dp"`` on a ``(4,)`` mesh and ``axis_name=("host",
+   "local"), hierarchical_sync=True`` on ``(2, 2)``, bit for bit against
+   the local drive. Logged: ms per drive and per ``compute()``, the gloo
+   all-reduce of a shard, the launches and programs, each rank's peak
+   memory, the phase's seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
@@ -5084,6 +5116,522 @@ def run_observability_phase(torch, mt, smi: str, mc, logits, target) -> dict:
 
 # kernel wrappers' device-side names, as the profiler reports them; a
 # wrapper that runs several kernels per call lists them all
+# ---------------------------------------------------------------------------
+# phase 16: the sharded state plane (one card: NCCL at world size 1, and four
+# gloo ranks on cuda:0)
+# ---------------------------------------------------------------------------
+SHARD_WORLD = 4
+SHARD_RANK_TIMEOUT_S = 540
+SHARD_SEED = 16
+IMAGENET21K_VAL = (522_500, 10_450, 125)  # ImageNet-21K-P val (Ridnik et al. 2021): images, classes, steps of 4,180
+IMAGENET21K_TOP1 = 0.6  # share of predictions that are the target (the rest uniform)
+OPENIMAGES_VAL = (41_620, 19_957, 10)  # Open Images V6 val, image-level labels: images, classes, steps of 4,162
+OPENIMAGES_POSITIVES = 8.4  # positive labels per image
+OPENIMAGES_CHUNK = 2  # steps per program replay: the static copy of a chunk is 2 x 166 MB per input per rank
+FID_SHARDED = (10_000, 2048)  # CIFAR-10 test size: real and generated features each, width
+SHARD_MAIN = (8, 6_250)  # the main path's ImageNet-1k val collection as 8 steps of 6,250
+SHARD_FID_RTOL = 1e-6
+
+
+def _imagenet21k_labels(torch, gen):
+    """ImageNet-21K-P val's 50 images per class, shuffled; predictions the
+    target or a uniform class. ``[steps, 4180]`` int32 on the card."""
+    n, c, steps = IMAGENET21K_VAL
+    target = torch.arange(c, device="cuda", dtype=torch.int32).repeat(n // c)
+    target = target[torch.randperm(n, generator=gen, device="cuda")]
+    other = torch.randint(0, c, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    keep = torch.rand(n, generator=gen, device="cuda") < IMAGENET21K_TOP1
+    preds = torch.where(keep, target, other)
+    return preds.view(steps, n // steps), target.view(steps, n // steps)
+
+
+def _openimages_labels(torch, gen):
+    """Seeded multilabel epoch of Open Images V6 val size: ``[steps, 4162,
+    19957]`` float32 scores (positives shifted up) and int32 0/1 labels,
+    made step by step on the card."""
+    n, c, steps = OPENIMAGES_VAL
+    rows = n // steps
+    probs = torch.empty((steps, rows, c), device="cuda")
+    labels = torch.empty((steps, rows, c), device="cuda", dtype=torch.int32)
+    for k in range(steps):
+        torch.rand((rows, c), generator=gen, device="cuda", out=probs[k])
+        labels[k] = (probs[k] < OPENIMAGES_POSITIVES / c).to(torch.int32)
+        torch.rand((rows, c), generator=gen, device="cuda", out=probs[k])
+        probs[k].mul_(0.65).add_(0.35 * labels[k])  # stays in [0, 1)
+    return probs, labels
+
+
+def _shard_main_epoch(torch, gen):
+    steps, rows = SHARD_MAIN
+    c = IMAGENET_VAL[1]
+    target = torch.randint(0, c, (steps, rows), generator=gen, device="cuda")
+    logits = torch.randn((steps, rows, c), generator=gen, device="cuda")
+    logits.scatter_add_(2, target[..., None], torch.full((steps, rows, 1), 3.0, device="cuda"))
+    return logits, target
+
+
+def _local_collection(mt):
+    """The main path's collection with the host sync of its compute() off
+    (the reference of a mesh drive, run in one process of a world)."""
+    mc = _imagenet_collection(mt)
+    for m in mc.values():
+        m._distributed_available_fn = lambda: False
+    return mc
+
+
+def _values_equal(name: str, got: dict, want: dict) -> None:
+    for key, w in want.items():
+        if not torch_equal(got[key], w):
+            raise AssertionError(f"{name} {key}: differs from the local drive (bit for bit)")
+
+
+def _member_states(mc) -> dict:
+    return {f"{k}.{n}": v for k, m in mc.items() for n, v in m._snapshot_state().items()}
+
+
+def _states_equal(name: str, got, want: dict) -> None:
+    """Every state of every member bit for bit against the local drive's
+    (``want``: :func:`_member_states` of it)."""
+    _values_equal(f"{name} state", _member_states(got), want)
+
+
+def torch_equal(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and bool((a == b).all())
+
+
+_REFUSALS: list = []  # the errors of refused programs in this process, newest last
+
+
+def _record_refusals() -> None:
+    """Keep each error a program raised before the engine falls back on it,
+    so that a phase that requires captures can say why one was refused."""
+    from metrics_tpu_torch.engine import cache
+
+    invoke = cache.SharedEntry.invoke
+
+    def recorded(self, *args, **kwargs):
+        try:
+            return invoke(self, *args, **kwargs)
+        except cache.FALLBACK_ERRORS as err:
+            _REFUSALS.append(f"{self.kind}: {type(err).__name__}: {str(err)[:500]}")
+            raise
+
+    cache.SharedEntry.invoke = recorded
+
+
+def _require_captured(name: str, obj) -> str:
+    """Every member's chunks ran as captured programs (no fallback)."""
+    captures, hits, eager = _program_counts(obj)
+    if eager or captures < 1:
+        raise AssertionError(f"{name}: not captured as programs: {obj.compile_stats()}; refusals {_REFUSALS[-3:]}")
+    return f"programs: {captures} captured, {hits} cache hits, sync {obj.compile_stats().get('mesh_sync')}"
+
+
+def _confusion_oracle(preds: np.ndarray, target: np.ndarray, c: int) -> np.ndarray:
+    return np.bincount(target.astype(np.int64) * c + preds, minlength=c * c).reshape(c, c)
+
+
+def _shard_rank(rank: int, port: int, out_path: str) -> None:
+    """One rank of phase 16b (this script run with ``--shard-rank``): join
+    the gloo world of four on ``cuda:0``, lay a ``(2, 2)`` ``("dp", "mp")``
+    mesh over it, run every case at full size and save the checks' results."""
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import metrics_tpu_torch as mt
+    from metrics_tpu_torch.engine import clear_cache, drive
+    from metrics_tpu_torch.parallel import comm
+    from metrics_tpu_torch.sharding import PartitionSpec as P
+
+    torch.cuda.set_device(0)
+    _record_refusals()
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=SHARD_WORLD, rank=rank, timeout=timedelta(seconds=300)
+    )
+    rec = {"rank": rank}
+    try:
+        mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("dp", "mp"))
+        dp, mp = mesh.get_local_rank("dp"), mesh.get_local_rank("mp")
+        gen = torch.Generator(device="cuda").manual_seed(SHARD_SEED)
+
+        # ImageNet-21K-P val: class-split confusion matrix and macro stat scores
+        n, c, steps = IMAGENET21K_VAL
+        preds, target = _imagenet21k_labels(torch, gen)
+        coll = mt.MetricCollection(
+            {
+                "cm": mt.ConfusionMatrix(num_classes=c, class_sharding="mp"),
+                "ss": mt.StatScores(reduce="macro", num_classes=c, class_sharding="mp"),
+            }
+        )
+        mt.sharding.reset_shard_stats()
+        t0 = _reset_stats(torch, mt)
+        res = drive(coll, (preds, target), mesh=mesh, in_specs=P(None, "dp"))
+        torch.cuda.synchronize()
+        rec["drive21k_s"] = time.perf_counter() - t0
+        rec["launches21k"] = {op: s["launches"] for op, s in mt.kernel_stats().items()}
+        rec["programs21k"] = _require_captured("ImageNet-21K-P drive", coll)
+        cm, ss = coll["cm"], coll["ss"]
+        layout = cm._shard_layout["confmat"]
+        r0, rows = layout.offsets[0], layout.local_shape[0]
+        oracle = _confusion_oracle(preds.cpu().numpy().ravel(), target.cpu().numpy().ravel(), c)
+        if res.fused_keys != ("cm", "ss") or cm.confmat.shape != (rows, c) or rows != c // 2:
+            raise AssertionError(f"ImageNet-21K-P: fused {res.fused_keys}, shard {tuple(cm.confmat.shape)}")
+        if not np.array_equal(cm.confmat.cpu().numpy(), oracle[r0:r0 + rows]):
+            raise AssertionError(f"ImageNet-21K-P rank {rank}: the shard differs from rows {r0}..{r0 + rows - 1} of the oracle")
+        resident = mt.sharding.shard_stats()["resident"]["ConfusionMatrix.confmat"]
+        if resident["per_device_bytes"] * 2 != resident["total_bytes"]:
+            raise AssertionError(f"ImageNet-21K-P: resident {resident}")
+        rec["resident"] = resident
+        t0 = time.perf_counter()
+        values = coll.compute()
+        torch.cuda.synchronize()
+        rec["compute21k_s"] = time.perf_counter() - t0
+        if not np.array_equal(values["cm"].cpu().numpy(), oracle):
+            raise AssertionError("ImageNet-21K-P: compute() differs from the oracle")
+        tp = np.diag(oracle)
+        fp, fn = oracle.sum(0) - tp, oracle.sum(1) - tp
+        want_ss = np.stack([tp, fp, n - tp - fp - fn, fn, tp + fn], axis=1)
+        if not np.array_equal(values["ss"].cpu().numpy(), want_ss):
+            raise AssertionError("ImageNet-21K-P: macro StatScores compute() differs from the oracle")
+        rec["top1"] = float(tp.sum() / n)
+        # the sync's collective alone: one all-reduce of the shard over dp
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comm.reduce_in_trace(cm.confmat, "sum", "dp", mesh=mesh)
+        torch.cuda.synchronize()
+        rec["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["shard_mb"] = cm.confmat.numel() * 8 / 1e6
+        del coll, cm, ss, values, oracle, preds, target
+        clear_cache()  # the captured graphs hold their buffers
+        torch.cuda.empty_cache()
+
+        # Open Images V6 val: class-split multilabel confusion matrix
+        n, c, steps = OPENIMAGES_VAL
+        probs, labels = _openimages_labels(torch, gen)
+        rec["free_gb_ml"] = torch.cuda.mem_get_info()[0] / 1e9
+        ml = mt.ConfusionMatrix(num_classes=c, multilabel=True, class_sharding="mp")
+        t0 = _reset_stats(torch, mt)
+        drive(ml, (probs, labels), mesh=mesh, in_specs=P(None, "dp"), steps_per_chunk=OPENIMAGES_CHUNK)
+        torch.cuda.synchronize()
+        rec["driveml_s"] = time.perf_counter() - t0
+        rec["launchesml"] = {op: s["launches"] for op, s in mt.kernel_stats().items()}
+        rec["programsml"] = _require_captured("Open Images drive", ml)
+        layout = ml._shard_layout["confmat"]
+        c0, w = layout.offsets[0], layout.local_shape[0]
+        sums = torch.zeros((3, w), dtype=torch.int64, device="cuda")
+        for k in range(steps):
+            p = (probs[k, :, c0:c0 + w] >= 0.5).long()
+            t = labels[k, :, c0:c0 + w].long()
+            sums += torch.stack([(p * t).sum(0), p.sum(0), t.sum(0)])
+        tp_, sp, st_ = sums
+        want = torch.stack([n - sp - st_ + tp_, sp - tp_, st_ - tp_, tp_], dim=-1).view(w, 2, 2)
+        if not torch_equal(ml.confmat, want):
+            raise AssertionError(f"Open Images rank {rank}: the shard differs from columns {c0}..{c0 + w - 1} of the oracle")
+        rec["ml_window"] = (c0, w)
+        full = ml.compute()
+        if full.shape != (c, 2, 2) or not torch_equal(full[c0:c0 + w], want):
+            raise AssertionError("Open Images: compute() differs from the shard")
+        del probs, labels, ml, full
+        clear_cache()
+        torch.cuda.empty_cache()
+
+        # FID with feature-split moments, d = 2048, CIFAR-10 test size
+        rows, d = FID_SHARDED
+        real = torch.randn((rows, d), generator=gen, device="cuda")
+        fake = 1.1 * torch.randn((rows, d), generator=gen, device="cuda") + 0.05
+        sharded = mt.FrechetInceptionDistance(feature=lambda x: x, feature_dim=d, feature_sharding="mp")
+        sharded.shard_states(mesh)
+        sharded.update(real.chunk(2)[dp], real=True)  # one mp group feeds one half
+        sharded.update(fake.chunk(2)[dp], real=False)
+        t0 = time.perf_counter()
+        value = float(sharded.compute())
+        rec["fid_compute_s"] = time.perf_counter() - t0
+        whole = mt.FrechetInceptionDistance(feature=lambda x: x, feature_dim=d, matrix_sqrt="newton_schulz")
+        whole._distributed_available_fn = lambda: False
+        whole.update(real, real=True)
+        whole.update(fake, real=False)
+        ref = float(whole.compute())
+        ref64 = _newton_schulz_reference(torch, whole, whole.sqrt_iters)
+        for label, want_v in (("unsharded Newton–Schulz", ref), ("float64 restatement", ref64)):
+            if abs(value - want_v) > SHARD_FID_RTOL * abs(want_v):
+                raise AssertionError(f"sharded FID {value!r} vs the {label} {want_v!r} (rtol {SHARD_FID_RTOL})")
+        rec["fid"] = (value, ref, ref64, tuple(sharded.real_outer.shape))
+        del real, fake, sharded, whole
+        torch.cuda.empty_cache()
+
+        # the main path's collection, its steps split over the mesh
+        logits, target = _shard_main_epoch(torch, gen)
+        local = _local_collection(mt)
+        drive(local, (logits, target))
+        want, states = local.compute(), _member_states(local)
+        rec["main"] = {}
+        for label, shape, names, axis, hier in (
+            ("axis_name='dp' on (4,)", (4,), ("dp",), "dp", False),
+            ("axis_name=('host', 'local'), hierarchical on (2, 2)", (2, 2), ("host", "local"), ("host", "local"), True),
+        ):
+            m_mesh = init_device_mesh("cuda", shape, mesh_dim_names=names)
+            mc = _imagenet_collection(mt)
+            t0 = _reset_stats(torch, mt)
+            drive(mc, (logits, target), mesh=m_mesh, axis_name=axis, hierarchical_sync=hier)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {op: s["launches"] for op, s in mt.kernel_stats().items()}
+            _values_equal(f"main path {label}", mc.compute(), want)
+            _states_equal(f"main path {label}", mc, states)
+            rec["main"][label] = (seconds, launches, _require_captured(label, mc))
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(rec, out_path)
+
+
+def _run_shard_ranks(out_dir: str):
+    """Start the four ranks of phase 16b, wait for each within its limit and
+    return their records; a rank that fails or outlives its limit raises."""
+    import torch
+
+    port = _free_port()
+    procs = []
+    for rank in range(SHARD_WORLD):
+        log = open(os.path.join(out_dir, f"shard{rank}.log"), "w+")
+        cmd = [sys.executable, os.path.abspath(__file__), "--shard-rank", str(rank), str(port), os.path.join(out_dir, f"shard{rank}.pt")]
+        procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log))
+    failed = []
+    try:
+        deadline = time.monotonic() + SHARD_RANK_TIMEOUT_S
+        for rank, (proc, _) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = f"killed after {SHARD_RANK_TIMEOUT_S} s"
+            if rc != 0:
+                failed.append((rank, rc))
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    logs = []
+    for _, log in procs:
+        log.seek(0)
+        logs.append(log.read())
+        log.close()
+    if failed:
+        tails = "\n".join(f"--- rank {r} ---\n{text[-6000:]}" for r, text in enumerate(logs))
+        raise AssertionError(f"phase 16b: ranks failed {failed}\n{tails}")
+    return [torch.load(os.path.join(out_dir, f"shard{r}.pt"), weights_only=False) for r in range(SHARD_WORLD)]
+
+
+def _world_one_phase(torch, mt, smi: str) -> dict:
+    """Phase 16a: an NCCL group of one in this process, a ``(1, 1)``
+    ``("dp", "mp")`` mesh; the main path's collection with
+    ``axis_name="dp"`` and the class-split ImageNet-21K-P collection, each
+    bit for bit against its local drive, captured, with no host sync."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from metrics_tpu_torch.engine import drive
+    from metrics_tpu_torch.sharding import PartitionSpec as P
+
+    gen = torch.Generator(device="cuda").manual_seed(SHARD_SEED)
+    logits, target = _shard_main_epoch(torch, gen)
+    preds21k, target21k = _imagenet21k_labels(torch, gen)
+    c21k = IMAGENET21K_VAL[1]
+
+    def sharded21k(**kw):
+        return mt.MetricCollection(
+            {
+                "cm": mt.ConfusionMatrix(num_classes=c21k, **kw),
+                "ss": mt.StatScores(reduce="macro", num_classes=c21k, **kw),
+            }
+        )
+
+    local, local21k = _imagenet_collection(mt), sharded21k()
+    drive(local, (logits, target))
+    drive(local21k, (preds21k, target21k))
+    want, want21k = local.compute(), local21k.compute()
+    states, states21k = _member_states(local), _member_states(local21k)
+    launches = {}
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0, device_id=torch.device("cuda:0")
+    )
+    notes = []
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "mp"))
+        for label, obj, epoch, kw, reference, ref_states in (
+            ("main path, axis_name='dp'", _imagenet_collection(mt), (logits, target), {"axis_name": "dp"}, want, states),
+            (
+                "ImageNet-21K-P, in_specs=P(None, 'dp')", sharded21k(class_sharding="mp"), (preds21k, target21k),
+                {"in_specs": P(None, "dp")}, want21k, states21k,
+            ),
+        ):
+            drive(obj, epoch, mesh=mesh, **kw)  # captures
+            obj.reset()
+            t0 = _reset_stats(torch, mt)
+            syncs = _host_syncs(torch, lambda: drive(obj, epoch, mesh=mesh, **kw))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            for op, s in mt.kernel_stats().items():
+                launches[op] = launches.get(op, 0) + s["launches"]
+            _values_equal(f"phase 16a {label}", obj.compute(), reference)
+            _states_equal(f"phase 16a {label}", obj, ref_states)
+            note = _require_captured(f"phase 16a {label}", obj)
+            if syncs:
+                raise AssertionError(f"phase 16a {label}: {syncs} host syncs in the drive")
+            notes.append(f"{label}: {seconds * 1e3:.1f} ms, 0 host syncs, {note}")
+            del obj
+    finally:
+        dist.destroy_process_group()
+    # the four ranks of 16b share the card: free this process's programs and buffers
+    del local, local21k, want, want21k, states, states21k, logits, target, preds21k, target21k
+    mt.engine.clear_cache()
+    torch.cuda.empty_cache()
+    _log(f"phase 16a NCCL world size 1 ((1, 1) mesh): bit for bit against the local drives; " + "; ".join(notes) + f"; {smi}")
+    return launches
+
+
+def run_sharded_phase(torch, mt, smi: str) -> dict:
+    """Phase 16: the sharded state plane. (a) NCCL at world size 1 in this
+    process; (b) four gloo ranks on ``cuda:0`` (this script run with
+    ``--shard-rank``) on a ``(2, 2)`` mesh at full size. Returns the
+    launches per op, the windowed ones under ``op@window``."""
+    t_phase = time.perf_counter()
+    _record_refusals()
+    mt.engine.clear_cache()  # the last phase: the earlier phases' programs and buffers go
+    torch.cuda.empty_cache()
+    launches = _world_one_phase(torch, mt, smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        ranks = _run_shard_ranks(out_dir)
+    for rec in ranks:
+        if rec["launches21k"].get("confusion_counts", 0) <= 0 or rec["launchesml"].get("multilabel_counts", 0) <= 0:
+            raise AssertionError(f"phase 16b rank {rec['rank']}: windowed launches {rec['launches21k']} {rec['launchesml']}")
+    n, c, steps = IMAGENET21K_VAL
+    for rec in ranks:
+        _log(
+            f"phase 16b rank {rec['rank']} ImageNet-21K-P ({n} images, {c} classes, {steps} steps): shard of"
+            f" {rec['shard_mb']:.0f} MB equals its rows of the np.bincount oracle, compute() equals the oracle (top1"
+            f" {rec['top1']:.6f}); drive {rec['drive21k_s'] * 1e3:.0f} ms, compute() {rec['compute21k_s'] * 1e3:.0f} ms,"
+            f" gloo all-reduce of the shard over dp {rec['allreduce_ms']:.1f} ms; resident {rec['resident']};"
+            f" launches {rec['launches21k']}; {rec['programs21k']}"
+        )
+        _log(
+            f"phase 16b rank {rec['rank']} Open Images V6 ({OPENIMAGES_VAL[0]} images, {OPENIMAGES_VAL[1]} classes):"
+            f" columns {rec['ml_window']} equal the oracle; drive {rec['driveml_s'] * 1e3:.0f} ms; launches"
+            f" {rec['launchesml']}; {rec['programsml']}"
+        )
+        value, ref, ref64, shape = rec["fid"]
+        _log(
+            f"phase 16b rank {rec['rank']} FID d={FID_SHARDED[1]} ({FID_SHARDED[0]} + {FID_SHARDED[0]} features,"
+            f" local outer {shape}): {value!r} vs unsharded Newton–Schulz {ref!r} and float64 {ref64!r};"
+            f" compute() {rec['fid_compute_s'] * 1e3:.0f} ms"
+        )
+        for label, (seconds, ops, note) in rec["main"].items():
+            _log(f"phase 16b rank {rec['rank']} main path {label}: {seconds * 1e3:.0f} ms, bit for bit against the local drive; launches {ops}; {note}")
+        _log(f"phase 16b rank {rec['rank']}: peak memory {rec['peak_gb']:.2f} GB; {rec['free_gb_ml']:.1f} GB free on the card before the Open Images drive")
+    for op in ("confusion_counts", "select_topk"):
+        launches[op] = launches.get(op, 0) + sum(rec["main"][label][1].get(op, 0) for rec in ranks for label in rec["main"])
+    launches["confusion_counts@window"] = sum(rec["launches21k"]["confusion_counts"] for rec in ranks)
+    launches["multilabel_counts@window"] = sum(rec["launchesml"]["multilabel_counts"] for rec in ranks)
+    _log(f"phase 16 sharded states: {time.perf_counter() - t_phase:.1f} s in all; {smi}")
+    return launches
+
+
+def check_windowed_kernels(torch, rng):
+    """Phase 16c: the class windows of the confusion-count kernels at the
+    phase's shapes, each against its plain version and the matching slice
+    of the whole-matrix kernel, timed beside its bound, its plain version
+    and ``torch.bincount`` of the window's fused index."""
+    from metrics_tpu_torch.ops import confusion_counts as cc
+
+    dev = torch.device("cuda")
+    n21k, c, steps = IMAGENET21K_VAL
+    n = n21k // steps
+    r0 = rows = c // 2
+    preds = torch.from_numpy(rng.integers(0, c, n).astype(np.int32)).to(dev)
+    target = torch.from_numpy(rng.integers(0, c, n).astype(np.int32)).to(dev)
+    records, calls = {}, {}
+    win = cc._confusion_counts_cuda(preds, target, c, rows=(r0, rows))
+    errs = [
+        _max_abs_err(torch, "confusion_counts@window[plain]", win, cc._confusion_counts_plain(preds, target, c, rows=(r0, rows))),
+        _max_abs_err(torch, "confusion_counts@window[slice]", win, cc._confusion_counts_cuda(preds, target, c)[r0:r0 + rows]),
+    ]
+    for w0, w in ((0, rows), (c - 1, 1), (c // 3, 0)):
+        errs.append(_max_abs_err(
+            torch, f"confusion_counts@window[{w0}, {w}]", cc._confusion_counts_cuda(preds, target, c, rows=(w0, w)),
+            cc._confusion_counts_plain(preds, target, c, rows=(w0, w)),
+        ))
+    small = torch.from_numpy(rng.integers(0, 300, 100_000)).to(dev)
+    errs.append(_max_abs_err(  # the shared route: a 60-row window of 300 classes fits shared memory
+        torch, "confusion_counts@window[shared]", cc._confusion_counts_cuda(small, small.flip(0), 300, rows=(120, 60)),
+        cc._confusion_counts_plain(small, small.flip(0), 300, rows=(120, 60)),
+    ))
+    mine = (target >= r0) & (target < r0 + rows)
+    key = ((target.long() - r0) * c + preds.long())[mine]
+    records["confusion_counts@window"] = dict(
+        source="metrics_tpu_torch/csrc/confusion_counts.cu",
+        replaces="metrics_tpu/ops/confusion_counts.py:44",
+        max_abs_err=max(errs),
+        ms=_cuda_ms(torch, lambda: cc._confusion_counts_cuda(preds, target, c, rows=(r0, rows))),
+        plain_ms=_cuda_ms(torch, lambda: cc._confusion_counts_plain(preds, target, c, rows=(r0, rows))),
+        library_ms=_cuda_ms(torch, lambda: torch.bincount(key, minlength=rows * c)),
+        shape=f"N={n}, C={c}, rows=({r0}, {rows})",
+    )
+    records["confusion_counts@window"]["bound_ms"], records["confusion_counts@window"]["bound_by"] = _bound_ms(
+        2 * n * 4 + rows * c * 8, 5 * n
+    )
+    calls["confusion_counts@window"] = lambda: cc._confusion_counts_cuda(preds, target, c, rows=(r0, rows))
+
+    n_ml, c_ml, steps_ml = OPENIMAGES_VAL
+    n = n_ml // steps_ml
+    c0, w = -(-c_ml // 2), c_ml // 2  # mp rank 1's columns: (9979, 9978)
+    mp = torch.from_numpy((rng.random((n, c_ml)) < 0.5).astype(np.int32)).to(dev)
+    mt_ = torch.from_numpy((rng.random((n, c_ml)) < OPENIMAGES_POSITIVES / c_ml * 100).astype(np.int32)).to(dev)
+    win = cc._multilabel_counts_cuda(mp, mt_, cols=(c0, w))
+    errs = [
+        _max_abs_err(torch, "multilabel_counts@window[plain]", win, cc._multilabel_counts_plain(mp, mt_, cols=(c0, w))),
+        _max_abs_err(torch, "multilabel_counts@window[slice]", win, cc._multilabel_counts_cuda(mp, mt_)[c0:c0 + w]),
+    ]
+    for w0, ww in ((0, c_ml // 2 + 1), (4, 16), (c_ml - 1, 1)):
+        errs.append(_max_abs_err(
+            torch, f"multilabel_counts@window[{w0}, {ww}]", cc._multilabel_counts_cuda(mp, mt_, cols=(w0, ww)),
+            cc._multilabel_counts_plain(mp, mt_, cols=(w0, ww)),
+        ))
+    # rows of 80 columns: a window at a 16-byte boundary takes the 16-byte loads
+    narrow_p, narrow_t = mp[:, :80].contiguous(), mt_[:, :80].contiguous()
+    errs.append(_max_abs_err(
+        torch, "multilabel_counts@window[16, 32]", cc._multilabel_counts_cuda(narrow_p, narrow_t, cols=(16, 32)),
+        cc._multilabel_counts_plain(narrow_p, narrow_t, cols=(16, 32)),
+    ))
+    cols = torch.arange(w, device=dev, dtype=torch.int32)
+    ml_key = ((cols * 2 + mt_[:, c0:c0 + w]) * 2 + mp[:, c0:c0 + w]).reshape(-1)
+    records["multilabel_counts@window"] = dict(
+        source="metrics_tpu_torch/csrc/confusion_counts.cu",
+        replaces="metrics_tpu/ops/confusion_counts.py:109",
+        max_abs_err=max(errs),
+        ms=_cuda_ms(torch, lambda: cc._multilabel_counts_cuda(mp, mt_, cols=(c0, w))),
+        plain_ms=_cuda_ms(torch, lambda: cc._multilabel_counts_plain(mp, mt_, cols=(c0, w))),
+        library_ms=_cuda_ms(torch, lambda: torch.bincount(ml_key, minlength=4 * w)),
+        shape=f"N={n}, C={c_ml}, cols=({c0}, {w})",
+    )
+    records["multilabel_counts@window"]["bound_ms"], records["multilabel_counts@window"]["bound_by"] = _bound_ms(
+        2 * n * w * 4 + w * 4 * 8, 3 * n * w
+    )
+    calls["multilabel_counts@window"] = lambda: cc._multilabel_counts_cuda(mp, mt_, cols=(c0, w))
+    for name, rec in records.items():
+        _log(
+            f"kernel {name} ({rec['shape']}): bit-identical to plain and to the slice of the whole kernel;"
+            f" ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f}"
+            f" bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})"
+        )
+    return records, calls
+
+
 KERNEL_SYMBOLS = {
     "confusion_counts": ("confusion_shared_kernel", "confusion_counts_kernel"),
     "multilabel_counts": ("multilabel_counts_kernel",),
@@ -5195,6 +5743,9 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     records, calls = check_and_time_kernels(torch, rng)
+    window_records, window_calls = check_windowed_kernels(torch, rng)
+    records.update(window_records)
+    calls.update(window_calls)
     binned_records, binned_calls = check_and_time_binned(torch, rng)
     records.update(binned_records)
     calls.update(binned_calls)
@@ -5256,18 +5807,21 @@ def main() -> int:
     run_text_phase(torch, mt, smi)
     run_audio_detection_phase(torch, mt, smi)
     obs_launches = run_observability_phase(torch, mt, smi, mc, logits, target)
+    shard_launches = run_sharded_phase(torch, mt, smi)
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {
         **{
             k: v["launches"] + sync_launches.get(k, 0) + engine_launches.get(k, 0) + wrapper_launches.get(k, 0)
-            + obs_launches.get(k, 0)
+            + obs_launches.get(k, 0) + shard_launches.get(k, 0)
             for k, v in main_stats.items()
         },
         "confusion_counts": main_stats["confusion_counts"]["launches"] + sync_launches.get("confusion_counts", 0)
         + engine_launches.get("confusion_counts", 0) + extension_launches + wrapper_launches["confusion_counts"]
-        + obs_launches["confusion_counts"],
+        + obs_launches["confusion_counts"] + shard_launches.get("confusion_counts", 0),
         "confusion_counts@segmentation": seg_launches,
+        "confusion_counts@window": shard_launches["confusion_counts@window"],
+        "multilabel_counts@window": shard_launches["multilabel_counts@window"],
         "multilabel_counts": ml_stats["multilabel_counts"]["launches"],
         "binned_counts": coco_stats["binned_counts"]["launches"] + ctr_stats["binned_counts"]["launches"],
         "binned_calibration": sum(stats["binned_calibration"]["launches"] for _, stats in calibration.values()),
@@ -5301,5 +5855,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sync-rank"]:
         _sync_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--shard-rank"]:
+        _shard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -78,6 +78,7 @@ from metrics_tpu_torch.classification import (
 )
 from metrics_tpu_torch import engine  # noqa: F401
 from metrics_tpu_torch import obs  # noqa: F401
+from metrics_tpu_torch import sharding  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.deprecated import (
     F1,

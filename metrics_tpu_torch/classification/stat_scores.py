@@ -7,6 +7,7 @@ from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.ops.safe_ops import saturating_add
 from metrics_tpu_torch.resilience import health as _health
+from metrics_tpu_torch.sharding.spec import canonical_spec, class_axis_spec
 from metrics_tpu_torch.utils.data import dim_zero_cat
 from metrics_tpu_torch.utils.enums import AverageMethod, MDMCAverageMethod
 
@@ -15,11 +16,14 @@ class StatScores(Metric):
     """``[tp, fp, tn, fn, support]`` with micro, macro or samples reduction.
 
     micro keeps ``[]`` int64 sum states and macro ``[C]``; samples and
-    samplewise keep list (cat) states.
+    samplewise keep list (cat) states. ``class_sharding`` (macro only, not
+    with ``mdmc_reduce="samplewise"``) splits the ``[C]`` states over a mesh
+    axis; a placed process computes the ``[C]`` sums and keeps its slice.
     """
 
     is_differentiable = False
     higher_is_better = None
+    _sharded_update = True
 
     @property
     def _batch_additive(self) -> bool:
@@ -36,6 +40,7 @@ class StatScores(Metric):
         ignore_index: Optional[int] = None,
         mdmc_reduce: Optional[str] = None,
         multiclass: Optional[bool] = None,
+        class_sharding: Optional[Any] = None,
         **kwargs: Any,
     ) -> None:
         super().__init__(**kwargs)
@@ -57,10 +62,23 @@ class StatScores(Metric):
         if num_classes and ignore_index is not None and (not 0 <= ignore_index < num_classes or num_classes == 1):
             raise ValueError(f"The `ignore_index` {ignore_index} is not valid for inputs with {num_classes} classes")
 
+        # a canonical tuple: see ConfusionMatrix.class_sharding
+        self.class_sharding = canonical_spec(class_axis_spec(class_sharding)) or None
+        if self.class_sharding is not None and (reduce != "macro" or mdmc_reduce == "samplewise"):
+            # only the classwise [C] counters have a class axis to split
+            raise ValueError(
+                "`class_sharding` shards the per-class [num_classes] state"
+                " axis and needs reduce='macro' (without"
+                " mdmc_reduce='samplewise'); "
+                f"got reduce={reduce!r}, mdmc_reduce={mdmc_reduce!r}."
+            )
+
         if mdmc_reduce != "samplewise" and reduce != "samples":
             zeros_shape = [] if reduce == "micro" else [num_classes]
             for s in ("tp", "fp", "tn", "fn"):
-                self.add_state(s, default=torch.zeros(zeros_shape, dtype=torch.int64), dist_reduce_fx="sum")
+                self.add_state(
+                    s, default=torch.zeros(zeros_shape, dtype=torch.int64), dist_reduce_fx="sum", sharding=self.class_sharding
+                )
         else:
             for s in ("tp", "fp", "tn", "fn"):
                 # rows of int64 counts: a sync in which no rank holds one gives int64
@@ -85,6 +103,9 @@ class StatScores(Metric):
         Under a health policy the sums saturate at the int64 maximum instead
         of wrapping, and a saturation counts in ``overflow_events``."""
         if self.reduce != AverageMethod.SAMPLES and self.mdmc_reduce != MDMCAverageMethod.SAMPLEWISE:
+            # a placed class-split state keeps this process's slice of the [C] sums
+            tp, fp = self._local_part("tp", tp), self._local_part("fp", fp)
+            tn, fn = self._local_part("tn", tn), self._local_part("fn", fn)
             if _health.health_enabled(self):
                 self.tp, of_tp = saturating_add(self.tp, tp)
                 self.fp, of_fp = saturating_add(self.fp, fp)

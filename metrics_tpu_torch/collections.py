@@ -29,7 +29,7 @@ from metrics_tpu_torch.obs.warn import instance_token, warn_once
 from metrics_tpu_torch.parallel import comm
 from metrics_tpu_torch.resilience import health as _health
 from metrics_tpu_torch.utils.data import _squeeze_if_scalar
-from metrics_tpu_torch.utils.exceptions import NumericalHealthError
+from metrics_tpu_torch.utils.exceptions import MetricsUserError, NumericalHealthError
 from metrics_tpu_torch.utils.program import program_scope
 
 
@@ -101,6 +101,7 @@ class MetricCollection(nn.ModuleDict):
         return [m._snapshot_state() for m in self._modules.values()]
 
     def _forward_impl(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        self._check_drive_synced()
         was_failed = self._fused_fwd_failed
         fused_vals = self._fused_forward(args, kwargs)
         try:
@@ -121,7 +122,19 @@ class MetricCollection(nn.ModuleDict):
         with _obs_trace.span("update", "MetricCollection", payload=self._member_states):
             self._update_members(*args, **kwargs)
 
+    def _check_drive_synced(self) -> None:
+        """A member holding a mesh drive's global state takes no host update
+        (the fused programs would skip its own guard)."""
+        synced = [k for k, m in self._modules.items() if m._drive_synced]
+        if synced:
+            raise MetricsUserError(
+                f"members {synced} hold the globally-synced state of a mesh-mode engine.drive: a host-side update"
+                " would be dropped from (or double-counted in) the cross-rank total. reset() first, or accumulate"
+                " further epochs through drive(mesh=...)."
+            )
+
     def _update_members(self, *args: Any, **kwargs: Any) -> None:
+        self._check_drive_synced()
         was_failed = self._fused_failed
         done = self._fused_update(args, kwargs)
         try:
@@ -165,7 +178,7 @@ class MetricCollection(nn.ModuleDict):
         for k, m in self._modules.items():
             if not (m._enable_jit and not m._jit_failed and not m.dist_sync_on_step and not m._has_list_state()):
                 continue
-            if _health.forces_eager(m):
+            if _health.forces_eager(m) or (m._shard_layout and not m._sharded_update):
                 continue  # dispatches eagerly by design; the others still fuse
             # an instance under two keys must update twice: only its first
             # key fuses, the others take the per-member path
@@ -183,7 +196,8 @@ class MetricCollection(nn.ModuleDict):
         for k in self._fusable_keys():
             m = self._modules[k]
             use_dance = m.full_state_update if m.full_state_update is not None else not m._states_mergeable
-            if use_dance or not m.compute_on_step or m._is_synced:
+            # a placed member's batch value needs its global view (a gather)
+            if use_dance or not m.compute_on_step or m._is_synced or m._shard_layout:
                 continue
             keys.append(k)
         return tuple(keys) if len(keys) >= 2 else ()
@@ -307,6 +321,8 @@ class MetricCollection(nn.ModuleDict):
                 continue
             if not (m._enable_jit and not m._jit_failed and not m._has_list_state()) or m._compute_is_host_side:
                 continue
+            if m._shard_layout:
+                continue  # a placed member computes on its gathered global view
             if (
                 m._is_synced
                 or m.dist_sync_fn is not None
@@ -473,11 +489,29 @@ class MetricCollection(nn.ModuleDict):
         return {k: m.update_state(states[k], *args, **m._filter_kwargs(**kwargs)) for k, m in self.items()}
 
     def sync_state(
-        self, states: Dict[str, Dict[str, Any]], process_group: Optional[Any] = None
+        self,
+        states: Dict[str, Dict[str, Any]],
+        axis_name: Optional[Union[str, Sequence[str]]] = None,
+        hierarchical: bool = False,
+        *,
+        process_group: Optional[Any] = None,
     ) -> Dict[str, Dict[str, Any]]:
-        """Every member's state gathered over ``process_group`` (each
-        member's own group when None) and reduced, member by member in key
-        order, so every rank issues the same collectives."""
+        """With ``axis_name``: every member's state synced over those axes of
+        the ``comm.axis_env`` mesh, one collective per state, in key order
+        (``comm.sync_state_trees``; ``hierarchical=True`` with two or more
+        axes stages them inner axis first). Without: every member's state
+        gathered over ``process_group`` (each member's own group when None)
+        and reduced, member by member in key order, so every rank issues the
+        same collectives."""
+        if axis_name is not None and process_group is None:
+            items = list(self.items())
+            return comm.sync_state_trees(
+                states,
+                {k: m._reductions for k, m in items},
+                axis_name,
+                placeholders={k: m._list_placeholders for k, m in items},
+                hierarchical=hierarchical,
+            )
         return {k: m.sync_state(states[k], process_group=process_group) for k, m in self.items()}
 
     def compute_state(self, states: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:

@@ -57,6 +57,20 @@
 //      stays low unless the data is skewed; at C = 1000, N = 8192 the kernel
 //      is at the launch floor.
 //
+// Class windows (the sharded state plane): a process whose ConfusionMatrix
+//   state is split over classes counts only its rows. The multiclass
+//   kernels take a row window [r0, r0 + rows) of the target classes and
+//   write the [rows, C] counts of the pairs whose target falls in it,
+//   out[(t - r0) * C + p]; other pairs are dropped like out-of-range ones,
+//   and the shared route's histograms are [rows, C] (the wrapper's route
+//   decides by 4 * rows * C bytes), so no [C, C] is built. The whole matrix
+//   is the window (0, C), the same instructions as before. This is the
+//   TPU kernel's grid turned into an argument: `_confusion_kernel` is
+//   gridded over tiles of 128 target rows, the class-axis sharding unit.
+//   The multilabel kernel reads a column window of the [N, ld] inputs in
+//   place (the wrapper offsets the pointers by c0 columns and passes the
+//   row stride ld), writing the [W, 2, 2] counts of columns [c0, c0 + W).
+//
 // multilabel_counts replaces metrics_tpu/ops/confusion_counts.py
 // `_multilabel_kernel` (wrapper `_multilabel_counts_pallas`):
 //   per class c: tp = sum p*t, sum p and sum t over int32 [N, C] inputs (0/1
@@ -127,13 +141,13 @@ cudaError_t set_once(K* kernel, cudaFuncAttribute attr, int value, int device, s
 
 template <typename I>
 __global__ void confusion_counts_kernel(const I* __restrict__ target, const I* __restrict__ preds, int64_t n,
-                                        int64_t c, unsigned long long* __restrict__ out) {
+                                        int64_t c, int64_t r0, int64_t rows, unsigned long long* __restrict__ out) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const int64_t t = target[i];
+    const int64_t t = static_cast<int64_t>(target[i]) - r0;
     const int64_t p = preds[i];
-    if (t >= 0 && t < c && p >= 0 && p < c) {
+    if (t >= 0 && t < rows && p >= 0 && p < c) {
       atomicAdd(out + t * c + p, 1ULL);
     }
   }
@@ -161,27 +175,30 @@ __device__ __forceinline__ void load_indices(const int32_t* p, int64_t i, int32_
   }
 }
 
-// The cell t * c + p, or -1 where either index is outside [0, c).
+// The cell (t - r0) * c + p, or -1 where t is outside the window
+// [r0, r0 + rows) or p outside [0, c).
 template <typename I>
-__device__ __forceinline__ int cell_of(I t, I p, int c) {
-  return (t >= 0 && t < c && p >= 0 && p < c) ? static_cast<int>(t) * c + static_cast<int>(p) : -1;
+__device__ __forceinline__ int cell_of(I t, I p, int c, int r0, int rows) {
+  return (t >= static_cast<I>(r0) && t < static_cast<I>(r0 + rows) && p >= 0 && p < c)
+             ? static_cast<int>(t - static_cast<I>(r0)) * c + static_cast<int>(p)
+             : -1;
 }
 
 // The shared route: `copies` (a power of 2, at most kSmWarps) private
-// [c * c] histograms in dynamic shared memory; V indices per load.
+// [rows * c] histograms in dynamic shared memory; V indices per load.
 template <typename I, int V>
 __global__ void __launch_bounds__(kSmThreads) confusion_shared_kernel(
-    const I* __restrict__ target, const I* __restrict__ preds, int64_t n, int c, int copies,
+    const I* __restrict__ target, const I* __restrict__ preds, int64_t n, int c, int r0, int rows, int copies,
     unsigned long long* __restrict__ out) {
-  extern __shared__ unsigned hist[];  // [copies][c * c]
-  const int cells = c * c;
+  extern __shared__ unsigned hist[];  // [copies][rows * c]
+  const int cells = rows * c;
   const int tid = threadIdx.x;
   for (int i = tid; i < copies * cells; i += kSmThreads) hist[i] = 0;
   __syncthreads();
   unsigned* mine = hist + ((tid >> 5) & (copies - 1)) * cells;
   const int64_t nvec = n / V;
   if (V > 1 && blockIdx.x == 0 && tid < n - nvec * V) {
-    const int key = cell_of(target[nvec * V + tid], preds[nvec * V + tid], c);
+    const int key = cell_of(target[nvec * V + tid], preds[nvec * V + tid], c, r0, rows);
     if (key >= 0) atomicAdd(mine + key, 1u);
   }
   constexpr int64_t step = int64_t{kSmThreads} * kSmUnroll;  // loads of each input per chunk
@@ -203,7 +220,7 @@ __global__ void __launch_bounds__(kSmThreads) confusion_shared_kernel(
     for (int u = 0; u < kSmUnroll; ++u) {
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        const int key = cell_of(t[u][e], p[u][e], c);
+        const int key = cell_of(t[u][e], p[u][e], c, r0, rows);
 #if MT_CC_MERGE
         // every lane of the warp is here (the chunk loop is the same for the whole block)
         const unsigned group = __match_any_sync(0xFFFFFFFFu, key);
@@ -224,14 +241,14 @@ __global__ void __launch_bounds__(kSmThreads) confusion_shared_kernel(
 }
 
 template <typename I, int V>
-cudaError_t launch_shared(int device, const I* target, const I* preds, int64_t n, int c, int copies,
-                          unsigned long long* out, cudaStream_t stream) {
+cudaError_t launch_shared(int device, const I* target, const I* preds, int64_t n, int c, int r0, int rows,
+                          int copies, unsigned long long* out, cudaStream_t stream) {
   static std::atomic<unsigned long long> raised{0};
   static std::atomic<unsigned long long> resident_on[64];  // smem bytes << 32 | resident blocks; 0: not yet known
   auto* kernel = confusion_shared_kernel<I, V>;
   // the caller's route picks copies that fit; a request past the device's
   // opt-in limit fails at the launch
-  const int64_t bytes = int64_t{copies} * c * c * static_cast<int64_t>(sizeof(unsigned));
+  const int64_t bytes = int64_t{copies} * rows * c * static_cast<int64_t>(sizeof(unsigned));
   if (bytes > 0x7FFFFFFF) return cudaErrorInvalidValue;
   const unsigned smem = static_cast<unsigned>(bytes);
   cudaError_t err = cudaSuccess;
@@ -259,23 +276,25 @@ cudaError_t launch_shared(int device, const I* target, const I* preds, int64_t n
   if (per_block * step * V + (V - 1) > 0x7FFFFFFF) return cudaErrorInvalidValue;
   int64_t blocks = (chunks + per_block - 1) / per_block;
   if (blocks < 1) blocks = 1;
-  kernel<<<static_cast<unsigned>(blocks), kSmThreads, smem, stream>>>(target, preds, n, c, copies, out);
+  kernel<<<static_cast<unsigned>(blocks), kSmThreads, smem, stream>>>(target, preds, n, c, r0, rows, copies, out);
   return cudaGetLastError();
 }
 
 template <typename I>
-cudaError_t launch_confusion(int device, const I* target, const I* preds, int64_t n, int64_t c, int copies,
-                             unsigned long long* out, cudaStream_t stream) {
+cudaError_t launch_confusion(int device, const I* target, const I* preds, int64_t n, int64_t c, int64_t r0,
+                             int64_t rows, int copies, unsigned long long* out, cudaStream_t stream) {
   if (copies == 0) {
     int64_t blocks = (n + kThreads - 1) / kThreads;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    confusion_counts_kernel<I><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(target, preds, n, c, out);
+    confusion_counts_kernel<I><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(target, preds, n, c, r0, rows,
+                                                                                       out);
     return cudaGetLastError();
   }
   constexpr int V = 16 / sizeof(I);
   const bool vec = (reinterpret_cast<uintptr_t>(target) | reinterpret_cast<uintptr_t>(preds)) % 16 == 0;
-  return vec ? launch_shared<I, V>(device, target, preds, n, static_cast<int>(c), copies, out, stream)
-             : launch_shared<I, 1>(device, target, preds, n, static_cast<int>(c), copies, out, stream);
+  const int ci = static_cast<int>(c), r0i = static_cast<int>(r0), rowsi = static_cast<int>(rows);
+  return vec ? launch_shared<I, V>(device, target, preds, n, ci, r0i, rowsi, copies, out, stream)
+             : launch_shared<I, 1>(device, target, preds, n, ci, r0i, rowsi, copies, out, stream);
 }
 
 // 4 or 1 consecutive int32 of one row.
@@ -289,8 +308,8 @@ __device__ __forceinline__ void load_cols(const int32_t* p, int32_t (&v)[1]) { v
 // chunks of a tile, launched as one cluster.
 template <int E>
 __global__ void __launch_bounds__(kMlThreads) multilabel_counts_kernel(
-    const int32_t* __restrict__ preds, const int32_t* __restrict__ target, int64_t n, int64_t c, int lanes,
-    int64_t rows_chunk, long long* __restrict__ out) {
+    const int32_t* __restrict__ preds, const int32_t* __restrict__ target, int64_t n, int64_t c, int64_t ld,
+    int lanes, int64_t rows_chunk, long long* __restrict__ out) {
   namespace cg = cooperative_groups;
   __shared__ long long warp_part[kMlThreads / 32][3 * kMlTile];
   __shared__ long long gathered[kMlMaxCluster][3 * kMlTile];  // block 0's: every block's sums
@@ -317,8 +336,8 @@ __global__ void __launch_bounds__(kMlThreads) multilabel_counts_kernel(
     for (int u = 0; u < kMlUnroll; ++u) {
       const int64_t ru = r + static_cast<int64_t>(u) * rs;
       if (mine && ru < r1) {
-        load_cols(preds + ru * c + col, p[u]);
-        load_cols(target + ru * c + col, t[u]);
+        load_cols(preds + ru * ld + col, p[u]);
+        load_cols(target + ru * ld + col, t[u]);
       } else {
 #pragma unroll
         for (int e = 0; e < E; ++e) p[u][e] = t[u][e] = 0;
@@ -383,38 +402,44 @@ const char* mt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// target, preds: int32 (index_bytes 4) or int64 (8) [n]; copies: 0 for
-// the global route, else the shared route's histograms per block (a power
-// of 2, at most 16, with copies * c * c * 4 bytes within the device's
-// opt-in shared memory); out: int64 [c, c], zeroed by the caller.
-int mt_confusion_counts(int device, const void* target, const void* preds, int64_t n, int64_t c, int index_bytes,
-                        int copies, void* out, void* stream) {
-  const bool shared_ok = copies > 0 && copies <= kSmWarps && !(copies & (copies - 1)) && c <= 46340;
-  if (n < 0 || c < 1 || (index_bytes != 4 && index_bytes != 8) || (copies != 0 && !shared_ok)) {
+// target, preds: int32 (index_bytes 4) or int64 (8) [n]; the row window
+// [r0, r0 + rows) of [0, c) (the whole matrix: 0, c); copies: 0 for the
+// global route, else the shared route's histograms per block (a power of
+// 2, at most 16, with copies * rows * c * 4 bytes within the device's
+// opt-in shared memory); out: int64 [rows, c], zeroed by the caller.
+int mt_confusion_counts(int device, const void* target, const void* preds, int64_t n, int64_t c, int64_t r0,
+                        int64_t rows, int index_bytes, int copies, void* out, void* stream) {
+  const bool shared_ok =
+      copies > 0 && copies <= kSmWarps && !(copies & (copies - 1)) && c <= 46340 && rows * c <= 0x1FFFFFFF;
+  if (n < 0 || c < 1 || r0 < 0 || rows < 0 || r0 + rows > c || (index_bytes != 4 && index_bytes != 8) ||
+      (copies != 0 && !shared_ok)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (n == 0 || rows == 0) return static_cast<int>(cudaGetLastError());
   auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       index_bytes == 8
           ? launch_confusion(device, static_cast<const int64_t*>(target), static_cast<const int64_t*>(preds), n, c,
-                             copies, o, s)
+                             r0, rows, copies, o, s)
           : launch_confusion(device, static_cast<const int32_t*>(target), static_cast<const int32_t*>(preds), n, c,
-                             copies, o, s);
+                             r0, rows, copies, o, s);
   return static_cast<int>(err);
 }
 
-// preds, target: int32 [n, c] row-major; lanes: lanes per row (a power of
-// 2, at most 16, or at most 4 with vec); vec: 16-byte loads of 4 columns
-// (C % 4 == 0, both inputs 16-byte aligned); out: int64 [c, 2, 2]
-// [[tn, fp], [fn, tp]], fully written.
-int mt_multilabel_counts(int device, const void* preds, const void* target, int64_t n, int64_t c, int lanes,
-                         int vec, void* out, void* stream) {
+// preds, target: int32, c columns of n rows at a row stride of ld (a
+// column window of a row-major [n, ld] input: the pointers at its first
+// column); lanes: lanes per row (a power of 2, at most 16, or at most 4
+// with vec); vec: 16-byte loads of 4 columns (c and ld multiples of 4,
+// both inputs 16-byte aligned); out: int64 [c, 2, 2] [[tn, fp], [fn, tp]],
+// fully written.
+int mt_multilabel_counts(int device, const void* preds, const void* target, int64_t n, int64_t c, int64_t ld,
+                         int lanes, int vec, void* out, void* stream) {
   const int e = vec ? 4 : 1;
-  if (n < 0 || c < 0 || lanes < 1 || lanes * e > kMlTile || (lanes & (lanes - 1)) || (vec && c % 4)) {
+  if (n < 0 || c < 0 || ld < c || lanes < 1 || lanes * e > kMlTile || (lanes & (lanes - 1)) ||
+      (vec && (c % 4 || ld % 4))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t set = cudaSetDevice(device);
@@ -445,7 +470,7 @@ int mt_multilabel_counts(int device, const void* preds, const void* target, int6
   cfg.attrs = attr;
   cfg.numAttrs = chunks > 1;  // one block per tile needs no cluster, and launches sooner without the attribute
   const cudaError_t launch = cudaLaunchKernelEx(&cfg, kernel, static_cast<const int32_t*>(preds),
-                                                static_cast<const int32_t*>(target), n, c, lanes, rows,
+                                                static_cast<const int32_t*>(target), n, c, ld, lanes, rows,
                                                 static_cast<long long*>(out));
   return static_cast<int>(launch != cudaSuccess ? launch : cudaGetLastError());
 }

@@ -10,7 +10,7 @@
 
 ``FrechetInceptionDistance.update_stream`` runs on it. The mesh layout of
 the JAX runtime (``param_specs``, ``in_specs``, ``out_spec``,
-``place(mesh)``) is ROADMAP §1 item 7.
+``place(mesh)``) is the encoder's mesh, ROADMAP §1 item 7b.
 """
 from metrics_tpu_torch.encoders.runtime import (  # noqa: F401
     ShardedEncoder,

@@ -18,8 +18,8 @@ into a program of the shared engine cache (``engine/cache.py``, entry kind
 
 What the JAX runtime adds on a mesh (per-leaf ``PartitionSpec`` weights
 placed once with ``place(mesh)``, ``in_specs`` batch staging, the
-``out_spec`` activation constraint) is the sharded state plane, ROADMAP §1
-item 7: those arguments raise here, and the ``placements`` counter stays 0.
+``out_spec`` activation constraint) is the encoder's mesh, ROADMAP §1
+item 7b: those arguments raise here, and the ``placements`` counter stays 0.
 
 Telemetry: :func:`encoder_stats` counts placements, encode and fused
 dispatches, streamed chunks and rows, screened rows, quarantined batches
@@ -89,8 +89,8 @@ def count_bucketed_dispatch() -> None:
 
 def _mesh_unported(what: str) -> MetricsUserError:
     return MetricsUserError(
-        f"ShardedEncoder({what}) lays the encoder out over a device mesh, which is the sharded state"
-        " plane (ROADMAP §1 item 7), not ported yet; the port's encoder runs on one device."
+        f"ShardedEncoder({what}) lays the encoder out over a device mesh, which is the encoder's mesh"
+        " (ROADMAP §1 item 7b), not ported yet; the port's encoder runs on one device."
     )
 
 

@@ -21,9 +21,9 @@ holding the corpus's features:
   pays for it, masked rows are zeroed and excluded through ``valid``. The
   counts land in the owning metric's ``health_report()``.
 
-Every chunk counts in :func:`~metrics_tpu_torch.encoders.runtime.encoder_stats`.
-The JAX driver also emits an ``encode`` bus event per chunk; the port's
-event bus is ROADMAP §1 item 6.
+Every chunk counts in :func:`~metrics_tpu_torch.encoders.runtime.encoder_stats`
+and, while the event bus records, emits one ``encode`` event, as the JAX
+driver does.
 """
 from typing import Any, Callable, Iterable, List, Optional, Tuple
 

@@ -79,8 +79,10 @@ cuDNN is captured with ``cudnn.benchmark`` off and TF32 off, in the warm-up
 as in the capture, and a refused capture raises: an encoder never falls
 back to an eager forward in silence.
 
-Out of this module for now: the serving bank entries and the mesh-aware
-driver entries of the JAX engine.
+The mesh-aware driver entries (``drive(mesh=)``) live with the rest of the
+driver's programs in ``engine/driver.py``; ``axis_world`` is re-exported
+here, where the JAX engine keeps it. Out of this module for now: the
+serving bank entries.
 """
 import contextlib
 import hashlib
@@ -95,6 +97,7 @@ from metrics_tpu_torch.engine import _tree, bucketing
 from metrics_tpu_torch.obs import bus as _bus
 from metrics_tpu_torch.obs import explain as _explain
 from metrics_tpu_torch.ops import registry as _kernels
+from metrics_tpu_torch.parallel.comm import axis_world  # noqa: F401  (the JAX engine's home of it)
 from metrics_tpu_torch.resilience import health as _health
 from metrics_tpu_torch.utils.exceptions import JitIncompatibleError
 from metrics_tpu_torch.utils.program import program_scope
@@ -150,6 +153,7 @@ _FP_SKIP = frozenset(
         "process_group",
         "dist_sync_fn",
         "on_sync_error",
+        "axis_name",
     )
 )
 
@@ -206,7 +210,11 @@ def metric_fingerprint(metric: Any) -> Tuple[Any, Tuple]:
             state_spec.append((name, "list", fx_token))
         else:
             state_spec.append((name, _digest(default), fx_token))
-    key = (type(metric), cfg, buffers, tuple(state_spec))
+    # a placed state's window is baked into the program (the class-windowed
+    # kernels take its offset as an argument), so the layout keys it
+    layouts = metric.__dict__.get("_shard_layout") or {}
+    placement = tuple(sorted((n, l.global_shape, l.offsets, l.local_shape) for n, l in layouts.items()))
+    key = (type(metric), cfg, buffers, tuple(state_spec), placement)
     metric._engine_key = key
     metric._engine_key_pins = tuple(pins)
     return key, tuple(pins)
@@ -722,9 +730,13 @@ def encoder_entry(encoder: Any, consumer: Optional[Callable] = None) -> SharedEn
 # ---------------------------------------------------------------------------
 def clear_cache() -> None:
     """Drop every shared entry with its graphs. Instances keep their own
-    ``compile_stats()`` counters."""
+    ``compile_stats()`` counters. The graphs' memory pool goes with them:
+    once its last graph is freed the allocator releases the pool, and a
+    capture into the released pool's handle fails an allocator assertion,
+    so later captures take a fresh pool."""
     with _LOCK:
         _CACHE.clear()
+        _POOLS.clear()
 
 
 def cache_summary() -> Dict[str, Any]:

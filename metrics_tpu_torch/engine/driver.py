@@ -30,10 +30,31 @@ Members a chunk cannot carry keep their per-step contracts inside the same
 :func:`drive` call: list states, eager fallbacks, ``on_bad_input="raise"``
 (its per-update host check is the point) and the eager health policies.
 
-Out of this slice: ``drive_bank`` (ROADMAP §1 item 8), the mesh modes
-(``mesh``/``axis_name``/``in_specs``/``hierarchical_sync``, item 7) and
-drive snapshots (``snapshot_store``/``resume_from``, item 10); those
-arguments raise ``NotImplementedError``.
+**Mesh modes** (a ``torch.distributed.device_mesh.DeviceMesh``, one process
+per device; every process passes the same whole stacked epoch):
+
+* ``axis_name=`` (with ``mesh=``, optionally ``hierarchical_sync=True``):
+  the steps are split into contiguous blocks over the named axes; each
+  process runs its block from the defaults, the states are synced over the
+  axes (``comm.sync_state_trees``) and the prior states merged after the
+  sync, so an accumulated state is never multiplied by the world.
+* ``in_specs=`` (with ``mesh=``): the batch axis of each input is split by
+  its spec (``sharding/reduce.py``); registered-sharded states are placed
+  and carried as local shards (the class-windowed kernels count a
+  process's rows only), each process runs the epoch on its batch slice
+  from the defaults, the partial states are summed over the input axes,
+  and the prior merged.
+
+Both sync in the last chunk's program where the backend's collectives can
+be captured (NCCL); on gloo the sync runs right after the last replay.
+``compile_stats()["mesh_sync"]`` says which (``"in_program"`` or
+``"after_program"``). After an ``axis_name`` drive, or an ``in_specs``
+drive over a mesh of more than one process, the states are the global
+ones: the host sync is disarmed and host updates raise until ``reset()``.
+
+Out of this slice: ``drive_bank`` (ROADMAP §1 item 8) and drive snapshots
+(``snapshot_store``/``resume_from``, item 10), which raise
+``NotImplementedError``.
 """
 import threading
 from typing import Any, Dict, Iterable, List, Optional, Tuple
@@ -45,8 +66,12 @@ from metrics_tpu_torch.engine import bucketing as _bucketing
 from metrics_tpu_torch.engine import cache as _cache
 from metrics_tpu_torch.obs import bus as _bus
 from metrics_tpu_torch.obs import trace as _trace
+from metrics_tpu_torch.parallel import comm as _comm
 from metrics_tpu_torch.resilience import health as _health
+from metrics_tpu_torch.sharding import reduce as _shard_reduce
+from metrics_tpu_torch.sharding import spec as _shard_spec
 from metrics_tpu_torch.utils.data import _squeeze_if_scalar
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
 __all__ = ["AsyncResult", "DriveResult", "async_compute", "drive", "fetch_stats", "reset_fetch_stats"]
 
@@ -221,7 +246,9 @@ def _stacked_steps(batches: Any) -> Optional[Tuple[Tuple[torch.Tensor, ...], int
     return batches, n
 
 
-def _make_driver_entry(cache_key: Any, keys: Tuple[str, ...], compute_keys: Tuple[str, ...], pins: Tuple) -> _cache.SharedEntry:
+def _make_driver_entry(
+    cache_key: Any, keys: Tuple[str, ...], compute_keys: Tuple[str, ...], pins: Tuple, sync: Optional[Any] = None
+) -> _cache.SharedEntry:
     entry = _cache.SharedEntry(cache_key, "driver", pins)
 
     def _chunk(members, states, leaves, pads, treedef, compute):
@@ -242,23 +269,85 @@ def _make_driver_entry(cache_key: Any, keys: Tuple[str, ...], compute_keys: Tupl
                 vals[key] = m._compute_impl()
         return states, vals
 
+    def _mesh_chunk(members, states, leaves, pads, treedef, extra):
+        # a mesh drive's chunk: the whole-batch quarantine verdicts and this
+        # process's share of the quarantine count ride along (sharding/reduce.py)
+        bad, share = extra["bad"], extra["share"]
+        for k in range(int(leaves[0].shape[0])):
+            args, kwargs = _tree.unflatten(treedef, [x[k] for x in leaves])
+            pad = None if pads is None else pads[k]
+            states = {
+                key: _health.traced_update(
+                    m,
+                    states[key],
+                    args,
+                    m._filter_kwargs(**kwargs),
+                    pad_count=pad,
+                    global_bad=None if bad.get(key) is None else bad[key][k],
+                    quarantine_share=share,
+                )
+                for key, m in zip(keys, members)
+            }
+        return states
+
+    def _mesh_chunk_sync(members, states, leaves, pads, treedef, extra):
+        return sync(members, _mesh_chunk(members, states, leaves, pads, treedef, extra), extra["prior"])
+
     entry._fns = {
         "scan": lambda members, states, leaves, treedef: _chunk(members, states, leaves, None, treedef, False),
         "scan_pad": lambda members, states, leaves, pads, treedef: _chunk(members, states, leaves, pads, treedef, False),
         "scan_cmp": lambda members, states, leaves, treedef: _chunk(members, states, leaves, None, treedef, True),
         "scan_pad_cmp": lambda members, states, leaves, pads, treedef: _chunk(members, states, leaves, pads, treedef, True),
     }
+    if sync is not None:
+        entry._fns["mesh_scan"] = _mesh_chunk
+        entry._fns["mesh_scan_sync"] = _mesh_chunk_sync
     return entry
 
 
-def _driver_entry(keys: Tuple[str, ...], members: List[Any], compute_keys: Tuple[str, ...]) -> _cache.SharedEntry:
+def _driver_entry(
+    keys: Tuple[str, ...], members: List[Any], compute_keys: Tuple[str, ...], mesh_sync: Optional[Tuple] = None
+) -> _cache.SharedEntry:
+    """The chunk programs' shared entry. ``mesh_sync`` is ``(mesh, axes,
+    hierarchical)`` for a mesh drive: its sync is part of the last chunk's
+    program, so the mesh (by identity) and the axes key the entry."""
     member_keys, pins = [], []
     for m in members:
         k, p = _cache.metric_fingerprint(m)
         member_keys.append(k)
         pins.extend(p)
-    cache_key = ("driver", keys, tuple(member_keys), compute_keys)
-    return _cache._get_or_create(cache_key, lambda: _make_driver_entry(cache_key, keys, compute_keys, tuple(pins)))
+    sync_key = None
+    sync = None
+    if mesh_sync is not None:
+        mesh, axes, hierarchical = mesh_sync
+        pins.append(mesh)
+        sync_key = (id(mesh), axes, hierarchical)
+        sync = _mesh_finish(keys, mesh, axes, hierarchical)
+    cache_key = ("driver", keys, tuple(member_keys), compute_keys, sync_key)
+    return _cache._get_or_create(
+        cache_key, lambda: _make_driver_entry(cache_key, keys, compute_keys, tuple(pins), sync=sync)
+    )
+
+
+def _mesh_finish(keys: Tuple[str, ...], mesh: Any, axes: Tuple[str, ...], hierarchical: bool) -> Any:
+    """``(members, delta, prior) -> states``: the partial states synced over
+    ``axes`` (``comm.live_axes``: an axis of one gloo process needs no
+    collective), then merged into the prior ones."""
+    live = _comm.live_axes(mesh, axes)
+
+    def finish(members, delta, prior):
+        if live:
+            delta = _comm.sync_state_trees(
+                delta,
+                {k: m._reductions for k, m in zip(keys, members)},
+                live,
+                placeholders={k: m._list_placeholders for k, m in zip(keys, members)},
+                hierarchical=hierarchical and len(live) >= 2,
+                mesh=mesh,
+            )
+        return {k: m.merge_states(prior[k], delta[k]) for k, m in zip(keys, members)}
+
+    return finish
 
 
 class _Staging:
@@ -368,30 +457,76 @@ def drive(
         compute_in_trace: fold the members' computes into the last chunk's
             program; the values come back in ``DriveResult.values``.
         steps_per_chunk: ``K``, the steps one program replay takes.
-        axis_name, mesh, in_specs, hierarchical_sync: the mesh modes
-            (ROADMAP §1 item 7), not ported yet.
+        mesh: a ``DeviceMesh`` with named dims for the mesh modes (see the
+            module docstring); every process of it calls ``drive`` with the
+            same stacked epoch.
+        axis_name: the mesh axis (or axes, outer first) the steps are split
+            over; needs ``mesh``.
+        hierarchical_sync: stage the sync inner axis first; needs a tuple
+            ``axis_name`` of two or more axes.
+        in_specs: one ``PartitionSpec`` per stacked argument (or one for
+            all), naming the axes the batch axis is split over
+            (``PartitionSpec(None, "dp")``); needs ``mesh``, excludes
+            ``axis_name``.
         snapshot_store, snapshot_every, snapshot_key, resume_from: drive
             snapshots (ROADMAP §1 item 10), not ported yet.
     """
-    if any(x is not None for x in (axis_name, mesh, in_specs)) or hierarchical_sync:
-        raise NotImplementedError(
-            "drive(mesh=, axis_name=, in_specs=, hierarchical_sync=) are the mesh modes of ROADMAP §1 item 7,"
-            " not ported yet; drive locally, one process per card."
+    gspmd = in_specs is not None
+    if gspmd:
+        if mesh is None:
+            raise ValueError(
+                "drive(in_specs=...) is the sharded-state mode and"
+                " needs the mesh the specs name axes of: pass mesh= too."
+            )
+        if axis_name is not None or hierarchical_sync:
+            raise ValueError(
+                "drive(in_specs=...) and drive(axis_name=...) are different"
+                " mesh modes: in_specs splits the batch axis and lays the states"
+                " out as registered, axis_name splits the steps axis with an"
+                " explicit sync. Pass one or the other."
+            )
+    elif (axis_name is None) != (mesh is None):
+        raise ValueError(
+            "drive(axis_name=..., mesh=...) split the epoch's steps over a mesh"
+            " axis and must be passed together (for a sharded-STATE epoch over"
+            " a 2D mesh pass drive(mesh=, in_specs=); to sync your own loop, run"
+            " the pure update_state/sync_state API inside comm.axis_env(mesh))."
+        )
+    if steps_per_chunk < 1:
+        raise ValueError(f"steps_per_chunk must be >= 1, got {steps_per_chunk}")
+    if hierarchical_sync and (axis_name is None or isinstance(axis_name, str) or len(tuple(axis_name)) < 2):
+        raise ValueError(
+            "drive(hierarchical_sync=True) stages the sync over a"
+            " MULTI-axis mesh: pass axis_name as a tuple of >= 2 mesh axes"
+            f" ordered outer->inner (e.g. ('host', 'local')), got {axis_name!r}."
         )
     if snapshot_store is not None or snapshot_every is not None or resume_from is not None:
         raise NotImplementedError(
             "drive snapshots (snapshot_store=, snapshot_every=, resume_from=) need the serving SpillStore of"
             " ROADMAP §1 item 10, not ported yet."
         )
-    if steps_per_chunk < 1:
-        raise ValueError(f"steps_per_chunk must be >= 1, got {steps_per_chunk}")
     del snapshot_key
+    if isinstance(axis_name, (tuple, list)):
+        axis_name = tuple(axis_name)
+    _, members = _members_of(obj)
+    if mesh is None and any(m._drive_synced for m in members):
+        raise MetricsUserError(
+            "This metric holds the globally-synced state of a mesh-mode"
+            " engine.drive: a local (non-mesh) drive would accumulate rank-"
+            "local steps onto the cross-rank total without syncing them."
+            " reset() first, or keep driving with the same axis_name/mesh."
+        )
+
+    def run() -> DriveResult:
+        if mesh is None:
+            return _drive_local(obj, batches, compute_in_trace, steps_per_chunk)
+        return _drive_mesh(obj, batches, mesh, axis_name, in_specs, hierarchical_sync, compute_in_trace, steps_per_chunk)
+
     with torch.no_grad():
         if not _trace.active():
-            return _drive_local(obj, batches, compute_in_trace, steps_per_chunk)
-        _, members = _members_of(obj)
+            return run()
         with _trace.span("drive", type(obj).__name__, payload=lambda: [m._snapshot_state() for m in members]):
-            return _drive_local(obj, batches, compute_in_trace, steps_per_chunk)
+            return run()
 
 
 def _bind_states(fused: List[Tuple[str, Any]], states: Dict[str, Any], n_steps: int) -> None:
@@ -426,6 +561,176 @@ def _compute_keys(fused: List[Tuple[str, Any]]) -> Tuple[str, ...]:
         if ok:
             keys.append(k)
     return tuple(keys)
+
+
+def _step_verdicts(fused: List[Tuple[str, Any]], leaves: List[torch.Tensor]) -> Dict[str, Optional[torch.Tensor]]:
+    """For each member whose health policy quarantines a whole update: a
+    ``[steps]`` flag, set where the step's whole batch (every process's
+    slice) holds a bad element; None for the others."""
+    out: Dict[str, Optional[torch.Tensor]] = {}
+    floats = [x for x in leaves if x.is_floating_point() or x.is_complex()]
+    for key, m in fused:
+        out[key] = None
+        if not _health.health_enabled(m) or not floats:
+            continue
+        nan_only = getattr(m, "health_screen", "nonfinite") == "nan"
+        flags = [(torch.isnan(x) if nan_only else ~torch.isfinite(x)).reshape(x.shape[0], -1).any(dim=1) for x in floats]
+        out[key] = torch.stack(flags).any(dim=0)
+    return out
+
+
+def _drive_mesh(
+    obj: Any,
+    batches: Any,
+    mesh: Any,
+    axis_name: Optional[Any],
+    in_specs: Optional[Any],
+    hierarchical: bool,
+    compute_in_trace: bool,
+    steps_per_chunk: int,
+) -> DriveResult:
+    gspmd = in_specs is not None
+    keys, members = _members_of(obj)
+    stats = _cache.instance_stats(obj)
+    stacked = _stacked_steps(batches)
+    if stacked is None:
+        raise ValueError(
+            "drive(mesh=...) needs a stacked epoch (a tuple of tensors with a"
+            " leading steps axis): a host iterator cannot be split over the mesh"
+            " in one pass."
+        )
+    ids: Dict[int, int] = {}
+    for m in members:
+        ids[id(m)] = ids.get(id(m), 0) + 1
+    fused = [(k, m) for k, m in zip(keys, members) if ids[id(m)] == 1 and _scan_drivable(m)]
+    eager_keys = sorted(k for k, m in zip(keys, members) if (k, m) not in fused)
+    # the epoch runs from the defaults and the synced partial states are
+    # merged into the prior ones: every state must merge elementwise
+    not_mergeable = sorted(k for k, m in fused if not m._states_mergeable)
+    if gspmd and eager_keys:
+        raise ValueError(
+            "drive(mesh=, in_specs=) needs every member scan-drivable —"
+            " eager-fallback/list-state/'raise'-policy members cannot"
+            " ride the sharded chunks; offending members:"
+            f" {eager_keys}. Drive them in a separate local"
+            " drive(), or use shard_states(mesh) + per-step updates."
+        )
+    if not_mergeable or eager_keys:
+        raise ValueError(
+            "drive(mesh=...) needs every member scan-drivable with"
+            " mergeable states (sum/max/min/cat) — the sharded epoch"
+            " runs from the defaults and merges the synced delta back;"
+            f" offending members: {sorted(set(not_mergeable) | set(eager_keys))}."
+        )
+    args_tree, n_steps = stacked
+    stacked_leaves, _ = _tree.flatten((args_tree, {}))
+    if gspmd:
+        specs = _shard_reduce.normalize_in_specs(in_specs, len(stacked_leaves))
+        axes = _shard_reduce.input_axes(specs)
+        for k, m in fused:
+            if m._state_shardings and not m._sharded_update:
+                raise ValueError(
+                    f"drive(mesh=, in_specs=): member {k!r} ({type(m).__name__}) registers sharded states but its"
+                    " update is not windowed to a shard (`_sharded_update`); use shard_states(mesh) and per-step"
+                    " updates instead."
+                )
+            split = set(_shard_spec.data_axes(m, mesh)) ^ set(_shard_spec.axis_names(mesh))
+            clash = sorted(split & set(axes))
+            if clash:
+                raise ValueError(
+                    f"drive(mesh=, in_specs=): the inputs are split over {clash}, which member {k!r} splits its"
+                    " states over; split the batch over the data axes only."
+                )
+    else:
+        axes = tuple(axis_name) if isinstance(axis_name, tuple) else (axis_name,)
+        for k, m in fused:
+            clash = sorted(a for _, layout in m._shard_layout.items() for _, a in layout.splits if a in axes)
+            if clash:
+                raise ValueError(
+                    f"drive(axis_name=...): member {k!r} splits its states over {clash}; the steps are split over"
+                    f" {axes}. Drive it with in_specs= instead."
+                )
+    if n_steps == 0:
+        return DriveResult(0, 0, (), (), obj.compute() if compute_in_trace else None)
+
+    fused_members = [m for _, m in fused]
+    step0 = tuple(a[0] for a in args_tree)
+    leaves0, treedef = _tree.flatten((step0, {}))
+    batched = _bucketing.batched_leaf_indices(leaves0)
+    additive_ok = all(_bucketing.supports_bucketing(m) for m in fused_members)
+    pads: Optional[List[int]] = None
+    share = 1
+    verdicts: Dict[str, Optional[torch.Tensor]] = {k: None for k, _ in fused}
+    if gspmd:
+        for _, m in fused:
+            _shard_spec.place_states(m, mesh, source=type(obj).__name__)
+        live = [a for a in axes if _comm.axis_world(mesh, a) > 1]
+        if live:
+            verdicts = _step_verdicts(fused, stacked_leaves)
+            share = int(all(mesh.get_local_rank(a) == 0 for a in live))
+        local_leaves = _shard_reduce.stage_epoch_inputs(mesh, specs, stacked_leaves)
+        local_steps = n_steps
+    else:
+        world = _comm.axis_world(mesh, axis_name)
+        steps = n_steps
+        rem = (-steps) % world
+        local_leaves = list(stacked_leaves)
+        if rem:
+            if not additive_ok or not batched:
+                raise ValueError(
+                    f"drive(mesh=...): {steps} steps do not divide"
+                    f" across {world} shards and the members are not"
+                    " row-additive over an unambiguous batch axis"
+                    " (whole pad steps would not correct exactly);"
+                    " pad the epoch or drop mesh mode."
+                )
+            batch = int(leaves0[batched[0]].shape[0])
+            local_leaves = [torch.cat([x, x.new_zeros((rem, *x.shape[1:]))]) for x in local_leaves]
+            pads = [0] * steps + [batch] * rem
+            steps += rem
+        per = steps // world
+        start = _comm.axis_index(mesh, axis_name) * per
+        local_leaves = [x[start:start + per] for x in local_leaves]
+        pads = None if pads is None else pads[start:start + per]
+        local_steps = per
+
+    prior = {k: m._snapshot_state() for k, m in fused}
+    for _, m in fused:
+        m._restore_state(m.init_state())
+    extras = {"mesh": mesh, "axes": axes, "hierarchical": hierarchical, "prior": prior, "verdicts": verdicts, "share": share}
+    runner = _ChunkRunner(fused, [], stats, (), treedef, batched, additive_ok, steps_per_chunk, mesh=extras)
+    try:
+        with _comm.axis_env(mesh):
+            runner.run_stacked(tuple(local_leaves), local_steps, pads)
+            if not runner.synced:
+                finish = _mesh_finish(tuple(k for k, _ in fused), mesh, axes, hierarchical)
+                merged = finish(fused_members, {k: m._snapshot_state() for k, m in fused}, prior)
+                for k, m in fused:
+                    m._restore_state(merged[k])
+    except BaseException:
+        for k, m in fused:
+            m._restore_state(prior[k])
+        raise
+    other_steps = n_steps - local_steps  # every process counts the whole epoch, as JAX does
+    for _, m in fused:
+        m._update_count += other_steps
+        if _health.health_enabled(m):
+            m._health_stats["batches_screened"] += other_steps
+    stats["mesh_sync"] = "in_program" if runner.synced else "after_program"
+    if gspmd:
+        fused_keys = tuple(k for k, _ in fused)
+        _shard_reduce.constrain_state_tree(
+            {k: m._snapshot_state() for k, m in fused}, _shard_reduce.build_constraints(fused_keys, fused_members, mesh)
+        )
+        _shard_spec.record_drive(fused, mesh)
+    if not gspmd or _comm.mesh_spans_processes(mesh):
+        # the states are the global accumulation: a host sync in compute()
+        # would reduce them again, and a host update would not be synced
+        for _, m in fused:
+            m._to_sync = False
+            m._drive_synced = True
+    values = obj.compute() if compute_in_trace else None
+    return DriveResult(n_steps, runner.n_chunks, tuple(k for k, _ in fused), (), values)
 
 
 def _drive_local(obj: Any, batches: Any, compute_in_trace: bool, steps_per_chunk: int) -> DriveResult:
@@ -479,7 +784,12 @@ class _ChunkRunner:
     step. On a fallback error the states reached so far are bound and the
     remaining steps (the failed chunk's included) run per step."""
 
-    def __init__(self, fused, eager, stats, compute_keys, treedef, batched, additive_ok, k) -> None:
+    def __init__(self, fused, eager, stats, compute_keys, treedef, batched, additive_ok, k, mesh=None) -> None:
+        """``mesh``: a mesh drive's ``{"mesh", "axes", "hierarchical",
+        "prior", "verdicts", "share"}``; its chunks run the ``mesh_scan``
+        programs with the quarantine verdicts, the last one with the sync
+        and the merge into ``prior`` where the backend's collectives capture
+        (NCCL)."""
         self.fused = list(fused)
         self.eager = list(eager)
         self.stats = stats
@@ -488,8 +798,11 @@ class _ChunkRunner:
         self.batched = batched
         self.additive_ok = additive_ok
         self.k = k
+        mesh_sync = None if mesh is None else (mesh["mesh"], mesh["axes"], mesh["hierarchical"])
         self.entry = (
-            _driver_entry(tuple(k_ for k_, _ in fused), [m for _, m in fused], compute_keys) if fused else None
+            _driver_entry(tuple(k_ for k_, _ in fused), [m for _, m in fused], compute_keys, mesh_sync)
+            if fused
+            else None
         )
         self.states = {key: m._snapshot_state() for key, m in fused}
         self.values: Dict[str, Any] = {}
@@ -498,9 +811,51 @@ class _ChunkRunner:
         self.bound_steps = 0  # steps the carried states hold
         self.moved: List[Any] = []  # fused members sent per step by a fallback
         self.staging: Optional[_Staging] = None
+        self.mesh = mesh
+        if mesh is not None:
+            live = _comm.live_axes(mesh["mesh"], mesh["axes"])
+            mesh["in_program"] = all(_comm._in_program_backend(_comm.axis_group(mesh["mesh"], a)) for a in live)
+        self.synced = False  # the last chunk's program ran the mesh sync
 
     # -- chunks -----------------------------------------------------------
-    def _dispatch(self, leaves: List[torch.Tensor], pads: Optional[List[int]], last: bool) -> None:
+    def _dispatch_mesh(self, leaves: List[torch.Tensor], pads: Optional[List[int]], last: bool, pos: int) -> None:
+        members = [m for _, m in self.fused]
+        k = int(leaves[0].shape[0])
+        device = leaves[0].device
+        bad = {
+            key: None if v is None else _pad_flags(v[pos:pos + k], k)
+            for key, v in self.mesh["verdicts"].items()
+        }
+        pad_t = None if pads is None else _device_pads(pads, device)
+        extra: Dict[str, Any] = {"bad": bad, "share": self.mesh["share"]}
+        sync = last and self.mesh["in_program"]
+        if sync:
+            extra["prior"] = self.mesh["prior"]
+        probe = not _cache.probed(members)
+        try:
+            out = self.entry.invoke(
+                "mesh_scan_sync" if sync else "mesh_scan", members, self.stats, self.states, leaves, pad_t, self.treedef,
+                extra, probe=probe,
+            )
+        except _cache.FALLBACK_ERRORS:
+            if not sync:
+                raise
+            # the collectives would not capture: the sync runs after the program
+            self.mesh["in_program"] = False
+            sync = False
+            extra.pop("prior")
+            out = self.entry.invoke(
+                "mesh_scan", members, self.stats, self.states, leaves, pad_t, self.treedef, extra, probe=probe
+            )
+        _cache.mark_probed(members)
+        self.states = out
+        self.synced = sync
+        self.n_chunks += 1
+
+    def _dispatch(self, leaves: List[torch.Tensor], pads: Optional[List[int]], last: bool, pos: int = 0) -> None:
+        if self.mesh is not None:
+            self._dispatch_mesh(leaves, pads, last, pos)
+            return
         members = [m for _, m in self.fused]
         cmp = last and bool(self.compute_keys)
         variant = ("scan_pad" if pads is not None else "scan") + ("_cmp" if cmp else "")
@@ -528,7 +883,9 @@ class _ChunkRunner:
         self.n_chunks += 1
 
     # -- stacked epochs ------------------------------------------------------
-    def run_stacked(self, args_tree: Tuple[torch.Tensor, ...], n_steps: int) -> None:
+    def run_stacked(self, args_tree: Tuple[torch.Tensor, ...], n_steps: int, step_pads: Optional[List[int]] = None) -> None:
+        """``step_pads``: the pad rows of each step (a mesh drive's whole
+        zero steps), None for none."""
         stacked_leaves, _ = _tree.flatten((args_tree, {}))
         k = min(self.k, n_steps)
         batch = int(stacked_leaves[self.batched[0]].shape[1]) if self.batched else 0
@@ -536,16 +893,16 @@ class _ChunkRunner:
         while pos < n_steps:
             span = min(k, n_steps - pos)
             chunk = [x[pos:pos + span] for x in stacked_leaves]
-            pads = None
+            pads = None if step_pads is None or not any(step_pads[pos:pos + span]) else list(step_pads[pos:pos + span])
             if span < k and self.additive_ok and self.batched:
                 # whole zero steps, so the K-step program replays again
                 chunk = [torch.cat([x, x.new_zeros((k - span, *x.shape[1:]))]) for x in chunk]
-                pads = [0] * span + [batch] * (k - span)
+                pads = (pads or [0] * span) + [batch] * (k - span)
             last = pos + span >= n_steps
             try:
-                self._dispatch(chunk, pads, last)
+                self._dispatch(chunk, pads, last, pos)
             except _cache.FALLBACK_ERRORS:
-                self._fall_back_from(pos, n_steps, lambda i: tuple(a[i] for a in args_tree))
+                self._fall_back_from(pos, n_steps, lambda i: tuple(a[i] for a in args_tree), step_pads)
                 return
             pos += span
             self.bound_steps = pos
@@ -555,7 +912,7 @@ class _ChunkRunner:
             for _, m in self.eager:
                 m.update(*tuple(a[i] for a in args_tree))
 
-    def _fall_back_from(self, pos: int, n_steps: int, step_at: Any) -> None:
+    def _fall_back_from(self, pos: int, n_steps: int, step_at: Any, step_pads: Optional[List[int]] = None) -> None:
         new_eager = list(self.fused)
         _bind_states(self.fused, self.states, pos)
         for _, m in new_eager:
@@ -564,6 +921,8 @@ class _ChunkRunner:
         self.eager = old_eager + new_eager
         self.fused = []
         for i in range(n_steps):
+            if step_pads is not None and step_pads[i]:
+                continue  # a whole zero step a mesh drive appended
             for _, m in (new_eager if i >= pos else []) + old_eager:
                 m.update(*step_at(i))
         self.n_steps = n_steps
@@ -708,6 +1067,26 @@ class _ChunkRunner:
         self.eager.extend(self.moved)
         self.values = {}
         self._per_step(args_list)
+
+
+def _device_pads(pads: List[int], device: torch.device) -> torch.Tensor:
+    """A chunk's pad rows per step on ``device``. A mesh drive pads whole
+    zero steps at the end (``[0, ..., 0, b, ..., b]``): two fills, where a
+    copy from a host list would be a host sync."""
+    j = sum(1 for p in pads if p == 0)
+    tail = set(pads[j:])
+    if any(pads[:j]) or len(tail) > 1:
+        return torch.tensor(pads, dtype=torch.int64).to(device)
+    out = torch.full((len(pads),), tail.pop() if tail else 0, dtype=torch.int64, device=device)
+    out[:j] = 0
+    return out
+
+
+def _pad_flags(flags: torch.Tensor, k: int) -> torch.Tensor:
+    """A chunk's ``[k]`` verdicts: the pad steps past the epoch are clean."""
+    if flags.shape[0] == k:
+        return flags
+    return torch.cat([flags, flags.new_zeros(k - flags.shape[0])])
 
 
 def _chain(first: Tuple[Any, ...], rest: Any):

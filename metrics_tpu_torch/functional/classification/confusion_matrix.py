@@ -1,6 +1,6 @@
 """Confusion matrix (counterpart of
 ``metrics_tpu/functional/classification/confusion_matrix.py``)."""
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -12,11 +12,17 @@ from metrics_tpu_torch.utils.enums import DataType
 
 
 def _confusion_matrix_update(
-    preds: torch.Tensor, target: torch.Tensor, num_classes: int, threshold: float = 0.5, multilabel: bool = False
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    num_classes: int,
+    threshold: float = 0.5,
+    multilabel: bool = False,
+    window: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Unnormalized int64 confusion matrix ``[C, C]``, or ``[C, 2, 2]`` when
     ``multilabel=True``, through the ``confusion_counts`` or
-    ``multilabel_counts`` kernel."""
+    ``multilabel_counts`` kernel; with a class ``window=(c0, W)`` only its
+    ``W`` rows (target classes ``c0 .. c0 + W - 1``)."""
     # num_classes goes to the formatter only for integer-label inputs: float
     # scores carry C in their shape, and the binary/multilabel checks reject it
     fmt_num_classes = num_classes if (not preds.is_floating_point() and preds.ndim == target.ndim) else None
@@ -25,8 +31,8 @@ def _confusion_matrix_update(
         preds = preds.argmax(dim=1)
         target = target.argmax(dim=1)
     if multilabel:
-        return multilabel_counts(preds, target)
-    return confusion_counts(preds, target, num_classes=num_classes)
+        return multilabel_counts(preds, target, cols=window)
+    return confusion_counts(preds, target, num_classes=num_classes, rows=window)
 
 
 def _confusion_matrix_compute(confmat: torch.Tensor, normalize: Optional[str] = None) -> torch.Tensor:

@@ -25,17 +25,25 @@
   runs the extractor and the moment accumulation as one captured program
   per chunk signature (``encoders/stream.py``).
 
-``feature_sharding=`` and ``encoder_sharding=`` lay the states and the
-network over a device mesh: that is the sharded state plane, ROADMAP §1
-item 7, and they raise here.
+* **Feature-sharded moments.** ``feature_sharding="mp"`` registers the
+  ``[d]`` and ``[d, d]`` moment states split by feature rows over that mesh
+  axis. Placed (``shard_states(mesh)``), each process accumulates only its
+  rows, ``f[:, r0:r1].T @ f`` (a plain product, as the JAX package's), and
+  ``compute()`` sums the moments over the data axes, gathers the float64
+  ``[d, d]`` over the feature axis on the device and runs Newton–Schulz
+  (the default square root under ``feature_sharding``).
+
+``encoder_sharding=`` lays the network itself over a mesh: that is the
+encoder's mesh, ROADMAP §1 item 7b, and it raises here.
 """
 from functools import lru_cache
-from typing import Any, Callable, Iterable, Optional, Union
+from typing import Any, Callable, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.sharding.spec import canonical_spec, class_axis_spec
 from metrics_tpu_torch.utils.data import dim_zero_cat
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
@@ -49,8 +57,8 @@ def _resolve_feature_extractor(feature: Union[int, str], weights_path: Optional[
 
 def _sharding_unported(arg: str) -> MetricsUserError:
     return MetricsUserError(
-        f"`{arg}` shards FID over a device mesh, which is the sharded state plane (ROADMAP §1 item 7),"
-        " not ported yet; leave it None (matrix_sqrt='newton_schulz' runs on one device without it)."
+        f"`{arg}` shards the InceptionV3 network over a device mesh, which is the encoder's mesh (ROADMAP §1"
+        " item 7b), not ported yet; leave it None (feature_sharding= splits the moment states without it)."
     )
 
 
@@ -75,11 +83,12 @@ def _validate_features(features: torch.Tensor) -> torch.Tensor:
 
 
 @lru_cache(maxsize=None)
-def _moment_consumer_for(feature_dim: int) -> Callable:
+def _moment_consumer_for(feature_dim: int, rows: Optional[Tuple[int, int]] = None) -> Callable:
     """The ``(carry, features, valid) -> carry`` of :meth:`update_stream`,
-    memoized per feature dimension: the fused encode+accumulate program is
-    keyed by the consumer's identity, so every FID instance of one
-    dimensionality shares one program family."""
+    memoized per feature dimension and row window: the fused
+    encode+accumulate program is keyed by the consumer's identity, so every
+    FID instance of one dimensionality (and placement) shares one program
+    family. ``rows=(r0, R)``: the feature rows a placed process keeps."""
 
     def consumer(carry, features, valid):
         if features.ndim != 2 or features.shape[1] != feature_dim:
@@ -88,8 +97,9 @@ def _moment_consumer_for(feature_dim: int) -> Callable:
             )
         # multiplying by 1.0 is exact: an all-valid chunk adds what update() adds
         f = features.to(carry["sum"].dtype) * valid[:, None].to(carry["sum"].dtype)
+        mine = f if rows is None else f[:, rows[0]:rows[0] + rows[1]]
         new = dict(carry)
-        for name, delta in (("sum", f.sum(dim=0)), ("outer", f.T @ f)):
+        for name, delta in (("sum", mine.sum(dim=0)), ("outer", mine.T @ f)):
             acc = carry[name]
             folded = acc + delta
             new[name + "_c"] = carry[name + "_c"] + ((acc - folded) + delta)
@@ -141,13 +151,17 @@ class FrechetInceptionDistance(Metric):
             files; see ``convert_torch_inception_checkpoint``); falls back to
             ``$METRICS_TPU_INCEPTION_WEIGHTS``. Only used when ``feature`` is
             an int.
-        feature_sharding: not ported (ROADMAP §1 item 7); must be None.
-        matrix_sqrt: ``'auto'`` and ``'eigh'`` (the host eigendecomposition)
-            or ``'newton_schulz'`` (the matmul-only iteration on the metric's
+        feature_sharding: a mesh-axis name (or ``PartitionSpec``) the
+            feature axis of the moment states is split over (needs
+            ``feature_dim``); see :meth:`shard_states`.
+        matrix_sqrt: ``'eigh'`` (the host eigendecomposition),
+            ``'newton_schulz'`` (the matmul-only iteration on the metric's
             device; agrees with the host path to
-            ``sharding.NEWTON_SCHULZ_FID_RTOL``).
+            ``sharding.NEWTON_SCHULZ_FID_RTOL``), or ``'auto'``: Newton–Schulz
+            under ``feature_sharding``, else eigh.
         sqrt_iters: Newton–Schulz iteration count.
-        encoder_sharding: not ported (ROADMAP §1 item 7); must be None.
+        encoder_sharding: not ported (the encoder's mesh, ROADMAP §1 item
+            7b); must be None.
 
     Example:
         >>> import torch
@@ -164,6 +178,7 @@ class FrechetInceptionDistance(Metric):
 
     is_differentiable = False
     higher_is_better = False
+    _sharded_update = True
 
     def __init__(
         self,
@@ -179,8 +194,6 @@ class FrechetInceptionDistance(Metric):
         kwargs.setdefault("jit_update", False)  # extractor call is user code
         kwargs.setdefault("compute_on_step", False)  # reference ``fid.py:215``
         super().__init__(**kwargs)
-        if feature_sharding is not None:
-            raise _sharding_unported("feature_sharding")
         if encoder_sharding is not None:
             raise _sharding_unported("encoder_sharding")
         if isinstance(feature, int):
@@ -193,11 +206,12 @@ class FrechetInceptionDistance(Metric):
         self.feature_dim = feature_dim
         if matrix_sqrt not in ("auto", "eigh", "newton_schulz"):
             raise ValueError(f"`matrix_sqrt` must be 'auto', 'eigh' or 'newton_schulz', got {matrix_sqrt!r}")
-        self.feature_sharding = None
+        # a canonical tuple, not a PartitionSpec: public attributes key programs
+        self.feature_sharding = canonical_spec(class_axis_spec(feature_sharding)) or None
         self.encoder_sharding = None
         self.matrix_sqrt = matrix_sqrt
         self.sqrt_iters = int(sqrt_iters)
-        if feature_dim is None and matrix_sqrt == "newton_schulz":
+        if feature_dim is None and (self.feature_sharding is not None or matrix_sqrt == "newton_schulz"):
             raise MetricsUserError(
                 "feature_sharding / matrix_sqrt='newton_schulz' operate on the"
                 " O(d^2) streaming-statistics states and need `feature_dim`"
@@ -208,7 +222,12 @@ class FrechetInceptionDistance(Metric):
             d = int(feature_dim)
             for prefix in ("real", "fake"):
                 for name, shape in (("sum", (d,)), ("sum_c", (d,)), ("outer", (d, d)), ("outer_c", (d, d))):
-                    self.add_state(f"{prefix}_{name}", default=torch.zeros(shape, dtype=torch.float64), dist_reduce_fx="sum")
+                    self.add_state(
+                        f"{prefix}_{name}",
+                        default=torch.zeros(shape, dtype=torch.float64),
+                        dist_reduce_fx="sum",
+                        sharding=self.feature_sharding,
+                    )
                 self.add_state(f"{prefix}_n", default=torch.tensor(0), dist_reduce_fx="sum")
         else:
             self.add_state("real_features", default=[], dist_reduce_fx="cat")
@@ -241,7 +260,14 @@ class FrechetInceptionDistance(Metric):
         """The ``(carry, features, valid) -> carry`` folding one chunk into
         the moment states: the same accumulation :meth:`update` performs,
         with pad and screened rows zeroed by ``valid``."""
-        return _moment_consumer_for(int(self.feature_dim))
+        return _moment_consumer_for(int(self.feature_dim), self._feature_rows())
+
+    def _feature_rows(self) -> Optional[Tuple[int, int]]:
+        """This process's feature rows of the placed moment states, or None."""
+        rows = self._state_window("real_outer")
+        if rows is None and self._shard_layout:
+            raise MetricsUserError("FID's moment states are split by feature rows (dimension 0) only")
+        return rows
 
     def _moments(self, real: bool) -> dict:
         prefix = "real" if real else "fake"
@@ -313,7 +339,9 @@ class FrechetInceptionDistance(Metric):
         return mu, cov
 
     def _resolved_sqrt(self) -> str:
-        return "newton_schulz" if self.matrix_sqrt == "newton_schulz" else "eigh"
+        if self.matrix_sqrt != "auto":
+            return self.matrix_sqrt
+        return "newton_schulz" if self.feature_sharding is not None else "eigh"
 
     def _compute_on_device(self) -> torch.Tensor:
         """FID on the metric's device: the moments (with the two-sum terms

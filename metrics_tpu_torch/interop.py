@@ -11,6 +11,12 @@ per leaf. The attributes a metric learns during ``update`` (its
 aggregators' ``nan_strategy``) carry across both ways like any state:
 both packages register them for the same configurations.
 
+Class- and feature-sharded metrics (``ConfusionMatrix(class_sharding=)``,
+macro ``StatScores(class_sharding=)``, FID's ``feature_sharding=``) cross
+the same way: a JAX ``state_dict`` holds the global arrays (a sharded
+``jax.Array`` converts whole), and loading it into the port's placed metric
+(after ``shard_states(mesh)``) keeps each process's shard of them.
+
 Example::
 
     jax_acc.persistent(True)

@@ -31,6 +31,16 @@ the update engine (counterpart of ``metrics_tpu/metric.py``).
   ``sync`` each run in a span while tracing or the event bus is on (one
   bool read each when both are off); :meth:`sync_report` counts the syncs,
   and :meth:`obs_snapshot` gathers the three reports.
+* Sharded states (``sharding/``): ``add_state(sharding=)`` annotates a
+  state with the mesh axes it is split over; :meth:`shard_states` (or
+  ``drive(mesh=, in_specs=)``) lays it out over a ``DeviceMesh``, one
+  process per device, each keeping its local shard (the layout is recorded
+  in ``_shard_layout``). ``update`` then counts only this process's part
+  (the metrics with ``_sharded_update`` window their kernels; others run
+  on the gathered state and keep their slice), and ``compute`` sees the
+  global state: reduced over the mesh axes the states are not split over,
+  then gathered. ``axis_name`` and :meth:`sync_state`'s ``axis_name``
+  reduce state dicts over named mesh axes (``parallel/comm.py``).
 """
 import copy
 import enum
@@ -38,7 +48,7 @@ import functools
 import inspect
 import warnings
 from contextlib import contextmanager
-from typing import Any, Callable, Dict, FrozenSet, Generator, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, FrozenSet, Generator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,6 +62,7 @@ from metrics_tpu_torch.obs.warn import instance_token, warn_once
 from metrics_tpu_torch.parallel import comm
 from metrics_tpu_torch.resilience import health as _health
 from metrics_tpu_torch.resilience import new_sync_stats
+from metrics_tpu_torch.sharding import spec as _shard_spec
 from metrics_tpu_torch.utils import enums as _enums
 from metrics_tpu_torch.utils.data import _squeeze_if_scalar, dim_zero_cat
 from metrics_tpu_torch.utils.exceptions import MetricsUserError, NumericalHealthError, SyncError
@@ -146,6 +157,9 @@ class Metric(nn.Module):
         dist_sync_fn: ``fn(tensor, group) -> List[tensor]``, one call per
             state in sorted state-name order, in place of the default
             ``all_gather``.
+        axis_name: the mesh axis (or axes, outer first) that
+            :meth:`sync_state` reduces over when it is given none; the mesh
+            is the ``comm.axis_env`` one.
         on_sync_error: ``"raise"`` propagates a failed sync as a
             :class:`SyncError`; ``"local"`` warns and computes on the
             rank-local state.
@@ -182,6 +196,10 @@ class Metric(nn.Module):
     #: each tensor input of rank >= 1 is the batch axis
     #: (``engine/bucketing.py``).
     _batch_additive: bool = False
+    #: ``update`` windows its work to a placed state's local shard (reads
+    #: :meth:`_state_window` / :meth:`_local_part`); without it a placed
+    #: metric's update runs on the gathered global state and keeps its slice.
+    _sharded_update: bool = False
 
     def __init__(
         self,
@@ -189,6 +207,7 @@ class Metric(nn.Module):
         dist_sync_on_step: bool = False,
         process_group: Optional[Any] = None,
         dist_sync_fn: Optional[Callable] = None,
+        axis_name: Optional[Union[str, Sequence[str]]] = None,
         on_sync_error: str = "raise",
         on_bad_input: str = "propagate",
         jit_update: bool = True,
@@ -227,6 +246,16 @@ class Metric(nn.Module):
             )
         self.process_group = process_group
         self.dist_sync_fn = dist_sync_fn
+        self.axis_name = axis_name
+        # per-state sharding annotations (add_state(sharding=)): configuration
+        # that names mesh axes; a mesh binds at shard_states / drive(mesh=)
+        self._state_shardings: Dict[str, Any] = {}
+        # the mesh the states are laid out over, and each placed state's layout
+        self._shard_mesh: Optional[Any] = None
+        self._shard_layout: Dict[str, Any] = {}
+        # set by a mesh drive whose sync made the states global across
+        # processes: host update/forward/sync raise until reset()
+        self._drive_synced = False
         self._update_signature = inspect.signature(self.update)
         self.update: Callable = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute: Callable = self._wrap_compute(self.compute)  # type: ignore[method-assign]
@@ -279,10 +308,16 @@ class Metric(nn.Module):
         a sync in which every rank is empty gives that tensor; a rank that is
         empty beside ranks that hold data takes their dtype.
 
-        ``sync_precision`` and ``sharding`` are accepted at the JAX package's
-        defaults (``"exact"``, ``None``), so that metrics written for it
-        construct; the quantized wire codecs (ROADMAP §1 item 9) and sharded
-        states (item 7) are not ported and raise."""
+        ``sharding`` (array states only) annotates the state with the mesh
+        axes its dimensions are split over: a
+        :class:`~metrics_tpu_torch.sharding.PartitionSpec`, or a bare axis
+        name for the leading axis. It is honoured by :meth:`shard_states`
+        and ``drive(mesh=, in_specs=)``, carried by :meth:`state_spec` and
+        checked by :meth:`bind_state`.
+
+        ``sync_precision`` is accepted at the JAX package's default
+        (``"exact"``) so that metrics written for it construct; the quantized
+        wire codecs (ROADMAP §1 item 9) are not ported and raise."""
         if sync_precision not in SYNC_PRECISIONS:
             raise ValueError(
                 f"`sync_precision` for state {name!r} must be one of {SYNC_PRECISIONS}, got {sync_precision!r}"
@@ -293,10 +328,7 @@ class Metric(nn.Module):
                 " not ported (ROADMAP §1 item 9); the port syncs every state exactly."
             )
         if sharding is not None:
-            raise MetricsUserError(
-                f"`sharding=` for state {name!r} lays the state out over a device mesh, which is the sharded state"
-                " plane (ROADMAP §1 item 7), not ported yet; the port keeps every state on one device."
-            )
+            self._state_shardings[name] = _shard_spec.normalize_state_sharding(name, sharding, default)
         if placeholder is not None:
             if not isinstance(default, list):
                 raise ValueError(
@@ -383,11 +415,32 @@ class Metric(nn.Module):
         with torch.no_grad():
             return self._with_state(state, self._compute_impl)
 
-    def sync_state(self, state: Dict[str, Any], process_group: Optional[Any] = None) -> Dict[str, Any]:
-        """Pure sync: ``state`` gathered from every rank of ``process_group``
-        (this metric's group when None) and reduced as ``compute`` would;
-        ``state`` is left as it was. Under ``on_sync_error="local"`` a failed
+    def sync_state(
+        self,
+        state: Dict[str, Any],
+        axis_name: Optional[Union[str, Sequence[str]]] = None,
+        hierarchical: bool = False,
+        *,
+        process_group: Optional[Any] = None,
+    ) -> Dict[str, Any]:
+        """Pure sync; ``state`` is left as it was.
+
+        With ``axis_name`` (or the constructor's), the in-program sync over
+        those axes of the ``comm.axis_env`` mesh: one collective per state,
+        sum/mean/max/min as all-reduces, ``cat`` and ``None`` as gathers (a
+        list state comes back as a one-element list);
+        ``hierarchical=True`` with two or more axes (outer first) stages
+        them inner axis first (``comm.reduce_in_trace``).
+
+        Without one, the host sync: ``state`` gathered from every rank of
+        ``process_group`` (this metric's group when None) and reduced as
+        ``compute`` would. Under ``on_sync_error="local"`` a failed host
         sync returns the local state, with a warning."""
+        axis = axis_name if axis_name is not None else self.axis_name
+        if axis is not None and process_group is None:
+            return comm.sync_state_in_trace(
+                state, self._reductions, axis, placeholders=self._list_placeholders, hierarchical=hierarchical
+            )
         group = process_group if process_group is not None else self.process_group
         gathered = self._gather_with_policy(self._sync_leaves(state), group, self.dist_sync_fn)
         if gathered is None:
@@ -414,6 +467,80 @@ class Metric(nn.Module):
                 raise MetricsUserError(f"State {name!r} with dist_reduce_fx={fx!r} cannot be merged pairwise")
         return out
 
+    def state_spec(self) -> Dict[str, Any]:
+        """``name -> StateSpec(shape, dtype, sharding)`` for every tensor
+        state (list states map to None): the global shape, placed or not,
+        and the registered ``add_state(sharding=)`` annotation (None for a
+        state that is not split)."""
+        return {
+            name: None
+            if isinstance(default, list)
+            else _shard_spec.StateSpec(
+                _shard_spec.registered_shape(self, name), default.dtype, self._state_shardings.get(name)
+            )
+            for name, default in self._defaults.items()
+        }
+
+    def shard_states(self, mesh: Any) -> "Metric":
+        """Lay the registered-sharded states out over ``mesh`` (a
+        ``torch.distributed.device_mesh.DeviceMesh`` with named dims, one
+        process per device): each process keeps its shard of the states and
+        of their defaults, so :meth:`reset` stays placed. States without an
+        annotation are untouched. Afterwards ``update`` follows the mesh's
+        data-parallel contract (the processes of one split axis group feed
+        the same batch) and ``compute`` sees the global state. Clones and
+        pickles keep the annotations, not the placement."""
+        return _shard_spec.place_states(self, mesh)
+
+    def sharded_state(self, name: str) -> Any:
+        """A placed state as a ``torch.distributed.tensor.DTensor`` over the
+        mesh (a view of the local shard, no copy); a state that is not
+        placed as it is."""
+        layout = self._shard_layout.get(name)
+        value = getattr(self, name)
+        if layout is None:
+            return value
+        return _shard_spec.dtensor_view(value, layout, self._shard_mesh)
+
+    def _state_window(self, name: str, dim: int = 0) -> Optional[Tuple[int, int]]:
+        """``(offset, length)`` of this process's shard along ``dim`` when a
+        placed state is split along that dimension alone, else None."""
+        layout = self._shard_layout.get(name)
+        if layout is None or [d for d, _ in layout.splits] != [dim]:
+            return None
+        return layout.offsets[dim], layout.local_shape[dim]
+
+    def _local_part(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This process's shard of a global value of state ``name`` (the
+        value itself when the state is not placed)."""
+        layout = self._shard_layout.get(name)
+        if layout is None:
+            return full
+        out = full
+        for dim, _ in layout.splits:
+            out = out.narrow(dim, layout.offsets[dim], layout.local_shape[dim])
+        return out
+
+    def _update_gathered(self, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> None:
+        """The update of a placed metric without ``_sharded_update``: on the
+        global states (gathered over their split axes), eagerly, keeping
+        this process's slice."""
+        saved = self._snapshot_state()
+        mesh = self._shard_mesh
+        self._restore_state(
+            {
+                n: _shard_spec.gather_state(v, self._shard_layout[n], mesh) if n in self._shard_layout else v
+                for n, v in saved.items()
+            }
+        )
+        try:
+            self._eager_update(_health.health_enabled(self), args, kwargs)
+        except BaseException:
+            self._restore_state(saved)
+            raise
+        new = self._snapshot_state()
+        self._restore_state({n: self._local_part(n, v).clone() if n in self._shard_layout else v for n, v in new.items()})
+
     def bind_state(self, state: Dict[str, Any], update_count: Optional[int] = None) -> "Metric":
         """Bind a state tree (tensors or numpy arrays) onto this instance,
         the inverse of ``_snapshot_state`` for state held outside the metric.
@@ -422,7 +549,10 @@ class Metric(nn.Module):
         ``_shape_polymorphic_states``, float against integer) and cast to
         the registered dtype on this metric's device; nothing is bound if a
         check fails. ``update_count``, where given, becomes the number of
-        updates the lifecycle sees."""
+        updates the lifecycle sees. A state registered with ``sharding=``
+        may be a ``DTensor`` laid out as registered (or not split); another
+        layout raises, naming ``Class.state``. A placed metric takes a
+        global value (and keeps its shard) or its shard."""
         cls = type(self).__name__
         unknown = sorted(set(state) - set(self._defaults))
         missing = sorted(set(self._defaults) - set(state))
@@ -441,7 +571,14 @@ class Metric(nn.Module):
             if isinstance(default, list):
                 bound[name] = [torch.as_tensor(v, device=self._device) for v in value]
                 continue
-            t = torch.as_tensor(value, device=self._device)
+            registered = self._state_shardings.get(name)
+            conflict = None if registered is None else _shard_spec.sharding_conflict(registered, value)
+            if conflict is not None:
+                raise MetricsUserError(
+                    f"bind_state on {cls}: state {cls}.{name} is {conflict} — rebind an unsharded/replicated tree"
+                    " (placement will re-lay it out) or one already partitioned per the registered spec."
+                )
+            t = _shard_spec.local_value(self, name, value)
             if t.shape != default.shape and name not in self._shape_polymorphic_states:
                 raise MetricsUserError(
                     f"bind_state on {cls}: state {name!r} has registered shape {tuple(default.shape)} but the"
@@ -546,6 +683,12 @@ class Metric(nn.Module):
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
+            if self._drive_synced:
+                raise MetricsUserError(
+                    f"{type(self).__name__} holds the globally-synced state of a mesh-mode engine.drive: a"
+                    " host-side update would be dropped from (or double-counted in) the cross-rank total."
+                    " reset() first, or accumulate further epochs through drive(mesh=...)."
+                )
             self._computed = None
             self._update_count += 1
             with torch.no_grad():
@@ -564,6 +707,9 @@ class Metric(nn.Module):
         screened = _health.health_enabled(self)
         if screened:
             self._health_stats["batches_screened"] += 1
+        if self._shard_layout and not self._sharded_update:
+            self._update_gathered(args, kwargs)
+            return
         if (
             not self._enable_jit
             or self._jit_failed
@@ -692,13 +838,19 @@ class Metric(nn.Module):
                 )
             if self._computed is not None:
                 return self._computed
-            with torch.no_grad(), self.sync_context(
-                dist_sync_fn=self.dist_sync_fn,
-                process_group=self.process_group,
-                should_sync=self._to_sync,
-                should_unsync=self._should_unsync,
-                distributed_available=self._distributed_available_fn,
-            ):
+            if self._shard_layout:
+                # a placed state's global view: reduced over the data axes
+                # (unless a mesh drive's sync already did), then gathered
+                context = _shard_spec.global_view(self, reduce_data=self._to_sync and not self._drive_synced)
+            else:
+                context = self.sync_context(
+                    dist_sync_fn=self.dist_sync_fn,
+                    process_group=self.process_group,
+                    should_sync=self._to_sync,
+                    should_unsync=self._should_unsync,
+                    distributed_available=self._distributed_available_fn,
+                )
+            with torch.no_grad(), context:
                 self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
             if _health.health_enabled(self):
                 _health.check_compute_result(self, self._computed)
@@ -723,7 +875,10 @@ class Metric(nn.Module):
             setattr(self, name, self._default_value(name))
         self._cache = None
         self._is_synced = False
+        # a mesh drive leaves _to_sync False and _drive_synced True; a reset
+        # state is local again (placed defaults stay placed)
         self._to_sync = True
+        self._drive_synced = False
         # the "raise" mirrors follow the counters back to zero
         _health.reset_seen_mirrors(self)
 
@@ -830,6 +985,12 @@ class Metric(nn.Module):
         """Cache the local state and replace it with the cross-process reduction."""
         if self._is_synced and should_sync:
             raise MetricsUserError("The Metric has already been synced.")
+        if self._drive_synced and should_sync:
+            raise MetricsUserError(
+                f"{type(self).__name__} holds the globally-synced state of a mesh-mode engine.drive: a host-side"
+                " sync would re-reduce the identical global totals world_size-fold. Its compute() already skips"
+                " the sync; reset() restores the ordinary contract."
+            )
         if distributed_available is None:
             distributed_available = comm.distributed_available
         is_distributed = distributed_available() if callable(distributed_available) else bool(distributed_available)
@@ -944,6 +1105,8 @@ class Metric(nn.Module):
             if not self._persistent[name]:
                 continue
             v = getattr(self, name)
+            if name in self._shard_layout:
+                v = self.sharded_state(name)  # a DTensor: each process saves its shard
             destination[prefix + name] = list(v) if isinstance(v, list) else (v if keep_vars else v.detach())
         if any(self._persistent.values()):
             for attr in self._dynamic_state_attrs:
@@ -962,7 +1125,10 @@ class Metric(nn.Module):
         """Loads every state found in ``state_dict`` (onto this metric's
         device, in its registered dtype; a ``_shape_polymorphic_states``
         state in any shape); a persistent state that is absent is a missing
-        key."""
+        key. A global value of a placed state (a JAX ``state_dict``, say)
+        keeps this process's shard, and the metric then holds the global
+        state (``sharding.spec.mark_global``)."""
+        loaded_global = False
         for name, default in self._defaults.items():
             key = prefix + name
             if key not in state_dict:
@@ -974,7 +1140,8 @@ class Metric(nn.Module):
             if isinstance(default, list):
                 setattr(self, name, [torch.as_tensor(x, device=self._device).clone() for x in v])
                 continue
-            t = torch.as_tensor(v, device=self._device)
+            loaded_global = loaded_global or _shard_spec.is_global_value(self, name, v)
+            t = _shard_spec.local_value(self, name, v)
             if t.shape != default.shape and name not in self._shape_polymorphic_states:
                 error_msgs.append(f"state {key!r}: shape {tuple(t.shape)} in the checkpoint, {tuple(default.shape)} here")
             elif t.is_floating_point() != default.is_floating_point():
@@ -986,6 +1153,8 @@ class Metric(nn.Module):
                 setattr(self, attr, _decode_dynamic(state_dict[prefix + attr]))
         if _health.HEALTH_STATE in self._defaults:
             _health.reset_seen_mirrors(self, getattr(self, _health.HEALTH_STATE).cpu().numpy())
+        if loaded_global:
+            _shard_spec.mark_global(self)
         known = set(self._defaults) | set(self._dynamic_state_attrs)
         for key in state_dict:
             if key.startswith(prefix) and key[len(prefix):] not in known and "." not in key[len(prefix):]:
@@ -1015,6 +1184,12 @@ class Metric(nn.Module):
             "_zero_row_deltas",
         )
         state = {k: v for k, v in self.__dict__.items() if k not in skip}
+        if state.get("_shard_layout"):
+            # the mesh is process-local: a copy carries the global states
+            # (gathered, a collective of every process of the mesh) and the
+            # annotations, not the placement
+            state = _shard_spec.unplaced_copy(self, state)
+        state["_shard_mesh"] = None
         if state.get("process_group") is not None:
             state["process_group"] = _ProcessLocal(state["process_group"])
         return state
@@ -1045,6 +1220,11 @@ class Metric(nn.Module):
             ("_jit_failed", False),
             ("_engine_probed", False),
             ("_list_placeholders", {}),
+            ("axis_name", None),
+            ("_state_shardings", {}),
+            ("_shard_mesh", None),
+            ("_shard_layout", {}),
+            ("_drive_synced", False),
         ):
             self.__dict__.setdefault(name, value)
         self.__dict__.setdefault("_health_stats", _health.new_health_stats())

@@ -7,11 +7,12 @@
 with wrapper children inside each section; a collection covers every
 member, a tracker every step. ``snapshot()`` with no argument is the
 process view: :func:`process_snapshot`, with the JAX package's top-level
-keys. Its ``engine``, ``fetch``, ``encoders``, ``kernels``, ``bus``,
-``spans`` and ``warnings`` sections hold the port's counters; the sections
-of layers the port does not have yet (``serving``, ``wire``, ``warmup``,
-``sharding``, ``fleet``, ``durability``, ``guard``, ``integrity``,
-``compat``) hold ``{"ported": False}``.
+keys. Its ``engine``, ``fetch``, ``encoders``, ``kernels``, ``sharding``
+(:func:`~metrics_tpu_torch.sharding.shard_stats`), ``bus``, ``spans`` and
+``warnings`` sections hold the port's counters; the sections of layers the
+port does not have yet (``serving``, ``wire``, ``warmup``, ``fleet``,
+``durability``, ``guard``, ``integrity``, ``compat``) hold
+``{"ported": False}``.
 
 JSONL: one event per line in :meth:`Event.as_dict`'s schema
 (``{"v": 1, "seq", "kind", "t", "source", "data"}``), checked by
@@ -34,8 +35,14 @@ JSONL_SCHEMA_VERSION = 1
 _EVENT_REQUIRED_FIELDS = ("v", "seq", "kind", "t", "source", "data")
 
 #: Sections of the JAX process snapshot whose layers the port does not have
-#: yet (ROADMAP §1 items 7-10); each later slice fills in its own.
-UNPORTED_SECTIONS = ("serving", "wire", "warmup", "sharding", "fleet", "durability", "guard", "integrity", "compat")
+#: yet (ROADMAP §1 items 8-10); each later slice fills in its own.
+UNPORTED_SECTIONS = ("serving", "wire", "warmup", "fleet", "durability", "guard", "integrity", "compat")
+
+
+def _shard_stats() -> Dict[str, Any]:
+    from metrics_tpu_torch.sharding import shard_stats
+
+    return shard_stats()
 
 
 def _kernel_section() -> Dict[str, Any]:
@@ -65,6 +72,9 @@ def process_snapshot() -> Dict[str, Any]:
         "fetch": _engine.fetch_stats(),
         "encoders": encoder_stats(),
         "kernels": _kernel_section(),
+        # sharded metric states: registered specs, reshard events, sharded
+        # drives, per-device resident bytes
+        "sharding": _shard_stats(),
     }
     for name in UNPORTED_SECTIONS:
         out[name] = {"ported": False}
@@ -219,6 +229,18 @@ def prometheus_text(obj: Optional[Any] = None) -> str:
         rec = kern["by_op"][op_name]
         _sample("metrics_tpu_kernel_dispatches", rec["launches"], {"op": op_name, "path": "cuda"})
         _sample("metrics_tpu_kernel_dispatches", rec["plain_calls"], {"op": op_name, "path": "plain"})
+
+    # sharded metric states: layout moves, sharded drives, resident bytes
+    shard = _shard_stats()
+    for key in ("sharded_drives", "reshard_events", "mesh_changes"):
+        _sample(f"metrics_tpu_shard_{key}", shard[key])
+    _sample("metrics_tpu_shard_registered_specs", len(shard["specs"]), kind="gauge")
+    for state_key in sorted(shard["resident"]):
+        resident = shard["resident"][state_key]
+        labels = {"state": state_key, "spec": shard["specs"].get(state_key, "")}
+        _sample("metrics_tpu_shard_resident_bytes_per_device", resident["per_device_bytes"], labels, kind="gauge")
+        _sample("metrics_tpu_shard_state_bytes_total", resident["total_bytes"], labels, kind="gauge")
+        _sample("metrics_tpu_shard_state_devices", resident["devices"], labels, kind="gauge")
 
     bus_summary = _bus.summary()
     for kind in sorted(bus_summary["by_kind"]):

@@ -35,10 +35,10 @@ _INT = ctypes.c_int
 _SIGNATURES: Dict[str, List] = {
     # device, target, preds (int32 or int64 [N]), n, num_classes, bytes per index,
     # histograms per block (0: the global route), out [C*C] u64, stream
-    "mt_confusion_counts": [_INT, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
+    "mt_confusion_counts": [_INT, _P, _P, _I64, _I64, _I64, _I64, _INT, _INT, _P, _P],
     # device, preds i32 [N*C], target i32 [N*C], n, c, lanes per row, 16-byte loads,
     # out i64 [C*4] ([[tn, fp], [fn, tp]] per class), stream
-    "mt_multilabel_counts": [_INT, _P, _P, _I64, _I64, _INT, _INT, _P, _P],
+    "mt_multilabel_counts": [_INT, _P, _P, _I64, _I64, _I64, _INT, _INT, _P, _P],
     # device, x f32 [N*C], n, c, k, out i32 [N*C], stream
     "mt_topk_mask": [_INT, _P, _I64, _I64, _INT, _P, _P],
     # device, x f64 [N*C], n, c, k, out i32 [N*C], stream

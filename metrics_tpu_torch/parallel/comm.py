@@ -1,5 +1,17 @@
 """Cross-process gathers and reductions on ``torch.distributed``
-(counterpart of the host-level half of ``metrics_tpu/parallel/comm.py``).
+(counterpart of ``metrics_tpu/parallel/comm.py``).
+
+Two halves, as in the JAX package:
+
+* the host sync of ``compute()`` (below);
+* the in-program collectives over the named axes of a
+  ``torch.distributed.device_mesh.DeviceMesh`` (:func:`reduce_in_trace`,
+  :func:`sync_state_trees`, :func:`sync_state_in_trace`, the end of this
+  module), which a JAX trace runs inside ``shard_map``: one process per
+  device, the mesh named by :func:`axis_env`, NCCL collectives through
+  ``_functional_collectives`` so that a CUDA graph captures them.
+
+The host sync:
 
 A metric's states are gathered leaf by leaf with ``all_gather`` over a
 process group (the default group unless one is given), on whatever backend
@@ -25,12 +37,15 @@ ranks' in ``bytes_received``; while the event bus records it emits one
 ``sync_attempt`` event with the ``world`` size and this process's
 ``rank``.
 """
-from typing import Any, Callable, Dict, List, Optional, Union
+import threading
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from metrics_tpu_torch.obs import bus as _bus
+from metrics_tpu_torch.utils.data import dim_zero_cat
 
 #: reductions of states whose shape is fixed by registration: one collective each
 SIMPLE_REDUCTIONS = ("sum", "mean", "max", "min")
@@ -137,8 +152,7 @@ def host_reduce(
     ``state`` names the metric state in the error for an unknown reduction.
     """
     if reduce_fx not in (*SIMPLE_REDUCTIONS, "cat", None) and not callable(reduce_fx):
-        where = f" for state {state!r}" if state else ""
-        raise ValueError(f"Unsupported dist_reduce_fx{where}: {reduce_fx!r}")
+        raise _unsupported_fx(reduce_fx, state)
     gathered = gather_all_arrays(x, group, fixed_shape=reduce_fx in SIMPLE_REDUCTIONS)
     return reduce_gathered(gathered, reduce_fx)
 
@@ -192,3 +206,279 @@ def reduce(x: torch.Tensor, reduction: Optional[str]) -> torch.Tensor:
     if reduction in ("none", None):
         return x
     raise ValueError("Reduction parameter unknown.")
+
+
+# ---------------------------------------------------------------------------
+# In-program collectives over the axes of a DeviceMesh (the in-trace half of
+# metrics_tpu/parallel/comm.py)
+# ---------------------------------------------------------------------------
+_AXIS_ENV = threading.local()
+
+
+@contextmanager
+def axis_env(mesh: Any) -> Iterator[Any]:
+    """Name the mesh whose axes ``axis_name`` arguments refer to inside the
+    block (what a ``shard_map`` gives a JAX trace): :func:`reduce_in_trace`,
+    :func:`sync_state_trees`, ``Metric.sync_state(state, axis_name)`` and
+    ``MetricCollection.sync_state(states, axis_name)`` read it."""
+    stack = _AXIS_ENV.__dict__.setdefault("stack", [])
+    stack.append(mesh)
+    try:
+        yield mesh
+    finally:
+        stack.pop()
+
+
+def current_mesh(mesh: Optional[Any] = None) -> Any:
+    """``mesh``, else the innermost :func:`axis_env` mesh; raises without one."""
+    if mesh is not None:
+        return mesh
+    stack = _AXIS_ENV.__dict__.get("stack") or []
+    if not stack:
+        raise ValueError(
+            "an axis_name collective needs a DeviceMesh: run it inside `comm.axis_env(mesh)` (as"
+            " `drive(mesh=, axis_name=)` does) or pass `mesh=`"
+        )
+    return stack[-1]
+
+
+def mesh_spans_processes(mesh: Optional[Any]) -> bool:
+    """True when a mesh's devices belong to more than one process: with one
+    process per device, a mesh of more than one device. After a mesh drive
+    over such a mesh the states are already the global ones, and the host
+    sync must be disarmed."""
+    return mesh is not None and int(mesh.size()) > 1
+
+
+def _axes_tuple(axis_name: Union[str, Sequence[str]]) -> Tuple[str, ...]:
+    return (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+
+
+_FLAT_GROUPS: Dict[Tuple[int, Tuple[str, ...]], Any] = {}
+
+
+def axis_group(mesh: Any, axis_name: Union[str, Sequence[str]]) -> Any:
+    """The process group over the mesh axis, or over several axes as one
+    flat group (in row-major rank order, made once per mesh and axes: a
+    collective call of every process of the mesh)."""
+    axes = _axes_tuple(axis_name)
+    names = tuple(mesh.mesh_dim_names or ())
+    missing = [a for a in axes if a not in names]
+    if missing:
+        raise ValueError(f"axis {missing} is not a dim of the mesh {names}")
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    if [names.index(a) for a in axes] != sorted(names.index(a) for a in axes):
+        raise ValueError(f"axis_name {axes} must name the mesh dims in the mesh's order {names}")
+    key = (id(mesh), axes)
+    if key not in _FLAT_GROUPS:
+        _FLAT_GROUPS[key] = (mesh, mesh[axes]._flatten().get_group())
+    return _FLAT_GROUPS[key][1]
+
+
+def axis_world(mesh: Any, axis_name: Union[str, Sequence[str]]) -> int:
+    """Processes along the named axis, or the product over several."""
+    names = tuple(mesh.mesh_dim_names or ())
+    n = 1
+    for a in _axes_tuple(axis_name):
+        n *= int(mesh.shape[names.index(a)])
+    return n
+
+
+def axis_index(mesh: Any, axis_name: Union[str, Sequence[str]]) -> int:
+    """This process's row-major index along the named axes."""
+    names = tuple(mesh.mesh_dim_names or ())
+    idx = 0
+    for a in _axes_tuple(axis_name):
+        idx = idx * int(mesh.shape[names.index(a)]) + int(mesh.get_local_rank(a))
+    return idx
+
+
+def _in_program_backend(group: Any) -> bool:
+    """NCCL collectives run through ``torch.distributed._functional_collectives``,
+    which a CUDA graph captures; others (gloo) through the eager ops."""
+    return dist.get_backend(group) == "nccl"
+
+
+_DIST_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+def live_axes(mesh: Any, axes: Sequence[str]) -> Tuple[str, ...]:
+    """The axes a sync must run a collective over: those of more than one
+    process, and every NCCL one (a group of one still runs its collective,
+    so that a program holds it as it would at scale)."""
+    return tuple(a for a in axes if axis_world(mesh, a) > 1 or _in_program_backend(axis_group(mesh, a)))
+
+
+def _all_reduce(x: torch.Tensor, op: str, group: Any) -> torch.Tensor:
+    in_program = _in_program_backend(group)
+    if dist.get_world_size(group) == 1 and not in_program:
+        return x.clone()
+    if in_program:
+        import torch.distributed._functional_collectives as fc
+
+        return fc.wait_tensor(fc.all_reduce(x.contiguous(), op, group))
+    out = x.clone().contiguous()
+    dist.all_reduce(out, op=_DIST_OPS[op], group=group)
+    return out
+
+
+def _all_gather_stack(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """``[world, *x.shape]``: every process's ``x`` in rank order."""
+    world = dist.get_world_size(group)
+    in_program = _in_program_backend(group)
+    if world == 1 and not in_program:
+        return x.unsqueeze(0).clone()
+    if in_program:
+        import torch.distributed._functional_collectives as fc
+
+        flat = fc.wait_tensor(fc.all_gather_tensor(x.contiguous().reshape(1, -1), 0, group))
+        return flat.reshape((world, *x.shape))
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.stack(parts)
+
+
+def _mean(total: torch.Tensor, n: int) -> torch.Tensor:
+    if total.is_floating_point() or total.is_complex():
+        return total / n
+    return torch.div(total, n, rounding_mode="trunc")
+
+
+def _staged_axes(axis_name: Union[str, Sequence[str]], hierarchical: bool) -> Optional[Tuple[str, ...]]:
+    """The axes to reduce stage by stage (inner first), or None for one flat
+    collective: staging needs ``hierarchical=True`` and two or more axes."""
+    if not hierarchical or isinstance(axis_name, str):
+        return None
+    axes = tuple(axis_name)
+    return axes if len(axes) >= 2 else None
+
+
+def _unsupported_fx(reduce_fx: Any, state: Optional[str]) -> ValueError:
+    where = f" for state {state!r}" if state else ""
+    return ValueError(f"Unsupported dist_reduce_fx{where}: {reduce_fx!r}")
+
+
+def reduce_in_trace(
+    x: torch.Tensor,
+    reduce_fx: Union[str, Callable, None],
+    axis_name: Union[str, Sequence[str]],
+    hierarchical: bool = False,
+    state: Optional[str] = None,
+    *,
+    mesh: Optional[Any] = None,
+) -> torch.Tensor:
+    """One reduction of ``x`` across the named mesh axes.
+
+    ``sum/max/min`` are all-reduces and ``mean`` their sum over the axis
+    size; ``cat`` is a tiled all-gather (rank-major along dim 0), ``None`` a
+    stacking all-gather (a new leading axis) and a callable takes that
+    stack. The shapes are the same on every process, as inside a JAX
+    trace. ``hierarchical=True`` with two or more axes (outer first, as
+    ``("host", "local")``) stages sum/mean/max/min/cat inner axis first:
+    integer sums, max and min equal the flat collective bit for bit, and
+    the staged ``cat`` keeps the flat order; ``None`` and callables always
+    run flat. On NCCL the collectives are ``_functional_collectives``,
+    which a CUDA graph captures; on gloo they are the eager ops. ``state``
+    (``"member.state"``) names the state in the error for an unknown
+    reduction. ``mesh`` defaults to the :func:`axis_env` mesh."""
+    if reduce_fx not in (*SIMPLE_REDUCTIONS, "cat", None) and not callable(reduce_fx):
+        raise _unsupported_fx(reduce_fx, state)
+    mesh = current_mesh(mesh)
+    axes = _staged_axes(axis_name, hierarchical)
+    if axes is not None and reduce_fx in (*SIMPLE_REDUCTIONS, "cat"):
+        out = torch.atleast_1d(x) if reduce_fx == "cat" else x
+        for ax in reversed(axes):
+            out = _reduce_one(out, reduce_fx, mesh, ax)
+        return out
+    return _reduce_one(x, reduce_fx, mesh, axis_name)
+
+
+def _reduce_one(x: torch.Tensor, reduce_fx: Any, mesh: Any, axis_name: Any) -> torch.Tensor:
+    group = axis_group(mesh, axis_name)
+    if reduce_fx in ("sum", "max", "min"):
+        return _all_reduce(x, reduce_fx, group)
+    if reduce_fx == "mean":
+        return _mean(_all_reduce(x, "sum", group), dist.get_world_size(group))
+    stacked = _all_gather_stack(torch.atleast_1d(x) if reduce_fx == "cat" else x, group)
+    if reduce_fx == "cat":
+        return stacked.reshape((-1, *stacked.shape[2:]))
+    if reduce_fx is None:
+        return stacked
+    return reduce_fx(stacked)
+
+
+def empty_placeholder(spec: Optional[Any], device: Optional[Any] = None) -> torch.Tensor:
+    """A zero-length contribution for an empty list state: the declared
+    ``(shape, dtype)`` (``add_state(placeholder=)``, or anything with
+    ``shape`` and ``dtype``), else a zero-length float32 vector."""
+    if spec is None:
+        return torch.zeros((0,), device=device)
+    shape, dtype = (spec.shape, spec.dtype) if hasattr(spec, "shape") else spec
+    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
+def sync_state_trees(
+    states: dict,
+    reductions: dict,
+    axis_name: Union[str, Sequence[str]],
+    placeholders: Optional[dict] = None,
+    hierarchical: bool = False,
+    *,
+    mesh: Optional[Any] = None,
+) -> dict:
+    """Several metrics' state dicts (member key -> state dict) synced across
+    the named axes, one collective per state. A list state is concatenated
+    first and comes back as a one-element list; an empty one contributes
+    its declared placeholder (``placeholders``: member key -> the metric's
+    ``_list_placeholders``), and when it is empty on every process (shapes
+    are uniform, as in a trace) it is returned as it is, with no
+    collective. See :func:`reduce_in_trace` for ``hierarchical``."""
+    out: dict = {key: {} for key in states}
+    for key, state in states.items():
+        member_reductions = reductions[key]
+        member_placeholders = (placeholders or {}).get(key) or {}
+        for name, value in state.items():
+            fx = member_reductions.get(name)
+            if isinstance(value, list):
+                device = value[0].device if value else None
+                value = dim_zero_cat(value) if value else empty_placeholder(member_placeholders.get(name), device)
+                if value.shape[0] == 0:
+                    out[key][name] = [value]
+                else:
+                    out[key][name] = [
+                        reduce_in_trace(
+                            value,
+                            "cat" if fx in (None, "cat") else fx,
+                            axis_name,
+                            hierarchical=hierarchical,
+                            state=f"{key}.{name}",
+                            mesh=mesh,
+                        )
+                    ]
+            else:
+                out[key][name] = reduce_in_trace(
+                    value, fx, axis_name, hierarchical=hierarchical, state=f"{key}.{name}", mesh=mesh
+                )
+    return out
+
+
+def sync_state_in_trace(
+    state: dict,
+    reductions: dict,
+    axis_name: Union[str, Sequence[str]],
+    placeholders: Optional[dict] = None,
+    hierarchical: bool = False,
+    *,
+    mesh: Optional[Any] = None,
+) -> dict:
+    """One state dict synced across the named axes: the single-metric view
+    of :func:`sync_state_trees`."""
+    return sync_state_trees(
+        {"_": state},
+        {"_": reductions},
+        axis_name,
+        placeholders={"_": placeholders or {}},
+        hierarchical=hierarchical,
+        mesh=mesh,
+    )["_"]

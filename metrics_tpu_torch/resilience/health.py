@@ -248,13 +248,25 @@ def _subtract_rows(out: torch.Tensor, count: Any, delta: torch.Tensor) -> torch.
 
 
 def traced_update(
-    inst: Any, state: Dict[str, Any], args: Tuple, kwargs: Dict[str, Any], pad_count: Optional[Any] = None
+    inst: Any,
+    state: Dict[str, Any],
+    args: Tuple,
+    kwargs: Dict[str, Any],
+    pad_count: Optional[Any] = None,
+    global_bad: Optional[torch.Tensor] = None,
+    quarantine_share: int = 1,
 ) -> Dict[str, Any]:
     """One screened state transition, the body of every engine program
     (exact and pow2-bucketed, single metric and fused collection, each step
     of ``drive``). ``pad_count`` is the number of zero rows the bucketing
     appended (None for exact shapes). Under ``"propagate"`` it is the plain
-    update with the pad correction."""
+    update with the pad correction.
+
+    A sharded drive gives each process a slice of the batch, while a
+    quarantine is a verdict on the whole batch: ``global_bad`` is that
+    verdict (the whole batch held a bad element), and ``quarantine_share``
+    (1 on one process of the data axes, 0 on the others) makes the summed
+    counters count one quarantined update, not one per process."""
     policy = getattr(inst, "on_bad_input", "propagate")
     if policy == "propagate":
         out = _run_inner(inst, state, args, kwargs)
@@ -293,6 +305,8 @@ def traced_update(
     if use_mask and row_bad is None:
         use_mask = False  # no batch axis: quarantine the whole update
 
+    if global_bad is not None:
+        any_bad = any_bad | global_bad.to(device=any_bad.device, dtype=torch.bool)
     counts_dtype = state[HEALTH_STATE].dtype
     run_leaves = leaves
     n_bad: Any = 0
@@ -325,7 +339,7 @@ def traced_update(
             nan_count.to(device=counts.device, dtype=counts_dtype),
             inf_count.to(device=counts.device, dtype=counts_dtype),
             zero if quarantine else masked,
-            bad if quarantine else zero,
+            bad * quarantine_share if quarantine else zero,
             zero,
             zero,
         ]

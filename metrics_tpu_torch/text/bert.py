@@ -45,7 +45,7 @@ class BERTScore(Metric):
             encode with in place of ``model``: each ``(rows, width)``
             signature of the compute-time pass is then one captured
             ``encode`` program (a CUDA graph on the card); a capture the
-            encoder refuses raises. Its mesh arguments are ROADMAP §1 item 7
+            encoder refuses raises. Its mesh arguments are ROADMAP §1 item 7b
             and raise.
         length_bucketing: trim each compute-time encoder chunk to its pow2
             width bucket (see :func:`~metrics_tpu_torch.functional.bert_score`).

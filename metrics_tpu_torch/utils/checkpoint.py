@@ -12,6 +12,11 @@
   read by ``torch.load(..., weights_only=True)``, so loading a checkpoint
   cannot run code. The JAX package's orbax checkpoint directories are not
   read here.
+
+A placed sharded metric (``shard_states``, ``drive(mesh=, in_specs=)``)
+writes its global states, gathered over the mesh (a collective every
+process of the mesh makes), and restores by its registered layout: each
+process keeps its shard.
 """
 import json
 from typing import Any, Dict
@@ -21,6 +26,7 @@ import torch
 
 from metrics_tpu_torch.metric import Metric, _decode_dynamic, _encode_dynamic
 from metrics_tpu_torch.resilience import health as _health
+from metrics_tpu_torch.sharding import spec as _shard_spec
 
 __all__ = [
     "dtype_kind",
@@ -43,6 +49,9 @@ def metric_state_pytree(metric: Metric) -> Dict[str, Any]:
     out: Dict[str, Any] = {"_update_count": metric._update_count}
     for name in metric._defaults:
         value = getattr(metric, name)
+        layout = metric._shard_layout.get(name)
+        if layout is not None:
+            value = _shard_spec.gather_state(value, layout, metric._shard_mesh)
         if isinstance(value, list):
             out[name] = {str(i): _numpy(v) for i, v in enumerate(value)}
             out[f"_{name}_is_list"] = True
@@ -109,9 +118,10 @@ def restore_metric_state_pytree(metric: Metric, tree: Dict[str, Any]) -> Metric:
         if name == _health.HEALTH_STATE and tuple(arr.shape) != tuple(default.shape):
             restored[name] = torch.zeros_like(default)
             continue
-        if tuple(arr.shape) != tuple(default.shape):
+        registered = _shard_spec.registered_shape(metric, name)
+        if tuple(arr.shape) != tuple(registered):
             raise ValueError(
-                f"State {name!r} of {cls} has registered default shape {tuple(default.shape)} but the checkpoint"
+                f"State {name!r} of {cls} has registered default shape {tuple(registered)} but the checkpoint"
                 f" holds shape {tuple(arr.shape)} — was it saved from a different configuration (e.g. another"
                 " num_classes)?"
             )
@@ -120,7 +130,7 @@ def restore_metric_state_pytree(metric: Metric, tree: Dict[str, Any]) -> Metric:
                 f"State {name!r} of {cls} is registered as {dtype_kind(default.dtype)} ({default.dtype}) but the"
                 f" checkpoint holds {dtype_kind(arr.dtype)} ({arr.dtype})."
             )
-        restored[name] = torch.as_tensor(arr, device=dev).to(default.dtype)
+        restored[name] = _shard_spec.local_value(metric, name, arr).to(default.dtype)
     restored_dyn: Dict[str, Any] = {}
     if "_dynamic" in tree:
         try:
@@ -140,6 +150,7 @@ def restore_metric_state_pytree(metric: Metric, tree: Dict[str, Any]) -> Metric:
     metric._computed = None
     metric._is_synced = False
     metric._cache = None
+    _shard_spec.mark_global(metric)  # the tree holds the global states
     return metric
 
 

@@ -333,11 +333,15 @@ def test_streaming_dispatches_each_chunk_as_it_fills():
 )
 def test_modes_of_later_slices_raise_not_implemented(kwargs):
     m = mt.SumMetric(nan_strategy="disable", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        et.drive(m, (torch.ones(2, 3),), **kwargs)
-    # the mesh modes name the sharded-state item, the snapshots the fleet item
-    item = "item 10" if set(kwargs) & {"snapshot_store", "resume_from", "snapshot_every"} else "item 7"
-    assert item in str(err.value)
+    if set(kwargs) & {"snapshot_store", "resume_from", "snapshot_every"}:
+        # the snapshots name the fleet item, not ported yet
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
+            et.drive(m, (torch.ones(2, 3),), **kwargs)
+    else:
+        # the mesh modes are ported (tests/test_torch_mesh.py): an incomplete
+        # set of their arguments raises the JAX package's errors
+        with pytest.raises(ValueError, match="mesh|MULTI-axis"):
+            et.drive(m, (torch.ones(2, 3),), **kwargs)
     with pytest.raises(ValueError, match="steps_per_chunk"):
         et.drive(m, (torch.ones(2, 3),), steps_per_chunk=0)
 

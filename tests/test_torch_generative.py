@@ -164,9 +164,12 @@ def test_fid_needs_two_samples_and_rejects_sharding():
     buffered.update(torch.from_numpy(FAKE[0]), real=False)
     with pytest.raises(MetricsUserError, match="at least two samples"):
         buffered.compute()
-    for arg in ("feature_sharding", "encoder_sharding"):
-        with pytest.raises(MetricsUserError, match=rf"`{arg}`.*ROADMAP §1 item 7"):
-            mt.FrechetInceptionDistance(feature=port_extractor, feature_dim=D, device="cpu", **{arg: "mp"})
+    # the encoder's mesh is not ported; feature-sharded moments are (test_torch_sharding.py)
+    with pytest.raises(MetricsUserError, match=r"`encoder_sharding`.*ROADMAP §1 item 7b"):
+        mt.FrechetInceptionDistance(feature=port_extractor, feature_dim=D, device="cpu", encoder_sharding="mp")
+    assert mt.FrechetInceptionDistance(
+        feature=port_extractor, feature_dim=D, device="cpu", feature_sharding="mp"
+    )._state_shardings["real_outer"] == ("mp",)
     with pytest.raises(MetricsUserError, match="need `feature_dim`"):
         mt.FrechetInceptionDistance(feature=port_extractor, matrix_sqrt="newton_schulz", device="cpu")
     with pytest.raises(ValueError, match="matrix_sqrt"):
@@ -425,7 +428,7 @@ def test_sharded_encoder_from_callable_and_stats():
     reset_encoder_stats()
     assert encoder_stats()["encode_calls"] == 0
     for kwargs in ({"mesh": object()}, {"param_specs": {"w": "mp"}}, {"in_specs": "dp"}, {"out_spec": "mp"}):
-        with pytest.raises(MetricsUserError, match="ROADMAP §1 item 7"):
+        with pytest.raises(MetricsUserError, match="ROADMAP §1 item 7b"):
             ShardedEncoder(_apply, {"w": torch.zeros(12, 8)}, **kwargs)
     with pytest.raises(MetricsUserError, match="place"):
         enc.place(object())

@@ -802,8 +802,11 @@ def test_jsonl_roundtrip_and_prometheus_render():
     assert process["kernels"]["by_op"] == mt.kernel_stats()
     assert set(process["kernels"]) == {"registered", "launches", "plain_calls", "by_op"}
     assert "confusion_counts" in process["kernels"]["registered"] and "policy" not in process["kernels"]
-    for name in ("serving", "wire", "warmup", "sharding", "fleet", "durability", "guard", "integrity", "compat"):
+    for name in ("serving", "wire", "warmup", "fleet", "durability", "guard", "integrity", "compat"):
         assert process[name] == {"ported": False}
+    # the sharded state plane is ported: its section is shard_stats()
+    assert process["sharding"] == mt.sharding.shard_stats()
+    assert set(process["sharding"]) == {"sharded_drives", "reshard_events", "mesh_changes", "specs", "resident"}
     assert process["bus"]["by_kind"]["compile"] >= 1
 
 

@@ -834,8 +834,9 @@ def test_add_state_takes_the_jax_keywords():
             other.add_state("bad", default=np.zeros(2), sync_precision="fp8")
     with pytest.raises(MetricsUserError, match="item 9"):
         m.add_state("q", default=np.zeros(2), sync_precision="bf16")
-    with pytest.raises(MetricsUserError, match="item 7"):
-        m.add_state("s", default=np.zeros(2), sharding="mp")
+    # sharded states are ported: the annotation registers as in the JAX package
+    m.add_state("s", default=np.zeros(2), sharding="mp")
+    assert m._state_shardings["s"] == ("mp",) and m.state_spec()["s"].sharding == ("mp",)
     undeclared = _reductions_metric(mt)(device="cpu")
     with pytest.raises(ValueError, match="No samples"):
         undeclared.cat_state("rows")
