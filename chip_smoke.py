@@ -300,7 +300,7 @@
    ``path="compiled"``, before the raise). The sync phase also holds each
    rank's ``sync_report()`` to the syncs and gathers it made, its bytes
    received to the other rank's bytes sent.
-15. Sharded states (phase 16, last). The card is one device, so the mesh
+15. Sharded states (phase 16). The card is one device, so the mesh
    paths run two ways. (a) An NCCL group of one in this process, a
    ``(1, 1)`` ``("dp", "mp")`` ``DeviceMesh``: the main path's collection
    with ``drive(axis_name="dp")`` over 8 steps of 6,250 ImageNet-1k rows,
@@ -325,6 +325,24 @@
    the local drive. Logged: ms per drive and per ``compute()``, the gloo
    all-reduce of a shard, the launches and programs, each rank's peak
    memory, the phase's seconds.
+
+16. The encoder's mesh (phase 17, last). (a) An NCCL group of one in this
+   process, a ``(1, 1)`` mesh: FID with ``encoder_sharding="mp"`` and
+   ``feature_sharding="mp"`` over 12a's CIFAR-10-size sets (10,000 real and
+   10,000 generated images, InceptionV3 at full width) against the
+   unsharded stream in turns, the moments and FID bit for bit, one captured
+   program with the weights' gather inside it and no host sync; BERTScore
+   over 13a's 3,003 pairs through 13e's encoder written as
+   ``apply_fn(params, ids, mask)``, every 2-D weight split over ``mp``,
+   within 1e-6 of the plain route. (b) Four gloo ranks on ``cuda:0``
+   (``--encoder-rank``) on a ``(2, 2)`` mesh: the same FID on the first
+   1,024 + 1,024 images (each dp group half), each rank's feature block
+   equal to its slice of the unsharded features, FID equal on every rank
+   and within 1e-6 of the unsharded value, the weights resident in halves;
+   BERTScore through the encoder cut to 2 layers on 256 pairs within 1e-6
+   of the unsharded route on every rank. Logged: images/s and pairs/s
+   against the unsharded routes, ms per chunk, the gather's ms, resident
+   bytes, the graph pool's reserved bytes, peak memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
@@ -4145,22 +4163,16 @@ def run_question_answering(torch, mt, ft, vocab, rng) -> list:
     return rows, len(batches), SQUAD_DEV - len(preds)
 
 
-def _bert_encoder(torch, seed: int):
-    """A post-LayerNorm transformer encoder at roberta-large width (vocabulary
-    50,265, d = 1024, 16 heads, FFN 4096, 514 positions), cut to 17 layers,
-    float32, seeded random weights. Attention is ``scaled_dot_product_attention``
-    with an additive key mask (a large negative number, not -inf, so an
-    all-pad row stays finite): no nested-tensor fast path, so the forward
-    captures, and padding does not change the valid positions."""
-    import torch.nn.functional as F
-
+def _bert_params(torch, seed: int, layers: int = BERT_LAYERS) -> dict:
+    """The seeded weights of :func:`_bert_encoder`, drawn in its order (so
+    the first ``layers`` layers of a cut encoder are the full one's)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def w(*shape, scale=0.02):
         return torch.randn(*shape, generator=g, device="cuda") * scale
 
-    d, h = BERT_DIM, BERT_HEADS
-    params = {
+    d = BERT_DIM
+    return {
         "tok": w(BERT_VOCAB, d), "pos": w(BERT_POSITIONS, d),
         "ln0": (torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")),
         "layers": [
@@ -4170,21 +4182,39 @@ def _bert_encoder(torch, seed: int):
                 "ff1": (w(BERT_FFN, d), w(BERT_FFN, scale=0.0)), "ff2": (w(d, BERT_FFN), w(d, scale=0.0)),
                 "ln2": (torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")),
             }
-            for _ in range(BERT_LAYERS)
+            for _ in range(layers)
         ],
     }
 
+
+def _bert_apply(params, input_ids, attention_mask):
+    """The encoder's forward as ``apply_fn(params, ids, mask)``."""
+    import torch.nn.functional as F
+
+    d, h = BERT_DIM, BERT_HEADS
+    n, length = input_ids.shape
+    x = params["tok"][input_ids] + params["pos"][:length][None]
+    x = F.layer_norm(x, (d,), *params["ln0"])
+    bias = ((1.0 - attention_mask.to(x.dtype)) * -1e9)[:, None, None, :]
+    for layer in params["layers"]:
+        q, k, v = F.linear(x, *layer["qkv"]).view(n, length, 3, h, d // h).permute(2, 0, 3, 1, 4)
+        a = F.scaled_dot_product_attention(q, k, v, attn_mask=bias).transpose(1, 2).reshape(n, length, d)
+        x = F.layer_norm(x + F.linear(a, *layer["out"]), (d,), *layer["ln1"])
+        x = F.layer_norm(x + F.linear(F.gelu(F.linear(x, *layer["ff1"])), *layer["ff2"]), (d,), *layer["ln2"])
+    return x
+
+
+def _bert_encoder(torch, seed: int):
+    """A post-LayerNorm transformer encoder at roberta-large width (vocabulary
+    50,265, d = 1024, 16 heads, FFN 4096, 514 positions), cut to 17 layers,
+    float32, seeded random weights. Attention is ``scaled_dot_product_attention``
+    with an additive key mask (a large negative number, not -inf, so an
+    all-pad row stays finite): no nested-tensor fast path, so the forward
+    captures, and padding does not change the valid positions."""
+    params = _bert_params(torch, seed)
+
     def forward(input_ids, attention_mask):
-        n, length = input_ids.shape
-        x = params["tok"][input_ids] + params["pos"][:length][None]
-        x = F.layer_norm(x, (d,), *params["ln0"])
-        bias = ((1.0 - attention_mask.to(x.dtype)) * -1e9)[:, None, None, :]
-        for layer in params["layers"]:
-            q, k, v = F.linear(x, *layer["qkv"]).view(n, length, 3, h, d // h).permute(2, 0, 3, 1, 4)
-            a = F.scaled_dot_product_attention(q, k, v, attn_mask=bias).transpose(1, 2).reshape(n, length, d)
-            x = F.layer_norm(x + F.linear(a, *layer["out"]), (d,), *layer["ln1"])
-            x = F.layer_norm(x + F.linear(F.gelu(F.linear(x, *layer["ff1"])), *layer["ff2"]), (d,), *layer["ln2"])
-        return x
+        return _bert_apply(params, input_ids, attention_mask)
 
     return forward
 
@@ -4354,8 +4384,9 @@ def run_bert_score(torch, mt, ft, preds: list, refs: list, smi: str) -> str:
     )
 
 
-def run_text_phase(torch, mt, smi: str) -> None:
-    """Phase 13: the text metrics at the sizes of their test sets, and BERTScore."""
+def run_text_phase(torch, mt, smi: str):
+    """Phase 13: the text metrics at the sizes of their test sets, and
+    BERTScore; returns 13a's pairs, which 13e scores."""
     import metrics_tpu_torch.functional as ft
 
     t_phase = time.perf_counter()
@@ -4373,6 +4404,7 @@ def run_text_phase(torch, mt, smi: str) -> None:
     _log(run_bert_score(torch, mt, ft, mt_preds, mt_refs, smi))
     torch.cuda.empty_cache()
     _log(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all, oracles and data included")
+    return mt_preds, mt_refs
 
 
 # ---------------------------------------------------------------------------
@@ -5390,25 +5422,27 @@ def _shard_rank(rank: int, port: int, out_path: str) -> None:
     torch.save(rec, out_path)
 
 
-def _run_shard_ranks(out_dir: str):
-    """Start the four ranks of phase 16b, wait for each within its limit and
-    return their records; a rank that fails or outlives its limit raises."""
+def _run_shard_ranks(out_dir: str, flag: str = "--shard-rank", phase: str = "16b", timeout_s: float = SHARD_RANK_TIMEOUT_S):
+    """Start the four ranks of a phase (phase 16b's by default: this script
+    run with ``flag``), wait for each within its limit and return their
+    records; a rank that fails or outlives its limit raises."""
     import torch
 
     port = _free_port()
     procs = []
+    stem = flag.strip("-").split("-")[0]
     for rank in range(SHARD_WORLD):
-        log = open(os.path.join(out_dir, f"shard{rank}.log"), "w+")
-        cmd = [sys.executable, os.path.abspath(__file__), "--shard-rank", str(rank), str(port), os.path.join(out_dir, f"shard{rank}.pt")]
+        log = open(os.path.join(out_dir, f"{stem}{rank}.log"), "w+")
+        cmd = [sys.executable, os.path.abspath(__file__), flag, str(rank), str(port), os.path.join(out_dir, f"{stem}{rank}.pt")]
         procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log))
     failed = []
     try:
-        deadline = time.monotonic() + SHARD_RANK_TIMEOUT_S
+        deadline = time.monotonic() + timeout_s
         for rank, (proc, _) in enumerate(procs):
             try:
                 rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
-                rc = f"killed after {SHARD_RANK_TIMEOUT_S} s"
+                rc = f"killed after {timeout_s} s"
             if rc != 0:
                 failed.append((rank, rc))
     finally:
@@ -5423,8 +5457,8 @@ def _run_shard_ranks(out_dir: str):
         log.close()
     if failed:
         tails = "\n".join(f"--- rank {r} ---\n{text[-6000:]}" for r, text in enumerate(logs))
-        raise AssertionError(f"phase 16b: ranks failed {failed}\n{tails}")
-    return [torch.load(os.path.join(out_dir, f"shard{r}.pt"), weights_only=False) for r in range(SHARD_WORLD)]
+        raise AssertionError(f"phase {phase}: ranks failed {failed}\n{tails}")
+    return [torch.load(os.path.join(out_dir, f"{stem}{r}.pt"), weights_only=False) for r in range(SHARD_WORLD)]
 
 
 def _world_one_phase(torch, mt, smi: str) -> dict:
@@ -5540,6 +5574,350 @@ def run_sharded_phase(torch, mt, smi: str) -> dict:
     launches["multilabel_counts@window"] = sum(rec["launchesml"]["multilabel_counts"] for rec in ranks)
     _log(f"phase 16 sharded states: {time.perf_counter() - t_phase:.1f} s in all; {smi}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the encoder's mesh
+# ---------------------------------------------------------------------------
+ENC_RANK_TIMEOUT_S = 300
+ENC_MESH_IMAGES = 1_024  # 17b: the first real and generated images of the CIFAR-10-size sets
+ENC_MESH_CHUNK = 256  # 17b's stream chunks: four ranks share the card's memory
+ENC_MESH_PAIRS = 256  # 17b: BERTScore pairs of 13a
+ENC_MESH_LAYERS = 2  # 17b: the seeded encoder cut to 2 layers, at full width
+ENC_BLOCK_IMAGES = 32  # images whose feature block each rank returns
+ENC_RTOL = 1e-6
+BERT_KEYS = ("precision", "recall", "f1")
+
+
+def _graph_pool_bytes(torch):
+    """Bytes the caching allocator holds reserved for the engine's graph
+    memory pool (every captured program's outputs and intermediates), or
+    None where the allocator's snapshot does not name segment pools."""
+    from metrics_tpu_torch.engine import cache
+
+    pool = cache._POOLS.get(torch.cuda.current_device())
+    segments = torch.cuda.memory_snapshot()
+    if pool is None or not any("segment_pool_id" in seg for seg in segments):
+        return None
+    return sum(seg["total_size"] for seg in segments if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def _mib(n) -> str:
+    return "not measured" if n is None else f"{n / 2**20:.1f} MiB"
+
+
+def _bert_kw():
+    return {"user_tokenizer": _bert_tokenizer, "idf": True, "max_length": BERT_MAX_LEN, "batch_size": BERT_BATCH}
+
+
+def _bert_plain(torch, layers: int):
+    """The unsharded seeded encoder as a plain callable (13e's route)."""
+    from metrics_tpu_torch.image.networks._common import full_fp32
+
+    params = _bert_params(torch, SEED, layers)
+
+    def encoder(input_ids, attention_mask):
+        with torch.no_grad(), full_fp32():
+            return _bert_apply(params, input_ids, attention_mask)
+
+    return encoder
+
+
+def _bert_mesh_encoder(torch, mesh, layers: int):
+    """The seeded encoder as ``apply_fn(params, ids, mask)`` in a
+    ``ShardedEncoder``: every 2-D weight's first axis split over ``mp``,
+    the sentence axis staged over ``dp``."""
+    from metrics_tpu_torch.encoders import ShardedEncoder
+    from metrics_tpu_torch.image.networks._common import full_fp32
+    from metrics_tpu_torch.sharding import PartitionSpec as P
+
+    def apply(params, input_ids, attention_mask):
+        with torch.no_grad(), full_fp32():
+            return _bert_apply(params, input_ids, attention_mask)
+
+    return ShardedEncoder(
+        apply, _bert_params(torch, SEED, layers), param_specs=lambda path, leaf: P("mp") if leaf.ndim == 2 else None,
+        mesh=mesh, in_specs=P("dp"), out_spec=P("dp"), name=f"roberta_large_{layers}",
+    )
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _encoder_world_one(torch, mt, ft, smi: str, path: str, pairs) -> None:
+    """Phase 17a: an NCCL group of one in this process, a ``(1, 1)`` mesh.
+    FID with ``encoder_sharding="mp"`` and ``feature_sharding="mp"`` over
+    the CIFAR-10-size sets at full InceptionV3 width against the unsharded
+    stream, bit for bit, captured with the gather in the graph; BERTScore
+    through the seeded encoder placed on the mesh against the plain route."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from metrics_tpu_torch import engine
+    from metrics_tpu_torch.encoders import encoder_stats
+
+    n = CIFAR10_TEST[0]
+    real, fake = _cifar_sets(torch)
+    chunks = {True: [real[s:e] for s, e in _batches_of(n, STREAM_CHUNK)], False: [fake[s:e] for s, e in _batches_of(n, STREAM_CHUNK)]}
+    engine.clear_cache()
+    torch.cuda.empty_cache()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0, device_id=torch.device("cuda:0")
+    )
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "mp"))
+
+        def make(sharded: bool):
+            if not sharded:
+                return mt.FrechetInceptionDistance(feature=2048, weights_path=path)
+            fid = mt.FrechetInceptionDistance(
+                feature=2048, weights_path=path, feature_sharding="mp", encoder_sharding="mp", matrix_sqrt="eigh"
+            )
+            return fid.shard_states(mesh)
+
+        # each route's first chunk captures its program (through a throwaway metric: the programs are shared)
+        base = torch.cuda.memory_allocated()
+        make(True).update_stream(chunks[True][:1], real=True)
+        pool_sharded = _graph_pool_bytes(torch)
+        make(False).update_stream(chunks[True][:1], real=True)
+        fids = {True: make(True), False: make(False)}
+        fids[False]._distributed_available_fn = lambda: False  # the unsharded reference: no sync
+        runtime = fids[True]._encoder_runtime
+        seconds, syncs = {}, {}
+        torch.cuda.reset_peak_memory_stats()
+        for sharded, real_set in ((True, True), (False, True), (False, False), (True, False)):  # in turns
+            box = []
+            syncs[sharded, real_set] = _host_syncs(
+                torch, lambda: box.append(_timed(torch, lambda: fids[sharded].update_stream(chunks[real_set], real=real_set))[1])
+            )
+            seconds[sharded, real_set] = box[0]
+        peak = torch.cuda.max_memory_allocated() - base
+        names = [f"{p}_{k}" for p in ("real", "fake") for k in ("sum", "sum_c", "outer", "outer_c", "n")]
+        differ = [k for k in names if not torch_equal(getattr(fids[True], k), getattr(fids[False], k))]
+        if differ:
+            raise AssertionError(f"phase 17a: the sharded stream's moments differ from the unsharded stream's: {differ}")
+        value, want = float(fids[True].compute()), float(fids[False].compute())
+        if value != want:
+            raise AssertionError(f"phase 17a: sharded FID {value!r} against the unsharded stream's {want!r}")
+        stats = runtime.compile_stats()
+        summary = engine.cache.encoder_entry(runtime, consumer=fids[True]._moment_consumer()).summary()
+        if stats.get("param_gather") != "in_program" or (summary["compiles"], summary["graphs"], summary["failed_captures"]) != (1, 1, 0):
+            raise AssertionError(f"phase 17a: the sharded stream was not one captured program with the gather in it: {stats}, {summary}")
+        if any(syncs[True, r] for r in (True, False)):
+            raise AssertionError(f"phase 17a: host syncs in the sharded stream: {syncs}")
+        # the gather alone as the program runs it: captured in a graph of its own and replayed (eager, each
+        # of its 472 leaves' collectives waits on the host)
+        runtime._gather(runtime.params, in_program=True)
+        gather_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(gather_graph):
+            runtime._gather(runtime.params, in_program=True)
+        gather_ms = _cuda_ms(torch, gather_graph.replay, iters=20, warmup=3)
+        del gather_graph
+        record = encoder_stats()["encoders"]["inception_2048"]
+        rate = {k: n / v for k, v in seconds.items()}
+        chunk_ms = {k: 1e3 * v / len(chunks[k[1]]) for k, v in seconds.items()}
+        _log(
+            f"phase 17a FID encoder_sharding='mp' (NCCL world size 1, (1, 1) mesh), {n} real + {n} generated CIFAR-10-size"
+            f" images, chunks of {STREAM_CHUNK}, InceptionV3 at full width: moments and FID (eigh {value!r}) equal the unsharded"
+            f" stream's bit for bit; {summary['graphs']} captured program ({summary['cache_hits']} replays), param_gather"
+            f" {stats['param_gather']}, 0 host syncs;"
+            f" images/s in turns sharded {rate[True, True]:.0f}, unsharded {rate[False, True]:.0f}, unsharded"
+            f" {rate[False, False]:.0f}, sharded {rate[True, False]:.0f} (ms per chunk {chunk_ms[True, True]:.1f},"
+            f" {chunk_ms[False, True]:.1f}, {chunk_ms[False, False]:.1f}, {chunk_ms[True, False]:.1f}); the gather alone,"
+            f" captured and replayed, {gather_ms:.3f} ms (CUDA events); resident {record}; graph pool reserved {_mib(pool_sharded)} after the"
+            f" sharded capture alone, {_mib(_graph_pool_bytes(torch))} with both programs; peak over the timed streams"
+            f" {peak / 2**30:.2f} GiB; {smi}"
+        )
+        del fids, runtime
+        engine.clear_cache()
+        torch.cuda.empty_cache()
+
+        # BERTScore: 13e's encoder on the mesh against its plain route
+        preds, refs = pairs
+        plain_encoder = _bert_plain(torch, BERT_LAYERS)
+        plain, plain_s = _timed(torch, lambda: ft.bert_score(preds, refs, model=plain_encoder, **_bert_kw()))
+        del plain_encoder
+        enc = _bert_mesh_encoder(torch, mesh, BERT_LAYERS)
+        sharded, sharded_s = _timed(torch, lambda: ft.bert_score(preds, refs, model=enc, **_bert_kw()))
+        for key in BERT_KEYS:
+            _close(f"phase 17a BERTScore {key} against 13e's plain route", np.asarray(sharded[key]), np.asarray(plain[key]), atol=ENC_RTOL)
+        bert_stats = enc.compile_stats()
+        if bert_stats.get("param_gather") != "in_program" or bert_stats["compiles"] < 1:
+            raise AssertionError(f"phase 17a BERTScore: {bert_stats}")
+        _log(
+            f"phase 17a BERTScore, {len(preds)} pairs of 13a, the {BERT_LAYERS}-layer encoder as apply_fn(params, ids, mask)"
+            f" with every 2-D weight split over mp and the sentences over dp: within {ENC_RTOL} of the plain route;"
+            f" {len(preds) / sharded_s:.0f} pairs/s against {len(preds) / plain_s:.0f}; {bert_stats}; resident"
+            f" {encoder_stats()['encoders'][enc.name]}; graph pool reserved {_mib(_graph_pool_bytes(torch))}; {smi}"
+        )
+        del enc
+    finally:
+        dist.destroy_process_group()
+    engine.clear_cache()
+    torch.cuda.empty_cache()
+
+
+def _encoder_rank(rank: int, port: int, out_path: str) -> None:
+    """One rank of phase 17b (this script run with ``--encoder-rank``): join
+    the gloo world of four on ``cuda:0``, lay a ``(2, 2)`` mesh over it, run
+    FID with ``encoder_sharding="mp"`` on its dp half of the images and
+    BERTScore through the cut encoder on every pair, and save the results."""
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import metrics_tpu_torch as mt
+    import metrics_tpu_torch.functional as ft
+    from metrics_tpu_torch.encoders import encoder_stats
+    from metrics_tpu_torch.engine import _tree, clear_cache
+
+    torch.cuda.set_device(0)
+    _record_refusals()
+    out_dir = os.path.dirname(out_path)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=SHARD_WORLD, rank=rank, timeout=timedelta(seconds=240)
+    )
+    rec = {"rank": rank}
+    try:
+        mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("dp", "mp"))
+        dp, mp = mesh.get_local_rank("dp"), mesh.get_local_rank("mp")
+        rec["coords"] = (dp, mp)
+        real, fake = _cifar_sets(torch)
+        m = ENC_MESH_IMAGES
+        halves = {True: real[:m].chunk(2)[dp], False: fake[:m].chunk(2)[dp]}
+        fid = mt.FrechetInceptionDistance(
+            feature=2048, weights_path=os.path.join(out_dir, "inception.npz"), feature_sharding="mp", encoder_sharding="mp"
+        )
+        fid.shard_states(mesh)
+        runtime = fid._encoder_runtime
+        torch.cuda.reset_peak_memory_stats()
+        _, rec["first_chunk_s"] = _timed(torch, lambda: fid.update_stream([halves[True][:ENC_MESH_CHUNK]], real=True))
+        rest = [halves[True][ENC_MESH_CHUNK:]] + list(halves[False].split(ENC_MESH_CHUNK))
+        t0 = time.perf_counter()
+        fid.update_stream(rest[:1], real=True)
+        fid.update_stream(rest[1:], real=False)
+        torch.cuda.synchronize()
+        rec["chunk_ms"] = 1e3 * (time.perf_counter() - t0) / len(rest)
+        rec["fid"] = float(fid.compute())
+        rec["block"] = runtime(real[:ENC_BLOCK_IMAGES]).cpu()
+        rec["record"] = encoder_stats()["encoders"]["inception_2048"]
+        rec["stats"] = runtime.compile_stats()
+        rec["kernel"] = tuple(runtime.params["Conv2d_1a_3x3"]["kernel"].shape)
+        rec["pool_bytes"] = _graph_pool_bytes(torch)
+        _, gather_s = _timed(torch, runtime._dispatch_params)  # gloo: gathered before each dispatch
+        rec["gather_ms"] = gather_s * 1e3
+        rec["fid_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del fid, runtime, real, fake, halves, rest
+        clear_cache()
+        torch.cuda.empty_cache()
+
+        with open(os.path.join(out_dir, "pairs.json")) as f:
+            preds, refs = json.load(f)
+        enc = _bert_mesh_encoder(torch, mesh, ENC_MESH_LAYERS)
+        scores, rec["bert_s"] = _timed(torch, lambda: ft.bert_score(preds, refs, model=enc, **_bert_kw()))
+        rec["bert"] = {k: np.asarray(scores[k]) for k in BERT_KEYS}
+        rec["bert_record"] = encoder_stats()["encoders"][enc.name]
+        rec["bert_whole_bytes"] = sum(
+            x.numel() * x.element_size() for x, layout in zip(_tree.flatten(enc.params)[0], enc._param_layouts) if layout is None
+        )
+        rec["bert_stats"] = enc.compile_stats()
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(rec, out_path)
+
+
+def _encoder_mesh_ranks(torch, mt, ft, smi: str, path: str, pairs) -> None:
+    """Phase 17b: four gloo ranks on ``cuda:0`` on a ``(2, 2)`` mesh, held
+    against the unsharded routes run here afterwards."""
+    from metrics_tpu_torch import engine
+    from metrics_tpu_torch.encoders import ShardedEncoder
+    from metrics_tpu_torch.image.fid import _inception_apply_for
+    from metrics_tpu_torch.image.networks import inception as net
+
+    preds, refs = (list(side[:ENC_MESH_PAIRS]) for side in pairs)
+    with tempfile.TemporaryDirectory() as out_dir:
+        shutil.copy(path, os.path.join(out_dir, "inception.npz"))
+        with open(os.path.join(out_dir, "pairs.json"), "w") as f:
+            json.dump([preds, refs], f)
+        ranks = _run_shard_ranks(out_dir, flag="--encoder-rank", phase="17b", timeout_s=ENC_RANK_TIMEOUT_S)
+
+    # the unsharded references on this process
+    m = ENC_MESH_IMAGES
+    real, fake = _cifar_sets(torch)
+    whole = mt.FrechetInceptionDistance(feature=2048, weights_path=path, matrix_sqrt="newton_schulz")
+    whole.update_stream(list(real[:m].split(ENC_MESH_CHUNK)), real=True)
+    whole.update_stream(list(fake[:m].split(ENC_MESH_CHUNK)), real=False)
+    want = float(whole.compute())
+    ext = net.resolve_inception_extractor(2048, path)
+    plain_runtime = ShardedEncoder(_inception_apply_for(ext.feature, ext.resize_input), ext.params, name="inception_2048_unsharded")
+    features = plain_runtime(real[:ENC_BLOCK_IMAGES]).cpu()
+    plain_bert = ft.bert_score(preds, refs, model=_bert_plain(torch, ENC_MESH_LAYERS), **_bert_kw())
+    del whole, plain_runtime, real, fake
+    engine.clear_cache()
+    torch.cuda.empty_cache()
+    values = {rec["fid"] for rec in ranks}
+    if len(values) != 1:
+        raise AssertionError(f"phase 17b: FID differs between the ranks: {sorted(values)}")
+    (value,) = values
+    if abs(value - want) > ENC_RTOL * abs(want):
+        raise AssertionError(f"phase 17b: sharded FID {value!r} against the unsharded {want!r} (rtol {ENC_RTOL})")
+    half = 2048 // 2
+    for rec in ranks:
+        dp, mp = rec["coords"]
+        want_block = features[:, mp * half:(mp + 1) * half]
+        if not torch_equal(rec["block"], want_block):
+            err = float((rec["block"] - want_block).abs().max())
+            raise AssertionError(f"phase 17b rank {rec['rank']}: the feature block differs from its slice of the unsharded features (max {err:.3e})")
+        # every Inception leaf is split; the encoder's 1-D leaves (biases, norms) are whole on every rank
+        inc, bert = rec["record"], rec["bert_record"]
+        if inc["params_bytes_per_device"] * 2 != inc["params_bytes_total"] or inc["devices"] != SHARD_WORLD:
+            raise AssertionError(f"phase 17b rank {rec['rank']}: Inception resident {inc}")
+        split_total, split_local = (bert[k] - rec["bert_whole_bytes"] for k in ("params_bytes_total", "params_bytes_per_device"))
+        odd_rows = 4 * BERT_FFN * (2 + 4 * ENC_MESH_LAYERS)  # at most a row more on one rank, per split leaf
+        if abs(2 * split_local - split_total) > odd_rows or bert["devices"] != SHARD_WORLD:
+            raise AssertionError(f"phase 17b rank {rec['rank']}: BERT encoder resident {bert}, whole leaves {rec['bert_whole_bytes']} B")
+        if rec["stats"].get("param_gather") != "before_program" or rec["kernel"] != (16, 3, 3, 3):
+            raise AssertionError(f"phase 17b rank {rec['rank']}: {rec['stats']}, Conv2d_1a_3x3 shard {rec['kernel']}")
+        for key in BERT_KEYS:
+            _close(f"phase 17b rank {rec['rank']} BERTScore {key}", rec["bert"][key], np.asarray(plain_bert[key]), atol=ENC_RTOL)
+        _log(
+            f"phase 17b rank {rec['rank']} (dp {dp}, mp {mp}): FID {value!r} on {m} + {m} images (its dp half streamed in"
+            f" chunks of {ENC_MESH_CHUNK}) against the unsharded {want!r}; feature block [{ENC_BLOCK_IMAGES}, {half}] equals"
+            f" its slice bit for bit; first chunk (warm-up, capture) {rec['first_chunk_s'] * 1e3:.0f} ms, then"
+            f" {rec['chunk_ms']:.1f} ms per chunk; the gloo gather of the weights {rec['gather_ms']:.1f} ms; resident"
+            f" {rec['record']}; graph pool reserved {_mib(rec['pool_bytes'])}; {rec['stats']}; peak {rec['fid_peak_gb']:.2f} GB;"
+            f" BERTScore ({ENC_MESH_PAIRS} pairs, {ENC_MESH_LAYERS} layers at full width) within {ENC_RTOL} of the unsharded"
+            f" route in {rec['bert_s']:.2f} s, resident {rec['bert_record']}, {rec['bert_stats']}; peak {rec['peak_gb']:.2f} GB"
+        )
+
+
+def run_encoder_mesh_phase(torch, mt, smi: str, pairs) -> None:
+    """Phase 17: the encoder's mesh. (a) NCCL at world size 1 in this
+    process; (b) four gloo ranks on ``cuda:0`` on a ``(2, 2)`` mesh."""
+    import metrics_tpu_torch.functional as ft
+    from metrics_tpu_torch.image.networks import inception as net
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_encoder_mesh_")
+    try:
+        path = os.path.join(tmp, "inception.npz")
+        net.save_inception_weights(net.random_inception_params(seed=SEED, device="cuda"), path)
+        _encoder_world_one(torch, mt, ft, smi, path, pairs)
+        _log(f"phase 17a: {time.perf_counter() - t_phase:.1f} s")
+        _encoder_mesh_ranks(torch, mt, ft, smi, path, pairs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _log(f"phase 17 encoder mesh: {time.perf_counter() - t_phase:.1f} s in all; {smi}")
 
 
 def check_windowed_kernels(torch, rng):
@@ -5804,10 +6182,11 @@ def main() -> int:
     run_generative_phase(torch, mt, smi)
     run_lpips_phase(torch, mt, smi)
     _log(f"phases 12a-12b: {time.perf_counter() - t_new:.1f} s in all, oracles and data included")
-    run_text_phase(torch, mt, smi)
+    bert_pairs = run_text_phase(torch, mt, smi)
     run_audio_detection_phase(torch, mt, smi)
     obs_launches = run_observability_phase(torch, mt, smi, mc, logits, target)
     shard_launches = run_sharded_phase(torch, mt, smi)
+    run_encoder_mesh_phase(torch, mt, smi, bert_pairs)
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {
@@ -5858,5 +6237,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--shard-rank"]:
         _shard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--encoder-rank"]:
+        _encoder_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -1,16 +1,19 @@
-"""The "model inside the metric" runtime on one device (counterpart of
+"""The "model inside the metric" runtime (counterpart of
 ``metrics_tpu/encoders``):
 
 * :mod:`metrics_tpu_torch.encoders.runtime`: :class:`ShardedEncoder`, an
   encoder forward as a program of the shared engine cache (entry kind
-  ``encode``; a CUDA graph per input signature on the card).
+  ``encode``; a CUDA graph per input signature on the card), its weights
+  laid out over a ``DeviceMesh`` by ``param_specs`` (``place(mesh)``), its
+  batch staged over the data axes by ``in_specs`` and its output block
+  given by ``out_spec``.
 * :mod:`metrics_tpu_torch.encoders.stream`: :func:`encode_stream`, fused
   encode-then-accumulate chunks with staging outside the program, pow2 row
-  buckets and ``on_bad_input`` screening upstream of the encoder.
+  buckets rounded to the encoder's ``batch_multiple()`` and
+  ``on_bad_input`` screening upstream of the encoder.
 
-``FrechetInceptionDistance.update_stream`` runs on it. The mesh layout of
-the JAX runtime (``param_specs``, ``in_specs``, ``out_spec``,
-``place(mesh)``) is the encoder's mesh, ROADMAP §1 item 7b.
+``FrechetInceptionDistance.update_stream`` runs on it, and FID's and
+BERTScore's ``encoder_sharding=`` take a placed runtime.
 """
 from metrics_tpu_torch.encoders.runtime import (  # noqa: F401
     ShardedEncoder,

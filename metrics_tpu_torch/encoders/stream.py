@@ -16,6 +16,12 @@ holding the corpus's features:
 * **Ragged chunks share a program.** The batch axis is padded with zero rows
   to the next power of two (``engine/bucketing.py``), and a float ``valid``
   row mask (a runtime input) excludes the pad rows from the accumulation.
+* **Rows split over the data axes.** A placed encoder with ``in_specs``
+  is given the whole chunk: the bucket is rounded up to its
+  ``batch_multiple()``, so the chunk and its ``valid`` mask split evenly,
+  and each process encodes its rows. The counts (``stream_chunks``,
+  ``rows_encoded``) are of the whole chunk, so a row counts once across the
+  mesh, not once per process that encodes it.
 * **Screening upstream of the encoder.** A metric's ``on_bad_input`` policy
   applies to the raw inputs before the forward: a quarantined batch never
   pays for it, masked rows are zeroed and excluded through ``valid``. The

@@ -73,7 +73,8 @@ ctypes launches with no batching rule.
 **Encoder entries.** An encoder's forward (:func:`encoder_entry`, kind
 ``encode``) is a program like an update: one per input signature, shared by
 every :class:`~metrics_tpu_torch.encoders.ShardedEncoder` with the same
-apply callable and parameter signature (the parameters are runtime data).
+apply callable, parameter signature, specs and mesh (the parameters are
+runtime data).
 Its ``encode_acc`` variant runs the forward and a consumer in one graph.
 cuDNN is captured with ``cudnn.benchmark`` off and TF32 off, in the warm-up
 as in the capture, and a refused capture raises: an encoder never falls
@@ -690,7 +691,8 @@ def _make_encoder_entry(cache_key: Any, pins: Tuple, consumer: Optional[Callable
     * ``encode``: ``(params, *inputs) -> features``, the forward;
     * ``encode_acc`` (only with a ``consumer``): ``(params, carry, valid,
       *inputs) -> carry``, the forward and ``consumer(carry, features,
-      valid)`` in one program. ``valid`` is a float row mask (pad and
+      valid)`` in one program (the features this process's rows at full
+      width, before the ``out_spec`` block). ``valid`` is a float row mask (pad and
       screened rows are 0), so ragged pow2-bucketed chunks share the
       program of their bucket.
 
@@ -705,7 +707,7 @@ def _make_encoder_entry(cache_key: Any, pins: Tuple, consumer: Optional[Callable
 
     def _encode_acc(enc, params, carry, valid, *inputs):
         with _encoder_capture_flags():
-            return consumer(carry, enc._traced_apply(params, inputs), valid)
+            return consumer(carry, enc._traced_features(params, inputs), valid)
 
     entry._fns = {"encode": _encode}
     if consumer is not None:
@@ -716,7 +718,8 @@ def _make_encoder_entry(cache_key: Any, pins: Tuple, consumer: Optional[Callable
 def encoder_entry(encoder: Any, consumer: Optional[Callable] = None) -> SharedEntry:
     """Shared entry for one encoder program family, keyed as in the JAX
     engine: the encoder's program identity (apply callable, parameter
-    signature) and, for the fused streaming step, the consumer's identity.
+    signature, canonical ``param_specs``/``in_specs``/``out_spec``, mesh)
+    and, for the fused streaming step, the consumer's identity.
     Parameter values are runtime data, so cloned or rebuilt encoders of one
     identity share one program per input signature."""
     key, pins = encoder._program_key()

@@ -244,7 +244,11 @@ def bert_score(
         model: user encoder ``(input_ids, attention_mask) -> [N, L, d]``
             taking int64 tensors on ``device`` (a torch module's forward, or
             a :class:`~metrics_tpu_torch.ShardedEncoder`); embeddings it
-            returns elsewhere are moved to ``device``. With ``None`` the
+            returns elsewhere are moved to ``device``. A placed
+            ``ShardedEncoder`` whose ``in_specs`` split the sentence axis
+            encodes and scores this process's rows of each chunk, and the
+            scores are gathered over those mesh axes (a collective every
+            process of the mesh makes). With ``None`` the
             ``transformers`` default loads ``model_name_or_path`` from local
             files.
         all_layers: score every encoder layer; the outputs become
@@ -322,11 +326,15 @@ def bert_score(
     p_width = int(preds_tok["input_ids"].shape[1]) if n else int(max_length)
     t_width = int(target_tok["input_ids"].shape[1]) if n else int(max_length)
     mult = forward.batch_multiple() if hasattr(forward, "batch_multiple") else 1
+    # a placed ShardedEncoder that stages rows encodes this process's window
+    # of each chunk: the pairs are scored there and the scores gathered
+    row_window = getattr(forward, "row_window", lambda rows: None)
     want_ndim = 4 if all_layers else 3
 
-    def _encode_side(ids: np.ndarray, mask: np.ndarray, rows: int, width: int, side: str) -> torch.Tensor:
+    def _encode_side(ids: np.ndarray, mask: np.ndarray, rows: int, width: int, side: str, window: Any) -> torch.Tensor:
         """One encoder launch: the token axis trimmed to ``width``, the
-        sentence axis padded to ``rows``, both sliced back."""
+        sentence axis padded to ``rows``, both sliced back (to this
+        process's window of the rows where the encoder stages them)."""
         ids_c = torch.from_numpy(np.ascontiguousarray(_pad_rows(ids[:, :width], rows))).to(dev)
         mask_c = torch.from_numpy(np.ascontiguousarray(_pad_rows(mask[:, :width], rows))).to(dev)
         emb = forward(ids_c, mask_c)
@@ -337,10 +345,14 @@ def bert_score(
                 f" ({'[num_layers, n, seq_len, dim]' if all_layers else '[n, seq_len, dim]'}),"
                 f" got shape {tuple(emb.shape)} for the {side} sentences."
             )
+        if window is not None:
+            return emb
         # the sentence axis: 0 for [n, L, d], 1 for all_layers' [layers, n, L, d]
         return emb[:, : ids.shape[0]] if all_layers else emb[: ids.shape[0]]
 
-    def _side_weights(values: np.ndarray, width: int, dtype: torch.dtype) -> torch.Tensor:
+    def _side_weights(values: np.ndarray, width: int, dtype: torch.dtype, rows: int, window: Any) -> torch.Tensor:
+        if window is not None:  # pad rows weigh 0, so they score 0
+            values = _pad_rows(values, rows)[window[0]:window[0] + window[1]]
         return torch.from_numpy(np.ascontiguousarray(values[:, :width], dtype=np.float64)).to(dev).to(dtype)
 
     chunks: List[Dict[str, torch.Tensor]] = []
@@ -359,18 +371,21 @@ def bert_score(
             rows = ((rows + mult - 1) // mult) * mult
         if length_bucketing and (p_w < p_width or t_w < t_width or rows != p_ids.shape[0]):
             count_bucketed_dispatch()
-        preds_emb = _encode_side(p_ids, p_m, rows, p_w, "preds")
-        target_emb = _encode_side(t_ids, t_m, rows, t_w, "target")
-        chunks.append(
-            _get_precision_recall_f1(
-                preds_emb,
-                target_emb,
-                _side_weights(preds_mask[sl], p_w, preds_emb.dtype),
-                _side_weights(target_mask[sl], t_w, target_emb.dtype),
-                _side_weights(preds_idf_scale[sl], p_w, preds_emb.dtype),
-                _side_weights(target_idf_scale[sl], t_w, target_emb.dtype),
-            )
+        window = row_window(rows)
+        preds_emb = _encode_side(p_ids, p_m, rows, p_w, "preds", window)
+        target_emb = _encode_side(t_ids, t_m, rows, t_w, "target", window)
+        scores = _get_precision_recall_f1(
+            preds_emb,
+            target_emb,
+            _side_weights(preds_mask[sl], p_w, preds_emb.dtype, rows, window),
+            _side_weights(target_mask[sl], t_w, target_emb.dtype, rows, window),
+            _side_weights(preds_idf_scale[sl], p_w, preds_emb.dtype, rows, window),
+            _side_weights(target_idf_scale[sl], t_w, target_emb.dtype, rows, window),
         )
+        if window is not None:
+            # every process returns every pair's scores: 3 floats a pair cross, not its embeddings
+            scores = {k: forward.gather_rows(v, rows, dim=-1)[..., : p_ids.shape[0]] for k, v in scores.items()}
+        chunks.append(scores)
     keys = ("precision", "recall", "f1")
     if chunks:
         # the sentence axis is last in both layouts: [n] plain, [num_layers, n] stacked; one copy to the host

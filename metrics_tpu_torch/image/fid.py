@@ -33,8 +33,15 @@
   ``[d, d]`` over the feature axis on the device and runs Newton–Schulz
   (the default square root under ``feature_sharding``).
 
-``encoder_sharding=`` lays the network itself over a mesh: that is the
-encoder's mesh, ROADMAP §1 item 7b, and it raises here.
+* **Sharded encoder.** ``encoder_sharding=`` runs the extractor as a
+  :class:`~metrics_tpu_torch.encoders.ShardedEncoder` whose weights are laid
+  out over the mesh: a ready runtime (any extractor), or, for the built-in
+  InceptionV3 (an int ``feature``), a mesh-axis name splitting the network's
+  output channels over that axis (``inception_param_specs``).
+  :meth:`FrechetInceptionDistance.shard_states` places the states and the
+  runtime together; each dispatch gathers the weights and folds the BN, and
+  the features of this process's rows feed the feature-split moments in the
+  same program.
 """
 from functools import lru_cache
 from typing import Any, Callable, Iterable, Optional, Tuple, Union
@@ -55,11 +62,17 @@ def _resolve_feature_extractor(feature: Union[int, str], weights_path: Optional[
     return resolve_inception_extractor(feature, weights_path, device=device)
 
 
-def _sharding_unported(arg: str) -> MetricsUserError:
-    return MetricsUserError(
-        f"`{arg}` shards the InceptionV3 network over a device mesh, which is the encoder's mesh (ROADMAP §1"
-        " item 7b), not ported yet; leave it None (feature_sharding= splits the moment states without it)."
-    )
+@lru_cache(maxsize=None)
+def _inception_apply_for(feature: str, resize_input: bool) -> Callable:
+    """``(params, imgs) -> [N, d]`` for the built-in InceptionV3 tap,
+    memoized so every ``FrechetInceptionDistance(encoder_sharding=<axis>)``
+    of one tap shares one callable, and with it one encoder program family
+    (the program key holds the apply by identity)."""
+    from functools import partial
+
+    from metrics_tpu_torch.image.networks.inception import _extract
+
+    return partial(_extract, feature=feature, resize_input=resize_input)
 
 
 def _extract(extractor: Any, imgs: Any, device: torch.device) -> torch.Tensor:
@@ -160,8 +173,14 @@ class FrechetInceptionDistance(Metric):
             ``sharding.NEWTON_SCHULZ_FID_RTOL``), or ``'auto'``: Newton–Schulz
             under ``feature_sharding``, else eigh.
         sqrt_iters: Newton–Schulz iteration count.
-        encoder_sharding: not ported (the encoder's mesh, ROADMAP §1 item
-            7b); must be None.
+        encoder_sharding: run the extractor as a mesh-resident
+            :class:`~metrics_tpu_torch.encoders.ShardedEncoder`: a ready
+            runtime (any extractor), or, with the built-in InceptionV3 (an
+            int ``feature``), a mesh-axis name or ``PartitionSpec`` naming
+            one, whose output channels the weights are split over
+            (``inception_param_specs``). :meth:`shard_states` places the
+            weights and the states together. Pairs with
+            ``feature_sharding`` on the same axis.
 
     Example:
         >>> import torch
@@ -194,9 +213,8 @@ class FrechetInceptionDistance(Metric):
         kwargs.setdefault("jit_update", False)  # extractor call is user code
         kwargs.setdefault("compute_on_step", False)  # reference ``fid.py:215``
         super().__init__(**kwargs)
-        if encoder_sharding is not None:
-            raise _sharding_unported("encoder_sharding")
-        if isinstance(feature, int):
+        feature_is_int = isinstance(feature, int)
+        if feature_is_int:
             feature = _resolve_feature_extractor(feature, weights_path, self.device)
             if feature_dim is None:
                 feature_dim = feature.feature_dim  # O(d^2) streaming stats
@@ -208,7 +226,29 @@ class FrechetInceptionDistance(Metric):
             raise ValueError(f"`matrix_sqrt` must be 'auto', 'eigh' or 'newton_schulz', got {matrix_sqrt!r}")
         # a canonical tuple, not a PartitionSpec: public attributes key programs
         self.feature_sharding = canonical_spec(class_axis_spec(feature_sharding)) or None
-        self.encoder_sharding = None
+        self._encoder_runtime = None  # the ShardedEncoder, once placed
+        self._pending_encoder = None  # a ready runtime, placed at shard_states(mesh)
+        self._pending_encoder_axis = None  # the built-in network's axis, runtime built at shard_states(mesh)
+        if encoder_sharding is None:
+            self.encoder_sharding = None
+        elif getattr(encoder_sharding, "_is_sharded_encoder", False):
+            self._encoder_runtime = encoder_sharding if encoder_sharding.mesh is not None else None
+            self._pending_encoder = encoder_sharding
+            self.encoder_sharding = encoder_sharding  # pinned by identity in the fingerprint
+        else:
+            axis_spec = canonical_spec(class_axis_spec(encoder_sharding))
+            if not axis_spec or not isinstance(axis_spec[0], str):
+                raise MetricsUserError(
+                    "`encoder_sharding` must be a mesh-axis name, a PartitionSpec naming one, or a"
+                    f" ShardedEncoder; got {encoder_sharding!r}"
+                )
+            if not feature_is_int:
+                raise MetricsUserError(
+                    "`encoder_sharding=<axis>` shards the built-in InceptionV3 extractor (integer"
+                    " `feature`). For a custom extractor pass a ready metrics_tpu_torch.ShardedEncoder instead."
+                )
+            self.encoder_sharding = axis_spec
+            self._pending_encoder_axis = axis_spec[0]
         self.matrix_sqrt = matrix_sqrt
         self.sqrt_iters = int(sqrt_iters)
         if feature_dim is None and (self.feature_sharding is not None or matrix_sqrt == "newton_schulz"):
@@ -233,9 +273,57 @@ class FrechetInceptionDistance(Metric):
             self.add_state("real_features", default=[], dist_reduce_fx="cat")
             self.add_state("fake_features", default=[], dist_reduce_fx="cat")
 
+    # ------------------------------------------------------------------
+    # sharded encoder runtime
+    # ------------------------------------------------------------------
+    def shard_states(self, mesh: Any) -> "FrechetInceptionDistance":
+        """Place the registered-sharded states and the encoder runtime on
+        ``mesh`` (one layout of the weights, per leaf)."""
+        super().shard_states(mesh)
+        self._bind_encoder_mesh(mesh)
+        return self
+
+    def _bind_encoder_mesh(self, mesh: Any) -> None:
+        from metrics_tpu_torch.encoders import ShardedEncoder
+
+        pending = self.__dict__.get("_pending_encoder")
+        if pending is not None:
+            if pending.mesh is not None and pending.mesh is not mesh:
+                raise MetricsUserError(
+                    f"encoder_sharding runtime {pending.name!r} is placed on a different mesh than"
+                    " shard_states(mesh) received: features would be made on one mesh and accumulated on"
+                    " another. Place encoder and states on the same mesh (or pass an unplaced ShardedEncoder"
+                    " and let shard_states place it)."
+                )
+            self._encoder_runtime = pending if pending.mesh is not None else pending.place(mesh)
+            return
+        axis = self.__dict__.get("_pending_encoder_axis")
+        if axis is None:
+            return
+        runtime = self.__dict__.get("_encoder_runtime")
+        if runtime is not None:
+            # a runtime this metric built follows the states onto a new mesh
+            if runtime.mesh is not mesh:
+                runtime.place(mesh)
+            return
+        from metrics_tpu_torch.image.networks.inception import inception_param_specs
+        from metrics_tpu_torch.sharding.spec import PartitionSpec
+
+        extractor = self.inception.on(self.device)
+        self._encoder_runtime = ShardedEncoder(
+            _inception_apply_for(extractor.feature, extractor.resize_input),
+            extractor.params,
+            param_specs=inception_param_specs(axis),
+            mesh=mesh,
+            out_spec=PartitionSpec(None, axis),
+            name=f"inception_{extractor.feature}",
+            device=self.device,
+        )
+
     def _stream_encoder(self) -> Any:
-        """The encoder runtime the streaming driver runs: the extractor on
-        the metric's device, wrapped once. A built-in network keeps the
+        """The encoder runtime the streaming driver runs: the placed runtime
+        of ``encoder_sharding``, else the extractor on the metric's device,
+        wrapped once. A built-in network keeps the
         wrapper, so every FID sharing it (``resolve_inception_extractor``
         shares them) shares its programs; any other callable's wrapper is
         kept by this metric, as in the JAX package. The wrapper's identity
@@ -243,6 +331,9 @@ class FrechetInceptionDistance(Metric):
         from metrics_tpu_torch.encoders import ShardedEncoder
         from metrics_tpu_torch.image.networks._common import SharedNetwork
 
+        runtime = self.__dict__.get("_encoder_runtime")
+        if runtime is not None:
+            return runtime
         extractor = self.inception.on(self.device) if hasattr(self.inception, "on") else self.inception
         holder = extractor if isinstance(extractor, SharedNetwork) else self
         kept = holder.__dict__.setdefault("_stream_encoders", {})
@@ -254,6 +345,10 @@ class FrechetInceptionDistance(Metric):
     def __getstate__(self) -> dict:
         state = super().__getstate__()
         state.pop("_stream_encoders", None)  # its apply is a closure: rebuilt on demand
+        # process-local, as the mesh is: a runtime built from the axis is
+        # built again at the next shard_states(mesh); a ready one stays in
+        # `encoder_sharding` and `_pending_encoder`
+        state["_encoder_runtime"] = None
         return state
 
     def _moment_consumer(self) -> Callable:
@@ -311,6 +406,17 @@ class FrechetInceptionDistance(Metric):
 
     def update(self, imgs: Any, real: bool = True) -> None:
         """Extract features and fold them into the tracked distribution."""
+        runtime = self.__dict__.get("_encoder_runtime")
+        if runtime is not None:
+            if self.feature_dim is None:
+                raise MetricsUserError(
+                    "`encoder_sharding` feeds the O(d^2) streaming-statistics states and needs `feature_dim`"
+                )
+            # the runtime's rows: the forward and the moments in one program
+            imgs = torch.as_tensor(imgs).to(runtime.device)
+            valid = torch.ones(imgs.shape[0], dtype=torch.float32, device=runtime.device)
+            self._store_moments(real, runtime.encode_into(self._moment_consumer(), self._moments(real), (imgs,), valid))
+            return
         features = _extract(self.inception, imgs, self.device)
         if self.feature_dim is not None:
             if features.shape[1] != self.feature_dim:

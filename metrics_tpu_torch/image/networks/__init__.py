@@ -3,14 +3,15 @@
 for FID, KID and IS, and the LPIPS VGG16/AlexNet nets. PyTorch inference
 modules over explicit parameter trees, with local-weights loaders (the
 ``.npz`` files of the JAX package) and converters from the canonical torch
-checkpoints. ``inception_param_specs`` (the mesh layout of the weights)
-waits for the sharded state plane.
+checkpoints. ``inception_param_specs`` is the weights' layout over a mesh
+axis (``FrechetInceptionDistance(encoder_sharding=)``).
 """
 from metrics_tpu_torch.image.networks.inception import (
     InceptionV3Features,
     clear_inception_extractor_cache,
     convert_torch_inception_checkpoint,
     inception_param_spec,
+    inception_param_specs,
     inception_v3,
     load_inception_weights,
     preprocess_inception_input,
@@ -36,6 +37,7 @@ __all__ = [
     "convert_torch_inception_checkpoint",
     "convert_torch_lpips_checkpoint",
     "inception_param_spec",
+    "inception_param_specs",
     "inception_v3",
     "load_inception_weights",
     "load_lpips_weights",

@@ -415,6 +415,34 @@ def inception_v3(params: Params, x: torch.Tensor, features_list: Sequence[str] =
     return _forward(fold_params(params), x, features_list)
 
 
+def _extract(params: Params, imgs: torch.Tensor, feature: str, resize_input: bool) -> torch.Tensor:
+    """``imgs -> [N, d]`` on the given parameters, the BN folded here: the
+    body of a sharded FID encoder, which folds the weights it gathered in
+    each dispatch, so no folded copy of the whole weights stays resident."""
+    kernel = params["Conv2d_1a_3x3"]["kernel"]
+    x = torch.as_tensor(imgs)
+    if x.device != kernel.device:
+        x = x.to(kernel.device)
+    x = preprocess_inception_input(x, resize_input=resize_input, dtype=kernel.dtype)
+    return _forward(fold_params(params), x, (feature,))[feature]
+
+
+def inception_param_specs(axis: str = "mp") -> Dict[str, Dict[str, Any]]:
+    """One :class:`~metrics_tpu_torch.sharding.PartitionSpec` per leaf of
+    :func:`inception_param_spec`, splitting the network's output channels
+    over the mesh axis ``axis``: the layout of
+    ``FrechetInceptionDistance(encoder_sharding=axis)``.
+
+    The port's kernels are OIHW and its fc kernel ``[out, in]``, so every
+    kernel splits its axis 0 (the JAX package's HWIO kernels split their
+    last axis); every BN vector and the fc bias split their only axis.
+    All 94 convolutions' output counts and the 1,008 logits divide by 4.
+    """
+    from metrics_tpu_torch.sharding.spec import PartitionSpec
+
+    return {mod: {name: PartitionSpec(axis) for name in group} for mod, group in inception_param_spec().items()}
+
+
 class InceptionV3Features(SharedNetwork):
     """``imgs -> [N, d]`` extractor, the default for FID/KID/IS.
 

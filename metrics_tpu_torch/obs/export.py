@@ -222,6 +222,11 @@ def prometheus_text(obj: Optional[Any] = None) -> str:
     enc = encoder_stats()
     for key in _ENCODER_COUNTERS:
         _sample(f"metrics_tpu_encoder_{key}", enc[key])
+    for enc_name in sorted(enc["encoders"]):
+        rec, labels = enc["encoders"][enc_name], {"encoder": enc_name}
+        _sample("metrics_tpu_encoder_params_bytes_per_device", rec["params_bytes_per_device"], labels, kind="gauge")
+        _sample("metrics_tpu_encoder_params_bytes_total", rec["params_bytes_total"], labels, kind="gauge")
+        _sample("metrics_tpu_encoder_devices", rec["devices"], labels, kind="gauge")
 
     kern = _kernel_section()
     _sample("metrics_tpu_kernel_registered_ops", len(kern["registered"]), kind="gauge")

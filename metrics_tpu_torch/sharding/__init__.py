@@ -10,7 +10,8 @@
   root and the Fréchet distance from moments, on the device.
 
 The encoder's mesh (``ShardedEncoder(param_specs=, mesh=)``, FID's and
-BERTScore's ``encoder_sharding=``) is ROADMAP §1 item 7b, not ported yet.
+BERTScore's ``encoder_sharding=``) lays parameter leaves out with the same
+specs, layouts and gathers (``metrics_tpu_torch/encoders/runtime.py``).
 """
 from metrics_tpu_torch.sharding.linalg import (  # noqa: F401
     NEWTON_SCHULZ_FID_RTOL,

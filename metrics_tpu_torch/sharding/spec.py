@@ -31,7 +31,10 @@
 
 Placement splits a state dimension over one mesh axis; a dimension named
 with a tuple of axes registers (as in the JAX package) but raises at
-placement.
+placement. An encoder's parameter leaves (``ShardedEncoder(param_specs=)``)
+are validated, laid out and gathered by the same functions
+(:func:`normalize_state_sharding`, :func:`layout_of`, :func:`local_slice`,
+:func:`gather_state`).
 """
 import threading
 from contextlib import contextmanager
@@ -215,23 +218,32 @@ def local_slice(value: torch.Tensor, layout: ShardLayout) -> torch.Tensor:
     return out.clone()
 
 
-def gather_state(value: torch.Tensor, layout: ShardLayout, mesh: Any) -> torch.Tensor:
+def gather_state(value: torch.Tensor, layout: ShardLayout, mesh: Any, in_program: bool = False) -> torch.Tensor:
     """The global state from every process's shard: one ``all_gather`` over
     each split dimension's mesh axis (shards padded to the chunk length, and
-    the padding cut off), a collective every process of the mesh makes."""
+    the padding cut off), a collective every process of the mesh makes.
+    ``in_program``: the gathers run as the programs' collectives do
+    (``comm.reduce_in_trace``: on NCCL the functional collective, which a
+    CUDA graph captures, also over an axis of one process)."""
+    from metrics_tpu_torch.parallel import comm
+
     out = value
     for dim, axis in layout.splits:
         k = axis_size(mesh, axis)
         n = layout.global_shape[dim]
-        if k == 1:
+        live = axis in comm.live_axes(mesh, (axis,)) if in_program else k > 1
+        if not live:
             continue
         size = -(-n // k)
         if out.shape[dim] < size:
             pad = list(out.shape)
             pad[dim] = size - out.shape[dim]
             out = torch.cat([out, out.new_zeros(pad)], dim=dim)
-        parts = [torch.empty_like(out) for _ in range(k)]
-        dist.all_gather(parts, out.contiguous(), group=mesh.get_group(axis))
+        if in_program:
+            parts = list(comm.reduce_in_trace(out, None, axis, mesh=mesh).unbind(0))
+        else:
+            parts = [torch.empty_like(out) for _ in range(k)]
+            dist.all_gather(parts, out.contiguous(), group=mesh.get_group(axis))
         out = torch.cat(parts, dim=dim).narrow(dim, 0, n)
     return out
 

@@ -45,8 +45,11 @@ class BERTScore(Metric):
             encode with in place of ``model``: each ``(rows, width)``
             signature of the compute-time pass is then one captured
             ``encode`` program (a CUDA graph on the card); a capture the
-            encoder refuses raises. Its mesh arguments are ROADMAP §1 item 7b
-            and raise.
+            encoder refuses raises. Placed on a mesh with ``in_specs``
+            splitting the sentence axis, each process encodes and scores its
+            rows of every chunk (a pair's two sides stay on one process) and
+            the per-sentence scores are gathered, so every process returns
+            them all.
         length_bucketing: trim each compute-time encoder chunk to its pow2
             width bucket (see :func:`~metrics_tpu_torch.functional.bert_score`).
         device: where the token buffers, the encoder's inputs and the

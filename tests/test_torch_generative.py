@@ -164,8 +164,8 @@ def test_fid_needs_two_samples_and_rejects_sharding():
     buffered.update(torch.from_numpy(FAKE[0]), real=False)
     with pytest.raises(MetricsUserError, match="at least two samples"):
         buffered.compute()
-    # the encoder's mesh is not ported; feature-sharded moments are (test_torch_sharding.py)
-    with pytest.raises(MetricsUserError, match=r"`encoder_sharding`.*ROADMAP §1 item 7b"):
+    # an axis-name encoder_sharding shards the built-in network only (a mesh: test_torch_encoder_mesh.py)
+    with pytest.raises(MetricsUserError, match="built-in InceptionV3"):
         mt.FrechetInceptionDistance(feature=port_extractor, feature_dim=D, device="cpu", encoder_sharding="mp")
     assert mt.FrechetInceptionDistance(
         feature=port_extractor, feature_dim=D, device="cpu", feature_sharding="mp"
@@ -427,11 +427,13 @@ def test_sharded_encoder_from_callable_and_stats():
     np.testing.assert_array_equal(back(x).numpy(), enc(x).numpy())
     reset_encoder_stats()
     assert encoder_stats()["encode_calls"] == 0
-    for kwargs in ({"mesh": object()}, {"param_specs": {"w": "mp"}}, {"in_specs": "dp"}, {"out_spec": "mp"}):
-        with pytest.raises(MetricsUserError, match="ROADMAP §1 item 7b"):
-            ShardedEncoder(_apply, {"w": torch.zeros(12, 8)}, **kwargs)
-    with pytest.raises(MetricsUserError, match="place"):
-        enc.place(object())
+    # the mesh arguments hold their annotations unplaced (placed: test_torch_encoder_mesh.py)
+    annotated = ShardedEncoder(_apply, {"w": torch.zeros(12, 8)}, param_specs={"w": "mp"}, in_specs="dp", out_spec="mp")
+    assert annotated.mesh is None and annotated.batch_multiple() == 1 and annotated.row_window(6) is None
+    with pytest.raises(MetricsUserError, match="named dims"):
+        ShardedEncoder(_apply, {"w": torch.zeros(12, 8)}, param_specs={"w": "mp"}, mesh=object())
+    with pytest.raises(MetricsUserError, match="named dims"):
+        annotated.place(object())
 
 
 class _Screen:
