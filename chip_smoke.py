@@ -344,6 +344,31 @@
    against the unsharded routes, ms per chunk, the gather's ms, resident
    bytes, the graph pool's reserved bytes, peak memory.
 
+17. The resilient sync (phase 18, last). (a) Four gloo ranks on ``cuda:0``
+   (this script run with ``--resilience-rank``, three launches of four, the
+   fault plan in each rank's ``METRICS_TPU_FAULTS``) each stream a quarter
+   of ImageNet-1k val, rank-major, through the main path's collection
+   (launching ``select_topk`` and ``confusion_counts``) and a probe metric
+   with a per-class sum of the logits tagged ``int8`` and two buffers of
+   the top-1 confidence, one tagged ``bf16``, and sync them through a
+   store ``ProcessGroup`` over the default ``TCPStore``. Run 1 (launch
+   ``exact``): equal on every rank, to the one-process oracle (counts and
+   the untagged buffer bit for bit, scores within 1e-6 relative), to the
+   same ranks' sync over the gloo collective path bit for bit, the tagged
+   leaves within ``error_bound`` of the exact values and bit for bit
+   against the round trip of each rank's leaf; the ``wire`` events' ratio
+   0.5 for bf16 and 0.254 for int8. Run 2 (``corrupt``, rank 1's payload
+   corrupted twice a read): each reader retries twice, results run 1's bit
+   for bit. Run 3 (``drop``, rank 3's payload dropped, ``on_sync_error=
+   "partial"``, a 5 s deadline): ranks 0-2 report ``missing_ranks ==
+   [3]``, ``degraded_partial == 1`` and ``"partial"``, their results the
+   oracle over their own batches. Run 4 (launch ``exact``): rank 3 speaks
+   wire v1 only; the group settles on v1 (``negotiation_stats()``) and the
+   tagged leaves travel exact. (b) The probe through NCCL at world size 1:
+   its codes' ``all_gather`` gives its local round trip bit for bit.
+   Logged: each rank's ``compute()`` ms through the store, gloo and
+   NCCL, bytes sent, ``backoff_s``, the phase's seconds.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
 CUDA the script exits 2 and prints no result.
@@ -5422,42 +5447,88 @@ def _shard_rank(rank: int, port: int, out_path: str) -> None:
     torch.save(rec, out_path)
 
 
-def _run_shard_ranks(out_dir: str, flag: str = "--shard-rank", phase: str = "16b", timeout_s: float = SHARD_RANK_TIMEOUT_S):
+def _memory_note(torch) -> str:
+    """The card's free memory, the host's available memory and this
+    process's resident size, for the lines around a launch of ranks."""
+    free, total = torch.cuda.mem_get_info()
+    reserved = torch.cuda.memory_reserved()
+    host = {}
+    for path, keys in (("/proc/meminfo", ("MemAvailable", "MemTotal")), ("/proc/self/status", ("VmRSS",))):
+        try:
+            with open(path) as f:
+                for line in f:
+                    key, _, rest = line.partition(":")
+                    if key in keys:
+                        host[key] = int(rest.split()[0]) * 1024
+        except OSError:
+            pass
+    gb = lambda k: f"{host[k] / 1e9:.1f} GB" if k in host else "not measured"
+    return (
+        f"card free {free / 1e9:.1f} GB of {total / 1e9:.1f} GB, {reserved / 1e9:.1f} GB reserved by this process; host available {gb('MemAvailable')} of {gb('MemTotal')};"
+        f" this process resident {gb('VmRSS')}"
+    )
+
+
+def _exit_note(rc) -> str:
+    if isinstance(rc, int) and rc < 0:
+        import signal
+
+        return f"killed by {signal.Signals(-rc).name}"
+    return f"exit code {rc}"
+
+
+def _run_shard_ranks(
+    out_dir: str,
+    flag: str = "--shard-rank",
+    phase: str = "16b",
+    timeout_s: float = SHARD_RANK_TIMEOUT_S,
+    extra: tuple = (),
+    env: dict = None,
+):
     """Start the four ranks of a phase (phase 16b's by default: this script
-    run with ``flag``), wait for each within its limit and return their
-    records; a rank that fails or outlives its limit raises."""
+    run with ``flag``, then ``extra`` arguments, in ``env``), wait for each
+    within its limit and return their records; a rank that fails or outlives
+    its limit raises."""
     import torch
 
     port = _free_port()
     procs = []
     stem = flag.strip("-").split("-")[0]
+    _log(f"phase {phase}: starting {SHARD_WORLD} ranks; {_memory_note(torch)}")
     for rank in range(SHARD_WORLD):
         log = open(os.path.join(out_dir, f"{stem}{rank}.log"), "w+")
-        cmd = [sys.executable, os.path.abspath(__file__), flag, str(rank), str(port), os.path.join(out_dir, f"{stem}{rank}.pt")]
-        procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log))
-    failed = []
+        cmd = [sys.executable, os.path.abspath(__file__), flag, str(rank), str(port), os.path.join(out_dir, f"{stem}{rank}.pt"), *extra]
+        procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env), log))
+    ended = {}  # rank -> (seconds after the start, return code), in the order the ranks ended
+    t0 = time.monotonic()
     try:
-        deadline = time.monotonic() + timeout_s
-        for rank, (proc, _) in enumerate(procs):
-            try:
-                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                rc = f"killed after {timeout_s} s"
-            if rc != 0:
-                failed.append((rank, rc))
+        while len(ended) < len(procs) and time.monotonic() - t0 < timeout_s:
+            for rank, (proc, _) in enumerate(procs):
+                if rank not in ended and proc.poll() is not None:
+                    ended[rank] = (time.monotonic() - t0, proc.returncode)
+            time.sleep(0.05)
     finally:
         for proc, _ in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    failed = [(r, rc) for r, (_, rc) in ended.items() if rc != 0]
+    failed += [(r, f"killed after {timeout_s} s") for r in range(len(procs)) if r not in ended]
     logs = []
     for _, log in procs:
         log.seek(0)
         logs.append(log.read())
         log.close()
     if failed:
-        tails = "\n".join(f"--- rank {r} ---\n{text[-6000:]}" for r, text in enumerate(logs))
-        raise AssertionError(f"phase {phase}: ranks failed {failed}\n{tails}")
+        # the rank that failed first is the likely cause (the others then lose their gloo peer): its log goes last
+        first = failed[0][0]
+        order = [r for r in range(len(procs)) if r != first] + [first]
+        tails = "\n".join(f"--- rank {r} ---\n{logs[r][-6000:]}" for r in order)
+        how = {r: f"{t:.1f} s, {_exit_note(rc)}" for r, (t, rc) in ended.items()}
+        raise AssertionError(
+            f"phase {phase}: ranks failed {failed}\n{tails}\nphase {phase}: ranks failed {failed}; first to fail rank {first};"
+            f" ended after {how}; {_memory_note(torch)}"
+        )
     return [torch.load(os.path.join(out_dir, f"{stem}{r}.pt"), weights_only=False) for r in range(SHARD_WORLD)]
 
 
@@ -5581,7 +5652,7 @@ def run_sharded_phase(torch, mt, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 ENC_RANK_TIMEOUT_S = 300
 ENC_MESH_IMAGES = 1_024  # 17b: the first real and generated images of the CIFAR-10-size sets
-ENC_MESH_CHUNK = 256  # 17b's stream chunks: four ranks share the card's memory
+ENC_MESH_CHUNK = 128  # 17b's stream chunks: four ranks share the card's memory (at 256 a rank's graph pool was 11.5 GiB, and a rank ran out)
 ENC_MESH_PAIRS = 256  # 17b: BERTScore pairs of 13a
 ENC_MESH_LAYERS = 2  # 17b: the seeded encoder cut to 2 layers, at full width
 ENC_BLOCK_IMAGES = 32  # images whose feature block each rank returns
@@ -5800,12 +5871,12 @@ def _encoder_rank(rank: int, port: int, out_path: str) -> None:
         runtime = fid._encoder_runtime
         torch.cuda.reset_peak_memory_stats()
         _, rec["first_chunk_s"] = _timed(torch, lambda: fid.update_stream([halves[True][:ENC_MESH_CHUNK]], real=True))
-        rest = [halves[True][ENC_MESH_CHUNK:]] + list(halves[False].split(ENC_MESH_CHUNK))
+        rest = {True: list(halves[True][ENC_MESH_CHUNK:].split(ENC_MESH_CHUNK)), False: list(halves[False].split(ENC_MESH_CHUNK))}
         t0 = time.perf_counter()
-        fid.update_stream(rest[:1], real=True)
-        fid.update_stream(rest[1:], real=False)
+        fid.update_stream(rest[True], real=True)
+        fid.update_stream(rest[False], real=False)
         torch.cuda.synchronize()
-        rec["chunk_ms"] = 1e3 * (time.perf_counter() - t0) / len(rest)
+        rec["chunk_ms"] = 1e3 * (time.perf_counter() - t0) / (len(rest[True]) + len(rest[False]))
         rec["fid"] = float(fid.compute())
         rec["block"] = runtime(real[:ENC_BLOCK_IMAGES]).cpu()
         rec["record"] = encoder_stats()["encoders"]["inception_2048"]
@@ -5918,6 +5989,399 @@ def run_encoder_mesh_phase(torch, mt, smi: str, pairs) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _log(f"phase 17 encoder mesh: {time.perf_counter() - t_phase:.1f} s in all; {smi}")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the resilient sync on the card
+# ---------------------------------------------------------------------------
+RES_WORLD = 4
+RES_SEED = 18
+RES_RANK_TIMEOUT_S = 300
+RES_TIMEOUT_S = 5.0  # the group deadline of the dropped-payload run
+RES_PLANS = {  # launch -> METRICS_TPU_FAULTS of every rank ("" for none)
+    "exact": "",
+    "corrupt": '[{"kind": "corrupt", "rank": 1, "times": 2}]',
+    "drop": '[{"kind": "drop", "rank": 3}]',
+}
+RES_MEMBERS = ("top1", "top5", "f1", "confmat")
+RES_REPEATS = 3  # computes timed through the store and through gloo in run 1
+PROBE_KEYS = ("total", "conf_bf16", "conf_exact")
+
+
+def _wire_probe(mt, **kw):
+    """The phase's own metric: the per-class sum of the logits (``[1000]``
+    float32, tagged ``int8``) and two buffers of each sample's top-1 softmax
+    confidence, one tagged ``bf16`` and one exact."""
+    import torch
+
+    class WireProbe(mt.Metric):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.add_state("total", default=torch.zeros(IMAGENET_VAL[1]), dist_reduce_fx="sum", sync_precision="int8")
+            self.add_state("conf_bf16", default=[], dist_reduce_fx="cat", sync_precision="bf16")
+            self.add_state("conf_exact", default=[], dist_reduce_fx="cat")
+
+        def update(self, logits, confidence):
+            self.total = self.total + logits.sum(0)
+            self.conf_bf16.append(confidence)
+            self.conf_exact.append(confidence)
+
+        def compute(self):
+            return {k: self.cat_state(k) if k != "total" else self.total for k in PROBE_KEYS}
+
+    return WireProbe(**kw)
+
+
+def _resilience_stream(torch):
+    """Phase 18's ImageNet-1k val stream on the card from its own seed, with
+    each sample's top-1 softmax confidence computed once over the whole
+    stream (so every process holds the same bits)."""
+    logits_np, target_np = _imagenet_stream(np.random.default_rng(RES_SEED), IMAGENET_VAL[0])
+    logits, target = torch.from_numpy(logits_np).cuda(), torch.from_numpy(target_np).cuda()
+    confidence = torch.softmax(logits, dim=1).amax(dim=1)
+    return logits_np, target_np, {"preds": logits, "target": target, "confidence": confidence}
+
+
+def _res_batches(rank: int):
+    return _batches(IMAGENET_VAL[0])[rank::RES_WORLD]
+
+
+def _stream_res(mc, probe, data, bounds) -> None:
+    for s, e in bounds:
+        mc(data["preds"][s:e], data["target"][s:e])
+        probe.update(data["preds"][s:e], data["confidence"][s:e])
+
+
+def _regroup(mt, objs, group, policy: str) -> None:
+    """Every metric of ``objs`` syncs over ``group`` under ``policy``, and
+    forgets its cached value."""
+    for obj in objs:
+        for m in obj.modules():
+            if isinstance(m, mt.Metric):
+                m.process_group, m.on_sync_error, m._computed = group, policy, None
+                m._sync_stats = mt.resilience.new_sync_stats()
+
+
+def _res_compute(torch, mt, mc, probe, repeats: int = 1):
+    """The collection's and the probe's ``compute()``, ``repeats`` times
+    (every rank the same count, so the exchanges stay aligned): the first
+    values, the wall ms of each time, and the wire events."""
+    times, values = [], None
+    with mt.obs.capture() as events:
+        for _ in range(repeats):
+            for obj in (mc, probe):
+                for m in obj.modules():
+                    if isinstance(m, mt.Metric):
+                        m._computed = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = {k: v for k, v in mc.compute().items()}
+            got.update({f"probe.{k}": v for k, v in probe.compute().items()})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            values = got if values is None else values
+    wire = [dict(e.data, source=e.source) for e in events if e.kind == "wire"]
+    return {k: v.detach().cpu() for k, v in values.items()}, times, wire
+
+
+def _ms_note(times) -> str:
+    return f"first {times[0]:.1f} ms, median {sorted(times)[len(times) // 2]:.1f} ms" if len(times) > 1 else f"{times[0]:.1f} ms"
+
+
+def _resilience_rank(rank: int, port: int, out_path: str, launch: str) -> None:
+    """One rank of phase 18a (this script run with ``--resilience-rank``):
+    join a gloo world of four over TCP loopback, stream this rank's quarter
+    of the stream on ``cuda:0``, and sync through the store as ``launch``
+    says (the fault plan, if any, is in ``METRICS_TPU_FAULTS``)."""
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import metrics_tpu_torch as mt
+    from metrics_tpu_torch.parallel import groups
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=RES_WORLD, rank=rank, timeout=timedelta(seconds=120)
+    )
+    rec = {"launch": launch, "rank": rank}
+    try:
+        _, _, data = _resilience_stream(torch)
+        mc, probe = _imagenet_collection(mt), _wire_probe(mt)
+        bounds = _res_batches(rank)
+        t0 = _reset_stats(torch, mt)
+        _stream_res(mc, probe, data, bounds)
+        seconds, stats = _read_stats(torch, mt, t0, {"select_topk": len(bounds), "confusion_counts": len(bounds)})
+        rec["launches"] = {op: stats[op]["launches"] for op in ("select_topk", "confusion_counts")}
+        rec["stream_s"] = seconds
+        rec["local"] = {k: probe.cat_state(k).cpu() if k != "total" else probe.total.cpu() for k in PROBE_KEYS}
+        policy = "partial" if launch == "drop" else "raise"
+        timeout_s = RES_TIMEOUT_S if launch == "drop" else 60.0
+        group = mt.parallel.new_group(range(RES_WORLD), name=f"phase18-{launch}", timeout_s=timeout_s)
+        _regroup(mt, (mc, probe), group, policy)
+        groups.reset_negotiation_stats()
+        rec["store"], rec["store_ms"], rec["store_wire"] = _res_compute(
+            torch, mt, mc, probe, repeats=RES_REPEATS if launch == "exact" else 1
+        )
+        rec["store_reports"] = {**{k: m.sync_report() for k, m in mc.items()}, "probe": probe.sync_report()}
+        if launch == "exact":
+            # the same ranks through the gloo collective path
+            _regroup(mt, (mc, probe), None, "raise")
+            rec["gloo"], rec["gloo_ms"], rec["gloo_wire"] = _res_compute(torch, mt, mc, probe, repeats=RES_REPEATS)
+            # run 4: rank 3 is an old build that speaks wire v1 only
+            v1 = mt.parallel.new_group(range(RES_WORLD), name="phase18-v1", timeout_s=60.0)
+            _regroup(mt, (mc, probe), v1, "raise")
+            groups.reset_negotiation_stats()
+            with groups.speaking(1) if rank == 3 else contextlib.nullcontext():
+                rec["v1"], rec["v1_ms"], rec["v1_wire"] = _res_compute(torch, mt, mc, probe)
+            rec["v1_negotiation"] = groups.negotiation_stats()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(rec, out_path)
+
+
+def _res_launch(out_dir: str, launch: str):
+    """The four ranks of one launch, the plan in each rank's environment."""
+    sub = os.path.join(out_dir, launch)
+    os.makedirs(sub, exist_ok=True)
+    env = dict(os.environ)
+    env.pop("METRICS_TPU_FAULTS", None)
+    if RES_PLANS[launch]:
+        env["METRICS_TPU_FAULTS"] = RES_PLANS[launch]
+    return _run_shard_ranks(
+        sub, flag="--resilience-rank", phase=f"18a ({launch})", timeout_s=RES_RANK_TIMEOUT_S, extra=(launch,), env=env
+    )
+
+
+def _probe_oracles(torch, mt, recs, ranks):
+    """For the ranks ``ranks``: the exact synced probe (the sum of their
+    local sums, reduced on the card as a sync does, and the buffers in
+    rank-major order), and the port's own round trip of each rank's leaf,
+    reduced the same way."""
+    from metrics_tpu_torch.parallel import comm, quantize
+
+    def trip(x, codec):
+        x = x.cuda()
+        q, s, _ = quantize.quantize_array(x, codec)
+        return quantize.dequantize_array(q, s, codec, x.dtype, tuple(x.shape))
+
+    exact = {
+        "total": comm.reduce_gathered([recs[r]["local"]["total"].cuda() for r in ranks], "sum").cpu(),
+        "conf_bf16": torch.cat([recs[r]["local"]["conf_bf16"] for r in ranks]),
+        "conf_exact": torch.cat([recs[r]["local"]["conf_exact"] for r in ranks]),
+    }
+    tripped = {
+        "total": comm.reduce_gathered([trip(recs[r]["local"]["total"], "int8") for r in ranks], "sum").cpu(),
+        "conf_bf16": torch.cat([trip(recs[r]["local"]["conf_bf16"], "bf16").cpu() for r in ranks]),
+        "conf_exact": exact["conf_exact"],
+    }
+    # the int8 bound: each rank's leaf is off by at most its absmax / 254;
+    # the sum of four adds float32 rounding (1e-6 of the magnitudes)
+    bound = sum(quantize.error_bound("int8", float(recs[r]["local"]["total"].abs().max())) for r in ranks)
+    bound += 1e-6 * float(sum(recs[r]["local"]["total"].abs() for r in ranks).max())
+    return exact, tripped, bound
+
+
+def _bits_equal(name: str, got, want) -> None:
+    """The same dtype, shape and bits (floats compared as integers of their width)."""
+    import torch
+
+    same = got.shape == want.shape and got.dtype == want.dtype
+    if same:
+        a, b = got.detach().cpu().contiguous(), want.detach().cpu().contiguous()
+        if a.is_floating_point():
+            width = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+            a, b = a.view(width), b.view(width)
+        same = torch.equal(a, b)
+    if not same:
+        raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} differs bit for bit from {want.dtype}{tuple(want.shape)}")
+
+
+def _check_probe(name: str, got: dict, exact: dict, tripped: dict, bound: float, quantized: bool = True) -> str:
+    """The probe's synced leaves: the untagged buffer bit for bit; the
+    tagged ones bit for bit against the round trips and within their bounds
+    of the exact values (or, with ``quantized=False``, exact)."""
+    _bits_equal(f"{name} conf_exact", got["probe.conf_exact"], exact["conf_exact"])
+    if not quantized:
+        _bits_equal(f"{name} total", got["probe.total"], exact["total"])
+        _bits_equal(f"{name} conf_bf16", got["probe.conf_bf16"], exact["conf_bf16"])
+        return "tagged leaves exact"
+    _bits_equal(f"{name} total (int8)", got["probe.total"], tripped["total"])
+    _bits_equal(f"{name} conf_bf16", got["probe.conf_bf16"], tripped["conf_bf16"])
+    err_total = float((got["probe.total"].double() - exact["total"].double()).abs().max())
+    conf = exact["conf_bf16"].double()
+    err_conf = (got["probe.conf_bf16"].double() - conf).abs()
+    if err_total > bound or bool((err_conf > conf.abs() * 2.0**-8).any()):
+        raise AssertionError(f"{name}: tagged leaves outside their bounds ({err_total} > {bound}, or bf16 past 2^-8 relative)")
+    return f"int8 sum err {err_total:.3g} <= {bound:.3g}, bf16 err <= 2^-8 relative (max {float(err_conf.max()):.3g})"
+
+
+def _check_members(name: str, got: dict, oracle: dict) -> None:
+    for key in RES_MEMBERS:
+        _check_result(f"{name} {key}", got[key], oracle[key])
+
+
+def _wire_ratios(name: str, wire: list) -> dict:
+    ratios = {}
+    for event in wire:
+        ratio = event["bytes_encoded"] / event["bytes_raw"]
+        ratios.setdefault(event["codec"], set()).add(round(ratio, 6))
+    if ratios.get("bf16") != {0.5} or ratios.get("int8") != {0.254}:
+        raise AssertionError(f"{name}: wire ratios {ratios}, expected bf16 0.5 and int8 0.254 (1000 codes + 4 scales / 4000)")
+    return {k: sorted(v)[0] for k, v in ratios.items()}
+
+
+def _world_one_probe(torch, mt, smi: str, data) -> str:
+    """Phase 18b: the probe over the whole stream, synced through an NCCL
+    group of one: the ``all_gather`` of its codes must give its local round
+    trip bit for bit."""
+    import torch.distributed as dist
+    from metrics_tpu_torch.parallel import quantize
+
+    probe = _wire_probe(mt)
+    for s, e in _batches(IMAGENET_VAL[0]):
+        probe.update(data["preds"][s:e], data["confidence"][s:e])
+    local = {k: probe.cat_state(k) if k != "total" else probe.total for k in PROBE_KEYS}
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0, device_id=torch.device("cuda:0")
+    )
+    try:
+        times = []
+        for _ in range(SYNC_REPEATS):
+            probe._computed = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = probe.compute()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dist.destroy_process_group()
+    for key, codec in (("total", "int8"), ("conf_bf16", "bf16"), ("conf_exact", "exact")):
+        q, s, _ = quantize.quantize_array(local[key], codec)
+        want = quantize.dequantize_array(q, s, codec, local[key].dtype, tuple(local[key].shape))
+        _bits_equal(f"phase 18b NCCL {key}", got[key], want)
+    report = probe.sync_report()
+    if report["codec_counts"]["int8"] != SYNC_REPEATS or report["codec_counts"]["bf16"] != SYNC_REPEATS:
+        raise AssertionError(f"phase 18b: sync_report {report}")
+    return (
+        f"phase 18b NCCL world size 1: the probe's compute() through all_gather of its codes equals its local round"
+        f" trip bit for bit; compute() first {times[0]:.2f} ms, median {sorted(times)[len(times) // 2]:.2f} ms;"
+        f" bytes raw {report['bytes_raw']} encoded {report['bytes_encoded']} over {SYNC_REPEATS} computes; {smi}"
+    )
+
+
+def run_resilience_phase(torch, mt, smi: str) -> dict:
+    """Phase 18: the resilient sync. (a) Four gloo ranks on ``cuda:0`` sync
+    through the store (``ProcessGroup``): run 1 exact with tagged leaves,
+    beside the gloo collective path, and run 4 with rank 3 speaking wire v1
+    (launch ``exact``); run 2 under corrupted reads of rank 1's payload
+    (``corrupt``); run 3 with rank 3's payload dropped under
+    ``on_sync_error="partial"`` (``drop``). (b) NCCL at world size 1 in this
+    process. Returns the launches of the phase."""
+    t_phase = time.perf_counter()
+    logits_np, target_np, data = _resilience_stream(torch)
+    oracle = _numpy_oracle(logits_np, target_np, IMAGENET_VAL[1])
+    rows_012 = np.concatenate([np.arange(s, e) for r in range(3) for s, e in _res_batches(r)])
+    oracle_012 = _numpy_oracle(logits_np[rows_012], target_np[rows_012], IMAGENET_VAL[1])
+    with tempfile.TemporaryDirectory() as out_dir:
+        launches = {launch: _res_launch(out_dir, launch) for launch in RES_PLANS}
+    exact, tripped, bound = _probe_oracles(torch, mt, launches["exact"], range(RES_WORLD))
+    exact_012, tripped_012, bound_012 = _probe_oracles(torch, mt, launches["exact"], range(3))
+    # the untagged buffer of the one-process oracle: the stream's confidences in rank-major order
+    rows_all = np.concatenate([np.arange(s, e) for r in range(RES_WORLD) for s, e in _res_batches(r)])
+    _bits_equal("phase 18a one-process buffer", exact["conf_exact"], data["confidence"][torch.from_numpy(rows_all).cuda()])
+    notes = []
+
+    # run 1: exact reduce states, tagged leaves, on every rank; the gloo path gives the same bits
+    run1 = launches["exact"]
+    for rec in run1:
+        r = rec["rank"]
+        _check_members(f"phase 18a run 1 rank {r}", rec["store"], oracle)
+        note = _check_probe(f"phase 18a run 1 rank {r}", rec["store"], exact, tripped, bound)
+        for key, value in rec["store"].items():
+            _bits_equal(f"phase 18a run 1 rank {r} {key} against rank 0", value, run1[0]["store"][key])
+            _bits_equal(f"phase 18a run 1 rank {r} {key} gloo against the store", rec["gloo"][key], value)
+        ratios = _wire_ratios(f"phase 18a run 1 rank {r}", rec["store_wire"])
+        gloo_ratios = _wire_ratios(f"phase 18a gloo rank {r}", rec["gloo_wire"])
+        for name, report in rec["store_reports"].items():
+            if report["last_sync_outcome"] != "complete" or report["missing_ranks"] or report["retries"]:
+                raise AssertionError(f"phase 18a run 1 rank {r} {name}: sync_report {report}")
+    probe_report = run1[0]["store_reports"]["probe"]
+    notes.append(f"run 1: {note}; wire ratios store {ratios}, gloo {gloo_ratios}")
+
+    # run 2: corrupted reads of rank 1's payload are retried; the results are run 1's
+    for rec in launches["corrupt"]:
+        r = rec["rank"]
+        for key, value in rec["store"].items():
+            _bits_equal(f"phase 18a run 2 rank {r} {key} against run 1", value, run1[0]["store"][key])
+        report = rec["store_reports"]["probe"]
+        if r != 1 and (report["retries"] < 2 or report["integrity_failures"] < 2):
+            raise AssertionError(f"phase 18a run 2 rank {r}: sync_report {report}")
+        if report["last_sync_outcome"] != "complete":
+            raise AssertionError(f"phase 18a run 2 rank {r}: sync_report {report}")
+    corrupt_probe = launches["corrupt"][0]["store_reports"]["probe"]
+    notes.append(
+        f"run 2 (corrupt rank 1 x2): readers' probe retries {[rec['store_reports']['probe']['retries'] for rec in launches['corrupt']]},"
+        f" integrity_failures {[rec['store_reports']['probe']['integrity_failures'] for rec in launches['corrupt']]},"
+        f" backoff_s {corrupt_probe['backoff_s']:.3f}; results equal run 1 bit for bit"
+    )
+
+    # run 3: rank 3's payload dropped; ranks 0-2 reduce over themselves
+    for rec in launches["drop"]:
+        r = rec["rank"]
+        for name, report in rec["store_reports"].items():
+            want = ([3], 1, "partial") if r != 3 else ([], 0, "complete")
+            got = (report["missing_ranks"], report["degraded_partial"], report["last_sync_outcome"])
+            if got != want:
+                raise AssertionError(f"phase 18a run 3 rank {r} {name}: {got}, expected {want}; {report}")
+        if r == 3:
+            for key, value in rec["store"].items():
+                _bits_equal(f"phase 18a run 3 rank 3 {key} against run 1", value, run1[0]["store"][key])
+            continue
+        _check_members(f"phase 18a run 3 rank {r}", rec["store"], oracle_012)
+        _check_probe(f"phase 18a run 3 rank {r}", rec["store"], exact_012, tripped_012, bound_012)
+    drop_ms = [rec["store_ms"][0] for rec in launches["drop"]]
+    notes.append(f"run 3 (drop rank 3, partial, {RES_TIMEOUT_S} s deadline): ranks 0-2 missing [3], equal the oracle over their batches; compute() ms {[f'{m:.0f}' for m in drop_ms]}")
+
+    # run 4: rank 3 speaks v1 only; the group settles on v1 and the tagged leaves travel exact
+    for rec in run1:
+        r = rec["rank"]
+        _check_members(f"phase 18a run 4 rank {r}", rec["v1"], oracle)
+        _check_probe(f"phase 18a run 4 rank {r}", rec["v1"], exact, tripped, bound, quantized=False)
+        nego = rec["v1_negotiation"]
+        if nego["negotiations"] != 5 or nego["fallback_exact"] != 1 or nego["capped"] != (0 if r == 3 else 5):
+            raise AssertionError(f"phase 18a run 4 rank {r}: negotiation_stats {nego}")
+        if rec["v1_wire"]:
+            raise AssertionError(f"phase 18a run 4 rank {r}: quantized payloads {rec['v1_wire']}")
+    notes.append(f"run 4 (rank 3 speaks v1): negotiation_stats {run1[0]['v1_negotiation']} on rank 0, tagged leaves exact")
+
+    note_b = _world_one_probe(torch, mt, smi, data)
+    for rec in run1:
+        rep = rec["store_reports"]["probe"]
+        sent = sum(r["bytes_sent"] for r in rec["store_reports"].values()) // RES_REPEATS
+        _log(
+            f"phase 18a rank {rec['rank']} ({len(_res_batches(rec['rank']))} batches in {rec['stream_s']:.2f} s,"
+            f" launches {rec['launches']}): compute() of the collection and the probe through the store"
+            f" {_ms_note(rec['store_ms'])}, through gloo {_ms_note(rec['gloo_ms'])}, store with rank 3 on v1"
+            f" {_ms_note(rec['v1_ms'])}; bytes sent through the store a compute {sent}, the probe's {rep['bytes_sent']}"
+            f" (raw {rep['bytes_raw']}, encoded {rep['bytes_encoded']}), backoff_s {rep['backoff_s']};"
+            f" run 2 {_ms_note(launches['corrupt'][rec['rank']]['store_ms'])}, backoff_s"
+            f" {launches['corrupt'][rec['rank']]['store_reports']['probe']['backoff_s']:.3f};"
+            f" run 3 {_ms_note(launches['drop'][rec['rank']]['store_ms'])}; {smi}"
+        )
+    for note in notes:
+        _log(f"phase 18a {note}")
+    _log(note_b)
+    _log(
+        f"phase 18 resilience: {time.perf_counter() - t_phase:.1f} s in all (3 launches of 4 ranks);"
+        f" probe sync_report on rank 0 run 1: {probe_report}; {smi}"
+    )
+    return {
+        op: sum(rec["launches"][op] for recs in launches.values() for rec in recs)
+        for op in ("select_topk", "confusion_counts")
+    }
 
 
 def check_windowed_kernels(torch, rng):
@@ -6187,17 +6651,19 @@ def main() -> int:
     obs_launches = run_observability_phase(torch, mt, smi, mc, logits, target)
     shard_launches = run_sharded_phase(torch, mt, smi)
     run_encoder_mesh_phase(torch, mt, smi, bert_pairs)
+    resilience_launches = run_resilience_phase(torch, mt, smi)
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {
         **{
             k: v["launches"] + sync_launches.get(k, 0) + engine_launches.get(k, 0) + wrapper_launches.get(k, 0)
-            + obs_launches.get(k, 0) + shard_launches.get(k, 0)
+            + obs_launches.get(k, 0) + shard_launches.get(k, 0) + resilience_launches.get(k, 0)
             for k, v in main_stats.items()
         },
         "confusion_counts": main_stats["confusion_counts"]["launches"] + sync_launches.get("confusion_counts", 0)
         + engine_launches.get("confusion_counts", 0) + extension_launches + wrapper_launches["confusion_counts"]
-        + obs_launches["confusion_counts"] + shard_launches.get("confusion_counts", 0),
+        + obs_launches["confusion_counts"] + shard_launches.get("confusion_counts", 0)
+        + resilience_launches["confusion_counts"],
         "confusion_counts@segmentation": seg_launches,
         "confusion_counts@window": shard_launches["confusion_counts@window"],
         "multilabel_counts@window": shard_launches["multilabel_counts@window"],
@@ -6240,5 +6706,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--encoder-rank"]:
         _encoder_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--resilience-rank"]:
+        _resilience_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
         sys.exit(0)
     sys.exit(main())

@@ -29,7 +29,10 @@ matching runs on the card), and the audio and detection metrics
 ``PermutationInvariantTraining``, ``ShortTimeObjectiveIntelligibility``,
 the ``PerceptualEvaluationSpeechQuality`` gate and COCO
 ``MeanAveragePrecision``); ``deprecated`` holds the old names of those, re-exported here
-with ``SyncError`` and ``NumericalHealthError``. Metrics live on the GPU unless a
+with ``SyncError``, ``NumericalHealthError`` and the exceptions of the
+resilient sync (``SyncTimeoutError``, ``SyncIntegrityError``,
+``SchemaVersionError``, ``StateIntegrityError``, ``InjectedFaultError``,
+``OverloadError``). Metrics live on the GPU unless a
 ``device`` is given; functionals run on their inputs' device. The six
 kernels of these paths (``confusion_counts``, ``multilabel_counts``,
 ``select_topk``, ``binned_counts``, ``binned_calibration``,
@@ -78,6 +81,8 @@ from metrics_tpu_torch.classification import (
 )
 from metrics_tpu_torch import engine  # noqa: F401
 from metrics_tpu_torch import obs  # noqa: F401
+from metrics_tpu_torch import parallel  # noqa: F401
+from metrics_tpu_torch import resilience  # noqa: F401
 from metrics_tpu_torch import sharding  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.deprecated import (
@@ -156,7 +161,16 @@ from metrics_tpu_torch.retrieval import (
     RetrievalRPrecision,
     RetrievalRecall,
 )
-from metrics_tpu_torch.utils.exceptions import NumericalHealthError, SyncError
+from metrics_tpu_torch.utils.exceptions import (
+    InjectedFaultError,
+    NumericalHealthError,
+    OverloadError,
+    SchemaVersionError,
+    StateIntegrityError,
+    SyncError,
+    SyncIntegrityError,
+    SyncTimeoutError,
+)
 from metrics_tpu_torch.wrappers import (
     BootStrapper,
     ClasswiseWrapper,
@@ -166,6 +180,9 @@ from metrics_tpu_torch.wrappers import (
 )
 
 __all__ = [
+    "InjectedFaultError",
+    "SchemaVersionError",
+    "StateIntegrityError",
     "AUC",
     "AUROC",
     "Accuracy",
@@ -224,6 +241,7 @@ __all__ = [
     "MultiScaleStructuralSimilarityIndexMeasure",
     "MultioutputWrapper",
     "NumericalHealthError",
+    "OverloadError",
     "PESQ",
     "PIT",
     "PSNR",
@@ -269,6 +287,8 @@ __all__ = [
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
     "SyncError",
+    "SyncIntegrityError",
+    "SyncTimeoutError",
     "TranslationEditRate",
     "TweedieDevianceScore",
     "WordErrorRate",

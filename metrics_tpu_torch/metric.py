@@ -14,10 +14,13 @@ the update engine (counterpart of ``metrics_tpu/metric.py``).
 * ``copy.deepcopy``, ``pickle`` and ``clone`` give a metric with its own
   state and its own ``update``/``compute`` wrappers; states keep their device.
   A ``torch.distributed`` process group is a process-local handle: a deep
-  copy shares it, and pickling leaves it out.
+  copy shares it, and pickling leaves it out; a store-backed
+  ``parallel.ProcessGroup`` is a plain record and pickles with its ranks.
 * ``compute`` syncs: every state is gathered from the ranks of the process
   group and reduced by its ``dist_reduce_fx`` before the value is computed,
   and the local state comes back afterwards (``sync``/``unsync``).
+  ``on_sync_error`` says what a failed sync does, and ``add_state(
+  sync_precision=)`` lets a float state travel as bf16 or int8 codes.
 * Arithmetic and comparison operators on metrics build a
   :class:`CompositionalMetric`; ``__hash__`` stays identity-based.
 * ``update`` runs through the engine (``metrics_tpu_torch/engine``): one
@@ -59,7 +62,8 @@ from metrics_tpu_torch.engine import cache as _engine
 from metrics_tpu_torch.obs import bus as _obs_bus
 from metrics_tpu_torch.obs import trace as _obs_trace
 from metrics_tpu_torch.obs.warn import instance_token, warn_once
-from metrics_tpu_torch.parallel import comm
+from metrics_tpu_torch.parallel import comm, quantize
+from metrics_tpu_torch.resilience import SYNC_ERROR_POLICIES
 from metrics_tpu_torch.resilience import health as _health
 from metrics_tpu_torch.resilience import new_sync_stats
 from metrics_tpu_torch.sharding import spec as _shard_spec
@@ -69,7 +73,6 @@ from metrics_tpu_torch.utils.exceptions import MetricsUserError, NumericalHealth
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 _MERGEABLE_FX = ("sum", "max", "min", "cat")
-SYNC_ERROR_POLICIES = ("raise", "local")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -83,8 +86,8 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     return dev
 
 
-#: the wire codecs of the JAX package's ``add_state(sync_precision=)``
-SYNC_PRECISIONS = ("exact", "bf16", "int8")
+#: the wire codecs of ``add_state(sync_precision=)``
+SYNC_PRECISIONS = quantize.CODECS
 
 
 def _torch_dtype(dtype: Any) -> torch.dtype:
@@ -152,8 +155,11 @@ class Metric(nn.Module):
         compute_on_step: return the batch value from ``forward``.
         dist_sync_on_step: sync the batch value of ``forward`` across
             processes too (a collective per state on every batch).
-        process_group: the ``torch.distributed.ProcessGroup`` to sync over;
-            the default group when None.
+        process_group: what to sync over: a
+            :class:`~metrics_tpu_torch.parallel.ProcessGroup` (the members
+            exchange through the store, with a deadline, retry and partial
+            results), or a ``torch.distributed.ProcessGroup``; the default
+            group when None.
         dist_sync_fn: ``fn(tensor, group) -> List[tensor]``, one call per
             state in sorted state-name order, in place of the default
             ``all_gather``.
@@ -162,7 +168,9 @@ class Metric(nn.Module):
             is the ``comm.axis_env`` one.
         on_sync_error: ``"raise"`` propagates a failed sync as a
             :class:`SyncError`; ``"local"`` warns and computes on the
-            rank-local state.
+            rank-local state; ``"partial"`` reduces, on a store
+            ``ProcessGroup``, over the ranks that delivered within its
+            deadline (elsewhere it degrades as ``"local"`` does).
         on_bad_input: what a NaN or ±Inf in the update inputs does:
             ``"propagate"`` (no screening), ``"raise"`` (the update is
             quarantined and :class:`NumericalHealthError` raised),
@@ -238,12 +246,16 @@ class Metric(nn.Module):
         self._jit_failed = False
         self._engine_probed = False
         self._compile_stats = _engine.new_stats()
-        if process_group is not None and dist_sync_fn is None and not isinstance(process_group, dist.ProcessGroup):
-            # fail here, not in the first distributed compute(): the default gather needs a torch group
-            raise ValueError(
-                f"Unsupported `process_group` {process_group!r}: pass a torch.distributed.ProcessGroup"
-                " that this process is a member of, or a `dist_sync_fn` that understands your group object."
-            )
+        if process_group is not None and dist_sync_fn is None:
+            from metrics_tpu_torch.parallel.groups import ProcessGroup
+
+            # fail here, not in the first distributed compute(): the default gather takes these two
+            if not isinstance(process_group, (ProcessGroup, dist.ProcessGroup)):
+                raise ValueError(
+                    f"Unsupported `process_group` {process_group!r}: pass a metrics_tpu_torch.parallel.ProcessGroup"
+                    " (a store-backed subgroup), a torch.distributed.ProcessGroup that this process is a member of,"
+                    " or a `dist_sync_fn` that understands your group object."
+                )
         self.process_group = process_group
         self.dist_sync_fn = dist_sync_fn
         self.axis_name = axis_name
@@ -267,6 +279,8 @@ class Metric(nn.Module):
         self._reductions: Dict[str, Union[str, Callable, None]] = {}
         # list states' declared empty-gather (shape, dtype): add_state(placeholder=)
         self._list_placeholders: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+        # each state's wire codec tag (add_state(sync_precision=))
+        self._sync_precisions: Dict[str, str] = {}
         self._to_sync = True
         self._should_unsync = True
         self._is_synced = False
@@ -315,17 +329,18 @@ class Metric(nn.Module):
         and ``drive(mesh=, in_specs=)``, carried by :meth:`state_spec` and
         checked by :meth:`bind_state`.
 
-        ``sync_precision`` is accepted at the JAX package's default
-        (``"exact"``) so that metrics written for it construct; the quantized
-        wire codecs (ROADMAP §1 item 9) are not ported and raise."""
+        ``sync_precision`` tags the state's wire codec in the host sync
+        (``"exact"``, the default, ``"bf16"`` or ``"int8"``; see
+        ``parallel/quantize.py``). A quantized tag declares a tolerance: the
+        state's floats may round-trip the sync with a bounded error (bf16:
+        one bf16 ulp relative; int8: absmax/254 of each 256-element block)
+        for 2-4x fewer bytes, on the store exchange of a
+        :class:`~metrics_tpu_torch.parallel.ProcessGroup` and on a
+        ``torch.distributed`` ``all_gather`` alike. Integer and bool states
+        always travel exact."""
         if sync_precision not in SYNC_PRECISIONS:
             raise ValueError(
                 f"`sync_precision` for state {name!r} must be one of {SYNC_PRECISIONS}, got {sync_precision!r}"
-            )
-        if sync_precision != "exact":
-            raise MetricsUserError(
-                f"`sync_precision={sync_precision!r}` for state {name!r} selects a quantized wire codec, which is"
-                " not ported (ROADMAP §1 item 9); the port syncs every state exactly."
             )
         if sharding is not None:
             self._state_shardings[name] = _shard_spec.normalize_state_sharding(name, sharding, default)
@@ -349,6 +364,7 @@ class Metric(nn.Module):
         self._defaults[name] = default
         self._persistent[name] = persistent
         self._reductions[name] = dist_reduce_fx
+        self._sync_precisions[name] = sync_precision
         if isinstance(default, list):
             setattr(self, name, [])
         else:
@@ -780,15 +796,16 @@ class Metric(nn.Module):
         return out
 
     def sync_report(self) -> Dict[str, Any]:
-        """Host-level sync telemetry, the JAX package's keys: ``syncs``,
-        ``attempts``, ``bytes_sent``/``bytes_received``, ``degraded_local``
-        and ``last_sync_outcome`` (``"complete"``, ``"local"``,
-        ``"failed"``, None before the first sync) as the port's sync counts
-        them; the retry, timeout, integrity, partial and codec counters stay
-        0 until ROADMAP §1 item 9 (``resilience.new_sync_stats``). The
-        counters live with the instance: ``pickle``, ``clone`` and
-        ``deepcopy`` keep them. A wrapper's inner metrics report under
-        ``children``."""
+        """Host-level sync telemetry, the JAX package's keys
+        (``resilience.new_sync_stats``): ``syncs``, ``attempts`` and
+        ``retries``, ``kv_timeouts``, ``integrity_failures``,
+        ``barrier_timeouts``, ``backoff_s``, ``bytes_sent``/
+        ``bytes_received``, ``degraded_local``/``degraded_partial``, the
+        wire codec counters, and of the last sync ``missing_ranks`` and
+        ``last_sync_outcome`` (``"complete"``, ``"partial"``, ``"local"``,
+        ``"failed"``, None before the first sync). The counters live with
+        the instance: ``pickle``, ``clone`` and ``deepcopy`` keep them. A
+        wrapper's inner metrics report under ``children``."""
         out: Dict[str, Any] = dict(self._sync_stats)
         out["missing_ranks"] = list(self._sync_stats["missing_ranks"])
         out["codec_counts"] = dict(self._sync_stats["codec_counts"])
@@ -901,57 +918,75 @@ class Metric(nn.Module):
     def _gather_with_policy(
         self, leaves: Dict[str, torch.Tensor], group: Optional[Any], dist_sync_fn: Optional[Callable]
     ) -> Optional[Dict[str, List[torch.Tensor]]]:
-        """Every rank's tensor for each leaf, or None when the gather failed
-        and ``on_sync_error="local"`` says to keep the rank-local state.
-        Counts into :meth:`sync_report`; a failure emits ``sync_degrade``
-        (``outcome`` ``failed`` or ``local``) while the bus records."""
+        """Every responding rank's tensor for each leaf, or None when the
+        sync failed and the policy keeps the rank-local state.
+
+        The one place ``on_sync_error`` applies, shared by :meth:`_sync_dist`,
+        :meth:`sync_state` and mAP's packed leaves. The gather is
+        ``parallel.groups.gather_state_trees``: a
+        :class:`~metrics_tpu_torch.parallel.ProcessGroup` exchanges the whole
+        tree through the store, where ``"partial"`` reduces over the ranks
+        that delivered (``missing_ranks``, ``degraded_partial``, outcome
+        ``"partial"``, a ``sync_degrade`` event and a warning); every other
+        path gathers leaf by leaf and degrades the whole state (``"local"``,
+        or a whole-state failure under ``"partial"``). Counts into
+        :meth:`sync_report`."""
+        from metrics_tpu_torch.parallel.groups import gather_state_trees
+
+        policy = self.on_sync_error
         stats = self._sync_stats
         stats["syncs"] += 1
+        stats["missing_ranks"] = []
         stats["last_sync_outcome"] = "failed"  # until the gather returns
         try:
-            if dist_sync_fn is not None:
-                gathered = {name: list(dist_sync_fn(leaf, group=group)) for name, leaf in leaves.items()}
-            else:
-                gathered = {
-                    name: comm.gather_all_arrays(
-                        leaf,
-                        group,
-                        # fixed by registration, so the same on every rank; a
-                        # leaf that is not a registered state (a subclass's
-                        # packing) has a shape of its own on each rank
-                        fixed_shape=name in self._defaults
-                        and not isinstance(self._defaults[name], list)
-                        and self._reductions[name] in comm.SIMPLE_REDUCTIONS
-                        and name not in self._shape_polymorphic_states,
-                        report=stats,
-                    )
-                    for name, leaf in leaves.items()
-                }
-        except (ValueError, TypeError, MetricsUserError):
-            raise  # programming errors, not sync failures
-        except Exception as err:  # noqa: BLE001 - a collective or a custom gather failed; reclassified
-            if self.on_sync_error == "raise":
+            member_trees = gather_state_trees(
+                leaves,
+                group,
+                dist_sync_fn,
+                policy="partial" if policy == "partial" else "raise",
+                report=stats,
+                # fixed by registration, so the same on every rank: list
+                # states, shape-polymorphic states and leaves that are not
+                # registered states (a subclass's packing) stay ragged
+                reductions={
+                    n: fx
+                    for n, fx in self._reductions.items()
+                    if n not in self._shape_polymorphic_states and not isinstance(self._defaults[n], list)
+                },
+                sync_precisions={n: p for n, p in self._sync_precisions.items() if p != "exact"},
+            )
+        except SyncError as err:
+            if policy == "raise":
                 if _obs_bus.enabled():
                     _obs_bus.emit(
-                        "sync_degrade", source=type(self).__name__, policy="raise", outcome="failed", error=str(err)
+                        "sync_degrade", source=type(self).__name__, policy=policy, outcome="failed", error=str(err)
                     )
-                if isinstance(err, SyncError):
-                    raise
-                raise SyncError(f"Gathering the states failed: {err}") from err
+                raise
             stats["degraded_local"] += 1
             stats["last_sync_outcome"] = "local"
             if _obs_bus.enabled():
-                _obs_bus.emit(
-                    "sync_degrade", source=type(self).__name__, policy=self.on_sync_error, outcome="local", error=str(err)
-                )
+                _obs_bus.emit("sync_degrade", source=type(self).__name__, policy=policy, outcome="local", error=str(err))
             rank_zero_warn(
                 f"Distributed sync of {self.__class__.__name__} failed; keeping the rank-local state"
-                f" (on_sync_error={self.on_sync_error!r}). Original error: {err}",
+                f" (on_sync_error={policy!r}). Original error: {err}",
                 UserWarning,
             )
             return None
-        stats["last_sync_outcome"] = "complete"
-        return gathered
+        missing = stats["missing_ranks"]
+        stats["last_sync_outcome"] = "partial" if missing else "complete"
+        if missing:
+            stats["degraded_partial"] += 1
+            if _obs_bus.enabled():
+                _obs_bus.emit(
+                    "sync_degrade", source=type(self).__name__, policy=policy, outcome="partial", missing_ranks=list(missing)
+                )
+            rank_zero_warn(
+                f"Partial distributed sync of {self.__class__.__name__}: ranks {missing} did not deliver within"
+                f" the group deadline; reducing over the {len(member_trees)} responding member(s)"
+                " (on_sync_error='partial').",
+                UserWarning,
+            )
+        return {name: [tree[name] for tree in member_trees] for name in leaves}
 
     def _reduce_gathered(self, gathered: Dict[str, List[torch.Tensor]]) -> Dict[str, Any]:
         """Each state's reduction over the ranks' tensors. A list state drops
@@ -1190,7 +1225,8 @@ class Metric(nn.Module):
             # annotations, not the placement
             state = _shard_spec.unplaced_copy(self, state)
         state["_shard_mesh"] = None
-        if state.get("process_group") is not None:
+        if isinstance(state.get("process_group"), dist.ProcessGroup):
+            # a store-backed ProcessGroup is a plain record and pickles as it is
             state["process_group"] = _ProcessLocal(state["process_group"])
         return state
 
@@ -1220,6 +1256,7 @@ class Metric(nn.Module):
             ("_jit_failed", False),
             ("_engine_probed", False),
             ("_list_placeholders", {}),
+            ("_sync_precisions", {}),
             ("axis_name", None),
             ("_state_shardings", {}),
             ("_shard_mesh", None),

@@ -8,10 +8,13 @@ with wrapper children inside each section; a collection covers every
 member, a tracker every step. ``snapshot()`` with no argument is the
 process view: :func:`process_snapshot`, with the JAX package's top-level
 keys. Its ``engine``, ``fetch``, ``encoders``, ``kernels``, ``sharding``
-(:func:`~metrics_tpu_torch.sharding.shard_stats`), ``bus``, ``spans`` and
-``warnings`` sections hold the port's counters; the sections of layers the
-port does not have yet (``serving``, ``wire``, ``warmup``, ``fleet``,
-``durability``, ``guard``, ``integrity``, ``compat``) hold
+(:func:`~metrics_tpu_torch.sharding.shard_stats`), ``wire``
+(:func:`~metrics_tpu_torch.parallel.quantize.wire_stats`), ``integrity``
+(:func:`~metrics_tpu_torch.resilience.integrity.integrity_stats`),
+``compat`` (the schema registry's ``families`` and the groups'
+``wire_negotiation``), ``bus``, ``spans`` and ``warnings`` sections hold
+the port's counters; the sections of layers the port does not have yet
+(``serving``, ``warmup``, ``fleet``, ``durability``, ``guard``) hold
 ``{"ported": False}``.
 
 JSONL: one event per line in :meth:`Event.as_dict`'s schema
@@ -35,14 +38,33 @@ JSONL_SCHEMA_VERSION = 1
 _EVENT_REQUIRED_FIELDS = ("v", "seq", "kind", "t", "source", "data")
 
 #: Sections of the JAX process snapshot whose layers the port does not have
-#: yet (ROADMAP §1 items 8-10); each later slice fills in its own.
-UNPORTED_SECTIONS = ("serving", "wire", "warmup", "fleet", "durability", "guard", "integrity", "compat")
+#: yet (ROADMAP §1 items 8 and 10); each later slice fills in its own.
+UNPORTED_SECTIONS = ("serving", "warmup", "fleet", "durability", "guard")
 
 
 def _shard_stats() -> Dict[str, Any]:
     from metrics_tpu_torch.sharding import shard_stats
 
     return shard_stats()
+
+
+def _wire_stats() -> Dict[str, Any]:
+    from metrics_tpu_torch.parallel import quantize
+
+    return quantize.wire_stats()
+
+
+def _integrity_stats() -> Dict[str, Any]:
+    from metrics_tpu_torch.resilience.integrity import integrity_stats
+
+    return integrity_stats()
+
+
+def _compat_stats() -> Dict[str, Any]:
+    from metrics_tpu_torch.parallel import groups
+    from metrics_tpu_torch.resilience import schema
+
+    return {"families": schema.compat_stats(), "wire_negotiation": groups.negotiation_stats()}
 
 
 def _kernel_section() -> Dict[str, Any]:
@@ -75,6 +97,13 @@ def process_snapshot() -> Dict[str, Any]:
         # sharded metric states: registered specs, reshard events, sharded
         # drives, per-device resident bytes
         "sharding": _shard_stats(),
+        # sync wire codecs: bytes raw and encoded, payloads per codec, the
+        # largest round-trip error
+        "wire": _wire_stats(),
+        # state digests recorded, verified and failed
+        "integrity": _integrity_stats(),
+        # durable-schema decodes, upcasts and rejects; wire negotiation
+        "compat": _compat_stats(),
     }
     for name in UNPORTED_SECTIONS:
         out[name] = {"ported": False}
@@ -197,8 +226,9 @@ _ENCODER_COUNTERS = (
 
 def prometheus_text(obj: Optional[Any] = None) -> str:
     """The counters in Prometheus text exposition format: the engine, the
-    async fetches, the encoders, the kernel registry, the bus and the
-    spans; with a metric or collection, each member's compile, sync and
+    async fetches, the encoders, the kernel registry, the sharded states,
+    the wire codecs, the state digests, the schema registry and the wire
+    negotiation, the bus and the spans; with a metric or collection, each member's compile, sync and
     health counters under a ``member`` label (a bare metric is ``_``)."""
     from metrics_tpu_torch import engine as _engine
     from metrics_tpu_torch.encoders import encoder_stats
@@ -246,6 +276,30 @@ def prometheus_text(obj: Optional[Any] = None) -> str:
         _sample("metrics_tpu_shard_resident_bytes_per_device", resident["per_device_bytes"], labels, kind="gauge")
         _sample("metrics_tpu_shard_state_bytes_total", resident["total_bytes"], labels, kind="gauge")
         _sample("metrics_tpu_shard_state_devices", resident["devices"], labels, kind="gauge")
+
+    # sync wire codecs: bytes on the wire and payloads per codec
+    wire = _wire_stats()
+    for key in ("bytes_raw", "bytes_encoded", "bytes_raw_quantized", "bytes_encoded_quantized"):
+        _sample(f"metrics_tpu_wire_{key}", wire[key])
+    for codec in sorted(wire["codec_counts"]):
+        _sample("metrics_tpu_wire_payloads_total", wire["codec_counts"][codec], {"codec": codec})
+    _sample("metrics_tpu_wire_max_dequant_error", wire["max_dequant_error"], kind="gauge")
+
+    # state digests: the failures are the alerting surface
+    for key, value in sorted(_integrity_stats().items()):
+        _sample(f"metrics_tpu_integrity_{key}", value)
+
+    # version skew: per-family schema decodes, upcasts and rejects, and the
+    # wire negotiation's rounds (a lasting "capped" is a mixed-version group)
+    compat = _compat_stats()
+    for family in sorted(compat["families"]):
+        rec = compat["families"][family]
+        labels = {"family": family}
+        _sample("metrics_tpu_compat_schema_current", rec["current"], labels, kind="gauge")
+        for key in ("decodes", "upcasts", "rejects"):
+            _sample(f"metrics_tpu_compat_schema_{key}", rec[key], labels)
+    for key, value in sorted(compat["wire_negotiation"].items()):
+        _sample(f"metrics_tpu_compat_wire_{key}", value)
 
     bus_summary = _bus.summary()
     for kind in sorted(bus_summary["by_kind"]):

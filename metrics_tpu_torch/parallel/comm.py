@@ -30,12 +30,17 @@ shape records of the uneven path.
 A process with no initialised default group is a world of one: the gather
 returns the local tensor. An initialised world of size 1 still gathers.
 
+A float leaf tagged ``"bf16"`` or ``"int8"`` (``add_state(sync_precision=)``)
+moves its codes through the collective and is decoded on receipt
+(:func:`_quantized_allgather`); a :class:`~metrics_tpu_torch.parallel.ProcessGroup`
+syncs through the store instead (``parallel/groups.py``).
+
 Telemetry: a gather given a ``report`` (a metric's sync counters,
-``resilience.new_sync_stats``) counts one ``attempts`` and the bytes of
-its all-gathers, this rank's buffer in ``bytes_sent`` and the other
-ranks' in ``bytes_received``; while the event bus records it emits one
-``sync_attempt`` event with the ``world`` size and this process's
-``rank``.
+``resilience.new_sync_stats``) counts one ``attempts``, the bytes of its
+all-gathers (this rank's buffer in ``bytes_sent``, the other ranks' in
+``bytes_received``) and the wire codec's raw and encoded bytes; while the
+event bus records it emits one ``sync_attempt`` event with the ``world``
+size and this process's ``rank``, and a ``wire`` event per quantized leaf.
 """
 import threading
 from contextlib import contextmanager
@@ -65,19 +70,41 @@ _DTYPES = (
 _MAX_DIMS = 8
 
 
+def _simulated_process() -> Optional[Tuple[int, int]]:
+    """The (rank, world) of the fault harness's per-thread simulated world
+    (``resilience.simulated_world``), or None outside it."""
+    from metrics_tpu_torch.resilience import faults
+
+    return faults.simulated_process()
+
+
 def distributed_available() -> bool:
-    """True when ``torch.distributed`` has an initialised default group."""
+    """True when ``torch.distributed`` has an initialised default group, or
+    inside a simulated world of more than one process (the fault harness,
+    which carries the :class:`~metrics_tpu_torch.parallel.ProcessGroup`
+    store sync and custom ``dist_sync_fn``s)."""
+    sim = _simulated_process()
+    if sim is not None:
+        return sim[1] > 1
     return dist.is_available() and dist.is_initialized()
 
 
 def world_size(group: Optional[Any] = None) -> int:
-    """Ranks in ``group`` (the default group when None); 1 without one."""
-    return dist.get_world_size(group) if distributed_available() else 1
+    """Ranks in ``group`` (the default group when None); 1 without one; the
+    simulated world's size inside one."""
+    sim = _simulated_process()
+    if sim is not None:
+        return sim[1]
+    return dist.get_world_size(group) if dist.is_available() and dist.is_initialized() else 1
 
 
 def process_index(group: Optional[Any] = None) -> int:
-    """This process's rank in ``group`` (the default group when None); 0 without one."""
-    return dist.get_rank(group) if distributed_available() else 0
+    """This process's rank in ``group`` (the default group when None); 0
+    without one; the simulated rank inside a simulated world."""
+    sim = _simulated_process()
+    if sim is not None:
+        return sim[0]
+    return dist.get_rank(group) if dist.is_available() and dist.is_initialized() else 0
 
 
 def _all_gather_flat(x: torch.Tensor, group: Optional[Any], report: Optional[Dict[str, Any]] = None) -> List[torch.Tensor]:
@@ -93,6 +120,50 @@ def _all_gather_flat(x: torch.Tensor, group: Optional[Any], report: Optional[Dic
     return out
 
 
+def _quantized_allgather(
+    x: torch.Tensor, codec: str, group: Optional[Any], report: Optional[Dict[str, Any]]
+) -> List[torch.Tensor]:
+    """Every rank's ``x`` (all of one shape and dtype), moving the codec's
+    narrow form: encode on ``x``'s device, gather the codes (and, for int8,
+    the block scales), decode every rank's part back to ``x``'s dtype.
+    Exact payloads gather as they are and count toward the wire totals
+    too, so the reduction ratio compares across paths."""
+    from metrics_tpu_torch.parallel import quantize as _quant
+
+    if codec == "exact":
+        _quant.record_wire("exact", _quant.nbytes(x), _quant.nbytes(x), stats=report)
+        return [o.reshape(x.shape) for o in _all_gather_flat(x, group, report)]
+    qdata, scales, _ = _quant.quantize_array(x, codec)
+    if qdata.dtype == torch.bfloat16:
+        # the codes travel as their 16 bits in a float16 view, which every
+        # backend gathers (a copy, so the bits arrive as they left)
+        gathered_q = [q.view(torch.bfloat16) for q in _all_gather_flat(qdata.view(torch.float16), group, report)]
+    else:
+        gathered_q = _all_gather_flat(qdata, group, report)
+    gathered_s = _all_gather_flat(scales, group, report) if scales is not None else None
+    shape = tuple(x.shape)
+    out = [
+        _quant.dequantize_array(q, gathered_s[i] if gathered_s is not None else None, codec, x.dtype, shape)
+        for i, q in enumerate(gathered_q)
+    ]
+    # the counters cover this rank's contribution, as on the store path; the
+    # round-trip error is read on this rank's own decoded part
+    own = out[dist.get_rank(group)]
+    error = float((x.to(torch.float32) - own.to(torch.float32)).abs().max()) if x.numel() else 0.0
+    encoded = _quant.nbytes(qdata) + (_quant.nbytes(scales) if scales is not None else 0)
+    _quant.record_wire(codec, _quant.nbytes(x), encoded, error=error, stats=report)
+    if _bus.enabled():
+        _bus.emit(
+            "wire",
+            source="torch.distributed",
+            codec=codec,
+            bytes_raw=_quant.nbytes(x),
+            bytes_encoded=encoded,
+            max_dequant_error=error,
+        )
+    return out
+
+
 def _shape_record(x: torch.Tensor) -> torch.Tensor:
     if x.ndim > _MAX_DIMS:
         raise ValueError(f"cannot gather a tensor of {x.ndim} dims; at most {_MAX_DIMS}")
@@ -102,17 +173,50 @@ def _shape_record(x: torch.Tensor) -> torch.Tensor:
 
 
 def gather_all_arrays(
-    x: torch.Tensor, group: Optional[Any] = None, fixed_shape: bool = False, report: Optional[Dict[str, Any]] = None
+    x: torch.Tensor,
+    group: Optional[Any] = None,
+    policy: str = "raise",
+    report: Optional[Dict[str, Any]] = None,
+    fixed_shape: bool = False,
+    precision: Optional[str] = None,
 ) -> List[torch.Tensor]:
     """Every rank's ``x``, in rank order, on ``x``'s device.
 
     Args:
         x: this rank's tensor.
-        group: a ``torch.distributed.ProcessGroup``; the default group when None.
+        group: a ``torch.distributed.ProcessGroup`` (the default group when
+            None), or a :class:`~metrics_tpu_torch.parallel.ProcessGroup`,
+            whose members exchange through the store
+            (:func:`~metrics_tpu_torch.parallel.groups.gather_group_arrays`).
+        policy: ``"partial"`` returns, on a store group, only the members
+            that delivered within its deadline (missing ranks in
+            ``report``); a ``torch.distributed`` gather is one collective
+            with no partial result.
+        report: sync counters to count the attempt, its bytes and the wire
+            codec's bytes into.
         fixed_shape: every rank's ``x`` has the same shape and dtype by
             registration; skips the shape exchange (one collective, not two).
-        report: sync counters to count the attempt and its bytes into.
+        precision: the wire codec (``add_state(sync_precision=)``): a float
+            ``x`` tagged ``"bf16"`` or ``"int8"`` moves its codes (and int8
+            scales) through the collective, on the fixed-shape path and the
+            ragged pad-to-max path alike, and is decoded on receipt; integer
+            and bool leaves, and the shape exchange, stay exact.
     """
+    from metrics_tpu_torch.parallel import quantize as _quant
+    from metrics_tpu_torch.parallel.groups import ProcessGroup, gather_group_arrays
+
+    if isinstance(group, ProcessGroup):
+        return gather_group_arrays(x, group, policy=policy, report=report, precision=precision)
+    if _simulated_process() is not None:
+        from metrics_tpu_torch.utils.exceptions import MetricsUserError
+
+        # a torch.distributed gather would answer for a world of one here
+        raise MetricsUserError(
+            "The fault-injection harness's simulated world only carries ProcessGroup (store) syncs; a"
+            " torch.distributed gather has no simulated backend. Construct the metric with"
+            " process_group=new_group(range(world)) (or a custom dist_sync_fn) to sync under"
+            " simulated_world/run_as_peers."
+        )
     if not distributed_available():
         return [x]
     if group is not None and dist.get_rank(group) < 0:
@@ -122,7 +226,7 @@ def gather_all_arrays(
     if _bus.enabled():
         _bus.emit("sync_attempt", source="torch.distributed", world=dist.get_world_size(group), rank=dist.get_rank(group))
     if fixed_shape:
-        return [o.reshape(x.shape) for o in _all_gather_flat(x, group, report)]
+        return _quantized_allgather(x, _quant.resolve_codec(precision, x.dtype), group, report)
 
     records = torch.stack(_all_gather_flat(_shape_record(x), group, report)).tolist()
     holders = [r for r in records if r[0]]
@@ -133,15 +237,18 @@ def gather_all_arrays(
         found = sorted({(str(_DTYPES[r[1]]), r[2]) for r in holders})
         raise ValueError(f"ranks hold this state with different dtypes or ranks (dtype, ndim): {found}")
     dtype = _DTYPES[code]
+    # the holders' dtype picks the codec, the same on every rank
+    codec = _quant.resolve_codec(precision, dtype)
     max_shape = [max(r[3 + d] for r in holders) for d in range(ndim)]
     shapes = [r[3 : 3 + ndim] if r[0] else [0, *max_shape[1:]] for r in records]
     if all(s == max_shape for s in shapes):
-        return [o.reshape(max_shape) for o in _all_gather_flat(x, group, report)]
+        return _quantized_allgather(x.reshape(max_shape), codec, group, report)
     padded = torch.zeros(max_shape, dtype=dtype, device=x.device)
     if x.numel():
         padded[tuple(slice(0, d) for d in x.shape)] = x
-    gathered = _all_gather_flat(padded, group, report)
-    return [g.reshape(max_shape)[tuple(slice(0, d) for d in s)] for g, s in zip(gathered, shapes)]
+    # zero padding quantizes exactly (code 0)
+    gathered = _quantized_allgather(padded, codec, group, report)
+    return [g[tuple(slice(0, d) for d in s)] for g, s in zip(gathered, shapes)]
 
 
 def host_reduce(

@@ -171,7 +171,8 @@ def test_the_port_roots_export_every_ported_name_of_the_jax_roots(roots):
             "WordInfoLost", "WordInfoPreserved", "SignalNoiseRatio", "ScaleInvariantSignalNoiseRatio",
             "SignalDistortionRatio", "ScaleInvariantSignalDistortionRatio", "PermutationInvariantTraining",
             "ShortTimeObjectiveIntelligibility", "PerceptualEvaluationSpeechQuality", "MeanAveragePrecision", "PIT",
-            "PESQ", "STOI", "SNR", "SDR", "SI_SDR", "SI_SNR", "MAP",
+            "PESQ", "STOI", "SNR", "SDR", "SI_SDR", "SI_SNR", "MAP", "SyncTimeoutError", "SyncIntegrityError",
+            "SchemaVersionError", "StateIntegrityError", "InjectedFaultError", "OverloadError",
         ],
         "functional": [
             "f1", "fbeta", "hinge", "pairwise_manhatten_distance", "image_gradients", "peak_signal_noise_ratio",

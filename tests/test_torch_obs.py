@@ -793,6 +793,16 @@ def test_jsonl_roundtrip_and_prometheus_render():
     assert 'metrics_tpu_obs_events_total{kind="' in text
     assert 'member="acc"' in text
     assert "metrics_tpu_engine_async_fetches" in text
+    jax_text = _jax().obs.prometheus_text()
+    for family in (
+        "metrics_tpu_wire_bytes_raw",
+        "metrics_tpu_wire_payloads_total",
+        "metrics_tpu_wire_max_dequant_error",
+        "metrics_tpu_integrity_attest_failures",
+        "metrics_tpu_compat_schema_decodes",
+        "metrics_tpu_compat_wire_negotiations",
+    ):
+        assert f"# TYPE {family} " in text and f"# TYPE {family} " in jax_text, family
     process = mt.obs.snapshot()
     assert process["engine"] == mt.engine.cache_summary()
     assert process["fetch"] == mt.engine.fetch_stats()
@@ -802,8 +812,19 @@ def test_jsonl_roundtrip_and_prometheus_render():
     assert process["kernels"]["by_op"] == mt.kernel_stats()
     assert set(process["kernels"]) == {"registered", "launches", "plain_calls", "by_op"}
     assert "confusion_counts" in process["kernels"]["registered"] and "policy" not in process["kernels"]
-    for name in ("serving", "wire", "warmup", "fleet", "durability", "guard", "integrity", "compat"):
+    for name in ("serving", "warmup", "fleet", "durability", "guard"):
         assert process[name] == {"ported": False}
+    # the resilient sync's sections are ported, under the JAX package's keys
+    mj = _jax()
+    jax_process = mj.obs.snapshot()
+    for name in ("wire", "integrity", "compat"):
+        assert set(process[name]) == set(jax_process[name]), name
+    assert process["wire"] == mt.parallel.wire_stats()
+    assert set(process["wire"]["codec_counts"]) == set(jax_process["wire"]["codec_counts"])
+    assert process["integrity"] == mt.resilience.integrity_stats()
+    assert set(process["compat"]["wire_negotiation"]) == set(jax_process["compat"]["wire_negotiation"])
+    assert process["compat"]["families"]["wire"]["versions"] == jax_process["compat"]["families"]["wire"]["versions"]
+    assert set(process["compat"]["families"]["wire"]) == set(jax_process["compat"]["families"]["wire"])
     # the sharded state plane is ported: its section is shard_stats()
     assert process["sharding"] == mt.sharding.shard_stats()
     assert set(process["sharding"]) == {"sharded_drives", "reshard_events", "mesh_changes", "specs", "resident"}

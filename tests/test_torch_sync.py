@@ -591,8 +591,19 @@ def test_failed_gather_raises_or_keeps_the_local_state():
         got = lenient.compute()
     assert float(got) == float(mt.functional.accuracy(preds, target, num_classes=C))
     assert not lenient._is_synced
+    # "partial" is accepted; a custom gather has no per-rank result, so its
+    # failure degrades the whole state, as "local" does (the JAX package's rule)
+    reset_warn_once()
+    partial = mt.Accuracy(num_classes=C, dist_sync_fn=broken, on_sync_error="partial", device="cpu")
+    partial._distributed_available_fn = lambda: True
+    partial.update(preds, target)
+    with pytest.warns(UserWarning, match="keeping the rank-local state"):
+        got = partial.compute()
+    assert float(got) == float(mt.functional.accuracy(preds, target, num_classes=C))
+    report = partial.sync_report()
+    assert report["last_sync_outcome"] == "local" and report["degraded_local"] == 1 and report["missing_ranks"] == []
     with pytest.raises(ValueError, match="on_sync_error"):
-        mt.Accuracy(on_sync_error="partial", device="cpu")
+        mt.Accuracy(on_sync_error="retry-forever", device="cpu")
     with pytest.raises(ValueError, match="ProcessGroup"):
         mt.Accuracy(process_group=object(), device="cpu")
 
@@ -807,10 +818,9 @@ def test_two_gloo_ranks_of_map_keep_image_boundaries(tmp_path):
 def test_add_state_takes_the_jax_keywords():
     """``placeholder=`` as a dtype (1-d samples), a numpy dtype or a shaped
     tensor or array (its row shape); the JAX package's errors for anything
-    else and for an array default; ``sync_precision="exact"`` and
-    ``sharding=None`` construct, other values name their ROADMAP items."""
-    from metrics_tpu_torch.utils.exceptions import MetricsUserError
-
+    else and for an array default; ``sync_precision`` registers its codec
+    tag in both packages (and survives a deep copy), and ``sharding=`` its
+    annotation."""
     mj, mt = _packages()
     m = _reductions_metric(mt)(device="cpu")
     cases = {
@@ -832,8 +842,12 @@ def test_add_state_takes_the_jax_keywords():
             other.add_state("bad", default=np.zeros(2), placeholder=np.int64)
         with pytest.raises(ValueError, match="must be one of"):
             other.add_state("bad", default=np.zeros(2), sync_precision="fp8")
-    with pytest.raises(MetricsUserError, match="item 9"):
-        m.add_state("q", default=np.zeros(2), sync_precision="bf16")
+    # the wire codecs are ported: a quantized tag registers, as in the JAX package
+    for pkg, metric in ((mj, _reductions_metric(mj)()), (mt, m)):
+        metric.add_state("q", default=np.zeros(2), sync_precision="bf16")
+        metric.add_state("q8", default=np.zeros(2), dist_reduce_fx="sum", sync_precision="int8")
+        assert metric._sync_precisions["q"] == "bf16" and metric._sync_precisions["q8"] == "int8", pkg.__name__
+    assert copy.deepcopy(m)._sync_precisions["q8"] == "int8"
     # sharded states are ported: the annotation registers as in the JAX package
     m.add_state("s", default=np.zeros(2), sharding="mp")
     assert m._state_shardings["s"] == ("mp",) and m.state_spec()["s"].sharding == ("mp",)
