@@ -369,6 +369,36 @@
    Logged: each rank's ``compute()`` ms through the store, gloo and
    NCCL, bytes sent, ``backoff_s``, the phase's seconds.
 
+18. The serving plane (phase 19, last), on the phase's seeded
+   ImageNet-1k-shaped stream in requests of [64, 1000]. (a) A
+   ``MetricBank`` of the main path's collection at capacity 512 (4.1 GB of
+   confusion matrices): 512 tenants x 2 requests through
+   ``RequestRouter(max_requests=256)``, 4 waves of 256, one captured
+   program replayed: every tenant against the numpy oracle, 16 against a
+   solo collection bit for bit, ``launches`` 4, 0 host syncs a replayed
+   wave, the kernels' launches credited per replay, peak memory under 1.5x
+   the bank's bytes plus its graph pool (the bank is not copied per wave);
+   ``compute_async`` over every tenant in one fetch against
+   ``compute_many``; dropping the bank releases its graph pool, with no
+   ``clear_cache()``. (b) A child (``--serving-child DIR ACKS``) serves 32
+   sessions through ``MetricBank(capacity=16, DiskStore,
+   checkpoint_every_n_flushes=1)``, spilling and readmitting 16 a wave,
+   acknowledges each wave and ``SIGKILL``s itself after wave 6; this
+   process recovers every tenant, equal to the oracle over its
+   acknowledged requests; the child's launches are 6 waves x 16 of each
+   kernel, with no plain call. (c) A ``ConfusionMatrix(num_classes=1000)`` bank
+   with ``audit_rate=1/4``: a bitflip inside a sampled flush is reported
+   by ``IntegrityAuditor`` and repaired; a forged spilled blob fails its
+   readmission. (d) ``MetricBank.drive`` of a top-5 ``Accuracy`` over
+   ImageNet-1k val (captured, ``select_topk`` in every step) against the
+   same tenant fed per flush and the main path's top-5, bit for bit. (e)
+   ``sync_bank_states`` through NCCL at world size 1. (f) A wave whose
+   capture the card refuses (its update waits for the card) raises and
+   leaves every row and count of the bank as it was. Logged: ms per wave
+   (host and device), requests/s banked against solo, the wave's device
+   operations, the durable plane's time split (digest, encode, I/O),
+   recovery seconds, bytes on disk, the phase's seconds.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
 CUDA the script exits 2 and prints no result.
@@ -5660,13 +5690,15 @@ ENC_RTOL = 1e-6
 BERT_KEYS = ("precision", "recall", "f1")
 
 
-def _graph_pool_bytes(torch):
-    """Bytes the caching allocator holds reserved for the engine's graph
-    memory pool (every captured program's outputs and intermediates), or
-    None where the allocator's snapshot does not name segment pools."""
+def _graph_pool_bytes(torch, pool=None):
+    """Bytes the caching allocator holds reserved for a graph memory pool
+    (its programs' outputs and intermediates): ``pool``, by default the
+    engine's shared one; None where the allocator's snapshot does not name
+    segment pools."""
     from metrics_tpu_torch.engine import cache
 
-    pool = cache._POOLS.get(torch.cuda.current_device())
+    if pool is None:
+        pool = cache._POOLS.get(torch.cuda.current_device())
     segments = torch.cuda.memory_snapshot()
     if pool is None or not any("segment_pool_id" in seg for seg in segments):
         return None
@@ -6384,6 +6416,560 @@ def run_resilience_phase(torch, mt, smi: str) -> dict:
     }
 
 
+SERVE_SEED = 19
+SERVE_REQ = 64  # rows of one serving request
+SERVE_BANK = (512, 2, 256)  # 19a: tenants (the bank's capacity), requests each, the router's max_requests
+SERVE_SOLO_CHECK = 16  # 19a: tenants also held against a solo collection bit for bit
+SERVE_CHURN = (16, 32, 4, 6)  # 19b: capacity, tenants, rounds, the wave after which the child kills itself
+SERVE_CHILD_TIMEOUT_S = 300
+SERVE_AUDIT = (8, 8, 4)  # 19c: tenants (the capacity), waves, the audit period (audit_rate=1/4)
+SERVE_FLIP_SEQ = 5
+
+
+def _serving_stream(n: int):
+    """The phase's seeded ImageNet-1k-shaped stream of ``n`` rows."""
+    return _imagenet_stream(np.random.default_rng(SERVE_SEED), n)
+
+
+def _tenant_rows(tenant: int, requests, tenants: int) -> np.ndarray:
+    """The rows of ``tenant``'s requests: request ``r`` of tenant ``t`` is
+    block ``r * tenants + t`` of ``SERVE_REQ`` rows."""
+    return np.concatenate([np.arange((r * tenants + tenant) * SERVE_REQ, (r * tenants + tenant + 1) * SERVE_REQ) for r in requests])
+
+
+def _check_tenant(name: str, got: dict, logits_np, target_np, rows) -> None:
+    """One collection tenant against the numpy oracle over its rows: counts
+    bit for bit, scores within 1e-6 relative."""
+    oracle = _numpy_oracle(logits_np[rows], target_np[rows], IMAGENET_VAL[1])
+    for key, want in oracle.items():
+        _check_result(f"{name} {key}", got[key], want)
+
+
+def _launches(stats) -> dict:
+    return {op: rec["launches"] for op, rec in stats.items() if rec["launches"]}
+
+
+def run_bank_phase(torch, mt, smi: str) -> dict:
+    """Phase 19a: a resident collection bank at ImageNet width; returns its
+    launches. The bank's graphs are its own: dropping it frees them and
+    their memory pool."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from metrics_tpu_torch.engine import cache
+    from metrics_tpu_torch.serving import MetricBank, RequestRouter
+
+    tenants, per, max_req = SERVE_BANK
+    n = tenants * per * SERVE_REQ
+    logits_np, target_np = _serving_stream(n)
+    logits, target = torch.from_numpy(logits_np).cuda(), torch.from_numpy(target_np).cuda()
+    baseline = torch.cuda.memory_allocated()  # what this process holds without the bank
+    bank = MetricBank(_imagenet_collection(mt), capacity=tenants, name="smoke19a")
+    bank_entry = cache.collection_bank_entry(bank._member_keys, bank._members)  # holds no reference to the bank
+    entry_before = bank_entry.summary()
+    router = RequestRouter(bank, max_requests=max_req, max_delay_s=None)
+    waves = [(r, range(s, s + max_req)) for r in range(per) for s in range(0, tenants, max_req)]
+
+    def submit(r, group):
+        flushed = 0
+        for t in group:
+            s = (r * tenants + t) * SERVE_REQ
+            flushed += router.submit(t, logits[s:s + SERVE_REQ], target[s:s + SERVE_REQ])
+        if flushed != len(group):
+            raise AssertionError(f"phase 19a: {flushed} requests flushed by a wave of {len(group)}")
+
+    t0 = _reset_stats(torch, mt)
+    torch.cuda.reset_peak_memory_stats()
+    wall, host_ms, syncs = [], [], []
+    rows = []
+    for i, (r, group) in enumerate(waves):
+        torch.cuda.synchronize()
+        t_w = time.perf_counter()
+        if i == 0:
+            submit(r, group)
+        elif i < len(waves) - 1:
+            syncs.append(_host_syncs(torch, lambda r=r, group=group: submit(r, group)))
+        else:  # the last wave under the profiler: its device time and device operations
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                syncs.append(_host_syncs(torch, lambda r=r, group=group: submit(r, group)))
+                torch.cuda.synchronize()
+            rows = _device_rows(prof)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t_w) * 1e3)
+        host_ms.append(bank._last_flush_ms)
+    peak = torch.cuda.max_memory_allocated() - baseline  # the bank's, its waves' and its graph pool's
+    pool_id = bank._resident.pool
+    pool = _graph_pool_bytes(torch, pool_id)
+    # the capture's warm-up runs one request; every wave is then a replay
+    per_kernel = len(waves) * max_req + 1
+    seconds, stats = _read_stats(torch, mt, t0, {"select_topk": per_kernel, "confusion_counts": per_kernel})
+    if bank.stats["launches"] != len(waves) or bank.stats["requests"] != tenants * per:
+        raise AssertionError(f"phase 19a: bank stats {bank.stats}")
+    if any(syncs):
+        raise AssertionError(f"phase 19a: host syncs per replayed wave {syncs}")
+    entry = _engine_delta(entry_before, bank_entry.summary())
+    if entry["graphs"] != 1 or entry["failed_captures"] or entry["cache_hits"] != len(waves) - 1:
+        raise AssertionError(f"phase 19a: the wave program was not one replayed capture: {entry}; refusals {_REFUSALS[-3:]}")
+    bank_bytes = sum(t.numel() * t.element_size() for t in bank._resident.values())
+    if pool is None or peak > 1.5 * bank_bytes + pool:
+        raise AssertionError(f"phase 19a: peak {peak / 1e9:.2f} GB against 1.5 x the bank {bank_bytes / 1e9:.2f} GB + the graph pool {_mib(pool)}")
+    dev_ms = sum(r["device_us"] for r in rows) / 1e3 if rows else None
+    dev_ops = sum(r["calls"] for r in rows) if rows else None
+
+    # every tenant against the numpy oracle, then one coalesced fetch of all
+    t_c = time.perf_counter()
+    values = bank.compute_many(range(tenants))
+    torch.cuda.synchronize()
+    many_s = time.perf_counter() - t_c
+    for t in range(tenants):
+        _check_tenant(f"phase 19a tenant {t}", values[t], logits_np, target_np, _tenant_rows(t, range(per), tenants))
+    t_c = time.perf_counter()
+    fetched = bank.compute_async(list(range(tenants))).result()
+    async_s = time.perf_counter() - t_c
+    for t in range(tenants):
+        for key, v in values[t].items():
+            if not torch_equal(fetched[t][key], v.cpu()):
+                raise AssertionError(f"phase 19a compute_async tenant {t} {key} differs from compute_many")
+
+    # the same traffic through solo collections; some of them bit for bit against the bank
+    solos = [_imagenet_collection(mt) for _ in range(tenants)]
+    solo_s = []
+    for r in range(per):
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        for t in range(tenants):
+            s = (r * tenants + t) * SERVE_REQ
+            solos[t].update(logits[s:s + SERVE_REQ], target[s:s + SERVE_REQ])
+        torch.cuda.synchronize()
+        solo_s.append(time.perf_counter() - t_s)
+    for t in range(SERVE_SOLO_CHECK):
+        want = solos[t].compute()
+        for key, v in values[t].items():
+            if not torch_equal(v, want[key]):
+                raise AssertionError(f"phase 19a tenant {t} {key}: the bank differs from a solo collection")
+    _require_programs("phase 19a solo collection", solos[-1])
+    del solos
+    dev = "not measured" if dev_ms is None else f"{dev_ms:.2f} ms device, {dev_ops} device operations (wave {len(waves)}, profiled)"
+    _log(
+        f"phase 19a bank: {tenants} tenants x {per} requests of [{SERVE_REQ}, {IMAGENET_VAL[1]}] through"
+        f" RequestRouter(max_requests={max_req}) in {len(waves)} waves, {seconds:.2f} s: every tenant equals the numpy"
+        f" oracle, {SERVE_SOLO_CHECK} equal solo collections bit for bit, compute_async equals compute_many; ms per wave"
+        f" wall {[round(w, 1) for w in wall]} (wave 1: a one-request warm-up, the capture and a replay; wave {len(waves)}: under the profiler),"
+        f" host (apply_batch) {[round(h, 1) for h in host_ms]}; {dev}; host syncs per replayed wave {syncs};"
+        f" {max_req / (wall[2] / 1e3):.0f} requests/s banked (wave 3) against {tenants / solo_s[1]:.0f} requests/s for"
+        f" {tenants} solo collections (their second round; the first, each one's eager probe: {tenants / solo_s[0]:.0f}/s);"
+        f" bank entry {entry}; peak {peak / 1e9:.2f} GB over the {baseline / 1e9:.2f} GB held before the bank"
+        f" <= 1.5 x the bank's {bank_bytes / 1e9:.2f} GB + the graph pool {_mib(pool)}; compute_many {many_s:.2f} s,"
+        f" compute_async (one fetch) {async_s:.2f} s; launches {_launches(stats)}; {smi}"
+    )
+    # no clear_cache(): the bank's graphs and their pool go with the bank
+    reserved = torch.cuda.memory_reserved()
+    del bank, router, values, fetched, submit
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = _graph_pool_bytes(torch, pool_id)
+    graphs_left = bank_entry.summary()["graphs"] - entry_before["graphs"]
+    freed = reserved - torch.cuda.memory_reserved()
+    if left or graphs_left or freed < pool:
+        raise AssertionError(
+            f"phase 19a: after del bank the graph pool holds {_mib(left)} ({graphs_left} graphs left), and"
+            f" {_mib(freed)} of the {_mib(pool)} pool came back to the card"
+        )
+    _log(f"phase 19a bank dropped: its {_mib(pool)} graph pool released, {_mib(freed)} reserved memory freed; {smi}")
+    return _launches(stats)
+
+
+# -- 19b: spill churn and kill -9 --------------------------------------------
+_CHILD_TIMED = (
+    ("digest", "metrics_tpu_torch.resilience.integrity", "leaf_digest"),
+    ("encode", "metrics_tpu_torch.parallel.groups", "_encode_with_codec"),
+    ("decode", "metrics_tpu_torch.parallel.groups", "_decode"),
+)
+
+
+def _time_into(seconds: dict, key: str, owner, name: str) -> None:
+    fn = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+
+    setattr(owner, name, timed)
+
+
+def _serving_child(root: str, ack_path: str) -> None:
+    """19b's serving process (``--serving-child``): the collection bank over
+    a ``DiskStore``, 32 sessions round-robin through a router of 16, an
+    acknowledgement appended after every applied wave, and a ``SIGKILL``
+    of itself after wave 6. Writes its timings beside the store first."""
+    import importlib
+    import signal
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import metrics_tpu_torch as mt
+    from metrics_tpu_torch.serving import DiskStore, MetricBank, RequestRouter
+
+    capacity, tenants, rounds, kill_after = SERVE_CHURN
+    seconds: dict = {}
+    for key, module, name in _CHILD_TIMED:
+        _time_into(seconds, key, importlib.import_module(module), name)
+    for name in ("put", "get", "append_journal_many", "rewrite_journal"):
+        _time_into(seconds, "io", DiskStore, name)
+    _time_into(seconds, "fetch", MetricBank, "_fetch_rows")
+    _time_into(seconds, "readmit", MetricBank, "_decode_spilled")
+    write_s = {"spill": 0.0, "checkpoint": 0.0}
+    write = MetricBank._write_tenant_blob
+
+    def timed_write(self, tenant, tree, count, op, defer_journal=False):
+        t0 = time.perf_counter()
+        try:
+            return write(self, tenant, tree, count, op, defer_journal)
+        finally:
+            write_s[op] = write_s.get(op, 0.0) + time.perf_counter() - t0
+
+    MetricBank._write_tenant_blob = timed_write
+    logits_np, target_np = _serving_stream(tenants * rounds * SERVE_REQ)
+    logits, target = torch.from_numpy(logits_np).cuda(), torch.from_numpy(target_np).cuda()
+    bank = MetricBank(_imagenet_collection(mt), capacity=capacity, spill_store=DiskStore(root), checkpoint_every_n_flushes=1, name="smoke19")
+    router = RequestRouter(bank, max_requests=capacity, max_delay_s=None)
+    wave, wave_ms, t_w = 0, [], time.perf_counter()
+    for r in range(rounds):
+        for t in range(tenants):
+            s = (r * tenants + t) * SERVE_REQ
+            if not router.submit(t, logits[s:s + SERVE_REQ], target[s:s + SERVE_REQ]):
+                continue
+            torch.cuda.synchronize()
+            wave += 1
+            wave_ms.append((time.perf_counter() - t_w) * 1e3)
+            t_w = time.perf_counter()
+            record = {
+                "waves": wave, "wave_ms": wave_ms, "seconds": seconds, "write_s": write_s, "stats": dict(bank.stats),
+                "durability": mt.serving.durability_stats(), "launches": _launches(mt.kernel_stats()),
+                "plain_calls": sum(rec["plain_calls"] for rec in mt.kernel_stats().values()),
+            }
+            with open(os.path.join(os.path.dirname(ack_path), "child_stats.json"), "w") as f:
+                json.dump(record, f)
+            with open(ack_path, "a") as f:
+                f.write(f"{wave}\n")
+                f.flush()
+                os.fsync(f.fileno())
+            if wave == kill_after:
+                os.kill(os.getpid(), signal.SIGKILL)
+    raise AssertionError(f"phase 19b child: the stream ended after {wave} waves")
+
+
+def run_churn_phase(torch, mt, smi: str) -> dict:
+    """Phase 19b: spill churn in a serving child, ``kill -9``, recovery here.
+    Returns the child's launches."""
+    from metrics_tpu_torch.serving import DiskStore, MetricBank, durability_stats
+    from metrics_tpu_torch.serving.store import reset_durability_stats
+
+    capacity, tenants, rounds, kill_after = SERVE_CHURN
+    logits_np, target_np = _serving_stream(tenants * rounds * SERVE_REQ)
+    acked_rounds = kill_after * capacity // tenants
+    with tempfile.TemporaryDirectory() as tmp:
+        root, ack = os.path.join(tmp, "store"), os.path.join(tmp, "acks")
+        t_c = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serving-child", root, ack],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        try:
+            out, _ = proc.communicate(timeout=SERVE_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            raise AssertionError(f"phase 19b: the serving child ran past {SERVE_CHILD_TIMEOUT_S} s: {out[-3000:]}")
+        child_s = time.perf_counter() - t_c
+        if proc.returncode != -9:
+            raise AssertionError(f"phase 19b: the serving child ended with {_exit_note(proc.returncode)}: {out[-3000:]}")
+        with open(ack) as f:
+            acks = [int(x) for x in f.read().split()]
+        if acks != list(range(1, kill_after + 1)):
+            raise AssertionError(f"phase 19b: acknowledged waves {acks}")
+        with open(os.path.join(tmp, "child_stats.json")) as f:
+            child = json.load(f)
+        # one warm-up request ahead of the capture, then 6 replayed waves of 16
+        want = {"confusion_counts": kill_after * capacity + 1, "select_topk": kill_after * capacity + 1}
+        if child["launches"] != want or child["plain_calls"]:
+            raise AssertionError(f"phase 19b: the child's launches {child['launches']}, expected {want}; plain calls {child['plain_calls']}")
+        disk_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        reset_durability_stats()
+        torch.cuda.synchronize()
+        t_r = time.perf_counter()
+        bank = MetricBank.recover(_imagenet_collection(mt), capacity, DiskStore(root), name="smoke19")
+        recover_s = time.perf_counter() - t_r
+        t_r = time.perf_counter()
+        values = {t: bank.compute(t) for t in range(tenants)}
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t_r
+        if sorted(bank.spilled_tenants) != list(range(tenants)):
+            raise AssertionError(f"phase 19b: recovered sessions {sorted(bank.spilled_tenants)}")
+        for t in range(tenants):
+            if bank.update_count(t) != acked_rounds:
+                raise AssertionError(f"phase 19b tenant {t}: {bank.update_count(t)} updates recovered, {acked_rounds} acknowledged")
+            _check_tenant(f"phase 19b tenant {t}", values[t], logits_np, target_np, _tenant_rows(t, range(acked_rounds), tenants))
+        stats = durability_stats()
+        if stats["recovers"] != 1 or stats["recovered_tenants"] != tenants:
+            raise AssertionError(f"phase 19b: durability_stats {stats}")
+    d, sec, w = child["durability"], child["seconds"], child["write_s"]
+    writes = max(d["spill_writes"], 1)
+    spills, checkpoints, readmits = child["stats"]["spills"], d["spill_writes"] - child["stats"]["spills"], child["stats"]["readmits"]
+    per = lambda k: f"{sec.get(k, 0.0) * 1e3 / writes:.1f}"  # noqa: E731
+    _log(
+        f"phase 19b churn: a child served {tenants} sessions through MetricBank(capacity={capacity}, DiskStore,"
+        f" checkpoint_every_n_flushes=1) in waves of {capacity}, acknowledged waves {acks} and was SIGKILLed"
+        f" ({child_s:.1f} s in all, its start included); ms per wave {[round(x) for x in child['wave_ms']]};"
+        f" {spills} spills ({w['spill'] * 1e3 / max(spills, 1):.1f} ms a tenant), {checkpoints} checkpoint writes"
+        f" ({w['checkpoint'] * 1e3 / max(checkpoints, 1):.1f} ms a tenant), {readmits} readmits"
+        f" ({sec.get('readmit', 0.0) * 1e3 / max(readmits, 1):.1f} ms a tenant, decode and digest checks); per tenant"
+        f" write: digest {per('digest')} ms, encode {per('encode')} ms, I/O {per('io')} ms, row fetch {per('fetch')} ms"
+        f" (the digest time counts every leaf digest: the payload's, the journal's and the readmits' checks);"
+        f" {d['spill_bytes'] / 1e6:.0f} MB of blobs written, {disk_bytes / 1e6:.0f} MB on disk at the kill;"
+        f" recover() {recover_s:.2f} s, then {tenants} tenants decoded and computed in {decode_s:.2f} s, each equal"
+        f" to the numpy oracle over its {acked_rounds} acknowledged requests; durability_stats {stats}; the child's"
+        f" launches {child['launches']}; {smi}"
+    )
+    return child["launches"]
+
+
+# -- 19c: audits and silent corruption ----------------------------------------
+def run_audit_phase(torch, mt, smi: str) -> dict:
+    """Phase 19c: shadow audits catch a bitflip and repair it; a forged
+    blob fails its readmission. Returns the phase's launches."""
+    from metrics_tpu_torch.resilience import integrity
+    from metrics_tpu_torch.serving import MetricBank
+    from metrics_tpu_torch.utils.exceptions import StateIntegrityError
+
+    tenants, waves, period = SERVE_AUDIT
+    c = IMAGENET_VAL[1]
+    logits_np, target_np = _serving_stream(tenants * waves * SERVE_REQ)
+    logits, target = torch.from_numpy(logits_np).cuda(), torch.from_numpy(target_np).cuda()
+    bank = MetricBank(mt.ConfusionMatrix(num_classes=c), capacity=tenants, audit_rate=1.0 / period, checkpoint_every_n_flushes=1, name="smoke19c")
+    integrity.reset_integrity_stats()
+    # the shadow audit checks the transition of the flush it samples, so
+    # the flip lands inside a sampled flush (after its checkpoint): the
+    # last wave, whose sample is the wave's second tenant
+    victim = (waves // period - 1) % tenants
+    sites = []
+    t0 = _reset_stats(torch, mt)
+    for w in range(waves):
+        if w == waves - 1:
+            bank.state_fault_injector = lambda ts: sites.append(integrity.inject_bitflip(bank, ts[victim], seq=SERVE_FLIP_SEQ))
+        bank.apply_batch([(t, (logits[(w * tenants + t) * SERVE_REQ:(w * tenants + t + 1) * SERVE_REQ], target[(w * tenants + t) * SERVE_REQ:(w * tenants + t + 1) * SERVE_REQ])) for t in range(tenants)])
+    bank.state_fault_injector = None
+    seconds, stats = _read_stats(torch, mt, t0, {"confusion_counts": tenants * waves + 1})  # and the warm-up's request
+    auditor = integrity.IntegrityAuditor(bank, repair=True)
+    t_a = time.perf_counter()
+    verdict = auditor.poll()
+    audit_s = time.perf_counter() - t_a
+    if verdict != {"checked": waves // period, "passed": waves // period - 1, "failed": 1, "repaired": 1} or auditor.last_failure["tenant"] != victim:
+        raise AssertionError(f"phase 19c: audit verdict {verdict}, last failure {auditor.last_failure}, flipped {sites}")
+    for t in range(tenants):
+        rows = _tenant_rows(t, range(waves), tenants)
+        want = _numpy_oracle(logits_np[rows], target_np[rows], c)["confmat"]
+        _check_result(f"phase 19c tenant {t} confmat", bank.compute(t), want)
+    # a forged blob: every crc valid, the digest wrong
+    spilled = (victim + 1) % tenants
+    bank.evict(spilled)
+    key = bank._blob_key(spilled)
+    bank.store.put(key, integrity.forge_payload_corruption(bank.store.get(key)))
+    try:
+        bank.admit(spilled)
+    except StateIntegrityError as err:
+        forged_note = f"readmission raised StateIntegrityError (leaf {err.leaf!r})"
+    else:
+        raise AssertionError("phase 19c: a forged blob was readmitted")
+    _log(
+        f"phase 19c audits: ConfusionMatrix(num_classes={c}) bank of {tenants} tenants, {waves} waves, audit_rate=1/{period},"
+        f" checkpoint_every_n_flushes=1 ({seconds:.2f} s): a bitflip {sites} in wave {waves}; IntegrityAuditor.poll()"
+        f" {verdict} in {audit_s * 1e3:.0f} ms reports tenant {auditor.last_failure['tenant']} (leaf"
+        f" {auditor.last_failure['leaf']!r}), repaired: every tenant equals the oracle; a forged spilled blob: {forged_note};"
+        f" integrity_stats {integrity.integrity_stats()}; {smi}"
+    )
+    return _launches(stats)
+
+
+# -- 19d and 19e: the bank drive, and sync_bank_states at world size one --------
+def run_bank_drive_phase(torch, mt, smi: str, logits, target, main_top5) -> dict:
+    """Phase 19d: ``MetricBank.drive`` over ImageNet-1k val, against the same
+    tenant fed per flush and the main path's top-5; then 19e over its bank.
+    Returns the drive's launches."""
+    from metrics_tpu_torch.engine import cache
+
+    c = IMAGENET_VAL[1]
+    batches = [(logits[s:e], target[s:e]) for s, e in _batches(IMAGENET_VAL[0])]
+    steps = mt.engine.next_pow2(len(batches))
+    driven = mt.serving.MetricBank(mt.Accuracy(num_classes=c, top_k=TOP_K, jit_bucket="pow2"), capacity=4, name="smoke19d")
+    t0 = _reset_stats(torch, mt)
+    times = []
+    for tenant in ("e", "e2"):  # the first drive warms up and captures, the second replays
+        torch.cuda.synchronize()
+        t_d = time.perf_counter()
+        mt.engine.drive_bank(driven, tenant, batches)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t_d) * 1e3)
+    # a step a drive, the warm-up's one step, and the pad correction's
+    # one-row update, computed once eagerly and kept
+    seconds, stats = _read_stats(torch, mt, t0, {"select_topk": 2 * steps + 2})
+    entry = cache.bank_drive_entry(driven._template).summary()
+    if entry["graphs"] != 1 or entry["failed_captures"] or entry["cache_hits"] != 1 or driven.stats["launches"] != 2:
+        raise AssertionError(f"phase 19d: the drive did not run captured: {entry}, bank stats {driven.stats}; refusals {_REFUSALS[-3:]}")
+    flushed = mt.serving.MetricBank(mt.Accuracy(num_classes=c, top_k=TOP_K, jit_bucket="pow2"), capacity=4, name="smoke19d_flush")
+    torch.cuda.synchronize()
+    t_f = time.perf_counter()
+    for b in batches:
+        flushed.update("e", *b)
+    torch.cuda.synchronize()
+    flush_ms = (time.perf_counter() - t_f) * 1e3
+    for tenant in ("e", "e2"):
+        got, want = driven.tenant_state(tenant), flushed.tenant_state("e")
+        for name, v in want.items():
+            if not torch_equal(got[name], v):
+                raise AssertionError(f"phase 19d {tenant} {name}: the drive differs from the per-flush bank")
+    value = driven.compute("e")
+    if not torch_equal(value, main_top5):
+        raise AssertionError(f"phase 19d: drive top-5 {float(value)!r} against the main path's {float(main_top5)!r}")
+    sync_note = _bank_sync_world_one(torch, driven, smi)
+    _log(
+        f"phase 19d bank drive: Accuracy(top_k={TOP_K}, jit_bucket='pow2') over ImageNet-1k val in {len(batches)}"
+        f" batches (the ragged {RAGGED} padded to {BATCH}, {steps - len(batches)} no-op step): bit for bit the per-flush"
+        f" bank and the main path's top-5 {float(value):.6f}; ms per drive {[round(t, 2) for t in times]} (first: a one-step"
+        f" warm-up, the capture and a replay) against {flush_ms:.2f} ms for {len(batches)} flushes; entry {entry}; launches"
+        f" {_launches(stats)} ({steps} a drive, 1 the warm-up's step, 1 the pad correction's zero row); {smi}"
+    )
+    _log(sync_note)
+    return _launches(stats)
+
+
+def _bank_sync_world_one(torch, bank, smi: str) -> str:
+    """Phase 19e: ``sync_bank_states`` through NCCL at world size one on a
+    ``(1,)`` ``("dp",)`` mesh: the leaves come back bit for bit, one
+    all-reduce per leaf."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from metrics_tpu_torch.parallel import comm
+
+    before = {n: v.clone() for n, v in bank._bank.items()}
+    calls = []
+    all_reduce = comm._all_reduce
+
+    def counted(x, fx, group):
+        calls.append(fx)
+        return all_reduce(x, fx, group)
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0, device_id=torch.device("cuda:0"))
+    comm._all_reduce = counted
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("dp",))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bank.sync_state_in_trace("dp", mesh=mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        comm._all_reduce = all_reduce
+        dist.destroy_process_group()
+    for n, v in bank._bank.items():
+        if not torch_equal(v, before[n]):
+            raise AssertionError(f"phase 19e: leaf {n} changed through a world of one")
+    if len(calls) != len(before):
+        raise AssertionError(f"phase 19e: {len(calls)} all-reduces for {len(before)} leaves")
+    return (
+        f"phase 19e sync_bank_states: NCCL world size 1, ('dp',) mesh: {len(calls)} all-reduces {calls}, every leaf"
+        f" bit for bit, {ms:.2f} ms; {smi}"
+    )
+
+
+# -- 19f: a refused capture -----------------------------------------------------
+def run_refused_capture_phase(torch, mt, smi: str) -> dict:
+    """Phase 19f: a wave whose capture the card refuses leaves the bank as it
+    was, and the bank serves on. A ``ConfusionMatrix`` bank of 4 tenants takes
+    a captured wave; a wave of a new signature (2 requests) whose update waits
+    for the card, which a capture refuses, is tried twice; then the first
+    signature's graph replays. Returns the phase's launches."""
+    from metrics_tpu_torch.engine import cache
+    from metrics_tpu_torch.serving import MetricBank
+    from metrics_tpu_torch.utils.exceptions import JitIncompatibleError
+
+    c, tenants = IMAGENET_VAL[1], 4
+    logits_np, target_np = _serving_stream(3 * tenants * SERVE_REQ)
+    logits, target = torch.from_numpy(logits_np).cuda(), torch.from_numpy(target_np).cuda()
+
+    def requests(w, group):
+        blocks = [((w * tenants + t) * SERVE_REQ, (w * tenants + t + 1) * SERVE_REQ) for t in group]
+        return [(t, (logits[s:e], target[s:e])) for t, (s, e) in zip(group, blocks)]
+
+    bank = MetricBank(mt.ConfusionMatrix(num_classes=c), capacity=tenants, name="smoke19f")
+    entry = cache.bank_entry(bank._template)
+    entry_before = entry.summary()
+    t0 = _reset_stats(torch, mt)
+    bank.apply_batch(requests(0, range(tenants)))
+    rows = {n: v.clone() for n, v in bank._resident.items()}
+    counts = {t: bank.update_count(t) for t in range(tenants)}
+    inner = bank._template._inner_update
+
+    def waits_for_the_card(*args, **kwargs):
+        torch.cuda.synchronize()  # a host wait: fine eagerly, refused inside a capture
+        return inner(*args, **kwargs)
+
+    bank._template._inner_update = waits_for_the_card
+    errors = []
+    for attempt in (1, 2):
+        try:
+            bank.apply_batch(requests(1, range(2)))
+        except JitIncompatibleError as err:
+            errors.append(f"{type(err.__cause__ or err).__name__}: {str(err)[:160]}")
+        else:
+            raise AssertionError(f"phase 19f: try {attempt} of the wave whose capture is refused was applied")
+        for n, v in bank._resident.items():
+            if not torch_equal(v, rows[n]):
+                raise AssertionError(f"phase 19f: try {attempt}: the refused wave changed the bank's {n!r}")
+        if {t: bank.update_count(t) for t in range(tenants)} != counts or bank.stats["flush_errors"] != attempt:
+            raise AssertionError(f"phase 19f: try {attempt}: counts {bank._counts}, stats {bank.stats}")
+    bank._template._inner_update = inner
+    bank.apply_batch(requests(2, range(tenants)))
+    # wave 1's warm-up request and replay, the refused wave's warm-up request, wave 3's replay
+    seconds, stats = _read_stats(torch, mt, t0, {"confusion_counts": 2 * tenants + 2})
+    delta = _engine_delta(entry_before, entry.summary())
+    if delta["graphs"] != 1 or delta["failed_captures"] != 1 or delta["cache_hits"] != 1:
+        raise AssertionError(f"phase 19f: bank entry {delta}")
+    for t in range(tenants):
+        r = np.concatenate([np.arange((w * tenants + t) * SERVE_REQ, (w * tenants + t + 1) * SERVE_REQ) for w in (0, 2)])
+        _check_result(f"phase 19f tenant {t} confmat", bank.compute(t), _numpy_oracle(logits_np[r], target_np[r], c)["confmat"])
+    _log(
+        f"phase 19f refused capture: ConfusionMatrix(num_classes={c}) bank of {tenants}; a wave of 2 whose update"
+        f" waits for the card raised twice ({errors[0]}; then {errors[1]}), each time leaving every row, the sink"
+        f" row and the counts bit for bit as they were; the next wave replayed and every tenant equals the oracle"
+        f" over its 2 applied requests ({seconds:.2f} s); bank entry {delta}; launches {_launches(stats)}; {smi}"
+    )
+    return _launches(stats)
+
+
+def run_serving_phase(torch, mt, smi: str, logits, target, main_top5) -> dict:
+    """Phase 19: the serving plane (19a-19f); returns its launches per kernel."""
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    for part in (
+        lambda: run_bank_phase(torch, mt, smi),
+        lambda: run_churn_phase(torch, mt, smi),
+        lambda: run_audit_phase(torch, mt, smi),
+        lambda: run_bank_drive_phase(torch, mt, smi, logits, target, main_top5),
+        lambda: run_refused_capture_phase(torch, mt, smi),
+    ):
+        for op, n in part().items():
+            launches[op] = launches.get(op, 0) + n
+    _log(f"phase 19 serving: {time.perf_counter() - t_phase:.1f} s in all, oracles, data and the child included; launches {launches}; {smi}")
+    return launches
+
+
 def check_windowed_kernels(torch, rng):
     """Phase 16c: the class windows of the confusion-count kernels at the
     phase's shapes, each against its plain version and the matching slice
@@ -6596,6 +7182,7 @@ def main() -> int:
     records.update(pairwise_records)
     calls.update(pairwise_calls)
     main_stats, mc, logits, target, host_stream = run_main_path(torch, mt, rng)
+    main_top5 = mc.compute()["top5"].clone()
     t_new = time.perf_counter()
     extension_launches = run_classification_extension(torch, mt, rng, logits, target, host_stream)
     extension_launches += run_ordinal_grading(torch, mt, rng)
@@ -6652,18 +7239,20 @@ def main() -> int:
     shard_launches = run_sharded_phase(torch, mt, smi)
     run_encoder_mesh_phase(torch, mt, smi, bert_pairs)
     resilience_launches = run_resilience_phase(torch, mt, smi)
+    serving_launches = run_serving_phase(torch, mt, smi, logits, target, main_top5)
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {
         **{
             k: v["launches"] + sync_launches.get(k, 0) + engine_launches.get(k, 0) + wrapper_launches.get(k, 0)
             + obs_launches.get(k, 0) + shard_launches.get(k, 0) + resilience_launches.get(k, 0)
+            + serving_launches.get(k, 0)
             for k, v in main_stats.items()
         },
         "confusion_counts": main_stats["confusion_counts"]["launches"] + sync_launches.get("confusion_counts", 0)
         + engine_launches.get("confusion_counts", 0) + extension_launches + wrapper_launches["confusion_counts"]
         + obs_launches["confusion_counts"] + shard_launches.get("confusion_counts", 0)
-        + resilience_launches["confusion_counts"],
+        + resilience_launches["confusion_counts"] + serving_launches["confusion_counts"],
         "confusion_counts@segmentation": seg_launches,
         "confusion_counts@window": shard_launches["confusion_counts@window"],
         "multilabel_counts@window": shard_launches["multilabel_counts@window"],
@@ -6707,6 +7296,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--encoder-rank"]:
         _encoder_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
+    if sys.argv[1:2] == ["--serving-child"]:
+        _serving_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--resilience-rank"]:
         _resilience_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
         sys.exit(0)

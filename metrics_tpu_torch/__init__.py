@@ -43,6 +43,9 @@ bucketing, fused collection programs, non-finite screening
 (``on_bad_input``), ``engine.drive`` and ``compute_async``. ``obs`` is the
 observability layer: the event bus, lifecycle spans, the retrace
 explainer, ``obs.snapshot()`` and the JSONL and Prometheus exporters.
+``serving`` is the multi-tenant serving plane: ``MetricBank`` (one program
+per wave of tenants' requests, LRU spill, the write-ahead journal and crash
+recovery, shadow audits), ``RequestRouter`` and ``RequestDedup``.
 """
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.audio import (
@@ -83,6 +86,7 @@ from metrics_tpu_torch import engine  # noqa: F401
 from metrics_tpu_torch import obs  # noqa: F401
 from metrics_tpu_torch import parallel  # noqa: F401
 from metrics_tpu_torch import resilience  # noqa: F401
+from metrics_tpu_torch import serving  # noqa: F401
 from metrics_tpu_torch import sharding  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.deprecated import (

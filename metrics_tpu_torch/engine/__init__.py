@@ -7,7 +7,8 @@ instance, captured as a CUDA graph on the card and run eagerly on the CPU.
 * :mod:`~metrics_tpu_torch.engine.bucketing`: ``jit_bucket="pow2"`` batch
   padding with the exact row-additive correction.
 * :mod:`~metrics_tpu_torch.engine.driver`: :func:`drive` (an epoch in
-  K-step program replays) and the async results plane
+  K-step program replays), :func:`drive_bank` (one tenant's epoch into
+  its serving-bank row in one program) and the async results plane
   (:func:`async_compute`, one coalesced copy per collection).
 
 Introspection: ``Metric.compile_stats()``, :func:`cache_summary`,
@@ -23,6 +24,7 @@ from metrics_tpu_torch.engine.bucketing import (  # noqa: F401
 )
 from metrics_tpu_torch.engine.cache import (  # noqa: F401
     SharedEntry,
+    bank_entry,
     cache_summary,
     clear_cache,
     fused_entry,
@@ -37,6 +39,7 @@ from metrics_tpu_torch.engine.driver import (  # noqa: F401
     DriveResult,
     async_compute,
     drive,
+    drive_bank,
     fetch_stats,
     reset_fetch_stats,
 )

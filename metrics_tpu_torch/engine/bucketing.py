@@ -79,6 +79,14 @@ def supports_bucketing(metric: Any) -> bool:
     return True
 
 
+def bucketing_active(metric: Any, batched: Tuple[int, ...]) -> bool:
+    """Whether pow2 batch bucketing applies to a dispatch with these batched
+    leaf indices: the opt-in, the contract and a batch axis. The gate the
+    serving bank (padding ragged requests) and the request router (grouping
+    batch sizes by bucket) share."""
+    return getattr(metric, "jit_bucket", None) == "pow2" and supports_bucketing(metric) and bool(batched)
+
+
 def batched_leaf_indices(leaves: List[Any]) -> Tuple[int, ...]:
     """Indices of the tensor leaves of rank >= 1 that share axis 0: the
     batch-axis rule shared by bucketing and row masking. Empty when there is

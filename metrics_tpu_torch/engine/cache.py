@@ -70,6 +70,23 @@ JAX package vmaps the template's transition over a leading ``[B]`` axis;
 here the program loops over the replicates, since the kernel wrappers are
 ctypes launches with no batching rule.
 
+**Bank entries.** A serving bank's wave (:func:`bank_entry`,
+:func:`collection_bank_entry`) and its per-tenant epoch
+(:func:`bank_drive_entry`) are programs over the bank's leaves, which are
+*resident*: the bank is the carry of a long-lived serving loop, so its
+leaves are fixed tensors the program reads and writes in place
+(``invoke(resident=)``), never copied in or cloned out. That is a
+deliberate exception to "replaced, never written in place" above: only the
+slot ids and the requests' inputs are static inputs, and everything that
+hands a row to a caller (``MetricBank.tenant_state``, exports, checkpoints,
+audits, ``compute_async``) takes a copy of it. The requests of a wave run
+one after another in the program, as the bootstrap replicates do. A graph
+bakes the leaves' addresses in, so on the card it belongs to its bank: it
+is kept on the :class:`Resident` leaves, in a memory pool of their own, and
+goes with the bank. A wave writes its rows back only after its last
+request. Its warm-up runs one request and writes nothing, and the first
+replay applies the wave, so a refused capture leaves the bank as it was.
+
 **Encoder entries.** An encoder's forward (:func:`encoder_entry`, kind
 ``encode``) is a program like an update: one per input signature, shared by
 every :class:`~metrics_tpu_torch.encoders.ShardedEncoder` with the same
@@ -82,12 +99,12 @@ back to an eager forward in silence.
 
 The mesh-aware driver entries (``drive(mesh=)``) live with the rest of the
 driver's programs in ``engine/driver.py``; ``axis_world`` is re-exported
-here, where the JAX engine keeps it. Out of this module for now: the
-serving bank entries.
+here, where the JAX engine keeps it.
 """
 import contextlib
 import hashlib
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -266,26 +283,29 @@ def _pool(device: torch.device) -> Any:
     return _POOLS[idx]
 
 
-def _end_refused_capture(device: torch.device, stream: Any) -> None:
-    """Leave a refused capture behind. When an operation invalidates a
-    capture, ``torch.cuda.graph`` raises from ``cudaStreamEndCapture``
-    before it ends the allocators' recording to the pool and before it puts
-    the caller's stream back: the pool stays recording (every later capture
-    into it fails with "beginAllocateToPool: already recording to
-    mempool_id"), the caching allocator holds freed blocks for a capture
-    that never ends, and later work runs on the capture stream. So: end the
-    caching allocator's recording where one is left (a capture that ended
-    cleanly left none, and the call raises), restore ``stream``, and give
-    later captures a fresh pool; the graphs captured before keep theirs."""
+def _end_refused_capture(device: torch.device, stream: Any, pool: Any) -> None:
+    """Leave a refused capture into ``pool`` behind. When an operation
+    invalidates a capture, ``torch.cuda.graph`` raises from
+    ``cudaStreamEndCapture`` before it ends the allocators' recording to the
+    pool and before it puts the caller's stream back: the pool stays
+    recording (every later capture into it fails with "beginAllocateToPool:
+    already recording to mempool_id"), the caching allocator holds freed
+    blocks for a capture that never ends, and later work runs on the capture
+    stream. So: end the caching allocator's recording where one is left (a
+    capture that ended cleanly left none, and the call raises) and restore
+    ``stream``. Later captures take a fresh pool (the engine's shared pool
+    is replaced here, a bank's own is dropped by the caller); the graphs
+    captured before keep theirs."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     end = getattr(torch._C, "_cuda_endAllocateToPool", None)
     if end is not None:
         try:
-            end(idx, _pool(device))
+            end(idx, pool)
         except RuntimeError:
             pass
     torch.cuda.set_stream(stream)
-    _POOLS[idx] = torch.cuda.graph_pool_handle()
+    if _POOLS.get(idx) == pool:
+        _POOLS[idx] = torch.cuda.graph_pool_handle()
 
 
 def _side_stream(device: torch.device) -> Any:
@@ -293,6 +313,32 @@ def _side_stream(device: torch.device) -> Any:
     if idx not in _SIDE_STREAMS:
         _SIDE_STREAMS[idx] = torch.cuda.Stream(device=idx)
     return _SIDE_STREAMS[idx]
+
+
+class Resident(dict):
+    """A bank's resident leaves (state name -> tensor, one row per slot on
+    the leading axis), and on the card the programs captured over them with
+    their memory pool. A graph bakes the leaves' addresses in, so no other
+    bank can replay it: the programs are the bank's, and dropping the bank
+    frees them and, once its last graph is gone, their pool."""
+
+    def __init__(self, leaves: Dict[str, torch.Tensor]) -> None:
+        super().__init__(leaves)
+        self.programs: Dict[Tuple, Any] = {}
+        self.pool: Any = None
+
+    def graph_pool(self) -> Any:
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        return self.pool
+
+
+def _resident_key(resident: Any) -> Tuple:
+    """A bank program's resident leaves in its key: names, shapes, dtypes
+    and devices, and on the card their addresses (a graph bakes them in)."""
+    return tuple(
+        (n, tuple(t.shape), t.dtype, t.device, t.data_ptr() if t.is_cuda else None) for n, t in sorted(resident.items())
+    )
 
 
 def _clone_all(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -305,20 +351,30 @@ def _clone_all(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
 class _Graph:
     """One captured program: the graph, its static input and output tensors,
     the registry launches its capture recorded, and the tensors it reads
-    by address."""
+    by address. ``resident`` tensors (a bank's leaves) are not copied in:
+    the graph reads and writes them at their own addresses, which key it."""
 
     __slots__ = ("graph", "static_in", "tensor_pos", "out_leaves", "out_spec", "launches", "pins", "nbytes")
 
-    def __init__(self, fn: Callable, cell: Any, leaves: List[Any], spec: Any, device: torch.device) -> None:
+    def __init__(
+        self,
+        fn: Callable,
+        cell: Any,
+        leaves: List[Any],
+        spec: Any,
+        pool: Any,
+        resident: Optional[Resident] = None,
+    ) -> None:
         static = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
         self.tensor_pos = [i for i, x in enumerate(static) if isinstance(x, torch.Tensor)]
         self.static_in = [static[i] for i in self.tensor_pos]
         self.pins = _instance_tensors(cell)
         self.graph = torch.cuda.CUDAGraph()
+        head = () if resident is None else (resident,)
         with _kernels.recording() as launches:
-            with torch.cuda.graph(self.graph, pool=_pool(device), capture_error_mode="thread_local"):
+            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
                 with program_scope():
-                    out = fn(cell, *_tree.unflatten(spec, static))
+                    out = fn(cell, *head, *_tree.unflatten(spec, static))
         self.launches = launches
         self.out_leaves, self.out_spec = _tree.flatten(out)
         self.nbytes = sum(t.numel() * t.element_size() for t in self.static_in)
@@ -355,14 +411,25 @@ class SharedEntry:
         self._lock = threading.RLock()
         # the last dispatch signature per variant, for the retrace explainer
         self._obs_sigs: Dict[str, Dict[str, Any]] = {}
+        # the live banks whose programs this entry captured on the card, by
+        # id (a dict of tensors neither hashes nor compares by identity)
+        self._residents: "weakref.WeakValueDictionary[int, Resident]" = weakref.WeakValueDictionary()
 
     @property
     def retraces(self) -> int:
         return sum(max(0, n - 1) for n in self._variant_traces.values())
 
+    def _all_programs(self) -> List[Any]:
+        """This entry's programs: its own, and those it captured over the
+        leaves of banks that are still alive."""
+        out = list(self._programs.values())
+        for resident in list(self._residents.values()):
+            out.extend(p for k, p in list(resident.programs.items()) if k[0] == self.kind)
+        return out
+
     @property
     def graphs(self) -> List[_Graph]:
-        return [p for p in self._programs.values() if isinstance(p, _Graph)]
+        return [p for p in self._all_programs() if isinstance(p, _Graph)]
 
     def invoke(
         self,
@@ -372,44 +439,45 @@ class SharedEntry:
         *inputs: Any,
         probe: bool = False,
         bucket: Optional[int] = None,
+        resident: Optional[Resident] = None,
     ) -> Any:
         """Run one variant on ``inputs``: a replay of its graph on the card
         (captured at the key's first call, after an eager warm-up on a side
         stream), the eager transition on the CPU. ``probe`` makes an
         instance's first dispatch run the Python body even where a graph
         exists; ``bucket`` (the padded batch of a bucketed dispatch) goes
-        into the explainer's signature. Raises :class:`JitIncompatibleError`
-        where the program cannot be captured."""
+        into the explainer's signature. ``resident`` (a bank's leaves) is
+        passed to the body before ``inputs`` and is read and written in
+        place, never copied; on the card its programs are kept on it.
+        Raises :class:`JitIncompatibleError` where the program cannot be
+        captured."""
         fn = self._fns[variant]
         leaves, spec = _tree.flatten(inputs)
         key = _program_key(variant, leaves, spec)
         device = next((x.device for x in leaves if isinstance(x, torch.Tensor)), torch.device("cpu"))
-        program = self._programs.get(key)
+        head: Tuple = ()
+        programs = self._programs
+        if resident is not None:
+            key = key + (_resident_key(resident),)
+            head = (resident,)
+            if device.type == "cuda":
+                key = (self.kind,) + key
+                programs = resident.programs
+                self._residents[id(resident)] = resident
+        program = programs.get(key)
         if program == _FAILED:
             raise JitIncompatibleError(f"the {self.kind} program {variant!r} could not be captured on {device}")
         new = program is None
         if device.type != "cuda":
             with program_scope():
-                out = fn(cell, *inputs)
+                out = fn(cell, *head, *inputs)
             if new:
-                self._programs[key] = True
+                programs[key] = True
         elif new:
-            out = self._warm_up(fn, cell, inputs, device)
-            with self._lock:
-                stream = torch.cuda.current_stream(device)
-                try:
-                    self._programs[key] = _Graph(fn, cell, leaves, spec, device)
-                except JitIncompatibleError:
-                    self._programs[key] = _FAILED
-                    _end_refused_capture(device, stream)
-                    raise
-                except RuntimeError as err:  # the toolkit refused a captured operation
-                    self._programs[key] = _FAILED
-                    _end_refused_capture(device, stream)
-                    raise JitIncompatibleError(f"CUDA graph capture of {self.kind} {variant!r} failed: {err}") from err
+            out = self._capture(variant, fn, cell, inputs, leaves, spec, device, programs, key, resident)
         elif probe:
             with program_scope():
-                out = fn(cell, *inputs)
+                out = fn(cell, *head, *inputs)
         else:
             out = program.replay(leaves)
         self._count(variant, new, stats)
@@ -417,12 +485,52 @@ class SharedEntry:
             self._emit_dispatch(variant, new, cell, leaves, bucket)
         return out
 
+    def _capture(
+        self,
+        variant: str,
+        fn: Callable,
+        cell: Any,
+        inputs: Tuple,
+        leaves: List[Any],
+        spec: Any,
+        device: torch.device,
+        programs: Dict[Tuple, Any],
+        key: Tuple,
+        resident: Optional[Resident],
+    ) -> Any:
+        """Warm up, capture and keep the program of ``key``; returns the
+        warm-up's output. A bank program's warm-up (``warm_up=True``) runs
+        its first request alone and writes nothing to the bank; the first
+        replay then applies the whole wave, so a refused capture leaves the
+        bank as it was."""
+        if resident is None:
+            out = self._warm_up(fn, cell, inputs, device)
+            pool = _pool(device)
+        else:
+            self._warm_up(fn, cell, (resident,) + inputs, device, warm_up=True)
+            pool = resident.graph_pool()
+        with self._lock:
+            stream = torch.cuda.current_stream(device)
+            try:
+                programs[key] = _Graph(fn, cell, leaves, spec, pool, resident)
+            except (JitIncompatibleError, RuntimeError) as err:  # RuntimeError: the toolkit refused an operation
+                programs[key] = _FAILED
+                _end_refused_capture(device, stream, pool)
+                if resident is not None:
+                    resident.pool = None
+                if isinstance(err, JitIncompatibleError):
+                    raise
+                raise JitIncompatibleError(f"CUDA graph capture of {self.kind} {variant!r} failed: {err}") from err
+        if resident is None:
+            return out
+        return programs[key].replay(leaves)
+
     @staticmethod
-    def _warm_up(fn: Callable, cell: Any, inputs: Tuple, device: torch.device) -> Any:
+    def _warm_up(fn: Callable, cell: Any, inputs: Tuple, device: torch.device, **kwargs: Any) -> Any:
         side = _side_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side), program_scope():
-            out = fn(cell, *inputs)
+            out = fn(cell, *inputs, **kwargs)
         torch.cuda.current_stream(device).wait_stream(side)
         return out
 
@@ -451,7 +559,7 @@ class SharedEntry:
         policy, screen and bucketing), an encoder (its name; screening
         happens upstream of it), or a member list (the kind; each member's
         class and policy)."""
-        if self.kind in ("metric_update", "bootstrap_update"):
+        if self.kind in ("metric_update", "bootstrap_update", "bank_update", "bank_drive"):
             return type(cell).__name__, (
                 getattr(cell, "on_bad_input", "propagate"),
                 getattr(cell, "health_screen", "nonfinite"),
@@ -488,7 +596,7 @@ class SharedEntry:
             "retraces": self.retraces,
             "bucketed_calls": self.bucketed_calls,
             "graphs": len(graphs),
-            "failed_captures": sum(p == _FAILED for p in self._programs.values()),
+            "failed_captures": sum(p == _FAILED for p in self._all_programs()),
             "static_bytes": sum(g.nbytes for g in graphs),
         }
 
@@ -618,6 +726,174 @@ def bootstrap_transition(
     out = entry.invoke("exact", template, instance_stats(template), stacked, idx, args, kwargs, probe=not probed(template))
     mark_probed(template)
     return out
+
+
+# ---------------------------------------------------------------------------
+# serving bank programs (metrics_tpu_torch.serving)
+# ---------------------------------------------------------------------------
+def _metric_request_body(inst: Any, state: Dict[str, Any], args: Tuple, kwargs: Dict[str, Any], pad: Any) -> Dict[str, Any]:
+    return _health.traced_update(inst, state, args, kwargs, pad_count=pad)
+
+
+def nest_member_states(keys: Tuple[str, ...], flat: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """A collection bank's flat ``"member::state"`` row as ``{member: {state: leaf}}``."""
+    nested: Dict[str, Dict[str, Any]] = {k: {} for k in keys}
+    for name, value in flat.items():
+        k, state = name.split("::", 1)
+        nested[k][state] = value
+    return nested
+
+
+def _collection_request_body(keys: Tuple[str, ...]) -> Callable:
+    """The per-request transition of a collection bank: the fused update's
+    member loop on one flat ``"member::state"`` row, each member with its
+    own kwargs and policy (``_make_fused_entry``'s ``_update``)."""
+
+    def body(members: List[Any], flat: Dict[str, Any], args: Tuple, kwargs: Dict[str, Any], pad: Any) -> Dict[str, Any]:
+        nested = nest_member_states(keys, flat)
+        new: Dict[str, Any] = {}
+        for k, m in zip(keys, members):
+            upd = _health.traced_update(m, nested[k], args, m._filter_kwargs(**kwargs), pad_count=pad)
+            for n, v in upd.items():
+                new[f"{k}::{n}"] = v
+        return new
+
+    return body
+
+
+def _request_at(leaves: List[Any], spec: Any, i: int) -> Tuple[Tuple, Dict[str, Any]]:
+    """Request ``i`` of a stacked wave: row ``i`` of every stacked tensor;
+    the other leaves are shared by every request."""
+    return _tree.unflatten(spec, [x[i] if isinstance(x, torch.Tensor) else x for x in leaves])
+
+
+def _wave_program(body: Callable) -> Callable:
+    """``(cell, bank, slots, args, kwargs[, pads], *, warm_up=False)``: one
+    wave of requests applied to the resident ``bank`` in place. Request
+    ``i`` reads its row ``bank[slots[i]]`` (a copy), runs ``body`` and
+    stores its new row in a ``[R, ...]`` staging buffer; the rows go back
+    into the bank (``index_copy_``) only after the last request, so a wave
+    that raises leaves the bank as it was. Pad requests address the sink
+    row past the capacity, which no tenant owns. ``warm_up`` (ahead of a
+    capture) runs the first request alone and writes nothing: it loads the
+    kernels and runs the Python-init probe."""
+
+    def wave(
+        cell: Any,
+        bank: Dict[str, torch.Tensor],
+        slots: torch.Tensor,
+        args: Tuple,
+        kwargs: Dict[str, Any],
+        pads: Any = None,
+        *,
+        warm_up: bool = False,
+    ) -> None:
+        leaves, spec = _tree.flatten((args, kwargs))
+        n = 1 if warm_up else int(slots.shape[0])
+        staged = {name: leaf.new_empty((n,) + tuple(leaf.shape[1:])) for name, leaf in bank.items()}
+        for i in range(n):
+            row = slots[i : i + 1]
+            state = {name: leaf.index_select(0, row)[0] for name, leaf in bank.items()}
+            req_args, req_kwargs = _request_at(leaves, spec, i)
+            new = body(cell, state, req_args, req_kwargs, None if pads is None else pads[i])
+            for name, value in new.items():
+                staged[name][i].copy_(value)
+            # this request's temporaries are freed before the next one's
+            del state, new, req_args, req_kwargs
+        if not warm_up:
+            for name, leaf in bank.items():
+                leaf.index_copy_(0, slots, staged[name])
+
+    return wave
+
+
+def _scan_program(body: Callable) -> Callable:
+    """``(cell, bank, slot, n_steps, args, kwargs[, pads], *,
+    warm_up=False)``: one tenant's epoch, ``n_steps`` stacked update batches
+    folded in order into the row ``bank[slot]`` (``slot`` a one-element
+    index), written back after the last step. ``warm_up`` runs the first
+    step alone and writes nothing, as a wave's does."""
+
+    def scan(
+        cell: Any,
+        bank: Dict[str, torch.Tensor],
+        slot: torch.Tensor,
+        n_steps: int,
+        args: Tuple,
+        kwargs: Dict[str, Any],
+        pads: Any = None,
+        *,
+        warm_up: bool = False,
+    ) -> None:
+        leaves, spec = _tree.flatten((args, kwargs))
+        state = {name: leaf.index_select(0, slot)[0] for name, leaf in bank.items()}
+        for k in range(1 if warm_up else n_steps):
+            step_args, step_kwargs = _request_at(leaves, spec, k)
+            state = body(cell, state, step_args, step_kwargs, None if pads is None else pads[k])
+        if not warm_up:
+            for name, leaf in bank.items():
+                leaf.index_copy_(0, slot, state[name].unsqueeze(0))
+
+    return scan
+
+
+def _make_bank_entry(cache_key: Any, kind: str, pins: Tuple, body: Callable) -> SharedEntry:
+    """One bank program family. The JAX package vmaps the transition over
+    the requests and donates the bank; here the bank's leaves are resident
+    tensors the program reads and writes in place (``invoke(resident=)``),
+    and the requests run one after another in one program (the kernel
+    wrappers have no batching rule). The JAX package's ``scatter`` and
+    ``dense`` variants are one program here, ``wave`` (and ``wave_pad``,
+    with a per-request pad count for the pow2 correction): a loop has
+    nothing to gain from running idle slots, so every wave runs its requests
+    alone and an idle slot is never read or written. The bank keeps the
+    JAX choice between them in its stats and its ``flush`` events only."""
+    entry = SharedEntry(cache_key, kind, pins)
+    wave = _wave_program(body)
+    entry._fns = {"wave": wave, "wave_pad": wave}
+    return entry
+
+
+def bank_entry(template: Any) -> SharedEntry:
+    """The shared entry of one metric's bank programs (kind
+    ``bank_update``), keyed by the template's :func:`program_identity`:
+    every bank of one metric configuration shares it. A program key adds
+    the variant and the wave's signature; on the card it adds the bank's
+    leaf addresses too (a graph bakes them), so each bank captures its own
+    graphs under the shared entry."""
+    key, pins = program_identity(template)
+    cache_key = ("bank_update", key)
+    return _get_or_create(cache_key, lambda: _make_bank_entry(cache_key, "bank_update", pins, _metric_request_body))
+
+
+def collection_bank_entry(keys: Tuple[str, ...], members: List[Any]) -> SharedEntry:
+    """The shared entry of one collection bank's programs (kind
+    ``collection_bank``), keyed as :func:`fused_entry` is: the member names
+    and every member's fingerprint."""
+    member_keys: List[Any] = []
+    pins: List[Any] = []
+    for m in members:
+        k, p = metric_fingerprint(m)
+        member_keys.append(k)
+        pins.extend(p)
+    cache_key = ("collection_bank", tuple(keys), tuple(member_keys))
+    body = _collection_request_body(tuple(keys))
+    return _get_or_create(cache_key, lambda: _make_bank_entry(cache_key, "collection_bank", tuple(pins), body))
+
+
+def bank_drive_entry(template: Any) -> SharedEntry:
+    """The shared entry of one metric's bank epochs (kind ``bank_drive``,
+    variants ``scan`` and ``scan_pad``), keyed as :func:`bank_entry`."""
+    key, pins = program_identity(template)
+    cache_key = ("bank_drive", key)
+
+    def factory() -> SharedEntry:
+        entry = SharedEntry(cache_key, "bank_drive", pins)
+        scan = _scan_program(_metric_request_body)
+        entry._fns = {"scan": scan, "scan_pad": scan}
+        return entry
+
+    return _get_or_create(cache_key, factory)
 
 
 # ---------------------------------------------------------------------------

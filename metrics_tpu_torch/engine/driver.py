@@ -52,9 +52,9 @@ be captured (NCCL); on gloo the sync runs right after the last replay.
 drive over a mesh of more than one process, the states are the global
 ones: the host sync is disarmed and host updates raise until ``reset()``.
 
-Out of this slice: ``drive_bank`` (ROADMAP §1 item 8) and drive snapshots
-(``snapshot_store``/``resume_from``, item 10), which raise
-``NotImplementedError``.
+:func:`drive_bank` folds one tenant's epoch into its serving-bank row.
+Out of this slice: drive snapshots (``snapshot_store``/``resume_from``,
+ROADMAP §1 item 10), which raise ``NotImplementedError``.
 """
 import threading
 from typing import Any, Dict, Iterable, List, Optional, Tuple
@@ -502,8 +502,8 @@ def drive(
         )
     if snapshot_store is not None or snapshot_every is not None or resume_from is not None:
         raise NotImplementedError(
-            "drive snapshots (snapshot_store=, snapshot_every=, resume_from=) need the serving SpillStore of"
-            " ROADMAP §1 item 10, not ported yet."
+            "drive snapshots (snapshot_store=, snapshot_every=, resume_from=) are ROADMAP §1 item 10,"
+            " not ported yet."
         )
     del snapshot_key
     if isinstance(axis_name, (tuple, list)):
@@ -731,6 +731,19 @@ def _drive_mesh(
             m._drive_synced = True
     values = obj.compute() if compute_in_trace else None
     return DriveResult(n_steps, runner.n_chunks, tuple(k for k, _ in fused), (), values)
+
+
+def drive_bank(bank: Any, tenant: Any, batches: Any) -> int:
+    """Fold one tenant's whole epoch into its
+    :class:`~metrics_tpu_torch.serving.MetricBank` row in one program:
+    ``batches`` is a sequence of per-step update-argument tuples, stacked on
+    a steps axis and applied in order by the bank's ``bank_drive`` program
+    (a CUDA graph on the card), bit-identical to flushing the steps one at a
+    time. Delegates to ``bank.drive``, which states the constraints (one
+    step structure; ragged batch sizes need ``jit_bucket="pow2"``;
+    collection banks are fed through waves instead). Returns the steps
+    applied."""
+    return bank.drive(tenant, batches)
 
 
 def _drive_local(obj: Any, batches: Any, compute_in_trace: bool, steps_per_chunk: int) -> DriveResult:

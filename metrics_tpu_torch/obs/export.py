@@ -12,9 +12,11 @@ keys. Its ``engine``, ``fetch``, ``encoders``, ``kernels``, ``sharding``
 (:func:`~metrics_tpu_torch.parallel.quantize.wire_stats`), ``integrity``
 (:func:`~metrics_tpu_torch.resilience.integrity.integrity_stats`),
 ``compat`` (the schema registry's ``families`` and the groups'
-``wire_negotiation``), ``bus``, ``spans`` and ``warnings`` sections hold
-the port's counters; the sections of layers the port does not have yet
-(``serving``, ``warmup``, ``fleet``, ``durability``, ``guard``) hold
+``wire_negotiation``), ``serving``
+(:func:`~metrics_tpu_torch.serving.serving_summary`), ``durability``
+(:func:`~metrics_tpu_torch.serving.durability_stats`), ``bus``, ``spans``
+and ``warnings`` sections hold the port's counters; the sections of layers
+the port does not have yet (``warmup``, ``fleet``, ``guard``) hold
 ``{"ported": False}``.
 
 JSONL: one event per line in :meth:`Event.as_dict`'s schema
@@ -38,8 +40,8 @@ JSONL_SCHEMA_VERSION = 1
 _EVENT_REQUIRED_FIELDS = ("v", "seq", "kind", "t", "source", "data")
 
 #: Sections of the JAX process snapshot whose layers the port does not have
-#: yet (ROADMAP §1 items 8 and 10); each later slice fills in its own.
-UNPORTED_SECTIONS = ("serving", "warmup", "fleet", "durability", "guard")
+#: yet (ROADMAP §1 item 10); each later slice fills in its own.
+UNPORTED_SECTIONS = ("warmup", "fleet", "guard")
 
 
 def _shard_stats() -> Dict[str, Any]:
@@ -65,6 +67,18 @@ def _compat_stats() -> Dict[str, Any]:
     from metrics_tpu_torch.resilience import schema
 
     return {"families": schema.compat_stats(), "wire_negotiation": groups.negotiation_stats()}
+
+
+def _serving_summary() -> Dict[str, Any]:
+    from metrics_tpu_torch.serving import serving_summary
+
+    return serving_summary()
+
+
+def _durability_stats() -> Dict[str, Any]:
+    from metrics_tpu_torch.serving import durability_stats
+
+    return durability_stats()
 
 
 def _kernel_section() -> Dict[str, Any]:
@@ -104,6 +118,10 @@ def process_snapshot() -> Dict[str, Any]:
         "integrity": _integrity_stats(),
         # durable-schema decodes, upcasts and rejects; wire negotiation
         "compat": _compat_stats(),
+        # per-bank occupancy, evictions, launches and screening totals
+        "serving": _serving_summary(),
+        # journal appends and compactions, spill blobs, checkpoints, recoveries
+        "durability": _durability_stats(),
     }
     for name in UNPORTED_SECTIONS:
         out[name] = {"ported": False}
@@ -227,8 +245,9 @@ _ENCODER_COUNTERS = (
 def prometheus_text(obj: Optional[Any] = None) -> str:
     """The counters in Prometheus text exposition format: the engine, the
     async fetches, the encoders, the kernel registry, the sharded states,
-    the wire codecs, the state digests, the schema registry and the wire
-    negotiation, the bus and the spans; with a metric or collection, each member's compile, sync and
+    the wire codecs, the serving banks, the state digests, the schema
+    registry and the wire negotiation, the durable plane, the bus and the
+    spans; with a metric or collection, each member's compile, sync and
     health counters under a ``member`` label (a bare metric is ``_``)."""
     from metrics_tpu_torch import engine as _engine
     from metrics_tpu_torch.encoders import encoder_stats
@@ -285,6 +304,22 @@ def prometheus_text(obj: Optional[Any] = None) -> str:
         _sample("metrics_tpu_wire_payloads_total", wire["codec_counts"][codec], {"codec": codec})
     _sample("metrics_tpu_wire_max_dequant_error", wire["max_dequant_error"], kind="gauge")
 
+    # serving plane: per-bank occupancy, eviction and quarantine gauges
+    for bank_name, bank in sorted(_serving_summary().items()):
+        labels = {"bank": bank_name, "template": bank.get("template", "")}
+        _sample("metrics_tpu_bank_capacity", bank["capacity"], labels, kind="gauge")
+        _sample("metrics_tpu_bank_occupancy", bank["occupancy"], labels, kind="gauge")
+        _sample("metrics_tpu_bank_spilled", bank["spilled"], labels, kind="gauge")
+        for key in ("admits", "readmits", "evictions", "spills", "launches", "requests"):
+            _sample(f"metrics_tpu_bank_{key}", bank[key], labels)
+        if bank.get("bank_drives"):
+            _sample("metrics_tpu_bank_drives", bank["bank_drives"], labels)
+            _sample("metrics_tpu_bank_drive_steps", bank["drive_steps"], labels)
+        if "quarantine_rate" in bank:
+            _sample("metrics_tpu_bank_quarantine_rate", bank["quarantine_rate"], labels, kind="gauge")
+            _sample("metrics_tpu_bank_updates_quarantined", bank["updates_quarantined"], labels)
+            _sample("metrics_tpu_bank_rows_masked", bank["rows_masked"], labels)
+
     # state digests: the failures are the alerting surface
     for key, value in sorted(_integrity_stats().items()):
         _sample(f"metrics_tpu_integrity_{key}", value)
@@ -300,6 +335,10 @@ def prometheus_text(obj: Optional[Any] = None) -> str:
             _sample(f"metrics_tpu_compat_schema_{key}", rec[key], labels)
     for key, value in sorted(compat["wire_negotiation"].items()):
         _sample(f"metrics_tpu_compat_wire_{key}", value)
+
+    # durable state plane: journal, spill, checkpoint and recovery counters
+    for key, value in sorted(_durability_stats().items()):
+        _sample(f"metrics_tpu_durable_{key}", value)
 
     bus_summary = _bus.summary()
     for kind in sorted(bus_summary["by_kind"]):

@@ -589,3 +589,32 @@ def sync_state_in_trace(
         hierarchical=hierarchical,
         mesh=mesh,
     )["_"]
+
+
+def sync_bank_states(
+    bank: dict,
+    reductions: dict,
+    axis_name: Union[str, Sequence[str]],
+    hierarchical: bool = False,
+    *,
+    mesh: Optional[Any] = None,
+) -> dict:
+    """In-program sync of a :class:`~metrics_tpu_torch.serving.MetricBank`'s
+    leaves: a ``[capacity, ...]`` leaf under an elementwise all-reduce keeps
+    its tenant axis, so the contract is only that every process holds the
+    same tenants in the same slots (replicated serving). Banks hold no list
+    state, and a custom reduction would see the tenant axis mixed into its
+    gather, so only ``sum``/``mean``/``max``/``min`` are taken; a collection
+    bank's ``"member::state"`` leaves are looked up by their full names.
+    ``hierarchical=True`` stages each reduction inner axis first
+    (:func:`reduce_in_trace`)."""
+    for name, value in bank.items():
+        fx = reductions.get(name)
+        if isinstance(value, list) or fx not in ("sum", "mean", "max", "min"):
+            raise ValueError(
+                f"sync_bank_states: state {name!r} has reduction {fx!r};"
+                " banks only hold elementwise-reducible array states"
+                " (sum/mean/max/min) — a custom callable would receive the"
+                " tenant axis mixed into its gather axis."
+            )
+    return sync_state_in_trace(bank, reductions, axis_name, hierarchical=hierarchical, mesh=mesh)

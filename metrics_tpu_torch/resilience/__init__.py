@@ -10,7 +10,8 @@
   straggler faults, per-thread world simulation (:func:`run_as_peers`), and
   the ``METRICS_TPU_FAULTS`` wrapper for live clients.
 * :mod:`~metrics_tpu_torch.resilience.integrity`: per-leaf state digests
-  and their verification.
+  and their verification, and the serving bank's shadow audits
+  (:class:`IntegrityAuditor`), bitflip injection and forged payloads.
 * :mod:`~metrics_tpu_torch.resilience.schema`: the durable-schema registry
   (``decode_any``, the downgrade guard, ``compat_stats``).
 * :mod:`~metrics_tpu_torch.resilience.overload`: admission control
@@ -40,7 +41,11 @@ from metrics_tpu_torch.resilience.faults import (  # noqa: F401
     simulated_world,
 )
 from metrics_tpu_torch.resilience.integrity import (  # noqa: F401
+    AuditEntry,
+    IntegrityAuditor,
     fold_digest,
+    forge_payload_corruption,
+    inject_bitflip,
     integrity_stats,
     leaf_digest,
     reset_integrity_stats,

@@ -230,8 +230,9 @@ class FaultPlan:
         Returns the flip's 0-based sequence index while the spec still owes
         flips (``times`` total, then the fault heals), else ``None``. The
         caller derives the corruption site (tenant slot, leaf, bit offset)
-        deterministically from this index — see
-        the serving layer's ``inject_bitflip`` (ROADMAP §1 item 8) — so a plan
+        deterministically from this index —
+        :func:`~metrics_tpu_torch.resilience.integrity.bitflip_injector`
+        wires it to a bank's ``state_fault_injector`` — so a plan
         reproduces the exact same SDC every run. Thread-safe (claimed under
         the plan lock, like ``corrupt``'s counter)."""
         spec = self._first("bitflip", rank, epoch)

@@ -812,11 +812,22 @@ def test_jsonl_roundtrip_and_prometheus_render():
     assert process["kernels"]["by_op"] == mt.kernel_stats()
     assert set(process["kernels"]) == {"registered", "launches", "plain_calls", "by_op"}
     assert "confusion_counts" in process["kernels"]["registered"] and "policy" not in process["kernels"]
-    for name in ("serving", "warmup", "fleet", "durability", "guard"):
+    for name in ("warmup", "fleet", "guard"):
         assert process[name] == {"ported": False}
     # the resilient sync's sections are ported, under the JAX package's keys
     mj = _jax()
     jax_process = mj.obs.snapshot()
+    # the serving plane's: serving_summary() per bank, durability_stats()
+    assert process["serving"] == mt.serving.serving_summary()
+    assert process["durability"] == mt.serving.durability_stats()
+    assert set(process["durability"]) == set(jax_process["durability"])
+    port_bank = mt.serving.MetricBank(mt.Accuracy(num_classes=3, device="cpu"), capacity=2, name="obs_keys")
+    jax_bank = mj.serving.MetricBank(mj.Accuracy(num_classes=3), capacity=2, name="obs_keys")
+    assert set(mt.obs.snapshot()["serving"]["obs_keys"]) == set(mj.obs.snapshot()["serving"]["obs_keys"])
+    bank_families = [f"metrics_tpu_bank_{k}" for k in ("capacity", "occupancy", "spilled", "admits", "launches")]
+    for family in bank_families + ["metrics_tpu_durable_spill_writes", "metrics_tpu_durable_recovers"]:
+        assert f"# TYPE {family} " in mt.obs.prometheus_text() and f"# TYPE {family} " in mj.obs.prometheus_text(), family
+    del port_bank, jax_bank
     for name in ("wire", "integrity", "compat"):
         assert set(process[name]) == set(jax_process[name]), name
     assert process["wire"] == mt.parallel.wire_stats()
