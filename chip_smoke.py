@@ -399,6 +399,30 @@
    operations, the durable plane's time split (digest, encode, I/O),
    recovery seconds, bytes on disk, the phase's seconds.
 
+19. Pod-scale banks (phase 20, last). Four gloo ranks on ``cuda:0`` (this
+   script run with ``--pod-rank``) on a ``(2, 2)`` ``("host", "mp")``
+   mesh, each building the same ``MetricBank`` of top-5 ``Accuracy`` and
+   ``ConfusionMatrix(num_classes=1000, class_sharding="mp")`` at capacity
+   256 a shard with ``tenant_axis="host"`` over one ``DiskStore`` (mesh
+   rank 0 writes it): 512 tenants, 257 rows of a [500, 1000] confusion
+   slice a rank (1.03 GB). Every rank holds the phase's seeded
+   ImageNet-1k-shaped requests of [64, 1000] on the host and copies to the
+   card only those it owns: 512 tenants x 2 requests in 4 waves of 256
+   through ``RequestRouter(max_delay_s=None)``, then 32 tenants past the
+   capacity (32 spills through the read exchange to rank 0's store), then
+   ``recover()`` into a fresh pod bank. Checked: both kernels bit for bit
+   against their plain versions at the phase's shapes; each rank's own
+   rows against the numpy oracle bit for bit, read locally; each rank's
+   launches of ``select_topk`` and ``confusion_counts`` equal its owned
+   requests plus its captures' warm-up requests, with no plain call and 0
+   host syncs a replayed wave; ``compute_many`` of 32 tenants and 16
+   recovered tenants against solo collections bit for bit; every rank's
+   ``summary()`` equal; ``del bank`` releases each rank's graph pool.
+   Logged: a wave's host and device ms a rank, logical requests/s (the
+   ranks share one card), the read exchange's ms, a spill's ms split into
+   exchange, digest, encode and I/O, ``recover()`` s, peak memory and the
+   graph pool a rank.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
 CUDA the script exits 2 and prints no result.
@@ -6970,6 +6994,282 @@ def run_serving_phase(torch, mt, smi: str, logits, target, main_top5) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: pod-scale banks
+# ---------------------------------------------------------------------------
+POD_SEED = 20
+POD_BANK = (256, 2, 256)  # slots a tenant shard (2 shards: 512 tenants), requests a tenant, tenants a wave
+POD_SPILL = 32  # tenants admitted past the capacity: each spills the least recently used one
+POD_SOLO = 32  # tenants of compute_many held against solo collections
+POD_RECOVERED = 16  # spilled tenants held against solo collections after recover()
+POD_RANK_TIMEOUT_S = 420
+
+
+def _pod_collection(mt):
+    c = IMAGENET_VAL[1]
+    return mt.MetricCollection(
+        {
+            "top5": mt.Accuracy(num_classes=c, top_k=TOP_K),
+            "confmat": mt.ConfusionMatrix(num_classes=c, class_sharding="mp"),
+        }
+    )
+
+
+def _pod_values(coll) -> dict:
+    """A solo collection's values without the cross-process sync (the ranks
+    are a world; each solo tenant is local)."""
+    return {k: m.compute_state(m._snapshot_state()) for k, m in coll.items()}
+
+
+def _pod_rank(rank: int, port: int, out_path: str, root: str) -> None:
+    """One rank of phase 20 (this script run with ``--pod-rank``): join the
+    gloo world of four on ``cuda:0``, serve the pod bank and save the
+    checks' results and timings."""
+    import gc
+    import importlib
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import metrics_tpu_torch as mt
+    from metrics_tpu_torch.ops import confusion_counts as cc
+    from metrics_tpu_torch.ops import select_topk as st
+    from metrics_tpu_torch.serving import DiskStore, MetricBank, RequestRouter
+    from metrics_tpu_torch.serving import pod as _pod
+
+    torch.cuda.set_device(0)
+    # four ranks share the host's cores: torch's default (a thread a core
+    # in every rank) oversubscribes them on every host-side copy
+    torch.set_num_threads(max(1, (os.cpu_count() or SHARD_WORLD) // SHARD_WORLD))
+    _record_refusals()
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=SHARD_WORLD, rank=rank, timeout=timedelta(seconds=300)
+    )
+    cap, per, wave_size = POD_BANK
+    n_main = 2 * cap
+    c = IMAGENET_VAL[1]
+    rec: dict = {"rank": rank}
+    t_phase = time.perf_counter()
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("host", "mp"))
+    logits_np, target_np = _imagenet_stream(np.random.default_rng(POD_SEED), (n_main * per + POD_SPILL) * SERVE_REQ)
+    pred1_np = logits_np.argmax(1)
+    logits, target = torch.from_numpy(logits_np), torch.from_numpy(target_np)
+
+    def block(t: int, r: int) -> int:
+        return r * n_main + t if t < n_main else n_main * per + (t - n_main)
+
+    def request(t: int, r: int):
+        b = block(t, r) * SERVE_REQ
+        return logits[b:b + SERVE_REQ], target[b:b + SERVE_REQ]
+
+    # both kernels at the phase's shapes against their plain versions
+    mp_idx = mesh.get_local_rank("mp")
+    r0, rows = mp_idx * (c // 2), c // 2
+    x, y = (v.cuda() for v in request(0, 0))
+    p1 = x.argmax(1)
+    _max_abs_err(torch, "phase 20 select_topk [64, 1000]", st._topk_mask_cuda(x, TOP_K), st._topk_mask_plain(x, TOP_K))
+    _max_abs_err(
+        torch, f"phase 20 confusion_counts window ({r0}, {rows})", cc._confusion_counts_cuda(p1, y, c, rows=(r0, rows)),
+        cc._confusion_counts_plain(p1, y, c, rows=(r0, rows)),
+    )
+    seconds: dict = {}
+    for key, module, name in _CHILD_TIMED:
+        _time_into(seconds, key, importlib.import_module(module), name)
+    for name in ("put", "get", "append_journal_many", "rewrite_journal"):
+        _time_into(seconds, "io", DiskStore, name)
+    _time_into(seconds, "exchange", _pod.PodLayout, "exchange")
+    # where a wave's host time goes
+    _time_into(seconds, "agree", _pod.PodLayout, "agree")
+    for name in ("_prepare", "_admit_many", "_stack", "_run", "_write_back"):
+        _time_into(seconds, name.strip("_"), MetricBank, name)
+
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bank = MetricBank(
+        _pod_collection(mt), capacity=cap, mesh=mesh, tenant_axis="host", name="smoke20", spill_store=DiskStore(root)
+    )
+    router = RequestRouter(bank, max_requests=wave_size, max_delay_s=None)
+    waves = [(r, list(range(s, s + wave_size))) for r in range(per) for s in range(0, n_main, wave_size)]
+    waves.append((0, list(range(n_main, n_main + POD_SPILL))))
+    owned = 0
+    wall, host_ms, syncs, dev_rows = [], [], [], None
+    t0 = _reset_stats(torch, mt)
+    for i, (r, group) in enumerate(waves):
+
+        def submit(r=r, group=group):
+            for t in group:
+                router.submit(t, *request(t, r))
+            router.flush()
+
+        spill_wave = i == len(waves) - 1
+        before = dict(seconds)
+        torch.cuda.synchronize()
+        t_w = time.perf_counter()
+        if i == 0:
+            submit()
+        elif i == len(waves) - 2:  # the last full wave under the profiler: its device time
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                syncs.append(_host_syncs(torch, submit))
+                torch.cuda.synchronize()
+            dev_rows = _device_rows(prof)
+        else:
+            syncs.append(_host_syncs(torch, submit))
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t_w) * 1e3)
+        host_ms.append(bank._last_flush_ms)
+        owned += sum(bank._owns(bank._slots[t]) for t in group)
+        split = {k: round((seconds.get(k, 0.0) - before.get(k, 0.0)) * 1e3, 1) for k in seconds}
+        rec.setdefault("wave_split_ms", []).append({k: v for k, v in split.items() if v})
+        if spill_wave:
+            rec["spill_s"] = {k: seconds.get(k, 0.0) - before.get(k, 0.0) for k in seconds}
+    graphs = sum(1 for p in bank._resident.programs.values() if not isinstance(p, (bool, str)))
+    per_kernel = owned + graphs  # each capture's warm-up runs one request
+    rec["seconds"], stats = _read_stats(torch, mt, t0, {"select_topk": per_kernel, "confusion_counts": per_kernel})
+    rec["launches"] = _launches(stats)
+    rec["owned"], rec["graphs"] = owned, graphs
+    if any(syncs[:-1]):
+        raise AssertionError(f"phase 20 rank {rank}: host syncs per replayed wave {syncs}")
+    rec["wall_ms"], rec["host_ms"], rec["syncs"] = wall, host_ms, syncs
+    rec["device_ms"] = sum(row["device_us"] for row in dev_rows) / 1e3 if dev_rows else None
+    rec["device_ops"] = sum(row["calls"] for row in dev_rows) if dev_rows else None
+    if bank.stats["spills"] != POD_SPILL or bank.stats["requests"] != n_main * per + POD_SPILL:
+        raise AssertionError(f"phase 20 rank {rank}: bank stats {bank.stats}")
+
+    # this rank's own rows against the numpy oracle, read locally (no exchange)
+    local = bank._bank["confmat::confmat"].cpu().numpy()
+    want = np.zeros((rows, c), np.int64)
+    checked = 0
+    for t, slot in bank._slots.items():
+        if not bank._owns(slot):
+            continue
+        want[:] = 0
+        picks = np.concatenate(
+            [np.arange(block(t, r) * SERVE_REQ, (block(t, r) + 1) * SERVE_REQ) for r in range(bank.update_count(t))]
+        )
+        tg, pr = target_np[picks], pred1_np[picks]
+        mine = (tg >= r0) & (tg < r0 + rows)
+        np.add.at(want, (tg[mine] - r0, pr[mine]), 1)
+        if not np.array_equal(local[bank._local_row(slot)], want):
+            raise AssertionError(f"phase 20 rank {rank} tenant {t}: its rows {r0}..{r0 + rows - 1} differ from the oracle")
+        checked += 1
+    rec["rows_checked"] = checked
+    del local
+
+    # solo collections of the checked tenants, each fed its requests
+    resident = list(range(POD_SPILL, POD_SPILL + POD_SOLO))
+    recovered = list(range(POD_RECOVERED))
+    solos = {}
+    for t in resident + recovered:
+        solo = _pod_collection(mt)
+        for r in range(per):
+            solo.update(*(v.cuda() for v in request(t, r)))
+        solos[t] = _pod_values(solo)
+        del solo
+
+    def same_as_solo(name: str, values: dict) -> None:
+        for t, got in values.items():
+            for key, v in got.items():
+                if not torch_equal(v, solos[t][key]):
+                    raise AssertionError(f"phase 20 rank {rank} {name} tenant {t} {key}: differs from a solo collection")
+
+    gathers = bank.stats["coalesced_gathers"]
+    before = dict(seconds)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter()
+    values = bank.compute_many(resident)
+    torch.cuda.synchronize()
+    rec["compute_many_s"] = time.perf_counter() - t_c
+    rec["exchange_s"] = seconds.get("exchange", 0.0) - before.get("exchange", 0.0)
+    if bank.stats["coalesced_gathers"] != gathers + 1:
+        raise AssertionError(f"phase 20 rank {rank}: compute_many took {bank.stats['coalesced_gathers'] - gathers} gathers")
+    same_as_solo("compute_many", values)
+    summary = bank.summary()
+    summary.pop("flush_ms_ewma")
+    rec["summary"] = summary
+    rec["peak_gb"] = (torch.cuda.max_memory_allocated() - baseline) / 1e9
+    rec["bank_gb"] = sum(v.numel() * v.element_size() for v in bank._resident.values()) / 1e9
+    pool_id = bank._resident.pool
+    rec["pool"] = _graph_pool_bytes(torch, pool_id)
+    del bank, router, values
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["pool_left"] = _graph_pool_bytes(torch, pool_id)
+    if rec["pool_left"]:
+        raise AssertionError(f"phase 20 rank {rank}: after del bank its graph pool holds {_mib(rec['pool_left'])}")
+
+    # the kill: only the DiskStore survives; every rank recovers it into a fresh pod bank
+    dist.barrier()
+    torch.cuda.synchronize()
+    t_r = time.perf_counter()
+    back = MetricBank.recover(
+        _pod_collection(mt), cap, DiskStore(root), name="smoke20", mesh=mesh, tenant_axis="host"
+    )
+    rec["recover_s"] = time.perf_counter() - t_r
+    t_r = time.perf_counter()
+    values = back.compute_many(recovered)
+    torch.cuda.synchronize()
+    rec["recovered_compute_s"] = time.perf_counter() - t_r
+    if sorted(back.spilled_tenants) != list(range(n_main + POD_SPILL)) or any(back.update_count(t) != per for t in recovered):
+        raise AssertionError(f"phase 20 rank {rank}: recovered {len(back.spilled_tenants)} sessions")
+    same_as_solo("recovered", values)
+    rec["disk_mb"] = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs) / 1e6
+    rec["phase_s"] = time.perf_counter() - t_phase
+    del back, values
+    torch.save(rec, out_path)
+    dist.destroy_process_group()
+
+
+def run_pod_phase(torch, mt, smi: str) -> dict:
+    """Phase 20: pod-scale banks on four gloo ranks. Returns the launches,
+    credited per rank: the windowed confusion counts under
+    ``confusion_counts@window``."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        ranks = _run_shard_ranks(
+            out_dir, flag="--pod-rank", phase="20", timeout_s=POD_RANK_TIMEOUT_S, extra=(os.path.join(out_dir, "store"),)
+        )
+    first = ranks[0]["summary"]
+    for rec in ranks[1:]:
+        if rec["summary"] != first:
+            raise AssertionError(f"phase 20: rank {rec['rank']}'s summary() differs from rank 0's: {rec['summary']} vs {first}")
+    cap, per, wave_size = POD_BANK
+    for rec in ranks:
+        spill = rec["spill_s"]
+        per_spill = {k: round(spill.get(k, 0.0) * 1e3 / POD_SPILL, 1) for k in ("exchange", "digest", "encode", "io")}
+        dev = "not measured" if rec["device_ms"] is None else f"{rec['device_ms']:.2f} ms device, {rec['device_ops']} device operations"
+        _log(
+            f"phase 20 rank {rec['rank']}: MetricBank(capacity={cap}, mesh=(host=2, mp=2), tenant_axis='host') of top-5"
+            f" Accuracy + ConfusionMatrix({IMAGENET_VAL[1]}, class_sharding='mp'), {2 * cap} tenants x {per} requests of"
+            f" [{SERVE_REQ}, {IMAGENET_VAL[1]}] in {len(rec['wall_ms']) - 1} waves of {wave_size}, then {POD_SPILL} past"
+            f" the capacity ({POD_SPILL} spills over the DiskStore): {rec['owned']} requests owned, launches"
+            f" {rec['launches']} ({rec['graphs']} captures), {rec['rows_checked']} tenants' rows equal the oracle,"
+            f" {POD_SOLO} tenants of compute_many and {POD_RECOVERED} recovered ones equal solo collections bit for bit;"
+            f" ms per wave wall {[round(w, 1) for w in rec['wall_ms']]} (wave 1: the warm-up and capture; wave"
+            f" {len(rec['wall_ms']) - 1} under the profiler; the last: the spill wave), host (apply_batch)"
+            f" {[round(h, 1) for h in rec['host_ms']]}, split by wave {rec['wave_split_ms']} ms; {dev} (the profiled wave);"
+            f" host syncs per wave {rec['syncs']};"
+            f" {wave_size / (rec['wall_ms'][2] / 1e3):.0f} logical requests/s (wave 3; four ranks share the card);"
+            f" compute_many of {POD_SOLO} {rec['compute_many_s'] * 1e3:.0f} ms, its read exchange"
+            f" {rec['exchange_s'] * 1e3:.0f} ms; a spill {per_spill} ms (exchange, digest, encode, I/O; rank 0 alone"
+            f" encodes and writes); recover() {rec['recover_s']:.2f} s, then {POD_RECOVERED} tenants decoded and computed"
+            f" in {rec['recovered_compute_s']:.2f} s; peak {rec['peak_gb']:.2f} GB over the bank's {rec['bank_gb']:.2f} GB,"
+            f" graph pool {_mib(rec['pool'])}, released on del bank; {rec['disk_mb']:.0f} MB on disk;"
+            f" rank phase {rec['phase_s']:.1f} s"
+        )
+    _log(f"phase 20 summary() equal on every rank: {first}")
+    launches = {
+        "select_topk": sum(rec["launches"].get("select_topk", 0) for rec in ranks),
+        "confusion_counts@window": sum(rec["launches"].get("confusion_counts", 0) for rec in ranks),
+    }
+    _log(f"phase 20 pod banks: {time.perf_counter() - t_phase:.1f} s in all; launches {launches}; {smi}")
+    return launches
+
+
 def check_windowed_kernels(torch, rng):
     """Phase 16c: the class windows of the confusion-count kernels at the
     phase's shapes, each against its plain version and the matching slice
@@ -7240,13 +7540,14 @@ def main() -> int:
     run_encoder_mesh_phase(torch, mt, smi, bert_pairs)
     resilience_launches = run_resilience_phase(torch, mt, smi)
     serving_launches = run_serving_phase(torch, mt, smi, logits, target, main_top5)
+    pod_launches = run_pod_phase(torch, mt, smi)
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {
         **{
             k: v["launches"] + sync_launches.get(k, 0) + engine_launches.get(k, 0) + wrapper_launches.get(k, 0)
             + obs_launches.get(k, 0) + shard_launches.get(k, 0) + resilience_launches.get(k, 0)
-            + serving_launches.get(k, 0)
+            + serving_launches.get(k, 0) + pod_launches.get(k, 0)
             for k, v in main_stats.items()
         },
         "confusion_counts": main_stats["confusion_counts"]["launches"] + sync_launches.get("confusion_counts", 0)
@@ -7254,7 +7555,7 @@ def main() -> int:
         + obs_launches["confusion_counts"] + shard_launches.get("confusion_counts", 0)
         + resilience_launches["confusion_counts"] + serving_launches["confusion_counts"],
         "confusion_counts@segmentation": seg_launches,
-        "confusion_counts@window": shard_launches["confusion_counts@window"],
+        "confusion_counts@window": shard_launches["confusion_counts@window"] + pod_launches["confusion_counts@window"],
         "multilabel_counts@window": shard_launches["multilabel_counts@window"],
         "multilabel_counts": ml_stats["multilabel_counts"]["launches"],
         "binned_counts": coco_stats["binned_counts"]["launches"] + ctr_stats["binned_counts"]["launches"],
@@ -7298,6 +7599,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--serving-child"]:
         _serving_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--pod-rank"]:
+        _pod_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
     if sys.argv[1:2] == ["--resilience-rank"]:
         _resilience_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
         sys.exit(0)

@@ -74,18 +74,20 @@ ctypes launches with no batching rule.
 :func:`collection_bank_entry`) and its per-tenant epoch
 (:func:`bank_drive_entry`) are programs over the bank's leaves, which are
 *resident*: the bank is the carry of a long-lived serving loop, so its
-leaves are fixed tensors the program reads and writes in place
-(``invoke(resident=)``), never copied in or cloned out. That is a
-deliberate exception to "replaced, never written in place" above: only the
-slot ids and the requests' inputs are static inputs, and everything that
-hands a row to a caller (``MetricBank.tenant_state``, exports, checkpoints,
-audits, ``compute_async``) takes a copy of it. The requests of a wave run
-one after another in the program, as the bootstrap replicates do. A graph
-bakes the leaves' addresses in, so on the card it belongs to its bank: it
-is kept on the :class:`Resident` leaves, in a memory pool of their own, and
-goes with the bank. A wave writes its rows back only after its last
-request. Its warm-up runs one request and writes nothing, and the first
-replay applies the wave, so a refused capture leaves the bank as it was.
+leaves are fixed tensors the program reads in place (``invoke(resident=)``),
+never copied in. Only the slot ids and the requests' inputs are static
+inputs. The requests of a wave run one after another in the program, as
+the bootstrap replicates do, and the program returns the wave's new rows
+without writing them: the bank writes them back (``index_copy_``) once the
+wave succeeded, on a pod bank once every process of its mesh agreed. The
+rows are the graph's own outputs, not cloned: the bank reads them before
+the program's next replay, under its lock. Everything that hands a row to
+a caller (``MetricBank.tenant_state``, exports, checkpoints, audits,
+``compute_async``) takes a copy of it. A graph bakes the leaves' addresses
+in, so on the card it belongs to its bank: it is kept on the
+:class:`Resident` leaves, in a memory pool of their own, and goes with the
+bank. A wave's warm-up runs one request and returns nothing, so a refused
+capture leaves the bank as it was.
 
 **Encoder entries.** An encoder's forward (:func:`encoder_entry`, kind
 ``encode``) is a program like an update: one per input signature, shared by
@@ -320,10 +322,13 @@ class Resident(dict):
     the leading axis), and on the card the programs captured over them with
     their memory pool. A graph bakes the leaves' addresses in, so no other
     bank can replay it: the programs are the bank's, and dropping the bank
-    frees them and, once its last graph is gone, their pool."""
+    frees them and, once its last graph is gone, their pool. ``layout`` is
+    the bank's placement on a mesh (tenant axes, shard count, this
+    process's shard; ``((), 1, 0)`` off a mesh), which keys its programs."""
 
-    def __init__(self, leaves: Dict[str, torch.Tensor]) -> None:
+    def __init__(self, leaves: Dict[str, torch.Tensor], layout: Tuple = ((), 1, 0)) -> None:
         super().__init__(leaves)
+        self.layout = layout
         self.programs: Dict[Tuple, Any] = {}
         self.pool: Any = None
 
@@ -335,8 +340,9 @@ class Resident(dict):
 
 def _resident_key(resident: Any) -> Tuple:
     """A bank program's resident leaves in its key: names, shapes, dtypes
-    and devices, and on the card their addresses (a graph bakes them in)."""
-    return tuple(
+    and devices, and on the card their addresses (a graph bakes them in),
+    with the bank's layout."""
+    return (getattr(resident, "layout", None),) + tuple(
         (n, tuple(t.shape), t.dtype, t.device, t.data_ptr() if t.is_cuda else None) for n, t in sorted(resident.items())
     )
 
@@ -352,9 +358,11 @@ class _Graph:
     """One captured program: the graph, its static input and output tensors,
     the registry launches its capture recorded, and the tensors it reads
     by address. ``resident`` tensors (a bank's leaves) are not copied in:
-    the graph reads and writes them at their own addresses, which key it."""
+    the graph reads them at their own addresses, which key it, and its
+    outputs (the wave's new rows) are handed out uncloned: the bank reads
+    them before the next replay."""
 
-    __slots__ = ("graph", "static_in", "tensor_pos", "out_leaves", "out_spec", "launches", "pins", "nbytes")
+    __slots__ = ("graph", "static_in", "tensor_pos", "out_leaves", "out_spec", "launches", "pins", "nbytes", "resident")
 
     def __init__(
         self,
@@ -378,11 +386,14 @@ class _Graph:
         self.launches = launches
         self.out_leaves, self.out_spec = _tree.flatten(out)
         self.nbytes = sum(t.numel() * t.element_size() for t in self.static_in)
+        self.resident = resident is not None
 
     def replay(self, leaves: List[Any]) -> Any:
         torch._foreach_copy_(self.static_in, [leaves[i] for i in self.tensor_pos])
         self.graph.replay()
         _kernels.credit(self.launches)
+        if self.resident:
+            return _tree.unflatten(self.out_spec, self.out_leaves)
         tensors = [x for x in self.out_leaves if isinstance(x, torch.Tensor)]
         fresh = iter(_clone_all(tensors))
         return _tree.unflatten(
@@ -447,8 +458,8 @@ class SharedEntry:
         instance's first dispatch run the Python body even where a graph
         exists; ``bucket`` (the padded batch of a bucketed dispatch) goes
         into the explainer's signature. ``resident`` (a bank's leaves) is
-        passed to the body before ``inputs`` and is read and written in
-        place, never copied; on the card its programs are kept on it.
+        passed to the body before ``inputs`` and is read in place, never
+        copied; on the card its programs are kept on it.
         Raises :class:`JitIncompatibleError` where the program cannot be
         captured."""
         fn = self._fns[variant]
@@ -769,14 +780,14 @@ def _request_at(leaves: List[Any], spec: Any, i: int) -> Tuple[Tuple, Dict[str, 
 
 def _wave_program(body: Callable) -> Callable:
     """``(cell, bank, slots, args, kwargs[, pads], *, warm_up=False)``: one
-    wave of requests applied to the resident ``bank`` in place. Request
-    ``i`` reads its row ``bank[slots[i]]`` (a copy), runs ``body`` and
-    stores its new row in a ``[R, ...]`` staging buffer; the rows go back
-    into the bank (``index_copy_``) only after the last request, so a wave
-    that raises leaves the bank as it was. Pad requests address the sink
-    row past the capacity, which no tenant owns. ``warm_up`` (ahead of a
-    capture) runs the first request alone and writes nothing: it loads the
-    kernels and runs the Python-init probe."""
+    wave of requests over the resident ``bank``. Request ``i`` reads its
+    row ``bank[slots[i]]`` (a copy), runs ``body`` and stores its new row
+    in a ``[R, ...]`` staging buffer, which the program returns: it writes
+    nothing to the bank, so a wave that raises leaves the bank as it was
+    (the bank writes the rows back once the wave succeeded). Pad requests
+    address the sink row past the capacity, which no tenant owns.
+    ``warm_up`` (ahead of a capture) runs the first request alone and
+    returns nothing: it loads the kernels and runs the Python-init probe."""
 
     def wave(
         cell: Any,
@@ -787,7 +798,7 @@ def _wave_program(body: Callable) -> Callable:
         pads: Any = None,
         *,
         warm_up: bool = False,
-    ) -> None:
+    ) -> Optional[Dict[str, torch.Tensor]]:
         leaves, spec = _tree.flatten((args, kwargs))
         n = 1 if warm_up else int(slots.shape[0])
         staged = {name: leaf.new_empty((n,) + tuple(leaf.shape[1:])) for name, leaf in bank.items()}
@@ -800,9 +811,7 @@ def _wave_program(body: Callable) -> Callable:
                 staged[name][i].copy_(value)
             # this request's temporaries are freed before the next one's
             del state, new, req_args, req_kwargs
-        if not warm_up:
-            for name, leaf in bank.items():
-                leaf.index_copy_(0, slots, staged[name])
+        return None if warm_up else staged
 
     return wave
 
@@ -810,9 +819,10 @@ def _wave_program(body: Callable) -> Callable:
 def _scan_program(body: Callable) -> Callable:
     """``(cell, bank, slot, n_steps, args, kwargs[, pads], *,
     warm_up=False)``: one tenant's epoch, ``n_steps`` stacked update batches
-    folded in order into the row ``bank[slot]`` (``slot`` a one-element
-    index), written back after the last step. ``warm_up`` runs the first
-    step alone and writes nothing, as a wave's does."""
+    folded in order into a copy of the row ``bank[slot]`` (``slot`` a
+    one-element index); the program returns the new row and writes
+    nothing, as a wave does. ``warm_up`` runs the first step alone and
+    returns nothing."""
 
     def scan(
         cell: Any,
@@ -824,15 +834,13 @@ def _scan_program(body: Callable) -> Callable:
         pads: Any = None,
         *,
         warm_up: bool = False,
-    ) -> None:
+    ) -> Optional[Dict[str, torch.Tensor]]:
         leaves, spec = _tree.flatten((args, kwargs))
         state = {name: leaf.index_select(0, slot)[0] for name, leaf in bank.items()}
         for k in range(1 if warm_up else n_steps):
             step_args, step_kwargs = _request_at(leaves, spec, k)
             state = body(cell, state, step_args, step_kwargs, None if pads is None else pads[k])
-        if not warm_up:
-            for name, leaf in bank.items():
-                leaf.index_copy_(0, slot, state[name].unsqueeze(0))
+        return None if warm_up else state
 
     return scan
 
@@ -840,52 +848,56 @@ def _scan_program(body: Callable) -> Callable:
 def _make_bank_entry(cache_key: Any, kind: str, pins: Tuple, body: Callable) -> SharedEntry:
     """One bank program family. The JAX package vmaps the transition over
     the requests and donates the bank; here the bank's leaves are resident
-    tensors the program reads and writes in place (``invoke(resident=)``),
-    and the requests run one after another in one program (the kernel
+    tensors the program reads in place (``invoke(resident=)``), it returns
+    the new rows for the bank to write back, and the requests run one after another in one program (the kernel
     wrappers have no batching rule). The JAX package's ``scatter`` and
     ``dense`` variants are one program here, ``wave`` (and ``wave_pad``,
     with a per-request pad count for the pow2 correction): a loop has
     nothing to gain from running idle slots, so every wave runs its requests
     alone and an idle slot is never read or written. The bank keeps the
-    JAX choice between them in its stats and its ``flush`` events only."""
+    JAX choice between them in its stats and its ``flush`` events only.
+    A wave returns its new rows and writes nothing; no bank program holds
+    a collective."""
     entry = SharedEntry(cache_key, kind, pins)
     wave = _wave_program(body)
     entry._fns = {"wave": wave, "wave_pad": wave}
     return entry
 
 
-def bank_entry(template: Any) -> SharedEntry:
+def bank_entry(template: Any, layout: Tuple = ((), 1, 0)) -> SharedEntry:
     """The shared entry of one metric's bank programs (kind
-    ``bank_update``), keyed by the template's :func:`program_identity`:
-    every bank of one metric configuration shares it. A program key adds
-    the variant and the wave's signature; on the card it adds the bank's
-    leaf addresses too (a graph bakes them), so each bank captures its own
-    graphs under the shared entry."""
+    ``bank_update``), keyed by the template's :func:`program_identity` (a
+    placed member's state splits included) and the bank's ``layout`` on a
+    mesh (``Resident.layout``): every bank of one metric configuration and
+    layout shares it. A program key adds the variant and the wave's
+    signature; on the card it adds the bank's leaf addresses too (a graph
+    bakes them), so each bank captures its own graphs under the shared
+    entry."""
     key, pins = program_identity(template)
-    cache_key = ("bank_update", key)
+    cache_key = ("bank_update", key, layout)
     return _get_or_create(cache_key, lambda: _make_bank_entry(cache_key, "bank_update", pins, _metric_request_body))
 
 
-def collection_bank_entry(keys: Tuple[str, ...], members: List[Any]) -> SharedEntry:
+def collection_bank_entry(keys: Tuple[str, ...], members: List[Any], layout: Tuple = ((), 1, 0)) -> SharedEntry:
     """The shared entry of one collection bank's programs (kind
     ``collection_bank``), keyed as :func:`fused_entry` is: the member names
-    and every member's fingerprint."""
+    and every member's fingerprint, and the bank's ``layout``."""
     member_keys: List[Any] = []
     pins: List[Any] = []
     for m in members:
         k, p = metric_fingerprint(m)
         member_keys.append(k)
         pins.extend(p)
-    cache_key = ("collection_bank", tuple(keys), tuple(member_keys))
+    cache_key = ("collection_bank", tuple(keys), tuple(member_keys), layout)
     body = _collection_request_body(tuple(keys))
     return _get_or_create(cache_key, lambda: _make_bank_entry(cache_key, "collection_bank", tuple(pins), body))
 
 
-def bank_drive_entry(template: Any) -> SharedEntry:
+def bank_drive_entry(template: Any, layout: Tuple = ((), 1, 0)) -> SharedEntry:
     """The shared entry of one metric's bank epochs (kind ``bank_drive``,
     variants ``scan`` and ``scan_pad``), keyed as :func:`bank_entry`."""
     key, pins = program_identity(template)
-    cache_key = ("bank_drive", key)
+    cache_key = ("bank_drive", key, layout)
 
     def factory() -> SharedEntry:
         entry = SharedEntry(cache_key, "bank_drive", pins)

@@ -312,6 +312,12 @@ def prometheus_text(obj: Optional[Any] = None) -> str:
         _sample("metrics_tpu_bank_spilled", bank["spilled"], labels, kind="gauge")
         for key in ("admits", "readmits", "evictions", "spills", "launches", "requests"):
             _sample(f"metrics_tpu_bank_{key}", bank[key], labels)
+        # tenant-sharded (pod-scale) banks: the layout and each shard's load
+        if bank.get("tenant_shards", 1) > 1:
+            _sample("metrics_tpu_bank_shard_count", bank["tenant_shards"], labels, kind="gauge")
+            _sample("metrics_tpu_bank_shard_capacity", bank["shard_capacity"], labels, kind="gauge")
+            for shard, occ in enumerate(bank.get("shard_occupancy", [])):
+                _sample("metrics_tpu_bank_shard_occupancy", occ, {**labels, "shard": str(shard)}, kind="gauge")
         if bank.get("bank_drives"):
             _sample("metrics_tpu_bank_drives", bank["bank_drives"], labels)
             _sample("metrics_tpu_bank_drive_steps", bank["drive_steps"], labels)

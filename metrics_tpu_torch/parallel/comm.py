@@ -598,6 +598,7 @@ def sync_bank_states(
     hierarchical: bool = False,
     *,
     mesh: Optional[Any] = None,
+    tenant_axes: Sequence[str] = (),
 ) -> dict:
     """In-program sync of a :class:`~metrics_tpu_torch.serving.MetricBank`'s
     leaves: a ``[capacity, ...]`` leaf under an elementwise all-reduce keeps
@@ -607,7 +608,17 @@ def sync_bank_states(
     gather, so only ``sum``/``mean``/``max``/``min`` are taken; a collection
     bank's ``"member::state"`` leaves are looked up by their full names.
     ``hierarchical=True`` stages each reduction inner axis first
-    (:func:`reduce_in_trace`)."""
+    (:func:`reduce_in_trace`). ``tenant_axes`` (a tenant-sharded bank's)
+    are the axes whose processes hold other tenants: the reduction runs
+    among the processes that hold the same shard, and naming a tenant axis
+    raises."""
+    clash = [a for a in _axes_tuple(axis_name) if a in tuple(tenant_axes)]
+    if clash:
+        raise ValueError(
+            f"sync_bank_states: axis {clash[0]!r} is the bank's tenant_axis; its processes hold other tenants,"
+            " so an elementwise reduction over it would add different tenants' rows. Reduce over the mesh"
+            " axes whose processes hold the same tenant shard."
+        )
     for name, value in bank.items():
         fx = reductions.get(name)
         if isinstance(value, list) or fx not in ("sum", "mean", "max", "min"):
@@ -618,3 +629,54 @@ def sync_bank_states(
                 " tenant axis mixed into its gather axis."
             )
     return sync_state_in_trace(bank, reductions, axis_name, hierarchical=hierarchical, mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# a pod bank's host exchanges (metrics_tpu_torch.serving.pod)
+# ---------------------------------------------------------------------------
+def exchange_bytes(buf: torch.Tensor, group: Any) -> torch.Tensor:
+    """Every process's ``buf`` (a 1-D ``uint8`` tensor, the same length on
+    every process of ``group``), as a ``[world, n]`` host tensor in group
+    rank order: one ``all_gather``. On NCCL it runs on the device and the
+    result is copied to the host once; on gloo the buffer is staged through
+    the host first (one copy from the device), and the collective runs on
+    CPU tensors."""
+    world = dist.get_world_size(group)
+    if _in_program_backend(group):
+        out = torch.empty((world, buf.numel()), dtype=torch.uint8, device=buf.device)
+        dist.all_gather_into_tensor(out, buf.contiguous(), group=group)
+        return out.cpu()
+    host = buf.cpu().contiguous()
+    if world == 1:
+        return host.unsqueeze(0)
+    parts = [torch.empty_like(host) for _ in range(world)]
+    dist.all_gather(parts, host, group=group)
+    return torch.stack(parts)
+
+
+def host_all_reduce(values: Sequence[int], op: str, group: Any) -> List[int]:
+    """A small all-reduce of integers (``op`` ``"min"``/``"max"``/``"sum"``)
+    over ``group``: on CPU for gloo, through the current device for NCCL."""
+    t = torch.tensor(list(values), dtype=torch.int64)
+    if _in_program_backend(group):
+        t = t.to(torch.device("cuda", torch.cuda.current_device()))
+    dist.all_reduce(t, op=_DIST_OPS[op], group=group)
+    return [int(v) for v in t.cpu().tolist()]
+
+
+def broadcast_object(obj: Any, src: int, group: Any) -> Any:
+    """``obj`` of the process at group rank ``src``, on every process of
+    ``group`` (pickled; a collective every process makes)."""
+    box = [obj]
+    kwargs = {}
+    if _in_program_backend(group):
+        kwargs["device"] = torch.device("cuda", torch.cuda.current_device())
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, src), group=group, **kwargs)
+    return box[0]
+
+
+def all_gather_object(obj: Any, group: Any) -> List[Any]:
+    """Every process's ``obj``, in group rank order (pickled)."""
+    out: List[Any] = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out

@@ -244,11 +244,14 @@ def inject_bitflip(bank: Any, tenant: Hashable, seq: int = 0) -> Optional[Dict[s
     the JAX package. Nothing is raised and no event emitted: detection must
     come from the digests or the shadow audit. Returns the site
     (``{"tenant", "leaf", "bit"}``), or None when the tenant is not
-    resident. Takes the bank's (reentrant) lock."""
+    resident. Takes the bank's (reentrant) lock. On a pod bank the
+    processes that hold the tenant's row flip a bit of their slice; the
+    others return None."""
     with bank._lock:
         slot = bank._slots.get(tenant)
-        if slot is None:
+        if slot is None or not bank._owns(slot):
             return None
+        slot = bank._local_row(slot)
         names = sorted(bank._bank)
         leaf_name = None
         for probe in range(len(names)):

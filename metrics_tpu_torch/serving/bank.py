@@ -40,10 +40,28 @@ rebuilds every acknowledged session after the process died; the payloads
 and records are the JAX package's bytes. ``audit_rate=`` samples flushes
 for shadow replay (``resilience/integrity.IntegrityAuditor``).
 
-Out of this slice: pod-scale banks (``mesh=``, ``tenant_axis=``; ROADMAP §1
-item 8b) and :meth:`MetricBank.warmup` (item 10) raise. Without a mesh a
-template's ``add_state(sharding=)`` annotations are inert configuration
-here as in the JAX package; they travel with spills and exports.
+**Pod-scale banks** (``mesh=``, ``tenant_axis=``): the bank is laid out over
+a ``torch.distributed`` ``DeviceMesh`` with one process per device, and is
+SPMD: every process of the mesh builds it with the same arguments and
+makes the same calls in the same order (``serving/pod.py``). Each process
+keeps the whole host bookkeeping and holds only its rows: tenant shard
+``s`` owns the slots ``[s * shard_capacity, (s + 1) * shard_capacity)``,
+and a member state registered with ``add_state(sharding=)`` (a
+``class_sharding="mp"`` confusion matrix) keeps its ``torch.chunk`` slice
+over its own axis, updated by the class-windowed kernels. A wave runs on
+each process only the requests it owns, in its captured program (no
+collective in it), and commits only where every process's part succeeded
+(one small all-reduce). The reads (:meth:`MetricBank.compute`,
+:meth:`~MetricBank.compute_many`, :meth:`~MetricBank.compute_async`,
+:meth:`~MetricBank.tenant_state`, :meth:`~MetricBank.materialize`, the
+exports, the checkpoint, spill and audit gathers, and :meth:`~MetricBank.summary`'s
+health totals, so ``obs.snapshot()`` too) are collectives: the owners'
+rows cross the mesh in one exchange per call, and every process gets the
+same global rows. Mesh rank 0 alone reads and writes the store, with the
+JAX package's bytes. Without a mesh a template's ``add_state(sharding=)``
+annotations are inert configuration here as in the JAX package; they
+travel with spills and exports. :meth:`MetricBank.warmup` (ROADMAP §1
+item 10) raises.
 
 Observability: ``admit``/``evict``/``flush``/``journal``/``spill_write``/
 ``recover``/``repair``/``bank_drive`` events, and the per-bank gauges of
@@ -65,7 +83,9 @@ from metrics_tpu_torch.engine import cache as _cache
 from metrics_tpu_torch.obs import bus as _bus
 from metrics_tpu_torch.resilience import health as _health
 from metrics_tpu_torch.resilience import integrity as _integrity
+from metrics_tpu_torch.serving import pod as _pod
 from metrics_tpu_torch.serving import store as _spill
+from metrics_tpu_torch.sharding import spec as _shard_spec
 from metrics_tpu_torch.utils.exceptions import MetricsUserError, StateIntegrityError
 
 __all__ = ["MetricBank", "all_banks", "serving_summary"]
@@ -163,8 +183,17 @@ class MetricBank:
         request_dedup: a shared :class:`~metrics_tpu_torch.serving.RequestDedup`
             for exactly-once apply of requests tagged with a ``request_id``.
         audit_rate: fraction of flushes shadow-audited (None: no audits).
-        mesh, tenant_axis: pod-scale banks, not ported yet (ROADMAP §1
-            item 8b); they raise ``NotImplementedError``.
+        mesh: a ``DeviceMesh`` with named dims, one process per device, that
+            the bank is laid out over (see the module docstring): the
+            members' states registered with ``add_state(sharding=)`` are
+            split over their axes. Every process of the mesh builds the
+            bank and makes the same calls.
+        tenant_axis: a mesh axis (or a tuple of axes) the tenant slots are
+            split over: ``capacity`` then counts slots per shard, so
+            :attr:`capacity` is ``capacity * n_shards`` and
+            :attr:`shard_capacity` is ``capacity``; admission fills the
+            emptiest shard. Needs ``mesh``, and may share no axis with a
+            state's sharding.
 
     ``update(tenant, *args)`` is a one-request :meth:`apply_batch`; serving
     traffic goes through a :class:`~metrics_tpu_torch.serving.RequestRouter`.
@@ -193,12 +222,25 @@ class MetricBank:
             )
         if audit_rate is not None and not 0.0 < audit_rate <= 1.0:
             raise ValueError(f"audit_rate must be in (0, 1] (or None), got {audit_rate}")
-        if mesh is not None or tenant_axis is not None:
-            raise NotImplementedError(
-                "MetricBank(mesh=, tenant_axis=) lays a bank out over a device mesh, which in the port"
-                " (one process per device) needs a request exchange between processes: ROADMAP §1"
-                " item 8b, not ported yet. Build the bank without a mesh."
+        # -- pod-scale layout (mesh / tenant_axis) -------------------------
+        if tenant_axis is not None and mesh is None:
+            raise MetricsUserError(
+                "MetricBank(tenant_axis=) needs mesh= too — the tenant axis names a mesh axis the leading"
+                " tenant dimension is laid out over."
             )
+        self._mesh = mesh
+        self._tenant_axes: Tuple[str, ...] = ()
+        n_shards = 1
+        if tenant_axis is not None:
+            axes = (tenant_axis,) if isinstance(tenant_axis, str) else tuple(tenant_axis)
+            mesh_axes = _shard_spec.axis_names(mesh)
+            for ax in axes:
+                if ax not in mesh_axes:
+                    raise MetricsUserError(f"tenant_axis {ax!r} is not an axis of the mesh (axes: {mesh_axes}).")
+            self._tenant_axes = axes
+            for ax in axes:
+                n_shards *= _shard_spec.axis_size(mesh, ax)
+        self._n_shards = n_shards
 
         from metrics_tpu_torch.collections import MetricCollection
 
@@ -255,22 +297,83 @@ class MetricBank:
             self._reductions_ns = dict(self._template._reductions)
             self._signature_token = None
 
-        self.capacity = int(capacity)
-        self.shard_capacity = self.capacity  # one shard without a mesh
+        # -- per-leaf layout: the tenant axes, then each state's own split --
+        shard_specs: Dict[str, Any] = {}
+        for k, m in zip(self._member_keys or ("",), self._members):
+            for n, spec in (m.__dict__.get("_state_shardings") or {}).items():
+                if _shard_spec.canonical_spec(spec):
+                    shard_specs[f"{k}::{n}" if self._is_collection else n] = spec
+        if mesh is None:
+            # without a mesh the annotations are inert configuration (they
+            # still travel with spills and exports)
+            shard_specs = {}
+        # the mesh axes each split state is split over
+        self._state_axes: Dict[str, set] = {}
+        for n, spec in shard_specs.items():
+            used = {a for e in tuple(spec) if e for a in ((e,) if isinstance(e, str) else tuple(e))}
+            self._state_axes[n] = used
+            if used & set(self._tenant_axes):
+                raise MetricsUserError(
+                    f"state {n!r} shards over {sorted(used & set(self._tenant_axes))}, which is the bank's"
+                    " tenant_axis — a state axis and the tenant axis cannot share mesh axes."
+                )
+        self.shard_capacity = int(capacity)
+        self.capacity = int(capacity) * n_shards
         self.name = name if name is not None else f"bank{next(_BANK_IDS)}"
         self.dense_threshold = float(dense_threshold)
         self._device = self._members[0].device
         self._defaults = defaults
-        # the resident leaves, a sink row past the capacity, with the
+        # the programs run on members placed on the mesh (each process's
+        # slices of the split states, their defaults too); the template and
+        # its members stay global for the host side: encode, decode, compute
+        self._cell_template = self._template
+        if shard_specs:
+            self._cell_template = self._template.clone()
+            placed = self._cell_template._modules.values() if self._is_collection else [self._cell_template]
+            for m in placed:
+                if m.__dict__.get("_state_shardings"):
+                    m.shard_states(mesh)
+        self._cell_members: List[Any] = (
+            [self._cell_template._modules[k] for k in self._member_keys] if self._is_collection else [self._cell_template]
+        )
+        local_defaults = {
+            (f"{k}::{n}" if self._is_collection else n): m._defaults[n]
+            for k, m in zip(self._member_keys or ("",), self._cell_members)
+            for n in m._defaults
+        }
+        self._pod: Optional[_pod.PodLayout] = None
+        if mesh is not None:
+            self._pod = _pod.PodLayout(
+                mesh,
+                self._tenant_axes,
+                self.shard_capacity,
+                {n: (shard_specs.get(n), tuple(d.shape)) for n, d in defaults.items()},
+            )
+        # whether the attributes a member learns in its first update
+        # (``_dynamic_state_attrs``: ``Accuracy.mode``) reached every process
+        self._init_shared = mesh is None
+        # the tenants the last admission batch journaled fresh
+        self._fresh: List[Hashable] = []
+        # the resident leaves (this process's rows: the shard's, or all of
+        # them without tenant shards), a sink row past them, with the
         # programs captured over them; ``_bank`` views the tenants' rows
         self._resident = _cache.Resident(
-            {n: d.unsqueeze(0).expand((self.capacity + 1,) + tuple(d.shape)).contiguous() for n, d in defaults.items()}
+            {
+                n: d.unsqueeze(0).expand((self.shard_capacity + 1,) + tuple(d.shape)).contiguous()
+                for n, d in local_defaults.items()
+            },
+            layout=(self._tenant_axes, n_shards, self._pod.shard if self._pod is not None else 0),
         )
-        self._bank: Dict[str, torch.Tensor] = {n: leaf[: self.capacity] for n, leaf in self._resident.items()}
+        self._bank: Dict[str, torch.Tensor] = {n: leaf[: self.shard_capacity] for n, leaf in self._resident.items()}
         self._slots: Dict[Hashable, int] = {}
         self._counts: Dict[Hashable, int] = {}
         self._lru: Dict[Hashable, int] = {}
-        self._free: List[int] = list(range(self.capacity - 1, -1, -1))  # pop() -> lowest slot first
+        # per-shard free lists: shard s owns the contiguous slots
+        # [s * shard_capacity, (s + 1) * shard_capacity); pop() -> the
+        # shard's lowest slot first
+        self._free_by_shard: List[List[int]] = [
+            list(range((s + 1) * self.shard_capacity - 1, s * self.shard_capacity - 1, -1)) for s in range(n_shards)
+        ]
         # tenant -> blob key of a spilled session (the payload is in the store)
         self._spilled: Dict[Hashable, str] = {}
         # last durable update count, health counters and digests per
@@ -293,7 +396,7 @@ class MetricBank:
         self._flushes_since_ckpt = 0
         self._dirty: Dict[Hashable, None] = {}
         # existing records count too (a reused namespace starts with history)
-        self._journal_len = len(self._store.journal_frames(self.name))
+        self._journal_len = self._store_read(lambda: len(self._store.journal_frames(self.name)))
         self._defaults_payload: Optional[bytes] = None
         self._tick = 0
         self._lock = threading.RLock()
@@ -365,22 +468,62 @@ class MetricBank:
         self._tick += 1
         self._lru[tenant] = self._tick
 
+    def _slot_shard(self, slot: int) -> int:
+        return slot // self.shard_capacity
+
+    def _pick_shard(self) -> int:
+        """Admission routing: the emptiest tenant shard (most free slots),
+        lowest shard index on ties, so per-shard occupancy stays within one."""
+        return max(range(self._n_shards), key=lambda s: (len(self._free_by_shard[s]), -s))
+
+    def _release_slot(self, slot: int) -> None:
+        self._free_by_shard[self._slot_shard(slot)].append(slot)
+
+    def _owns(self, slot: int) -> bool:
+        """Whether this process holds the slot's row (always, off a mesh)."""
+        return self._pod is None or self._pod.owns(slot)
+
+    def _local_row(self, slot: int) -> int:
+        return slot if self._pod is None else self._pod.local_row(slot)
+
     def _cell(self) -> Any:
-        """What the bank programs bind as their cell: the member list of a
-        collection bank, the template metric otherwise."""
-        return self._members if self._is_collection else self._template
+        """What the bank programs bind as their cell: the (placed) member
+        list of a collection bank, the (placed) template metric otherwise."""
+        return self._cell_members if self._is_collection else self._cell_template
 
     def _entry(self) -> Any:
         if self._is_collection:
-            return _cache.collection_bank_entry(self._member_keys, self._members)
-        return _cache.bank_entry(self._template)
+            return _cache.collection_bank_entry(self._member_keys, self._cell_members, layout=self._resident.layout)
+        return _cache.bank_entry(self._cell_template, layout=self._resident.layout)
 
     def _snapshot_templates(self) -> List[Dict[str, Any]]:
-        return [m._snapshot_state() for m in self._members]
+        return [m._snapshot_state() for m in self._cell_members]
 
     def _restore_templates(self, saved: List[Dict[str, Any]]) -> None:
-        for m, s in zip(self._members, saved):
+        for m, s in zip(self._cell_members, saved):
             m._restore_state(s)
+
+    # -- the store: mesh rank 0 alone reads and writes it ------------------
+    def _store_read(self, fn: Any) -> Any:
+        """``fn()`` (a store read): here, or on a pod bank run by mesh rank 0
+        and its result (or error) handed to every process."""
+        return fn() if self._pod is None else self._pod.from_writer(fn)
+
+    def _store_write(self, fn: Any) -> None:
+        """``fn()`` (a store write): here, or on a pod bank by mesh rank 0
+        alone, then one agreement: its error raises on every process right
+        there, so every process's bookkeeping stops where the store did, as
+        it does off a mesh."""
+        if self._pod is None:
+            fn()
+            return
+        err: Optional[BaseException] = None
+        if self._pod.writer:
+            try:
+                fn()
+            except Exception as e:
+                err = e
+        self._pod.agree(err)
 
     def _bucketing_active(self, batched: Tuple[int, ...]) -> bool:
         """Whether ragged request batches may pow2-pad: every member opted in."""
@@ -404,54 +547,64 @@ class MetricBank:
 
     def _admit_many(self, tenants: List[Hashable]) -> List[int]:
         """Admit a batch; its tenants are pinned against each other's
-        evictions (the caller holds the lock)."""
+        evictions (the caller holds the lock). On a pod bank the spilled
+        ones' blobs come from mesh rank 0 in one broadcast. A tenant's slot
+        is taken only once its store writes succeeded, and the rows of the
+        tenants admitted before a failure are written all the same, so a
+        failed store write leaves no slot whose row is not its tenant's."""
         pinned = frozenset(tenants)
         writes: Dict[int, Dict[str, Any]] = {}
         slots: List[int] = []
-        for tenant in tenants:
-            if tenant in self._slots:
-                self._touch(tenant)
-                slots.append(self._slots[tenant])
-                continue
-            readmit = tenant in self._spilled
-            if not self._free:
-                self._evict_lru(pinned)
-            slot = self._free.pop()
-            if readmit:
-                state, count = self._decode_spilled(tenant)
-                # resident again; the blob stays as the durable watermark
-                self._unindex_spilled(tenant)
+        self._fresh = []
+        blobs = self._read_blobs([t for t in tenants if t not in self._slots and t in self._spilled])
+        try:
+            for tenant in tenants:
+                if tenant in self._slots:
+                    self._touch(tenant)
+                    slots.append(self._slots[tenant])
+                    continue
+                readmit = tenant in self._spilled
+                if not any(self._free_by_shard):
+                    self._evict_lru(pinned)
+                shard = self._pick_shard()
+                if readmit:
+                    state, count = self._decode_spilled(tenant, blobs.get(tenant))
+                    # resident again; the blob stays as the durable watermark
+                    self._unindex_spilled(tenant)
+                    self.stats["readmits"] += 1
+                else:
+                    # write-ahead: the session exists durably (record + defaults
+                    # blob) before any device state is touched
+                    self._journal("admit", tenant)
+                    key = self._blob_key(tenant)
+                    self._store_write(lambda: self._store.put(key, self._defaults_sealed()))
+                    self._durable_counts[tenant] = 0
+                    self._durable_health[tenant] = None
+                    self._durable_digest[tenant] = None
+                    self._fresh.append(tenant)
+                    self._gen[tenant] = self._gen_next
+                    self._gen_next += 1
+                    state, count = self._defaults, 0
+                    self.stats["admits"] += 1
+                slot = self._free_by_shard[shard].pop()
                 writes[slot] = state
                 self._counts[tenant] = count
-                self.stats["readmits"] += 1
-            else:
-                # write-ahead: the session exists durably (record + defaults
-                # blob) before any device state is touched
-                self._journal("admit", tenant)
-                self._store.put(self._blob_key(tenant), self._defaults_sealed())
-                self._durable_counts[tenant] = 0
-                self._durable_health[tenant] = None
-                self._durable_digest[tenant] = None
-                self._gen[tenant] = self._gen_next
-                self._gen_next += 1
-                writes[slot] = self._defaults
-                self._counts[tenant] = 0
-                self.stats["admits"] += 1
-            self._slots[tenant] = slot
-            self._touch(tenant)
-            slots.append(slot)
-            if _bus.enabled():
-                _bus.emit(
-                    "admit",
-                    source=type(self._template).__name__,
-                    bank=self.name,
-                    tenant=str(tenant),
-                    slot=slot,
-                    readmit=readmit,
-                    occupancy=len(self._slots),
-                )
-        if writes:
-            self._write_slots(writes)
+                self._slots[tenant] = slot
+                self._touch(tenant)
+                slots.append(slot)
+                if _bus.enabled():
+                    _bus.emit(
+                        "admit",
+                        source=type(self._template).__name__,
+                        bank=self.name,
+                        tenant=str(tenant),
+                        slot=slot,
+                        readmit=readmit,
+                        occupancy=len(self._slots),
+                    )
+        finally:
+            if writes:
+                self._write_slots(writes)
         self._maybe_compact_journal()
         return slots
 
@@ -464,44 +617,51 @@ class MetricBank:
                 f" {self.capacity}). Route through a RequestRouter with"
                 " max_requests <= capacity."
             )
-        self.evict(min(victims, key=lambda t: self._lru[t]))
+        self._evict_locked(min(victims, key=lambda t: self._lru[t]))
 
     def evict(self, tenant: Hashable, spill: bool = True) -> None:
         """Remove ``tenant``: ``spill=True`` seals its state into the store
         for exact re-admission, ``spill=False`` drops the session (journaled,
         blob deleted). Emits an ``evict`` event."""
         with self._lock:
-            if not spill and tenant in self._spilled:
-                self._drop_spilled_entry(tenant, op="drop")
-                return
-            if tenant not in self._slots:
-                raise KeyError(f"tenant {tenant!r} is not resident in bank {self.name!r}")
-            slot = self._slots.pop(tenant)
-            count = self._counts.pop(tenant)
-            self._lru.pop(tenant, None)
-            self._dirty.pop(tenant, None)
-            if spill:
-                tree = self._encode_state(self._fetch_rows([slot])[0], count)
-                self._write_tenant_blob(tenant, tree, count, op="spill")
-                self._index_spilled(tenant)
-                self.stats["spills"] += 1
-            else:
-                self._journal("drop", tenant)
-                self._store.delete(self._blob_key(tenant))
-                self._forget_durable(tenant)
-            self._free.append(slot)
-            self.stats["evictions"] += 1
-            self._maybe_compact_journal()
-            if _bus.enabled():
-                _bus.emit(
-                    "evict",
-                    source=type(self._template).__name__,
-                    bank=self.name,
-                    tenant=str(tenant),
-                    slot=slot,
-                    spilled=spill,
-                    occupancy=len(self._slots),
-                )
+            self._evict_locked(tenant, spill)
+
+    def _evict_locked(self, tenant: Hashable, spill: bool = True) -> None:
+        if not spill and tenant in self._spilled:
+            self._drop_spilled_entry(tenant, op="drop")
+            return
+        if tenant not in self._slots:
+            raise KeyError(f"tenant {tenant!r} is not resident in bank {self.name!r}")
+        slot, count = self._slots[tenant], self._counts[tenant]
+        # the store first: a failed write leaves the session resident
+        if spill:
+            tree = self._encode_state(self._fetch_rows([slot])[0], count)
+            self._write_tenant_blob(tenant, tree, count, op="spill")
+        else:
+            self._journal("drop", tenant)
+            key = self._blob_key(tenant)
+            self._store_write(lambda: self._store.delete(key))
+        del self._slots[tenant], self._counts[tenant]
+        self._lru.pop(tenant, None)
+        self._dirty.pop(tenant, None)
+        if spill:
+            self._index_spilled(tenant)
+            self.stats["spills"] += 1
+        else:
+            self._forget_durable(tenant)
+        self._release_slot(slot)
+        self.stats["evictions"] += 1
+        self._maybe_compact_journal()
+        if _bus.enabled():
+            _bus.emit(
+                "evict",
+                source=type(self._template).__name__,
+                bank=self.name,
+                tenant=str(tenant),
+                slot=slot,
+                spilled=spill,
+                occupancy=len(self._slots),
+            )
 
     def _forget_durable(self, tenant: Hashable) -> None:
         self._durable_counts.pop(tenant, None)
@@ -513,7 +673,8 @@ class MetricBank:
         """Forget a spilled session: journal it, delete its blob, unwind the
         health aggregate."""
         self._journal(op, tenant)
-        self._store.delete(self._spilled[tenant])
+        key = self._spilled[tenant]
+        self._store_write(lambda: self._store.delete(key))
         self._unindex_spilled(tenant)
         self._forget_durable(tenant)
         self._maybe_compact_journal()
@@ -530,7 +691,7 @@ class MetricBank:
         if not entries:
             return
         records = [record for _op, _tenant, record in entries]
-        self._store.append_journal_many(self.name, records)
+        self._store_write(lambda: self._store.append_journal_many(self.name, records))
         self._journal_len += len(records)
         self.stats["journal_appends"] += len(records)
         _spill.bump("journal_appends", len(records))
@@ -562,9 +723,17 @@ class MetricBank:
         (spill, checkpoint and import share this route). The record carries
         the tree's per-leaf digests, independent of the blob, so a swapped or
         stale blob fails re-admission. ``defer_journal`` returns the entry
-        for a batched append."""
-        payload = _spill.encode_tenant_payload(tree)
-        self._store.put(self._blob_key(tenant), payload)
+        for a batched append. On a pod bank only mesh rank 0 seals and
+        writes the payload; every process keeps the record's bookkeeping."""
+        key = self._blob_key(tenant)
+        sealed: List[bytes] = []
+
+        def put() -> None:
+            sealed.append(_spill.encode_tenant_payload(tree))
+            self._store.put(key, sealed[0])
+
+        self._store_write(put)
+        nbytes = len(sealed[0]) if sealed else 0
         health = self._health_list(tree)
         digest = _integrity.state_digest(tree)
         record = _spill.seal_record(
@@ -579,7 +748,7 @@ class MetricBank:
         self._durable_health[tenant] = health
         self._durable_digest[tenant] = digest
         _spill.bump("spill_writes")
-        _spill.bump("spill_bytes", len(payload))
+        _spill.bump("spill_bytes", nbytes)
         if _bus.enabled():
             _bus.emit(
                 "spill_write",
@@ -587,7 +756,7 @@ class MetricBank:
                 bank=self.name,
                 tenant=str(tenant),
                 op=op,
-                bytes=len(payload),
+                bytes=nbytes,
             )
         return entry
 
@@ -622,7 +791,7 @@ class MetricBank:
         if self._journal_len <= max(256, 4 * live):
             return
         records = [self._live_record(t) for t in list(self._slots) + list(self._spilled)]
-        self._store.rewrite_journal(self.name, records)
+        self._store_write(lambda: self._store.rewrite_journal(self.name, records))
         self._journal_len = len(records)
         _spill.bump("journal_compactions")
 
@@ -657,7 +826,10 @@ class MetricBank:
             return self._seal_pending_checkpoint()
         if self._ckpt_async:
             return self._stage_checkpoint_async(tenants)
-        host = self._fetch_rows([self._slots[t] for t in tenants], count_gather=2 * len(tenants) < len(self._slots))
+        # the JAX bank gathers rows (counted) on a mesh or for a minority of
+        # the residents, and fetches its whole bank (not counted) otherwise
+        count = self._mesh is not None or 2 * len(tenants) < len(self._slots)
+        host = self._fetch_rows([self._slots[t] for t in tenants], count_gather=count)
         entries = []
         for tenant, state in zip(tenants, host):
             tree = self._encode_state(state, self._counts[tenant])
@@ -671,11 +843,16 @@ class MetricBank:
         self._maybe_compact_journal()
         return len(tenants)
 
-    def _gathered_rows(self, rows: List[int]) -> Dict[str, torch.Tensor]:
-        """The rows of ``rows``, gathered on the device into fresh tensors
-        (safe against later waves)."""
+    def _gathered_rows(self, rows: List[int], names: Optional[List[str]] = None) -> Dict[str, torch.Tensor]:
+        """The global rows of the slots ``rows`` (of the leaves ``names``,
+        default all), in fresh tensors (safe against later waves): gathered
+        on the device, or on a pod bank whose rows are split, the read
+        exchange's host tensors (a collective; the same on every process)."""
+        names = list(self._bank) if names is None else names
+        if self._pod is not None and self._pod.split:
+            return self._pod.exchange(self._resident, rows, names)
         idx = _index(rows, self._device)
-        return {n: leaf.index_select(0, idx) for n, leaf in self._bank.items()}
+        return {n: self._bank[n].index_select(0, idx) for n in names}
 
     def _fetch_rows(self, rows: List[int], count_gather: bool = False) -> List[Dict[str, torch.Tensor]]:
         """Copies of the rows on the host, in one coalesced copy; one state
@@ -740,15 +917,24 @@ class MetricBank:
         dropped is staged spilled at its last durable state (never
         checkpointed sessions at the defaults) and re-admits on demand. A
         torn or crc-corrupted journal tail is ignored and the journal is
-        rewritten, one checkpoint record per live session. Idempotent."""
-        live, torn = _spill.replay_journal(store, name)
+        rewritten, one checkpoint record per live session. Idempotent.
+        ``bank_kwargs`` go to the new bank, ``mesh=`` and ``tenant_axis=``
+        too: a journal rebuilds into a fresh pod bank, whatever layout wrote
+        it (every process of the mesh calls ``recover``; mesh rank 0 reads
+        the store)."""
         bank = cls(template, capacity, name=name, spill_store=store, **bank_kwargs)
         with bank._lock:
+            live, torn = bank._store_read(lambda: _spill.replay_journal(store, name))
+            keys = [_spill.tenant_blob_key(name, _spill.durable_token(t)) for t in live]
+
+            def restore_defaults() -> None:
+                for key in keys:
+                    if not store.exists(key):
+                        # admitted write-ahead, but the crash took the defaults blob
+                        store.put(key, bank._defaults_sealed())
+
+            bank._store_write(restore_defaults)
             for tenant, rec in live.items():
-                key = _spill.tenant_blob_key(name, _spill.durable_token(tenant))
-                if not store.exists(key):
-                    # admitted write-ahead, but the crash took the defaults blob
-                    store.put(key, bank._defaults_sealed())
                 bank._durable_counts[tenant] = int(rec.get("count", 0))
                 health = rec.get("health")
                 bank._durable_health[tenant] = [int(x) for x in health] if health is not None else None
@@ -760,7 +946,7 @@ class MetricBank:
             records.append(_spill.seal_record({"op": "recover", "n": len(live), "torn": torn}))
             # rewrite, never append: the journal may end in the torn frame
             # the crash left, which would swallow later records
-            store.rewrite_journal(name, records)
+            bank._store_write(lambda: store.rewrite_journal(name, records))
             bank._journal_len = len(records)
             _spill.bump("journal_compactions")
         _spill.bump("recovers")
@@ -793,10 +979,11 @@ class MetricBank:
 
     def _export_payload_locked(self, tenant: Hashable, keep: bool) -> bytes:
         if tenant in self._slots:
-            self.evict(tenant, spill=True)
+            self._evict_locked(tenant, spill=True)
         if tenant not in self._spilled:
             raise KeyError(f"unknown tenant {tenant!r} in bank {self.name!r}")
-        payload = self._store.get(self._spilled[tenant])
+        key = self._spilled[tenant]
+        payload = self._store_read(lambda: self._store.get(key))
         _spill.bump("blob_reads")
         self.stats["exports"] += 1
         if not keep:
@@ -899,7 +1086,7 @@ class MetricBank:
                 self._counts.pop(tenant)
                 self._lru.pop(tenant, None)
                 self._dirty.pop(tenant, None)
-                self._free.append(slot)
+                self._release_slot(slot)
                 self._index_spilled(tenant)
             self.admit(tenant)
             restored = int(self._counts[tenant])
@@ -913,14 +1100,25 @@ class MetricBank:
 
     # -- slot <-> state plumbing ----------------------------------------
     def _row_copy(self, slot: int) -> Dict[str, torch.Tensor]:
-        """A copy of one row (the bank is written in place)."""
+        """A copy of one row (the bank is written in place), on the bank's
+        device; on a pod bank whose rows are split, the global row through
+        the read exchange (a collective)."""
+        if self._pod is not None and self._pod.split:
+            return {n: col[0].to(self._device) for n, col in self._gathered_rows([slot]).items()}
         return {n: leaf[slot].clone() for n, leaf in self._bank.items()}
 
     def _write_slots(self, writes: Dict[int, Dict[str, Any]]) -> None:
+        """Write global rows into their slots: on a pod bank, the slots this
+        process owns, each leaf's slice of this process."""
         for slot in sorted(writes):
-            row = writes[slot]
+            if not self._owns(slot):
+                continue
+            row, at = writes[slot], self._local_row(slot)
             for n, leaf in self._bank.items():
-                leaf[slot].copy_(torch.as_tensor(row[n]).to(dtype=leaf.dtype))
+                value = torch.as_tensor(row[n])
+                if self._pod is not None:
+                    value = self._pod.local_value(n, value)
+                leaf[at].copy_(value.to(dtype=leaf.dtype))
 
     @staticmethod
     def _with_state(m: Any, state: Dict[str, Any], fn: Any) -> Any:
@@ -953,10 +1151,21 @@ class MetricBank:
                 tree[f"{k}::{n}"] = v
         return tree
 
-    def _decode_spilled(self, tenant: Hashable) -> Tuple[Dict[str, Any], int]:
+    def _read_blobs(self, tenants: List[Hashable]) -> Dict[Hashable, bytes]:
+        """The spilled tenants' payloads, read ahead on a pod bank: by mesh
+        rank 0, handed to every process in one broadcast. Empty off a mesh
+        (:meth:`_decode_spilled` reads each one itself)."""
+        if self._pod is None or not tenants:
+            return {}
+        keys = {t: self._spilled[t] for t in tenants}
+        return self._store_read(lambda: {t: self._store.get(k) for t, k in keys.items()})
+
+    def _decode_spilled(self, tenant: Hashable, payload: Optional[bytes] = None) -> Tuple[Dict[str, Any], int]:
         from metrics_tpu_torch.utils import checkpoint as _ckpt
 
-        payload = self._store.get(self._spilled[tenant])
+        if payload is None:
+            key = self._spilled[tenant]
+            payload = self._store_read(lambda: self._store.get(key))
         _spill.bump("blob_reads")
         tree = _spill.decode_tenant_payload(payload, context=f" (bank {self.name!r}, tenant {tenant!r})")
         # the journal's digests are independent of the blob's own, so a
@@ -1045,27 +1254,38 @@ class MetricBank:
     ) -> int:
         t_start = time.perf_counter()
         consumed = len(requests)
-        if self.fault_injector is not None:
-            self.fault_injector()
         claimed: List[Tuple[Hashable, Any]] = []
-        if self._dedup is not None and request_ids is not None:
-            kept: List[Tuple[Hashable, Tuple[Any, ...]]] = []
-            for (tenant, args), rid in zip(requests, request_ids):
-                if rid is not None:
-                    if not self._dedup.begin(tenant, rid, owner=self.name):
-                        self.stats["dedup_dropped"] += 1
-                        continue
-                    claimed.append((tenant, rid))
-                kept.append((tenant, args))
-            if not kept:
-                return consumed  # every request was a duplicate: no launch
-            requests = kept
-        tenants = [t for t, _ in requests]
+        prepared: Any = None
+        err: Optional[BaseException] = None
         try:
-            leaves_per_req, spec, pads = self._prepare(
-                [args for _, args in requests], "apply_batch requests disagree on update-argument structure;"
-                " group by signature first (RequestRouter does)."
-            )
+            if self.fault_injector is not None:
+                self.fault_injector()
+            if self._dedup is not None and request_ids is not None:
+                kept: List[Tuple[Hashable, Tuple[Any, ...]]] = []
+                for (tenant, args), rid in zip(requests, request_ids):
+                    if rid is not None:
+                        if not self._dedup.begin(tenant, rid, owner=self.name):
+                            self.stats["dedup_dropped"] += 1
+                            continue
+                        claimed.append((tenant, rid))
+                    kept.append((tenant, args))
+                requests = kept
+            if requests:
+                prepared = self._prepare(
+                    [args for _, args in requests], "apply_batch requests disagree on update-argument structure;"
+                    " group by signature first (RequestRouter does)."
+                )
+        except Exception as e:
+            err = e
+        tenants = [t for t, _ in requests]
+        # a pod bank's processes agree before any state is touched: the
+        # same tenants on every process, and no process failed its checks
+        self._agree_or_release(err, claimed, "apply_batch", tenants)
+        if not requests:
+            return consumed  # every request was a duplicate: no launch
+        leaves_per_req, spec, pads = prepared
+        staged: Any = None
+        try:
             entry = self._entry()
             stats = _cache.instance_stats(self._template)
             slots = self._admit_many(tenants)
@@ -1078,20 +1298,25 @@ class MetricBank:
                     audit = (pick, int(self._counts[pick]), self._row_copy(self._slots[pick]), self._flush_index)
             n_req = len(requests)
             dense = n_req >= self.dense_threshold * self.capacity
-            self._dispatch_wave(entry, stats, slots, leaves_per_req, spec, pads)
-        except Exception:
-            # the router re-queues failed requests: their retry must apply
-            for tenant, rid in claimed:
-                self._dedup.abort(tenant, rid)
-            raise
+            # the JAX bank's launches: one dense program, or one shard-local
+            # scatter program per tenant shard the wave touches
+            n_launches = 1 if dense else len({self._slot_shard(s) for s in slots})
+            staged = self._dispatch_wave(entry, stats, slots, leaves_per_req, spec, pads)
+        except Exception as e:
+            err = e
+        # the wave commits only where it succeeded: on a pod bank, on every
+        # process of the mesh
+        self._agree_or_release(err, claimed)
+        self._write_back(staged)
+        self._share_init(slots[0])
         for tenant, rid in claimed:
             self._dedup.commit(tenant, rid)
         for t in tenants:
             self._counts[t] += 1
             self._dirty[t] = None
-        self.stats["launches"] += 1
+        self.stats["launches"] += n_launches
         self.stats["requests"] += n_req
-        self.stats["dense_launches" if dense else "scatter_launches"] += 1
+        self.stats["dense_launches" if dense else "scatter_launches"] += n_launches
         if pads is not None:
             self.stats["bucketed_requests"] += n_req
         self._after_apply(tenants)
@@ -1106,11 +1331,84 @@ class MetricBank:
                 requests=n_req,
                 variant="dense" if dense else "scatter",
                 bucketed=pads is not None,
-                shard_launches=1,
+                shard_launches=n_launches,
                 occupancy=len(self._slots),
                 ms=round(ms, 3),
             )
         return consumed
+
+    def _release(self, claimed: List[Tuple[Hashable, Any]]) -> None:
+        """Release a failed wave's exactly-once claims: the router re-queues
+        failed requests, and their retry must apply."""
+        for tenant, rid in claimed:
+            self._dedup.abort(tenant, rid)
+
+    def _agree_or_release(
+        self,
+        err: Optional[BaseException],
+        claimed: List[Tuple[Hashable, Any]],
+        call: Optional[str] = None,
+        tenants: Sequence[Hashable] = (),
+    ) -> None:
+        """Raise ``err`` (releasing the claims), or on a pod bank agree with
+        the other processes first: every process raises when one failed,
+        and with ``call`` the processes' requests and bookkeeping must
+        match (calls made out of step raise :class:`MetricsUserError`)."""
+        if self._pod is None:
+            if err is not None:
+                self._release(claimed)
+                raise err
+            return
+        digest = describe = None
+        if call is not None:
+            tokens = [str(_spill.durable_token(t)) for t in tenants]
+            rows = sorted((str(_spill.durable_token(t)), slot, self._counts[t]) for t, slot in self._slots.items())
+            digest = repr((call, tokens, rows, sorted(str(_spill.durable_token(t)) for t in self._spilled))).encode()
+
+            def describe() -> Tuple[List[str], List[Tuple]]:
+                return tokens, rows
+
+        try:
+            self._pod.agree(err, digest, describe, f"MetricBank {self.name!r} {call or 'wave'}")
+        except BaseException:
+            self._release(claimed)
+            raise
+
+    def _share_init(self, slot: int) -> None:
+        """After a pod bank's first applied wave: what the members learned in
+        their first update (``_dynamic_state_attrs``), from the first process
+        that ran the wave's first request, on every process and on the
+        global template (which computes and encodes)."""
+        if self._init_shared:
+            return
+        pod = self._pod
+        src = min(r for r in range(pod.world) if pod.shards[r] == pod.shard_of_slot(slot))
+        learned = [{a: getattr(m, a) for a in m._dynamic_state_attrs} for m in self._cell_members]
+        learned = pod.broadcast(learned, src)
+        for attrs, cell, member in zip(learned, self._cell_members, self._members):
+            for a, v in attrs.items():
+                setattr(cell, a, v)
+                setattr(member, a, v)
+        self._init_shared = True
+        if any(learned):
+            # the JAX bank learns them ahead of its first admission: the
+            # defaults blobs of this wave's new tenants carry them there
+            self._defaults_payload = None
+            for tenant in self._fresh:
+                if tenant in self._slots and self._durable_digest.get(tenant) is None:
+                    key = self._blob_key(tenant)
+                    self._store_write(lambda key=key: self._store.put(key, self._defaults_sealed()))
+
+    def _write_back(self, staged: Any) -> None:
+        """A wave or an epoch that succeeded (on a pod bank, on every
+        process): its new rows into this process's resident leaves
+        (``(local row index, {leaf: rows})``, or None where this process
+        ran nothing)."""
+        if staged is None:
+            return
+        idx, rows = staged
+        for n, leaf in self._resident.items():
+            leaf.index_copy_(0, idx, rows[n])
 
     def _after_apply(self, tenants: List[Hashable]) -> None:
         """The cadence checkpoint, then the silent-corruption seam (a flip
@@ -1169,11 +1467,16 @@ class MetricBank:
 
     def _stack(self, leaves_per_req: List[List[Any]]) -> List[Any]:
         """One input per leaf position: the requests' tensors stacked on the
-        bank's device, or a shared non-tensor value."""
+        bank's device (host requests through pinned memory, copied without
+        a host sync), or a shared non-tensor value."""
         out: List[Any] = []
         for col in zip(*leaves_per_req):
             if all(isinstance(x, torch.Tensor) for x in col):
-                out.append(torch.stack(list(col)).to(self._device))
+                if self._device.type == "cuda" and all(x.device.type == "cpu" for x in col):
+                    pinned = torch.empty((len(col),) + tuple(col[0].shape), dtype=col[0].dtype, pin_memory=True)
+                    out.append(torch.stack(list(col), out=pinned).to(self._device, non_blocking=True))
+                else:
+                    out.append(torch.stack(list(col)).to(self._device))
             elif all(x == col[0] for x in col[1:]):
                 out.append(col[0])
             else:  # Python scalars that differ between requests travel as a tensor
@@ -1188,39 +1491,51 @@ class MetricBank:
         leaves_per_req: List[List[Any]],
         spec: Any,
         pads: Optional[List[int]],
-    ) -> None:
+    ) -> Any:
         """Pad the request axis to its pow2 bucket (pad requests address the
-        sink row, with zero inputs) and run the wave's program."""
+        sink row, with zero inputs) and run the wave's program; its new rows
+        for :meth:`_write_back` (``(local row index, rows)``). On a pod bank
+        only the requests whose slot this process owns are staged and run
+        (None when it owns none)."""
+        if self._pod is not None:
+            owned = [i for i, slot in enumerate(slots) if self._owns(slot)]
+            if not owned:
+                return None
+            slots = [slots[i] for i in owned]
+            leaves_per_req = [leaves_per_req[i] for i in owned]
+            pads = [pads[i] for i in owned] if pads is not None else None
         n_req = len(slots)
         n_padded = _bucketing.next_pow2(n_req)
         rows = list(leaves_per_req)
-        slot_ids = list(slots)
+        slot_ids = [self._local_row(slot) for slot in slots]
         req_pads = list(pads) if pads is not None else None
         if n_padded > n_req:
             zero_row = [torch.zeros_like(x) if isinstance(x, torch.Tensor) else x for x in leaves_per_req[0]]
             for _ in range(n_padded - n_req):
                 rows.append(zero_row)
-                slot_ids.append(self.capacity)
+                slot_ids.append(self.shard_capacity)
                 if req_pads is not None:
                     req_pads.append(0)
         args, kwargs = _tree.unflatten(spec, self._stack(rows))
-        inputs: Tuple[Any, ...] = (_index(slot_ids, self._device), args, kwargs)
+        idx = _index(slot_ids, self._device)
+        inputs: Tuple[Any, ...] = (idx, args, kwargs)
         variant = "wave"
         if req_pads is not None:
-            variant = "wave_pad"
+            variant += "_pad"
             inputs += (_index(req_pads, self._device),)
-        self._run(entry, stats, variant, inputs)
+        return idx, self._run(entry, stats, variant, inputs)
 
-    def _run(self, entry: Any, stats: Dict[str, int], variant: str, inputs: Tuple[Any, ...]) -> None:
+    def _run(self, entry: Any, stats: Dict[str, int], variant: str, inputs: Tuple[Any, ...]) -> Any:
         """One bank program on the resident leaves; the members' own states
         are put back afterwards (the body binds each row onto them)."""
         cell = self._cell()
         saved = self._snapshot_templates()
         try:
-            entry.invoke(variant, cell, stats, *inputs, probe=not _cache.probed(cell), resident=self._resident)
+            out = entry.invoke(variant, cell, stats, *inputs, probe=not _cache.probed(cell), resident=self._resident)
         finally:
             self._restore_templates(saved)
         _cache.mark_probed(cell)
+        return out
 
     def drive(self, tenant: Hashable, batches: Iterable[Tuple[Any, ...]]) -> int:
         """Fold a whole per-tenant epoch into its row in one program, the
@@ -1258,34 +1573,32 @@ class MetricBank:
 
     def _drive_locked(self, tenant: Hashable, batches: List[Tuple[Any, ...]]) -> int:
         t_start = time.perf_counter()
-        if self.fault_injector is not None:
-            self.fault_injector()
-        leaves_per_step, spec, pads = self._prepare(
-            batches, "drive() batches disagree on update-argument structure; an epoch scans ONE program over"
-            " uniformly-shaped steps."
-        )
-        entry = _cache.bank_drive_entry(self._template)
-        stats = _cache.instance_stats(self._template)
-        slot = self._admit_many([tenant])[0]
-        n_steps = len(batches)
-        rows = list(leaves_per_step)
-        step_pads = list(pads) if pads is not None else None
-        if step_pads is not None:
-            # whole no-op steps: zero inputs and pad == bucket, so the
-            # correction subtracts the entire padded batch
-            batched = _bucketing.batched_leaf_indices(rows[0])
-            bucket = int(rows[0][batched[0]].shape[0])
-            zero_row = [torch.zeros_like(x) if isinstance(x, torch.Tensor) else x for x in rows[0]]
-            for _ in range(_bucketing.next_pow2(n_steps) - n_steps):
-                rows.append(zero_row)
-                step_pads.append(bucket)
-        args, kwargs = _tree.unflatten(spec, self._stack(rows))
-        inputs: Tuple[Any, ...] = (_index([slot], self._device), len(rows), args, kwargs)
-        variant = "scan"
-        if step_pads is not None:
-            variant = "scan_pad"
-            inputs += (_index(step_pads, self._device),)
-        self._run(entry, stats, variant, inputs)
+        prepared: Any = None
+        err: Optional[BaseException] = None
+        try:
+            if self.fault_injector is not None:
+                self.fault_injector()
+            prepared = self._prepare(
+                batches, "drive() batches disagree on update-argument structure; an epoch scans ONE program over"
+                " uniformly-shaped steps."
+            )
+        except Exception as e:
+            err = e
+        self._agree_or_release(err, [], "drive", [tenant])
+        leaves_per_step, spec, pads = prepared
+        staged: Any = None
+        try:
+            entry = _cache.bank_drive_entry(self._cell_template, layout=self._resident.layout)
+            stats = _cache.instance_stats(self._template)
+            slot = self._admit_many([tenant])[0]
+            n_steps = len(batches)
+            if self._owns(slot):
+                staged = self._scan(entry, stats, slot, leaves_per_step, spec, pads)
+        except Exception as e:
+            err = e
+        self._agree_or_release(err, [])
+        self._write_back(staged)
+        self._share_init(slot)
         self._counts[tenant] += n_steps
         self._dirty[tenant] = None
         self.stats["launches"] += 1
@@ -1309,11 +1622,44 @@ class MetricBank:
             )
         return n_steps
 
+    def _scan(
+        self,
+        entry: Any,
+        stats: Dict[str, int],
+        slot: int,
+        leaves_per_step: List[List[Any]],
+        spec: Any,
+        pads: Optional[List[int]],
+    ) -> Any:
+        """Run one tenant's epoch program on its row (on a pod bank, the
+        owning processes only); the new row for :meth:`_write_back`."""
+        rows = list(leaves_per_step)
+        step_pads = list(pads) if pads is not None else None
+        if step_pads is not None:
+            # whole no-op steps: zero inputs and pad == bucket, so the
+            # correction subtracts the entire padded batch
+            batched = _bucketing.batched_leaf_indices(rows[0])
+            bucket = int(rows[0][batched[0]].shape[0])
+            zero_row = [torch.zeros_like(x) if isinstance(x, torch.Tensor) else x for x in rows[0]]
+            for _ in range(_bucketing.next_pow2(len(rows)) - len(rows)):
+                rows.append(zero_row)
+                step_pads.append(bucket)
+        args, kwargs = _tree.unflatten(spec, self._stack(rows))
+        idx = _index([self._local_row(slot)], self._device)
+        inputs: Tuple[Any, ...] = (idx, len(rows), args, kwargs)
+        variant = "scan"
+        if step_pads is not None:
+            variant += "_pad"
+            inputs += (_index(step_pads, self._device),)
+        out = self._run(entry, stats, variant, inputs)
+        return idx, {n: v.unsqueeze(0) for n, v in out.items()}
+
     # ------------------------------------------------------------------
     # per-tenant results
     # ------------------------------------------------------------------
     def tenant_state(self, tenant: Hashable) -> Dict[str, Any]:
-        """A copy of the tenant's state (decoded for a spilled tenant)."""
+        """A copy of the tenant's state (decoded for a spilled tenant); on a
+        pod bank the global state on every process (a collective)."""
         with self._lock:
             if tenant in self._spilled:
                 return self._decode_spilled(tenant)[0]
@@ -1345,8 +1691,29 @@ class MetricBank:
             return self._compute_state(state)
 
     def compute_many(self, tenants: Iterable[Hashable]) -> Dict[Hashable, Any]:
-        """``{tenant: value}``."""
-        return {t: self.compute(t) for t in list(tenants)}
+        """``{tenant: value}``. On a pod bank (a collective) every resident
+        tenant's row rides one read exchange (``coalesced_gathers`` + 1) and
+        the spilled ones' blobs one broadcast from mesh rank 0; every
+        process returns the same values."""
+        tenants = list(tenants)
+        if self._pod is None:
+            return {t: self.compute(t) for t in tenants}
+        out: Dict[Hashable, Any] = {}
+        with self._lock:
+            resident = [t for t in tenants if t in self._slots]
+            if resident:
+                self.stats["coalesced_gathers"] += 1
+                gathered = {n: col.to(self._device) for n, col in self._gathered_rows([self._slots[t] for t in resident]).items()}
+                for i, t in enumerate(resident):
+                    out[t] = self._compute_state({n: col[i] for n, col in gathered.items()})
+            unknown = [t for t in tenants if t not in out and t not in self._spilled]
+            if unknown:
+                raise KeyError(f"unknown tenant {unknown[0]!r} in bank {self.name!r}")
+            spilled = [t for t in tenants if t not in out]
+            blobs = self._read_blobs(spilled)
+            for t in spilled:
+                out[t] = self._compute_state(self._decode_spilled(t, blobs[t])[0])
+        return {t: out[t] for t in tenants}
 
     def compute_async(self, tenants: Optional[Iterable[Hashable]] = None) -> Any:
         """Per-tenant values behind one coalesced copy to the host: an
@@ -1360,17 +1727,24 @@ class MetricBank:
 
     def materialize(self, tenant: Hashable) -> Any:
         """A standalone clone of the template bound to the tenant's state (a
-        bound ``MetricCollection`` clone for a collection bank)."""
+        bound ``MetricCollection`` clone for a collection bank). On a pod
+        bank (a collective) the members' split states come back placed on
+        the mesh, each process holding its slices of the global state."""
         state = self.tenant_state(tenant)
         count = self.update_count(tenant)
         if self._is_collection:
             mc = self._template.clone()
             nested = self._nest(state)
             for k, m in mc._modules.items():
-                m.bind_state(nested[k], update_count=count)
+                self._bind_placed(m, nested[k], count)
             return mc
-        metric = self._template.clone()
+        return self._bind_placed(self._template.clone(), state, count)
+
+    def _bind_placed(self, metric: Any, state: Dict[str, Any], count: int) -> Any:
         metric.bind_state(state, update_count=count)
+        if self._pod is not None and metric.__dict__.get("_state_shardings"):
+            metric.shard_states(self._mesh)
+            _shard_spec.mark_global(metric)
         return metric
 
     def warmup(self, manifest: Optional[Any] = None) -> Dict[str, Any]:
@@ -1388,12 +1762,30 @@ class MetricBank:
         """Reduce the whole bank across mesh axes, in place: valid when every
         process assigns the same tenants to the same slots (replicated
         serving). The tenant axis rides the per-leaf collectives
-        (``parallel/comm.sync_bank_states``); the mesh is ``comm.axis_env``'s
-        unless given."""
+        (``parallel/comm.sync_bank_states``); the mesh is the bank's, else
+        ``comm.axis_env``'s, unless given. On a tenant-sharded bank the
+        reduction runs among the processes that hold the same shard, and
+        naming a tenant axis raises; so does naming an axis that a member
+        state is split over (its processes hold different slices)."""
         from metrics_tpu_torch.parallel import comm
 
+        asked = {axis_name} if isinstance(axis_name, str) else set(axis_name)
+        for n, axes in self._state_axes.items():
+            if axes & asked:
+                raise ValueError(
+                    f"sync_state_in_trace: state {n!r} is split over {sorted(axes & asked)}; its processes hold"
+                    " different slices of it, so an elementwise reduction over that axis would add different"
+                    " slices together. Reduce over the mesh axes whose processes hold the same slice."
+                )
         with self._lock:
-            synced = comm.sync_bank_states(self._bank, self._reductions_ns, axis_name, hierarchical=hierarchical, mesh=mesh)
+            synced = comm.sync_bank_states(
+                self._bank,
+                self._reductions_ns,
+                axis_name,
+                hierarchical=hierarchical,
+                mesh=mesh if mesh is not None else self._mesh,
+                tenant_axes=self._tenant_axes,
+            )
             for n, leaf in self._bank.items():
                 leaf.copy_(synced[n])
 
@@ -1402,12 +1794,15 @@ class MetricBank:
     # ------------------------------------------------------------------
     def summary(self) -> Dict[str, Any]:
         """Occupancy, eviction and launch counters, and the screening totals
-        summed over every tenant's health counters (resident and spilled)."""
+        summed over every tenant's health counters (resident and spilled).
+        On a pod bank the totals ride the read exchange, so ``summary()``
+        (and ``obs.snapshot()``, the Prometheus dump) is a collective of
+        every process of the mesh; it is the same on every process."""
         with self._lock:
             out: Dict[str, Any] = {
                 "template": type(self._template).__name__,
                 "capacity": self.capacity,
-                "tenant_shards": 1,
+                "tenant_shards": self._n_shards,
                 "shard_capacity": self.shard_capacity,
                 "occupancy": len(self._slots),
                 "spilled": len(self._spilled),
@@ -1418,6 +1813,11 @@ class MetricBank:
                 "checkpoint_lag": self.checkpoint_lag(),
                 **self.stats,
             }
+            if self._n_shards > 1:
+                occ = [0] * self._n_shards
+                for slot in self._slots.values():
+                    occ[self._slot_shard(slot)] += 1
+                out["shard_occupancy"] = occ
             requests = self.stats["requests"]
             out["launch_amortization"] = round(requests / self.stats["launches"], 3) if self.stats["launches"] else None
             health_names = [n for n in self._bank if n.split("::")[-1] == _health.HEALTH_STATE]
@@ -1425,8 +1825,8 @@ class MetricBank:
             counts_dev = None
             spilled_health = self._spilled_health.copy()
             if health_names and occupied:
-                idx = _index(occupied, self._device)
-                counts_dev = sum(self._bank[n].index_select(0, idx).sum(0) for n in health_names)
+                rows = self._gathered_rows(occupied, health_names)
+                counts_dev = sum(rows[n].sum(0) for n in health_names)
         if health_names:
             # the copy to the host happens outside the lock
             counts = spilled_health

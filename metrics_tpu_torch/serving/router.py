@@ -18,6 +18,12 @@ groups too. A wave larger than the capacity is chunked. A failed flush puts
 what was not applied back at the head of its queue (the bank released its
 dedup claims). Deadlines are checked on :meth:`submit` and :meth:`poll`;
 nothing flushes from a background thread.
+
+In front of a bank placed on a mesh (``MetricBank(mesh=)``) every process
+of the mesh runs its own router and must flush the same waves: the
+grouping is deterministic, but a deadline read from each process's clock
+is not, so such a router takes ``max_delay_s=None`` (size flushes and
+:meth:`RequestRouter.flush`) or a ``clock`` that every process reads alike.
 """
 import time
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
@@ -27,6 +33,7 @@ import torch
 
 from metrics_tpu_torch.engine import _tree
 from metrics_tpu_torch.engine import bucketing as _bucketing
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
 __all__ = ["RequestRouter"]
 
@@ -81,6 +88,12 @@ class RequestRouter:
         max_delay_s: Optional[float] = 0.05,
         clock: Callable[[], float] = time.monotonic,
     ) -> None:
+        if getattr(bank, "_mesh", None) is not None and max_delay_s is not None and clock is time.monotonic:
+            raise MetricsUserError(
+                "a RequestRouter in front of a mesh-placed MetricBank must flush the same waves on every process"
+                " of the mesh, and a deadline read from each process's own clock would not: pass"
+                " max_delay_s=None (size flushes and flush()) or a clock every process reads alike."
+            )
         self.bank = bank
         cap = bank.capacity
         self.max_requests = min(max_requests or min(256, cap), cap)

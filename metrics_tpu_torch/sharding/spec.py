@@ -184,6 +184,15 @@ def _chunk(n: int, k: int, c: int) -> Tuple[int, int]:
 
 def layout_of(mesh: Any, spec: PartitionSpec, shape: Tuple[int, ...], name: str = "") -> ShardLayout:
     """This process's shard of a ``shape`` state laid out by ``spec``."""
+    coords = {axis: int(mesh.get_local_rank(axis)) for axis in axis_names(mesh)}
+    return layout_at(mesh, spec, shape, coords, name)
+
+
+def layout_at(mesh: Any, spec: PartitionSpec, shape: Tuple[int, ...], coords: Dict[str, int], name: str = "") -> ShardLayout:
+    """The shard of a ``shape`` state laid out by ``spec`` that the process
+    at mesh coordinates ``coords`` (axis name -> index) holds: what
+    :func:`layout_of` gives that process, computed anywhere (a read
+    exchange places every process's rows by it)."""
     names = axis_names(mesh)
     offsets, local, splits = [0] * len(shape), list(shape), []
     for dim, entry in enumerate(spec):
@@ -198,7 +207,7 @@ def layout_of(mesh: Any, spec: PartitionSpec, shape: Tuple[int, ...], name: str 
         axis = axes[0]
         if axis not in names:
             raise MetricsUserError(f"state {name!r} is registered with axis {axis!r}, which the mesh {names} lacks")
-        offsets[dim], local[dim] = _chunk(int(shape[dim]), axis_size(mesh, axis), int(mesh.get_local_rank(axis)))
+        offsets[dim], local[dim] = _chunk(int(shape[dim]), axis_size(mesh, axis), int(coords[axis]))
         splits.append((dim, axis))
     return ShardLayout(spec, tuple(shape), tuple(offsets), tuple(local), tuple(splits))
 

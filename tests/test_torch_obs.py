@@ -842,6 +842,40 @@ def test_jsonl_roundtrip_and_prometheus_render():
     assert process["bus"]["by_kind"]["compile"] >= 1
 
 
+def test_pod_bank_shard_families_match_jax(monkeypatch):
+    """The ``metrics_tpu_bank_shard_*`` families of a tenant-sharded bank:
+    the port renders a pod bank's summary (here the JAX pod bank's, on a
+    ``(4,)`` mesh of its virtual devices) into the JAX package's lines, names,
+    labels and values; a one-shard bank renders none of them."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    mj = _jax()
+    mt = _port()
+    from metrics_tpu_torch.obs import export as port_export
+
+    mesh = Mesh(np.array(jax.devices()[:4]), ("host",))
+    bank = mj.serving.MetricBank(mj.Accuracy(num_classes=3), capacity=2, mesh=mesh, tenant_axis="host", name="obs_pod")
+    rng = np.random.RandomState(0)
+    for i in range(6):
+        bank.update(f"t{i}", jnp.asarray(rng.randint(0, 3, 8)), jnp.asarray(rng.randint(0, 3, 8)))
+
+    def shard_lines(text):
+        return sorted(l for l in text.splitlines() if "metrics_tpu_bank_shard" in l and "obs_pod" in l)
+
+    want = shard_lines(mj.obs.prometheus_text())
+    assert len([l for l in want if l.startswith("metrics_tpu_bank_shard_occupancy{")]) == 4
+    monkeypatch.setattr(port_export, "_serving_summary", lambda: {"obs_pod": bank.summary()})
+    text = mt.obs.prometheus_text()
+    assert shard_lines(text) == want
+    for family in ("shard_count", "shard_capacity", "shard_occupancy"):
+        assert f"# TYPE metrics_tpu_bank_{family} gauge" in text
+    one = mt.serving.MetricBank(mt.Accuracy(num_classes=3, device="cpu"), capacity=2, name="obs_one")
+    monkeypatch.setattr(port_export, "_serving_summary", lambda: {"obs_one": one.summary()})
+    assert "metrics_tpu_bank_shard" not in mt.obs.prometheus_text()
+
+
 def test_validate_jsonl_rejects_bad_lines():
     obs = _port().obs
     good = '{"v": 1, "seq": 1, "kind": "compile", "t": 0.0, "source": "m", "data": {}}'

@@ -1000,9 +1000,11 @@ def test_failed_mid_wave_flush_leaves_the_bank_unchanged():
 @pytest.mark.parametrize("program", ["wave", "scan"])
 def test_warm_up_ahead_of_a_capture_writes_nothing(program):
     """On the card a bank program's warm-up (``warm_up=True``) runs ahead of
-    its capture, and the first replay applies the wave: the warm-up runs
-    the first request's transition and leaves every row of the bank as it
-    was, so a refused capture cannot have changed the bank."""
+    its capture, and the first replay runs the wave: the warm-up runs the
+    first request's transition, returns nothing and leaves every row of the
+    bank as it was, so a refused capture cannot have changed the bank. The
+    program itself writes no row either: it returns the new rows, which the
+    bank writes back once the wave succeeded."""
     from metrics_tpu_torch.engine import cache
     from metrics_tpu_torch.serving import MetricBank
     from metrics_tpu_torch.utils.program import program_scope
@@ -1028,13 +1030,17 @@ def test_warm_up_ahead_of_a_capture_writes_nothing(program):
 
     bank._template._inner_update = counted
     with program_scope():
-        fn(bank._template, bank._resident, *inputs, warm_up=True)
+        assert fn(bank._template, bank._resident, *inputs, warm_up=True) is None
         assert calls[0] == 1
         for n, leaf in bank._resident.items():
             assert torch.equal(leaf, before[n]), n
-        fn(bank._template, bank._resident, *inputs)
+        out = fn(bank._template, bank._resident, *inputs)
+        for n, leaf in bank._resident.items():
+            assert torch.equal(leaf, before[n]), n
     bank._template._inner_update = inner
     assert calls[0] == 3
+    rows = out if program == "wave" else {n: v.unsqueeze(0) for n, v in out.items()}
+    bank._write_back((inputs[0], rows))
     assert any(not torch.equal(bank._resident[n], before[n]) for n in before)
 
 
@@ -1059,9 +1065,10 @@ def test_unported_options_raise_with_their_messages(tmp_path):
     from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
     S = Side("torch")
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    # pod-scale banks are ported: what is left raises the JAX package's errors
+    with pytest.raises(MetricsUserError, match="named dims"):
         MetricBank(S.m("Accuracy", num_classes=NUM_CLASSES), capacity=2, mesh=object(), tenant_axis="host")
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(MetricsUserError, match="needs mesh= too"):
         MetricBank(S.m("Accuracy", num_classes=NUM_CLASSES), capacity=2, tenant_axis="host")
     with pytest.raises(NotImplementedError, match="item 10"):
         MetricBank(S.m("Accuracy", num_classes=NUM_CLASSES), capacity=2).warmup()
