@@ -423,6 +423,35 @@
    exchange, digest, encode and I/O, ``recover()`` s, peak memory and the
    graph pool a rank.
 
+20. Warm starts and drive snapshots (phase 21, last), on a seeded
+   ImageNet-1k val stream (50,000 x 1000 float32 logits), in fresh child
+   processes (this script run with ``--warm-child ROLE DIR``), each with the
+   persistent kernel cache in one directory (``METRICS_TPU_COMPILE_CACHE``).
+   (a) ``record`` builds the kernel library there (one
+   ``persistent_miss``), records a warmup manifest while the main path's
+   collection takes two batches of 8192 and the 848-row tail twice through
+   ``forward`` and two ``compute()``s, and a ``MetricBank`` of that
+   collection at capacity 256 takes two waves of 256 requests of [64, 1000];
+   ``cold`` serves the same with no manifest; ``warm`` times
+   ``engine.warmup(manifest)`` and ``bank.warmup(manifest)``, then serves it.
+   Checked: a cache hit with a build of 0.0 s in ``cold`` and ``warm``; no
+   failed and every manifest program warmed, ``warmed_hits`` > 0, no stale
+   program; each entry's first request makes 0 captures warm and at least
+   one cold, and is faster warm (the ratio logged); the collection's values
+   and every tenant's equal across the three bit for bit; then a
+   [4096, 1000] batch raises a ``warmup_stale`` event naming ``avals``. (b)
+   ``kill`` streams the epoch through ``engine.drive`` in chunks of 2 steps
+   with ``snapshot_every=2`` into a ``DiskStore`` and is killed (SIGKILL)
+   once the snapshot of step 4 is on disk; ``resume`` resumes it in a fresh
+   process: its states, counts and ``compute()`` bit for bit equal to an
+   uninterrupted drive here (after ``clear_cache()``), with no more captures
+   than that drive; a snapshot forged with ``forge_snapshot_corruption``
+   raises ``StateIntegrityError`` on resume. Both kernels against their plain
+   versions at the phase's shapes. Logged: the build's seconds, each entry's
+   first and second request cold and warm, the warmups' seconds, the drive's
+   ms with and without snapshots, a snapshot's bytes, its seal and write ms,
+   the resume's ms.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
 CUDA the script exits 2 and prints no result.
@@ -7270,6 +7299,371 @@ def run_pod_phase(torch, mt, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: warm starts and drive snapshots
+# ---------------------------------------------------------------------------
+WARM_SEED = 21
+WARM_BANK = (256, 256)  # 21a's bank: tenants (its capacity), requests a wave (19a's wave of [64, 1000] requests)
+WARM_CHILD_TIMEOUT_S = 300
+WARM_NEW_ROWS = 4096  # the batch of 21a's stale check: a shape the manifest never saw
+SNAP_CHUNK = 2  # 21b: steps a chunk program replays, and the snapshot cadence in steps
+SNAP_KILL_STEP = 4  # 21b: the child is killed once this step's snapshot is on disk
+
+
+def _warm_stream():
+    return _imagenet_stream(np.random.default_rng(WARM_SEED))
+
+
+def _graphs(engine) -> int:
+    return engine.cache_summary()["graphs"]
+
+
+def _timed_first(torch, engine, fn):
+    """``(ms, CUDA graphs captured)`` of one call."""
+    torch.cuda.synchronize()
+    g0, t0 = _graphs(engine), time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, _graphs(engine) - g0
+
+
+def _warm_traffic(mt, logits, target):
+    """21a's traffic, the same in every child: the main path's collection
+    through ``forward`` (two batches of 8192, then the 848-row tail twice)
+    and its ``compute()`` twice, and a collection bank of 256 tenants fed two
+    waves of 256 requests of [64, 1000]. Returns the collection, the bank
+    and ``(entry, first call, second call)`` triples."""
+    from metrics_tpu_torch.serving import MetricBank
+
+    n = IMAGENET_VAL[0]
+    tenants, wave = WARM_BANK
+    mc = _imagenet_collection(mt)
+    bank = MetricBank(_imagenet_collection(mt), capacity=tenants, name="smoke21")
+
+    def requests(w):
+        return [(t, (logits[s:s + SERVE_REQ], target[s:s + SERVE_REQ])) for t, s in ((t, (w * tenants + t) * SERVE_REQ) for t in range(wave))]
+
+    calls = [
+        (f"forward [{BATCH}, {IMAGENET_VAL[1]}]", lambda: mc(logits[:BATCH], target[:BATCH]), lambda: mc(logits[BATCH:2 * BATCH], target[BATCH:2 * BATCH])),
+        (f"forward [{RAGGED}, {IMAGENET_VAL[1]}]", lambda: mc(logits[n - RAGGED:], target[n - RAGGED:]), lambda: mc(logits[n - RAGGED:], target[n - RAGGED:])),
+        ("compute", mc.compute, mc.compute),
+        (f"bank wave of {wave} x [{SERVE_REQ}, {IMAGENET_VAL[1]}]", lambda: bank.apply_batch(requests(0)), lambda: bank.apply_batch(requests(1))),
+    ]
+    return mc, bank, calls
+
+
+def _bank_digest(torch, bank, tenants) -> dict:
+    """Each tenant's results: the scores by value, the confusion matrix by its sha256."""
+    import hashlib
+
+    out = {}
+    for t, vals in bank.compute_many(list(range(tenants))).items():
+        out[t] = {k: (hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest() if v.ndim else float(v)) for k, v in vals.items()}
+    return out
+
+
+def _warm_child(role: str, root: str) -> None:
+    """Phase 21's fresh processes (``--warm-child ROLE DIR``), each with the
+    persistent kernel cache in ``DIR/kernels`` (``METRICS_TPU_COMPILE_CACHE``,
+    set by the parent): ``record`` builds the kernel library, records a
+    manifest of 21a's traffic and saves it; ``cold`` serves the same
+    traffic without one; ``warm`` warms from it first; ``kill`` streams
+    21b's epoch with snapshots and waits to be killed at step 6; ``resume``
+    resumes that epoch from its last snapshot. Each writes a record into
+    ``DIR/ROLE.pt``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import metrics_tpu_torch as mt
+    from metrics_tpu_torch import engine, obs
+    from metrics_tpu_torch.ops import _build
+    from metrics_tpu_torch.serving import DiskStore
+
+    t_start = time.perf_counter()
+    _build.library()
+    rec = {"build_s": _build.last_build_seconds, "persist": engine.persistent_cache_stats()}
+    logits_np, target_np = _warm_stream()
+    logits, target = torch.from_numpy(logits_np).cuda(), torch.from_numpy(target_np).cuda()
+    manifest = os.path.join(root, "manifest.json")
+    mt.reset_kernel_stats()
+    if role in ("record", "cold", "warm"):
+        mc, bank, calls = _warm_traffic(mt, logits, target)
+        if role == "record":
+            engine.record_manifest(manifest)
+        if role == "warm":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec["engine_warmup"] = engine.warmup(manifest)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rec["bank_warmup"] = bank.warmup(manifest)
+            torch.cuda.synchronize()
+            rec["warmup_s"] = (t1 - t0, time.perf_counter() - t1)
+        rec["entries"] = {}
+        for name, first, second in calls:
+            ms, graphs = _timed_first(torch, engine, first)
+            rec["entries"][name] = {"first_ms": ms, "captures": graphs, "steady_ms": _timed_first(torch, engine, second)[0]}
+        rec["values"] = {k: v.cpu() for k, v in mc.compute().items()}
+        rec["bank"] = _bank_digest(torch, bank, WARM_BANK[0])
+        if role == "record":
+            rec["manifest_doc"] = {(e["kind"], e["source"]): len(e["programs"]) for e in engine.manifest_dict()["entries"]}
+            engine.save_manifest()
+        rec["report"] = engine.warmup_report()
+        if role == "warm":
+            with obs.capture(kinds=("warmup_stale",)) as events:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    mc(logits[:WARM_NEW_ROWS], target[:WARM_NEW_ROWS])
+                torch.cuda.synchronize()
+            rec["stale_events"] = [dict(e.data) for e in events]
+    elif role == "kill":
+        store = DiskStore(os.path.join(root, "snap"))
+        mc = _imagenet_collection(mt)
+
+        def stream():
+            for i, (s, e) in enumerate(_batches(IMAGENET_VAL[0])):
+                if i == SNAP_KILL_STEP + SNAP_CHUNK:
+                    with open(os.path.join(root, "kill.ack"), "w") as f:
+                        f.write(str(i))
+                    time.sleep(WARM_CHILD_TIMEOUT_S)
+                yield logits[s:e], target[s:e]
+
+        engine.drive(mc, stream(), steps_per_chunk=SNAP_CHUNK, snapshot_store=store, snapshot_every=SNAP_CHUNK)
+        raise AssertionError("phase 21b: the killed child's drive ended")
+    elif role == "resume":
+        mc = _imagenet_collection(mt)
+        stream = ((logits[s:e], target[s:e]) for s, e in _batches(IMAGENET_VAL[0]))
+        torch.cuda.synchronize()
+        g0, t0 = _graphs(engine), time.perf_counter()
+        res = engine.drive(mc, stream, steps_per_chunk=SNAP_CHUNK, resume_from=DiskStore(os.path.join(root, "snap")))
+        torch.cuda.synchronize()
+        rec.update(resume_ms=(time.perf_counter() - t0) * 1e3, captures=_graphs(engine) - g0, steps=res.steps)
+        rec["states"] = {k: {n: v.cpu() for n, v in m._snapshot_state().items()} for k, m in mc.items()}
+        rec["values"] = {k: v.cpu() for k, v in mc.compute().items()}
+        rec["counts"] = {k: m._update_count for k, m in mc.items()}
+    stats = mt.kernel_stats()
+    rec["launches"] = _launches(stats)
+    rec["plain_calls"] = sum(r["plain_calls"] for r in stats.values())
+    rec["seconds"] = time.perf_counter() - t_start
+    torch.save(rec, os.path.join(root, f"{role}.pt"))
+
+
+def _start_warm_child(role: str, root: str):
+    env = dict(os.environ, METRICS_TPU_COMPILE_CACHE=os.path.join(root, "kernels"))
+    env.pop("METRICS_TPU_WARMUP_MANIFEST", None)
+    log = open(os.path.join(root, f"{role}.log"), "w+")
+    cmd = [sys.executable, os.path.abspath(__file__), "--warm-child", role, root]
+    return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env), log
+
+
+def _finish_warm_child(torch, role: str, root: str, proc, log, want_rc: int = 0) -> dict:
+    t0 = time.monotonic()
+    try:
+        proc.wait(timeout=WARM_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    log.seek(0)
+    text = log.read()
+    log.close()
+    if proc.returncode != want_rc:
+        raise AssertionError(f"phase 21 child {role}: {_exit_note(proc.returncode)} after {time.monotonic() - t0:.0f} s\n{text[-6000:]}")
+    if want_rc:
+        return {}
+    rec = torch.load(os.path.join(root, f"{role}.pt"), weights_only=False)
+    if rec["plain_calls"]:
+        raise AssertionError(f"phase 21 child {role}: {rec['plain_calls']} plain calls on the card")
+    return rec
+
+
+def _run_warm_child(torch, role: str, root: str) -> dict:
+    proc, log = _start_warm_child(role, root)
+    return _finish_warm_child(torch, role, root, proc, log)
+
+
+def _check_warm_kernels(torch, logits, target) -> str:
+    """Phase 21's shapes: select_topk and confusion_counts against their plain versions."""
+    from metrics_tpu_torch.ops import confusion_counts as cc
+    from metrics_tpu_torch.ops import select_topk as st
+
+    c, n = IMAGENET_VAL[1], IMAGENET_VAL[0]
+    shapes = {"request": slice(0, SERVE_REQ), "batch": slice(0, BATCH), "tail": slice(n - RAGGED, n)}
+    for label, rows in shapes.items():
+        x, y = logits[rows], target[rows]
+        _max_abs_err(torch, f"phase 21 select_topk {label}", st._topk_mask_cuda(x, TOP_K), st._topk_mask_plain(x, TOP_K))
+        p1 = x.argmax(1)
+        _max_abs_err(torch, f"phase 21 confusion_counts {label}", cc._confusion_counts_cuda(p1, y, c), cc._confusion_counts_plain(p1, y, c))
+    return ", ".join(f"{k} [{s.stop - s.start}, {c}]" for k, s in shapes.items())
+
+
+def run_warm_start_phase(torch, mt, smi: str, root: str) -> dict:
+    """Phase 21a: record, cold and warm children. Returns their launches."""
+    record = _run_warm_child(torch, "record", root)
+    cold = _run_warm_child(torch, "cold", root)
+    warm = _run_warm_child(torch, "warm", root)
+    if record["persist"]["persistent_misses"] != 1 or record["build_s"] <= 0.0:
+        raise AssertionError(f"phase 21a: the recording child did not build the kernel library: {record['persist']}")
+    for name, rec in (("cold", cold), ("warm", warm)):
+        if rec["persist"]["persistent_hits"] != 1 or rec["persist"]["persistent_misses"] or rec["build_s"] != 0.0:
+            raise AssertionError(f"phase 21a {name}: no kernel-cache hit: {rec['persist']}, build {rec['build_s']} s")
+    report = warm["report"]
+    if report["programs_failed"] or report["stale_total"] or report["warmed_hits"] <= 0 or report["programs_warmed"] <= 0:
+        raise AssertionError(f"phase 21a: the warm child's report {report}")
+    if report["programs_warmed"] != report["manifest_programs"]:
+        raise AssertionError(f"phase 21a: {report['programs_warmed']} of {report['manifest_programs']} programs warmed: {report}")
+    ratios = {}
+    for name, got in warm["entries"].items():
+        want = cold["entries"][name]
+        if got["captures"] != 0 or want["captures"] < 1:
+            raise AssertionError(f"phase 21a {name}: {got['captures']} captures warm, {want['captures']} cold")
+        ratios[name] = want["first_ms"] / got["first_ms"]
+        if got["first_ms"] >= want["first_ms"]:
+            raise AssertionError(f"phase 21a {name}: the warmed first request took {got['first_ms']:.2f} ms, the cold one {want['first_ms']:.2f} ms")
+    for key, want in cold["values"].items():
+        if not torch.equal(warm["values"][key], want) or not torch.equal(record["values"][key], want):
+            raise AssertionError(f"phase 21a {key}: the warm, cold and recording children's values differ")
+    if warm["bank"] != cold["bank"] or record["bank"] != cold["bank"]:
+        raise AssertionError("phase 21a: the bank's tenants differ between the children")
+    stale = warm["stale_events"]
+    if len(stale) != 1 or "avals" not in stale[0]["explain"]["changed"]:
+        raise AssertionError(f"phase 21a: the stale request's events {stale}")
+    entries = "; ".join(
+        f"{name}: cold {cold['entries'][name]['first_ms']:.1f} ms first ({cold['entries'][name]['captures']} captures),"
+        f" warm {w['first_ms']:.1f} ms first (0 captures), x{ratios[name]:.2f}; steady {cold['entries'][name]['steady_ms']:.2f}"
+        f" / {w['steady_ms']:.2f} ms"
+        for name, w in warm["entries"].items()
+    )
+    _log(
+        f"phase 21a warm start: the recording child built the kernel library in {record['build_s']:.1f} s"
+        f" (persistent_misses 1) and recorded {record['manifest_doc']}; the cold and warm children loaded it"
+        f" (persistent_hits 1, build 0.0 s); engine.warmup {warm['warmup_s'][0]:.2f} s, bank.warmup"
+        f" {warm['warmup_s'][1]:.2f} s, {report['programs_warmed']} of {report['manifest_programs']} programs warmed,"
+        f" skipped {report['skipped']}, {report['programs_failed']} failed, {report['warmed_hits']} warmed hits;"
+        f" per entry (first request wall ms, captures, the cold/warm ratio; a second request's ms cold / warm): {entries};"
+        f" values and all {WARM_BANK[0]} tenants bit for bit equal cold, warm and recorded; a [{WARM_NEW_ROWS},"
+        f" {IMAGENET_VAL[1]}] batch raised warmup_stale naming {stale[0]['explain']['changed']}; children's seconds"
+        f" {round(record['seconds'], 1)}, {round(cold['seconds'], 1)}, {round(warm['seconds'], 1)} (start and data included); {smi}"
+    )
+    launches: dict = {}
+    for rec in (record, cold, warm):
+        for op, n in rec["launches"].items():
+            launches[op] = launches.get(op, 0) + n
+    return launches
+
+
+def run_snapshot_phase(torch, mt, smi: str, root: str, logits, target) -> dict:
+    """Phase 21b: a child killed mid-epoch, a fresh child resumes; the
+    uninterrupted drive and the snapshot costs here. Returns the launches
+    of this process's drives and of the children."""
+    from metrics_tpu_torch import engine
+    from metrics_tpu_torch.engine import driver
+    from metrics_tpu_torch.resilience import forge_snapshot_corruption
+    from metrics_tpu_torch.serving import DiskStore, MemoryStore, durability_stats
+    from metrics_tpu_torch.serving.store import reset_durability_stats
+    from metrics_tpu_torch.utils.exceptions import StateIntegrityError
+
+    def stream():
+        return ((logits[s:e], target[s:e]) for s, e in _batches(IMAGENET_VAL[0]))
+
+    proc, log = _start_warm_child("kill", root)
+    snap_root = os.path.join(root, "snap")
+    t0 = time.monotonic()
+    while not os.path.exists(os.path.join(root, "kill.ack")):
+        if proc.poll() is not None or time.monotonic() - t0 > WARM_CHILD_TIMEOUT_S:
+            _finish_warm_child(torch, "kill", root, proc, log)  # raises with the child's log
+        time.sleep(0.05)
+    step = driver.load_drive_snapshot(DiskStore(snap_root)).step
+    proc.kill()
+    _finish_warm_child(torch, "kill", root, proc, log, want_rc=-9)
+    if step != SNAP_KILL_STEP:
+        raise AssertionError(f"phase 21b: the killed child's last snapshot is of step {step}, expected {SNAP_KILL_STEP}")
+    resumed = _run_warm_child(torch, "resume", root)
+    # the uninterrupted epoch with no program cached, as a fresh process has none
+    engine.clear_cache()
+    t0 = _reset_stats(torch, mt)
+    plain = _imagenet_collection(mt)
+    g0 = _graphs(engine)
+    engine.drive(plain, stream(), steps_per_chunk=SNAP_CHUNK)
+    torch.cuda.synchronize()
+    plain_captures = _graphs(engine) - g0
+    for key, m in plain.items():
+        for name, v in m._snapshot_state().items():
+            if not torch.equal(resumed["states"][key][name], v.cpu()):
+                raise AssertionError(f"phase 21b: the resumed {key}.{name} differs from the uninterrupted drive's")
+    for key, v in plain.compute().items():
+        if not torch.equal(resumed["values"][key], v.cpu()):
+            raise AssertionError(f"phase 21b: the resumed {key} value differs from the uninterrupted drive's")
+    if resumed["counts"] != {k: m._update_count for k, m in plain.items()} or resumed["steps"] != len(_batches(IMAGENET_VAL[0])) - step:
+        raise AssertionError(f"phase 21b: resumed counts {resumed['counts']}, {resumed['steps']} steps")
+    if resumed["captures"] > plain_captures:
+        raise AssertionError(f"phase 21b: the resume captured {resumed['captures']} programs, the uninterrupted drive {plain_captures}")
+    # a forged snapshot: valid crcs, a failing digest
+    forged = MemoryStore()
+    forged.put("drive/drive", forge_snapshot_corruption(DiskStore(snap_root).get("drive/drive")))
+    try:
+        engine.drive(_imagenet_collection(mt), stream(), steps_per_chunk=SNAP_CHUNK, resume_from=forged)
+    except StateIntegrityError as err:
+        forged_note = str(err).splitlines()[0][:160]
+    else:
+        raise AssertionError("phase 21b: a forged snapshot resumed without an integrity error")
+    # the drive's cost with and without snapshots (programs cached), and a boundary's split
+    seconds: dict = {}
+    originals = (driver._seal_snapshot, DiskStore.put)
+    _time_into(seconds, "seal", driver, "_seal_snapshot")
+    _time_into(seconds, "put", DiskStore, "put")
+    timed = {False: [], True: []}
+    try:
+        for snap in (False, True, False, True):
+            kw = {"snapshot_store": DiskStore(os.path.join(root, "timed")), "snapshot_every": SNAP_CHUNK} if snap else {}
+            reset_durability_stats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            engine.drive(_imagenet_collection(mt), stream(), steps_per_chunk=SNAP_CHUNK, **kw)
+            torch.cuda.synchronize()
+            timed[snap].append((time.perf_counter() - t1) * 1e3)
+            if snap:
+                written = durability_stats()
+    finally:
+        driver._seal_snapshot, DiskStore.put = originals
+    drive_stats = mt.kernel_stats()
+    n_snap = written["snapshots"]
+    _log(
+        f"phase 21b drive snapshots: ImageNet-1k val as a stream of {len(_batches(IMAGENET_VAL[0]))} batches, chunks of"
+        f" {SNAP_CHUNK} steps, snapshot_every={SNAP_CHUNK} into a DiskStore; the child was killed (SIGKILL) with the"
+        f" snapshot of step {step} on disk; a fresh child resumed in {resumed['resume_ms']:.1f} ms ({resumed['steps']}"
+        f" steps, {resumed['captures']} captures, start and data not included; the uninterrupted drive here with no"
+        f" program cached: {plain_captures} captures), states, counts and compute() bit for bit equal to the"
+        f" uninterrupted drive's; a forged snapshot: StateIntegrityError ({forged_note}); drive ms without snapshots"
+        f" {[round(x, 2) for x in timed[False]]}, with {[round(x, 2) for x in timed[True]]}"
+        f" ({n_snap} snapshots a drive, {written['snapshot_bytes'] / max(n_snap, 1) / 1e6:.2f} MB each; seal"
+        f" {seconds.get('seal', 0.0) * 1e3 / max(2 * n_snap, 1):.2f} ms and write {seconds.get('put', 0.0) * 1e3 / max(2 * n_snap, 1):.2f}"
+        f" ms a boundary, on the host); {smi}"
+    )
+    launches = _launches(drive_stats)
+    for op, n in resumed["launches"].items():
+        launches[op] = launches.get(op, 0) + n
+    return launches
+
+
+def run_warm_snapshot_phase(torch, mt, smi: str) -> dict:
+    """Phase 21: warm starts (21a) and drive snapshots (21b), in fresh
+    child processes. Returns the launches of the phase."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    logits_np, target_np = _warm_stream()
+    logits, target = torch.from_numpy(logits_np).cuda(), torch.from_numpy(target_np).cuda()
+    shapes = _check_warm_kernels(torch, logits, target)
+    with tempfile.TemporaryDirectory() as root:
+        launches = run_warm_start_phase(torch, mt, smi, root)
+        for op, n in run_snapshot_phase(torch, mt, smi, root, logits, target).items():
+            launches[op] = launches.get(op, 0) + n
+    _log(
+        f"phase 21 warm starts and drive snapshots: {time.perf_counter() - t_phase:.1f} s in all; select_topk and"
+        f" confusion_counts bit for bit against their plain versions at {shapes}; launches {launches}; {smi}"
+    )
+    return launches
+
+
 def check_windowed_kernels(torch, rng):
     """Phase 16c: the class windows of the confusion-count kernels at the
     phase's shapes, each against its plain version and the matching slice
@@ -7541,19 +7935,21 @@ def main() -> int:
     resilience_launches = run_resilience_phase(torch, mt, smi)
     serving_launches = run_serving_phase(torch, mt, smi, logits, target, main_top5)
     pod_launches = run_pod_phase(torch, mt, smi)
+    warm_launches = run_warm_snapshot_phase(torch, mt, smi)
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {
         **{
             k: v["launches"] + sync_launches.get(k, 0) + engine_launches.get(k, 0) + wrapper_launches.get(k, 0)
             + obs_launches.get(k, 0) + shard_launches.get(k, 0) + resilience_launches.get(k, 0)
-            + serving_launches.get(k, 0) + pod_launches.get(k, 0)
+            + serving_launches.get(k, 0) + pod_launches.get(k, 0) + warm_launches.get(k, 0)
             for k, v in main_stats.items()
         },
         "confusion_counts": main_stats["confusion_counts"]["launches"] + sync_launches.get("confusion_counts", 0)
         + engine_launches.get("confusion_counts", 0) + extension_launches + wrapper_launches["confusion_counts"]
         + obs_launches["confusion_counts"] + shard_launches.get("confusion_counts", 0)
-        + resilience_launches["confusion_counts"] + serving_launches["confusion_counts"],
+        + resilience_launches["confusion_counts"] + serving_launches["confusion_counts"]
+        + warm_launches["confusion_counts"],
         "confusion_counts@segmentation": seg_launches,
         "confusion_counts@window": shard_launches["confusion_counts@window"] + pod_launches["confusion_counts@window"],
         "multilabel_counts@window": shard_launches["multilabel_counts@window"],
@@ -7601,6 +7997,9 @@ if __name__ == "__main__":
         _serving_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--pod-rank"]:
         _pod_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--warm-child"]:
+        _warm_child(sys.argv[2], sys.argv[3])
         sys.exit(0)
     if sys.argv[1:2] == ["--resilience-rank"]:
         _resilience_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])

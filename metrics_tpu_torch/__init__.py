@@ -303,3 +303,12 @@ __all__ = [
     "state_from_jax",
     "state_to_jax",
 ]
+
+# warmup manifests (engine/warmup.py): with METRICS_TPU_WARMUP_MANIFEST set,
+# an existing manifest warms this worker now (every metric module above is
+# importable, so its templates unpickle) and a missing one starts recording,
+# saved at exit
+from metrics_tpu_torch.engine import _warmup as _engine_warmup  # noqa: E402
+
+_engine_warmup._maybe_autowire_from_env()
+del _engine_warmup

@@ -11,9 +11,16 @@ instance, captured as a CUDA graph on the card and run eagerly on the CPU.
   its serving-bank row in one program) and the async results plane
   (:func:`async_compute`, one coalesced copy per collection).
 
+* :mod:`~metrics_tpu_torch.engine.persist`: the persistent kernel cache
+  (the kernel library built into and loaded from a directory that
+  outlives the process; ``METRICS_TPU_COMPILE_CACHE``).
+* :mod:`~metrics_tpu_torch.engine.warmup`: warmup manifests (record the
+  programs a worker serves; capture them all at the next worker's start;
+  ``METRICS_TPU_WARMUP_MANIFEST``). Drive snapshots (``drive(snapshot_store=,
+  resume_from=)``, :class:`DriveSnapshot`) live in the driver.
+
 Introspection: ``Metric.compile_stats()``, :func:`cache_summary`,
-:func:`clear_cache`, :func:`fetch_stats`. ``persist`` and ``warmup`` of the
-JAX engine are ROADMAP §1 item 10.
+:func:`clear_cache`, :func:`fetch_stats`, :func:`warmup_report`.
 """
 from metrics_tpu_torch.engine.bucketing import (  # noqa: F401
     bucket_spec,
@@ -34,12 +41,35 @@ from metrics_tpu_torch.engine.cache import (  # noqa: F401
     program_identity,
     update_transition,
 )
-from metrics_tpu_torch.engine.driver import (  # noqa: F401
+from metrics_tpu_torch.engine.persist import (  # noqa: F401
+    enable_persistent_cache,
+    persistent_cache_enabled,
+    persistent_cache_stats,
+)
+from metrics_tpu_torch.engine import persist as _persist
+
+_persist._maybe_enable_from_env()
+from metrics_tpu_torch.engine.driver import (  # noqa: F401, E402
     AsyncResult,
     DriveResult,
+    DriveSnapshot,
     async_compute,
     drive,
     drive_bank,
     fetch_stats,
+    load_drive_snapshot,
     reset_fetch_stats,
 )
+from metrics_tpu_torch.engine import warmup as _warmup  # noqa: E402  (the module; ``warmup`` becomes the function)
+from metrics_tpu_torch.engine.warmup import (  # noqa: F401, E402
+    load_manifest,
+    manifest_dict,
+    record_manifest,
+    save_manifest,
+    warmup,
+    warmup_report,
+)
+
+# the METRICS_TPU_WARMUP_MANIFEST wiring runs at the END of the package's
+# import (metrics_tpu_torch/__init__.py): warming unpickles metric templates,
+# which imports metric modules

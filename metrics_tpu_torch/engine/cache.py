@@ -45,7 +45,8 @@ replay never runs its Python ``update`` body, so attributes it sets
 therefore runs the transition eagerly (on the card, on a side stream): the
 probe. When the program key has no graph yet, that run is also the warm-up
 (the kernels' ``.so`` is built and loaded at first use) and the capture
-follows. An operation the program cannot hold raises
+follows. (A bank program's probe runs the wave's first request alone, then
+replays the wave.) An operation the program cannot hold raises
 :class:`~metrics_tpu_torch.utils.exceptions.JitIncompatibleError` (the guard,
 or a capture the toolkit refused), and the caller falls back to the eager
 update, as a failed trace does in JAX; a refused capture is remembered, so
@@ -99,12 +100,23 @@ cuDNN is captured with ``cudnn.benchmark`` off and TF32 off, in the warm-up
 as in the capture, and a refused capture raises: an encoder never falls
 back to an eager forward in silence.
 
+**Warm programs** (``engine/warmup.py``). :meth:`SharedEntry.warm` runs a
+recorded program key ahead of its first dispatch: the capture on the card,
+the first eager run on the CPU. The key is marked warmed, so a later
+dispatch that finds it counts a ``warmed_hit``; a new key in a variant the
+manifest covered is a stale manifest (``warmup.note_stale``, the explainer
+naming what changed). While a manifest records, every successful dispatch
+is recorded (``warmup.record_dispatch``). All of it sits behind one module
+flag, ``_WARM_HOOKS``: with no manifest loaded or recording, a dispatch
+pays one boolean read for it.
+
 The mesh-aware driver entries (``drive(mesh=)``) live with the rest of the
 driver's programs in ``engine/driver.py``; ``axis_world`` is re-exported
 here, where the JAX engine keeps it.
 """
 import contextlib
 import hashlib
+import importlib
 import threading
 import weakref
 from collections import OrderedDict
@@ -138,6 +150,15 @@ _STAT_KEYS = ("compiles", "cache_hits", "retraces", "donated_bytes", "bucketed_c
 #: Errors after which a metric runs its eager update instead of a program:
 #: the JAX engine's trace errors, as this package raises them.
 FALLBACK_ERRORS = (JitIncompatibleError, NotImplementedError, TypeError)
+
+#: Whether the warmup layer watches dispatches (a manifest loaded or
+#: recording): the one flag a dispatch reads when it does not.
+_WARM_HOOKS = False
+
+
+def set_warm_hooks(on: bool) -> None:
+    global _WARM_HOOKS
+    _WARM_HOOKS = bool(on)
 
 
 def new_stats() -> Dict[str, int]:
@@ -237,6 +258,9 @@ def metric_fingerprint(metric: Any) -> Tuple[Any, Tuple]:
     key = (type(metric), cfg, buffers, tuple(state_spec), placement)
     metric._engine_key = key
     metric._engine_key_pins = tuple(pins)
+    # what the instance had learned when it was keyed (usually nothing yet):
+    # a warmup manifest's digest and templates key as the instance did
+    metric._engine_key_dyn = {a: metric.__dict__.get(a) for a in getattr(metric, "_dynamic_state_attrs", ())}
     return key, tuple(pins)
 
 
@@ -425,6 +449,10 @@ class SharedEntry:
         # the live banks whose programs this entry captured on the card, by
         # id (a dict of tensors neither hashes nor compares by identity)
         self._residents: "weakref.WeakValueDictionary[int, Resident]" = weakref.WeakValueDictionary()
+        # warmup manifests: the program keys warmed ahead of their first
+        # dispatch, and per variant the signatures a manifest covered
+        self._warm: set = set()
+        self._warm_covered: Dict[str, List[Dict[str, Any]]] = {}
 
     @property
     def retraces(self) -> int:
@@ -462,6 +490,40 @@ class SharedEntry:
         copied; on the card its programs are kept on it.
         Raises :class:`JitIncompatibleError` where the program cannot be
         captured."""
+        fn, leaves, spec, key, device, head, programs = self._resolve(variant, inputs, resident)
+        program = programs.get(key)
+        if program == _FAILED:
+            raise JitIncompatibleError(f"the {self.kind} program {variant!r} could not be captured on {device}")
+        new = program is None
+        if device.type != "cuda":
+            with program_scope():
+                out = fn(cell, *head, *inputs)
+            if new:
+                programs[key] = True
+        elif new:
+            out = self._capture(variant, fn, cell, inputs, leaves, spec, device, programs, key, resident)
+        elif probe and resident is None:
+            with program_scope():
+                out = fn(cell, *head, *inputs)
+        elif probe:
+            # a bank's cell probes on the wave's first request alone (it
+            # writes nothing), and the graph replays the wave
+            with program_scope():
+                fn(cell, *head, *inputs, warm_up=True)
+            out = program.replay(leaves)
+        else:
+            out = program.replay(leaves)
+        self._count(variant, new, stats)
+        if _bus.enabled():
+            self._emit_dispatch(variant, new, cell, leaves, bucket)
+        if _WARM_HOOKS:
+            self._warm_hooks(variant, key, new, cell, inputs, leaves, bucket, resident)
+        return out
+
+    def _resolve(self, variant: str, inputs: Tuple, resident: Optional[Resident]) -> Tuple:
+        """``(fn, leaves, spec, key, device, head, programs)`` of one
+        dispatch: its program key, and the dict its program lives in (a
+        bank's own on the card)."""
         fn = self._fns[variant]
         leaves, spec = _tree.flatten(inputs)
         key = _program_key(variant, leaves, spec)
@@ -475,26 +537,71 @@ class SharedEntry:
                 key = (self.kind,) + key
                 programs = resident.programs
                 self._residents[id(resident)] = resident
+        return fn, leaves, spec, key, device, head, programs
+
+    def warm(
+        self,
+        variant: str,
+        cell: Any,
+        *inputs: Any,
+        resident: Optional[Resident] = None,
+        check: Optional[Callable[[], Optional[str]]] = None,
+    ) -> bool:
+        """Make the program of ``inputs``' key before its first dispatch
+        (``engine/warmup.py``): the warm-up and the capture on the card, the
+        first eager run on the CPU, counted as the entry's compile. A
+        bank's warm-up request runs with ``warm_up=True`` and writes no
+        row. ``check`` (after the run) names what went wrong, or None: a
+        program it refuses is dropped and ``ValueError`` raised. Marks the
+        key warmed; returns whether it was not before. Raises where the
+        program cannot be made."""
+        fn, leaves, spec, key, device, head, programs = self._resolve(variant, inputs, resident)
         program = programs.get(key)
         if program == _FAILED:
             raise JitIncompatibleError(f"the {self.kind} program {variant!r} could not be captured on {device}")
-        new = program is None
-        if device.type != "cuda":
-            with program_scope():
-                out = fn(cell, *head, *inputs)
-            if new:
+        if program is None:
+            if device.type != "cuda":
+                with program_scope():
+                    fn(cell, *head, *inputs)
                 programs[key] = True
-        elif new:
-            out = self._capture(variant, fn, cell, inputs, leaves, spec, device, programs, key, resident)
-        elif probe:
-            with program_scope():
-                out = fn(cell, *head, *inputs)
-        else:
-            out = program.replay(leaves)
-        self._count(variant, new, stats)
-        if _bus.enabled():
-            self._emit_dispatch(variant, new, cell, leaves, bucket)
-        return out
+            else:
+                self._capture(variant, fn, cell, inputs, leaves, spec, device, programs, key, resident)
+            problem = check() if check is not None else None
+            if problem is not None:
+                programs.pop(key, None)
+                raise ValueError(problem)
+            with self._lock:
+                self._variant_traces[variant] = self._variant_traces.get(variant, 0) + 1
+                self.traces += 1
+        fresh = key not in self._warm
+        self._warm.add(key)
+        return fresh
+
+    def _warm_hooks(
+        self,
+        variant: str,
+        key: Tuple,
+        new: bool,
+        cell: Any,
+        inputs: Tuple,
+        leaves: List[Any],
+        bucket: Optional[int],
+        resident: Optional[Resident],
+    ) -> None:
+        """A dispatch seen by the warmup layer: a warmed program found
+        counts a warmed hit, a new program in a covered variant is a stale
+        manifest, and a recording manifest records it."""
+        wm = importlib.import_module("metrics_tpu_torch.engine.warmup")
+        if not new and key in self._warm:
+            wm.count_warm_hit()
+        elif new and variant in self._warm_covered:
+            source, screening = self._obs_context(cell)
+            wm.note_stale(self, variant, _explain.signature(leaves, bucket=bucket, screening=screening), source)
+        if wm.recording():
+            try:
+                wm.record_dispatch(self, variant, cell, inputs, bucket, resident)
+            except Exception:  # noqa: BLE001 — recording must never break serving
+                pass
 
     def _capture(
         self,
@@ -609,6 +716,7 @@ class SharedEntry:
             "graphs": len(graphs),
             "failed_captures": sum(p == _FAILED for p in self._all_programs()),
             "static_bytes": sum(g.nbytes for g in graphs),
+            "warmed_programs": len(self._warm),
         }
 
 
@@ -890,7 +998,13 @@ def collection_bank_entry(keys: Tuple[str, ...], members: List[Any], layout: Tup
         pins.extend(p)
     cache_key = ("collection_bank", tuple(keys), tuple(member_keys), layout)
     body = _collection_request_body(tuple(keys))
-    return _get_or_create(cache_key, lambda: _make_bank_entry(cache_key, "collection_bank", tuple(pins), body))
+
+    def factory() -> SharedEntry:
+        entry = _make_bank_entry(cache_key, "collection_bank", tuple(pins), body)
+        entry._member_names = tuple(keys)
+        return entry
+
+    return _get_or_create(cache_key, factory)
 
 
 def bank_drive_entry(template: Any, layout: Tuple = ((), 1, 0)) -> SharedEntry:
@@ -913,6 +1027,7 @@ def bank_drive_entry(template: Any, layout: Tuple = ((), 1, 0)) -> SharedEntry:
 # ---------------------------------------------------------------------------
 def _make_fused_entry(kind: str, keys: Tuple[str, ...], cache_key: Any, pins: Tuple) -> SharedEntry:
     entry = SharedEntry(cache_key, kind, pins)
+    entry._member_names = keys
 
     def _update(members, states, args, member_kwargs, pad_count=None):
         return {
@@ -1020,21 +1135,27 @@ def encoder_entry(encoder: Any, consumer: Optional[Callable] = None) -> SharedEn
 # introspection
 # ---------------------------------------------------------------------------
 def clear_cache() -> None:
-    """Drop every shared entry with its graphs. Instances keep their own
-    ``compile_stats()`` counters. The graphs' memory pool goes with them:
-    once its last graph is freed the allocator releases the pool, and a
-    capture into the released pool's handle fails an allocator assertion,
-    so later captures take a fresh pool."""
+    """Drop every shared entry with its graphs (and their warmed marks).
+    Instances keep their own ``compile_stats()`` counters. The graphs'
+    memory pool goes with them: once its last graph is freed the allocator
+    releases the pool, and a capture into the released pool's handle fails
+    an allocator assertion, so later captures take a fresh pool."""
     with _LOCK:
         _CACHE.clear()
         _POOLS.clear()
 
 
 def cache_summary() -> Dict[str, Any]:
-    """Process-wide telemetry over every shared entry."""
+    """Process-wide telemetry over every shared entry, with the persistent
+    kernel cache's counters (``persistent_cache``)."""
+    from metrics_tpu_torch.engine import persist as _persist
+
     with _LOCK:
         entries = list(_CACHE.values())
-    keys = ("calls", "compiles", "cache_hits", "retraces", "bucketed_calls", "graphs", "failed_captures", "static_bytes")
+    keys = (
+        "calls", "compiles", "cache_hits", "retraces", "bucketed_calls", "graphs", "failed_captures", "static_bytes",
+        "warmed_programs",
+    )
     totals = dict.fromkeys(keys, 0)
     by_kind: Dict[str, Dict[str, int]] = {}
     for e in entries:
@@ -1044,4 +1165,4 @@ def cache_summary() -> Dict[str, Any]:
         for k in keys:
             kind[k] += s[k]
             totals[k] += s[k]
-    return {"entries": len(entries), **totals, "by_kind": by_kind}
+    return {"entries": len(entries), **totals, "by_kind": by_kind, "persistent_cache": _persist.persistent_cache_stats()}

@@ -53,9 +53,20 @@ drive over a mesh of more than one process, the states are the global
 ones: the host sync is disarmed and host updates raise until ``reset()``.
 
 :func:`drive_bank` folds one tenant's epoch into its serving-bank row.
-Out of this slice: drive snapshots (``snapshot_store``/``resume_from``,
-ROADMAP §1 item 10), which raise ``NotImplementedError``.
+
+**Drive snapshots** (``snapshot_store=``, ``snapshot_every=``,
+``resume_from=``): a local epoch seals its members' states at chunk
+boundaries into a :class:`~metrics_tpu_torch.serving.SpillStore`, in the
+JAX package's bytes (:class:`DriveSnapshot`, schema family ``snapshot``):
+the boundary's states start their copy to the host (:class:`AsyncResult`)
+and are sealed and written one boundary later, so the card never waits on
+the store. A stacked epoch with ``snapshot_every`` below the chunk length
+runs in chunks of ``snapshot_every`` steps. A killed epoch re-enters with
+``resume_from=`` through the same chunk programs; the chunks run their
+steps in order, so every chunking gives the same states bit for bit.
 """
+import json
+import struct
 import threading
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
@@ -73,7 +84,17 @@ from metrics_tpu_torch.sharding import spec as _shard_spec
 from metrics_tpu_torch.utils.data import _squeeze_if_scalar
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
-__all__ = ["AsyncResult", "DriveResult", "async_compute", "drive", "fetch_stats", "reset_fetch_stats"]
+__all__ = [
+    "AsyncResult",
+    "DriveResult",
+    "DriveSnapshot",
+    "async_compute",
+    "drive",
+    "drive_bank",
+    "fetch_stats",
+    "load_drive_snapshot",
+    "reset_fetch_stats",
+]
 
 
 # ---------------------------------------------------------------------------
@@ -190,19 +211,280 @@ def async_compute(obj: Any) -> AsyncResult:
 class DriveResult:
     """What one :func:`drive` did: ``steps`` consumed, ``chunks`` (program
     replays or runs), the member keys driven in chunks (``fused_keys``) and
-    per step (``eager_keys``), and with ``compute_in_trace`` the ``values``."""
+    per step (``eager_keys``), with ``compute_in_trace`` the ``values``, and
+    the drive snapshots it wrote (``snapshots``)."""
 
-    __slots__ = ("steps", "chunks", "fused_keys", "eager_keys", "values")
+    __slots__ = ("steps", "chunks", "fused_keys", "eager_keys", "values", "snapshots")
 
-    def __init__(self, steps: int, chunks: int, fused_keys: Tuple[str, ...], eager_keys: Tuple[str, ...], values: Any) -> None:
+    def __init__(
+        self,
+        steps: int,
+        chunks: int,
+        fused_keys: Tuple[str, ...],
+        eager_keys: Tuple[str, ...],
+        values: Any,
+        snapshots: int = 0,
+    ) -> None:
         self.steps = steps
         self.chunks = chunks
         self.fused_keys = fused_keys
         self.eager_keys = eager_keys
         self.values = values
+        self.snapshots = snapshots
 
     def __repr__(self) -> str:
         return f"DriveResult(steps={self.steps}, chunks={self.chunks}, fused_keys={self.fused_keys}, eager_keys={self.eager_keys})"
+
+
+# ---------------------------------------------------------------------------
+# drive snapshots: sealed mid-epoch states and resume
+# ---------------------------------------------------------------------------
+_SNAPSHOT_VERSION = 1
+_SNAP_SEP = "\x00"  # member key / state name separator of the flat payload
+
+
+class DriveSnapshot:
+    """One sealed mid-epoch state: ``step`` steps done, the fused members'
+    states at that boundary (``{member_key: {state: CPU tensor}}``), whether
+    it is the epoch's ``final`` one, and the attributes the members learned
+    in their first update (``dynamics``: ``Accuracy.mode``, the set a
+    checkpoint carries). Written by ``drive(snapshot_store=)``, read by
+    ``drive(resume_from=)`` and :func:`load_drive_snapshot`."""
+
+    __slots__ = ("step", "states", "final", "dynamics")
+
+    def __init__(
+        self,
+        step: int,
+        states: Dict[str, Dict[str, Any]],
+        final: bool = False,
+        dynamics: Optional[Dict[str, Dict[str, Any]]] = None,
+    ) -> None:
+        self.step = int(step)
+        self.states = states
+        self.final = bool(final)
+        self.dynamics = dynamics or {}
+
+    def __repr__(self) -> str:
+        return f"DriveSnapshot(step={self.step}, members={sorted(self.states)}, final={self.final})"
+
+
+def _snapshot_store_key(snapshot_key: str) -> str:
+    return f"drive/{snapshot_key}"
+
+
+def _seal_snapshot(
+    states: Dict[str, Dict[str, Any]],
+    step: int,
+    final: bool,
+    dynamics: Optional[Dict[str, Dict[str, Any]]] = None,
+) -> bytes:
+    """The JAX package's snapshot bytes: an envelope around a JSON meta
+    (version, step, member keys, learned attributes) and the flat states as
+    one exact tenant payload (``serving/store.encode_tenant_payload``, every
+    leaf attested by its digest)."""
+    from metrics_tpu_torch.metric import _encode_dynamic
+    from metrics_tpu_torch.parallel import groups as _groups
+    from metrics_tpu_torch.serving import store as _payload
+
+    flat: Dict[str, Any] = {}
+    for member_key, state in states.items():
+        for name, value in state.items():
+            flat[f"{member_key}{_SNAP_SEP}{name}"] = value
+    inner = _payload.encode_tenant_payload(flat, precisions=None)
+    dyn = {k: {a: _encode_dynamic(v) for a, v in attrs.items()} for k, attrs in (dynamics or {}).items() if attrs}
+    meta = json.dumps(
+        {"v": _SNAPSHOT_VERSION, "step": int(step), "final": bool(final), "keys": sorted(states), "dyn": dyn}
+    ).encode("utf-8")
+    return _groups.pack_envelope(struct.pack(">I", len(meta)) + meta + inner)
+
+
+def _unseal_snapshot(payload: bytes, context: str = "") -> DriveSnapshot:
+    """Decode a drive snapshot through the durable-schema registry: one
+    sealed by a newer build raises ``SchemaVersionError``."""
+    from metrics_tpu_torch.resilience import schema as _schema
+
+    return _schema.decode_any("snapshot", payload, context=context)
+
+
+def _snapshot_meta(payload: bytes, context: str) -> Tuple[Dict[str, Any], bytes]:
+    from metrics_tpu_torch.parallel import groups as _groups
+    from metrics_tpu_torch.utils.exceptions import SyncIntegrityError
+
+    _version, body = _groups.unpack_envelope(payload, context)
+    if len(body) < 4:
+        raise SyncIntegrityError(f"Truncated drive snapshot{context}.")
+    (meta_len,) = struct.unpack(">I", body[:4])
+    try:
+        meta = json.loads(body[4 : 4 + meta_len].decode("utf-8"))
+    except (ValueError, UnicodeDecodeError) as err:
+        raise SyncIntegrityError(f"Unparseable drive-snapshot meta{context}: {err}") from err
+    if not isinstance(meta, dict):
+        raise SyncIntegrityError(f"Drive-snapshot meta is not an object{context}.")
+    return meta, body[4 + meta_len :]
+
+
+def _snapshot_version_of(payload: bytes) -> Any:
+    return _snapshot_meta(payload, "")[0].get("v")
+
+
+def _decode_snapshot_v1(payload: bytes, context: str) -> DriveSnapshot:
+    from metrics_tpu_torch.metric import _decode_dynamic
+    from metrics_tpu_torch.serving import store as _payload
+
+    meta, inner = _snapshot_meta(payload, context)
+    flat = _payload.decode_tenant_payload(inner, context)
+    states: Dict[str, Dict[str, Any]] = {}
+    for flat_key, value in flat.items():
+        member_key, _, name = flat_key.partition(_SNAP_SEP)
+        states.setdefault(member_key, {})[name] = value
+    dynamics = {k: {a: _decode_dynamic(v) for a, v in attrs.items()} for k, attrs in meta.get("dyn", {}).items()}
+    return DriveSnapshot(int(meta["step"]), states, final=bool(meta.get("final", False)), dynamics=dynamics)
+
+
+def _register_snapshot_schemas() -> None:
+    from metrics_tpu_torch.resilience import schema as _schema
+
+    _schema.register_schema("snapshot", _SNAPSHOT_VERSION, _decode_snapshot_v1, prober=_snapshot_version_of)
+
+
+_register_snapshot_schemas()
+
+
+def load_drive_snapshot(store: Any, snapshot_key: str = "drive") -> DriveSnapshot:
+    """The snapshot ``drive(snapshot_store=store, snapshot_key=...)`` sealed
+    last: what ``drive(resume_from=)`` re-enters from."""
+    from metrics_tpu_torch.serving import store as _spill
+
+    try:
+        payload = store.get(_snapshot_store_key(snapshot_key))
+    except KeyError:
+        raise KeyError(
+            f"no drive snapshot under key {snapshot_key!r} in {type(store).__name__};"
+            " was drive(snapshot_store=, snapshot_key=) ever run against this store?"
+        ) from None
+    _spill.bump("blob_reads")
+    return _unseal_snapshot(payload, context=f" (drive snapshot {snapshot_key!r})")
+
+
+class _SnapshotCtx:
+    """The deferred snapshot writer: a boundary's states start their copy to
+    the host at once (an :class:`AsyncResult`; a chunk's states are tensors
+    of their own, never a graph's, so later chunks leave them as they are)
+    and are sealed and written into the store one boundary later, so the
+    store's I/O overlaps the next chunk on the card."""
+
+    def __init__(self, store: Any, every: Optional[int], key: str, source: str) -> None:
+        self.store = store
+        self.every = every
+        self.key = key
+        self.source = source
+        self.base_step = 0  # steps done before this call (a resume)
+        self.written = 0
+        self.last_snap_step = 0
+        self._pending: Optional[Tuple[AsyncResult, int, bool, Dict[str, Dict[str, Any]]]] = None
+
+    def due(self, steps_done: int) -> bool:
+        return self.every is not None and steps_done - self.last_snap_step >= self.every
+
+    def stage(self, fused: List[Tuple[str, Any]], states: Dict[str, Dict[str, Any]], steps_done: int, final: bool) -> None:
+        """Queue the states after ``steps_done`` steps of this call; write the
+        boundary queued before."""
+        dynamics = {k: {a: getattr(m, a) for a in m._dynamic_state_attrs} for k, m in fused}
+        handle = AsyncResult(states, source=f"{self.source}:snapshot")
+        prev, self._pending = self._pending, (handle, self.base_step + steps_done, final, dynamics)
+        self.last_snap_step = steps_done
+        if prev is not None:
+            self._write(prev)
+        if final:
+            self.flush()
+
+    def flush(self) -> None:
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            self._write(pending)
+
+    def _write(self, staged: Tuple[AsyncResult, int, bool, Dict[str, Dict[str, Any]]]) -> None:
+        from metrics_tpu_torch.serving import store as _spill
+
+        handle, step, final, dynamics = staged
+        payload = _seal_snapshot(handle.result(), step, final, dynamics=dynamics)
+        self.store.put(_snapshot_store_key(self.key), payload)
+        self.written += 1
+        _spill.bump("snapshots")
+        _spill.bump("snapshot_bytes", len(payload))
+        if _bus.enabled():
+            _bus.emit("snapshot", source=self.source, key=self.key, step=step, bytes=len(payload), final=final)
+
+
+def _resolve_resume(resume_from: Any, snapshot_key: str) -> Optional[DriveSnapshot]:
+    if resume_from is None:
+        return None
+    if isinstance(resume_from, DriveSnapshot):
+        return resume_from
+    return load_drive_snapshot(resume_from, snapshot_key)
+
+
+def _bind_resume(fused: List[Tuple[str, Any]], resume: DriveSnapshot, source: str) -> None:
+    """Bind a snapshot as the epoch's starting states: each member's states
+    checked against its registered defaults (names, shapes, the kind of
+    dtype) and restored as sealed on the member's device, its learned
+    attributes set, its update count and screening counter advanced by the
+    snapshot's steps."""
+    from metrics_tpu_torch.serving import store as _spill
+    from metrics_tpu_torch.utils.checkpoint import dtype_kind
+
+    keys = tuple(k for k, _ in fused)
+    if set(keys) != set(resume.states):
+        raise MetricsUserError(
+            f"drive(resume_from=): the snapshot covers members {sorted(resume.states)} but this drive fuses"
+            f" {sorted(keys)} — resume needs the same metric/collection composition the snapshot was taken from."
+        )
+    for k, m in fused:
+        cls = type(m).__name__
+        state = resume.states[k]
+        if set(state) != set(m._defaults):
+            raise MetricsUserError(
+                f"drive(resume_from=): member {k!r} ({cls}) registers states {sorted(m._defaults)} but the snapshot"
+                f" holds {sorted(state)} — different class or config?"
+            )
+        restored: Dict[str, Any] = {}
+        for name, value in state.items():
+            default = m._defaults[name]
+            tensor = torch.as_tensor(value)
+            if tuple(tensor.shape) != tuple(default.shape):
+                raise MetricsUserError(
+                    f"drive(resume_from=): state {name!r} of {cls} has registered shape {tuple(default.shape)} but the"
+                    f" snapshot holds {tuple(tensor.shape)} — different config (e.g. another num_classes)?"
+                )
+            if dtype_kind(tensor.dtype) != dtype_kind(default.dtype):
+                raise MetricsUserError(
+                    f"drive(resume_from=): state {name!r} of {cls} is registered as {dtype_kind(default.dtype)} but"
+                    f" the snapshot holds {dtype_kind(tensor.dtype)}."
+                )
+            restored[name] = tensor.to(default.device)
+        m._restore_state(restored)
+        # keyed before it learns the snapshot's attributes, as the
+        # interrupted run's instance was: the same programs serve the rest
+        _cache.metric_fingerprint(m)
+        for attr, value in resume.dynamics.get(k, {}).items():
+            setattr(m, attr, value)
+        m._update_count += resume.step
+        m._computed = None
+        if _health.health_enabled(m):
+            m._health_stats["batches_screened"] += resume.step
+    _spill.bump("resumes")
+    if _bus.enabled():
+        _bus.emit("recover", source=source, scope="drive", step=resume.step, final=resume.final)
+
+
+def _raise_not_snapshotable(eager_keys: Tuple[str, ...]) -> None:
+    raise MetricsUserError(
+        "drive snapshots/resume (snapshot_store=/resume_from=) need every member scan-drivable: the snapshot IS"
+        " the chunks' states, and an eager-fallback/list-state/'raise'-policy member's state never rides them;"
+        f" offending members: {sorted(set(eager_keys))}. Drive them in a separate plain drive(), or checkpoint them"
+        " with utils.checkpoint."
+    )
 
 
 def _members_of(obj: Any) -> Tuple[Tuple[str, ...], List[Any]]:
@@ -250,6 +532,8 @@ def _make_driver_entry(
     cache_key: Any, keys: Tuple[str, ...], compute_keys: Tuple[str, ...], pins: Tuple, sync: Optional[Any] = None
 ) -> _cache.SharedEntry:
     entry = _cache.SharedEntry(cache_key, "driver", pins)
+    entry._member_names = keys
+    entry._compute_keys = compute_keys
 
     def _chunk(members, states, leaves, pads, treedef, compute):
         steps = int(leaves[0].shape[0])
@@ -468,8 +752,21 @@ def drive(
             all), naming the axes the batch axis is split over
             (``PartitionSpec(None, "dp")``); needs ``mesh``, excludes
             ``axis_name``.
-        snapshot_store, snapshot_every, snapshot_key, resume_from: drive
-            snapshots (ROADMAP §1 item 10), not ported yet.
+        snapshot_store: a :class:`~metrics_tpu_torch.serving.SpillStore` the
+            epoch seals its states into at chunk boundaries (at most every
+            ``snapshot_every`` steps), and at its end. Local epochs only
+            (no ``mesh``), every member driven in chunks.
+        snapshot_every: the snapshot cadence in steps (boundaries fall on
+            chunks; a stacked epoch runs in chunks of at most this many
+            steps). ``None``: only the final snapshot.
+        snapshot_key: the store key the snapshots go under (each overwrites
+            the last).
+        resume_from: a store (its snapshot under ``snapshot_key``) or a
+            :class:`DriveSnapshot`: the members take its states, learned
+            attributes and counts, the first ``step`` steps of ``batches``
+            are skipped and the rest runs through the same chunk programs,
+            ending bit for bit where the uninterrupted epoch ends. Resuming
+            a final snapshot binds it and runs nothing.
     """
     gspmd = in_specs is not None
     if gspmd:
@@ -500,12 +797,22 @@ def drive(
             " MULTI-axis mesh: pass axis_name as a tuple of >= 2 mesh axes"
             f" ordered outer->inner (e.g. ('host', 'local')), got {axis_name!r}."
         )
-    if snapshot_store is not None or snapshot_every is not None or resume_from is not None:
-        raise NotImplementedError(
-            "drive snapshots (snapshot_store=, snapshot_every=, resume_from=) are ROADMAP §1 item 10,"
-            " not ported yet."
-        )
-    del snapshot_key
+    snap: Optional[_SnapshotCtx] = None
+    resume: Optional[DriveSnapshot] = None
+    if snapshot_store is not None or resume_from is not None:
+        if mesh is not None or axis_name is not None:
+            raise ValueError(
+                "drive snapshots/resume (snapshot_store=/resume_from=) cover the LOCAL epoch path; mesh/axis_name"
+                " epochs keep their own sync semantics — checkpoint the members instead (utils.checkpoint) or"
+                " drive locally."
+            )
+        if snapshot_every is not None and snapshot_every < 1:
+            raise ValueError(f"snapshot_every must be >= 1 (or None), got {snapshot_every}")
+        resume = _resolve_resume(resume_from, snapshot_key)
+        if snapshot_store is not None:
+            snap = _SnapshotCtx(snapshot_store, snapshot_every, snapshot_key, type(obj).__name__)
+            if resume is not None:
+                snap.base_step = resume.step
     if isinstance(axis_name, (tuple, list)):
         axis_name = tuple(axis_name)
     _, members = _members_of(obj)
@@ -519,7 +826,7 @@ def drive(
 
     def run() -> DriveResult:
         if mesh is None:
-            return _drive_local(obj, batches, compute_in_trace, steps_per_chunk)
+            return _drive_local(obj, batches, compute_in_trace, steps_per_chunk, snap, resume)
         return _drive_mesh(obj, batches, mesh, axis_name, in_specs, hierarchical_sync, compute_in_trace, steps_per_chunk)
 
     with torch.no_grad():
@@ -746,7 +1053,14 @@ def drive_bank(bank: Any, tenant: Any, batches: Any) -> int:
     return bank.drive(tenant, batches)
 
 
-def _drive_local(obj: Any, batches: Any, compute_in_trace: bool, steps_per_chunk: int) -> DriveResult:
+def _drive_local(
+    obj: Any,
+    batches: Any,
+    compute_in_trace: bool,
+    steps_per_chunk: int,
+    snap: Optional[_SnapshotCtx] = None,
+    resume: Optional[DriveSnapshot] = None,
+) -> DriveResult:
     keys, members = _members_of(obj)
     stats = _cache.instance_stats(obj)
     ids: Dict[int, int] = {}
@@ -755,18 +1069,52 @@ def _drive_local(obj: Any, batches: Any, compute_in_trace: bool, steps_per_chunk
     fused = [(k, m) for k, m in zip(keys, members) if ids[id(m)] == 1 and _scan_drivable(m)]
     fused_keys = {k for k, _ in fused}
     eager = [(k, m) for k, m in zip(keys, members) if k not in fused_keys]
+    if (snap is not None or resume is not None) and eager:
+        _raise_not_snapshotable(tuple(k for k, _ in eager))
+
+    def done_early() -> DriveResult:
+        # nothing left to run: a resume of a completed epoch binds it; an
+        # empty epoch still seals its final snapshot, so a uniform restart's
+        # drive(resume_from=) finds one
+        if resume is not None:
+            _bind_resume(fused, resume, type(obj).__name__)
+            return DriveResult(0, 0, tuple(k for k, _ in fused), (), obj.compute() if compute_in_trace else None)
+        if snap is not None:
+            snap.stage(fused, {k: m._snapshot_state() for k, m in fused}, 0, final=True)
+        return DriveResult(
+            0, 0, (), tuple(k for k, _ in eager), obj.compute() if compute_in_trace else None,
+            snap.written if snap is not None else 0,
+        )
 
     stacked = _stacked_steps(batches)
     if stacked is not None:
         args_tree, n_steps = stacked
+        if resume is not None:
+            if resume.step > n_steps:
+                raise MetricsUserError(
+                    f"drive(resume_from=): the snapshot was taken at step {resume.step} but the epoch holds only"
+                    f" {n_steps} steps — resume must replay the SAME epoch the snapshot interrupted."
+                )
+            args_tree = tuple(a[resume.step:] for a in args_tree)
+            n_steps -= resume.step
         if n_steps == 0:
-            return DriveResult(0, 0, (), tuple(k for k, _ in eager), obj.compute() if compute_in_trace else None)
+            return done_early()
         step_iter: Any = iter(tuple(a[i] for a in args_tree) for i in range(n_steps))
     else:
         step_iter = _steps_iter(batches)
+        if resume is not None:
+            for skipped in range(resume.step):
+                if next(step_iter, None) is None:
+                    raise MetricsUserError(
+                        f"drive(resume_from=): the stream ended after {skipped} steps but the snapshot was taken at"
+                        f" step {resume.step} — resume must replay the SAME epoch the snapshot interrupted."
+                    )
     step0 = next(step_iter, None)
     if step0 is None:
-        return DriveResult(0, 0, (), tuple(k for k, _ in eager), obj.compute() if compute_in_trace else None)
+        return done_early()
+    if resume is not None:
+        # the snapshot's states are where the remaining steps start
+        _bind_resume(fused, resume, type(obj).__name__)
 
     fused_members = [m for _, m in fused]
     additive_ok = bool(fused) and all(_bucketing.supports_bucketing(m) for m in fused_members)
@@ -774,7 +1122,10 @@ def _drive_local(obj: Any, batches: Any, compute_in_trace: bool, steps_per_chunk
     batched = _bucketing.batched_leaf_indices(leaves0)
     compute_keys = _compute_keys(fused) if compute_in_trace and fused else ()
 
-    runner = _ChunkRunner(fused, eager, stats, compute_keys, treedef, batched, additive_ok, steps_per_chunk)
+    chunk = steps_per_chunk
+    if stacked is not None and snap is not None and snap.every is not None:
+        chunk = min(chunk, snap.every)  # a snapshot at each chunk boundary
+    runner = _ChunkRunner(fused, eager, stats, compute_keys, treedef, batched, additive_ok, chunk, snap=snap)
     if stacked is not None and fused:
         runner.run_stacked(args_tree, n_steps)
     else:
@@ -787,8 +1138,13 @@ def _drive_local(obj: Any, batches: Any, compute_in_trace: bool, steps_per_chunk
                 if _health.health_enabled(m):
                     _health.check_compute_result(m, m._computed)
         values = obj.compute()
+    if snap is not None:
+        # from the bound states: they hold the per-step tail updates too,
+        # and make a resume of the completed epoch a no-op
+        snap.stage(fused, {k: m._snapshot_state() for k, m in fused}, runner.n_steps, final=True)
     return DriveResult(
-        runner.n_steps, runner.n_chunks, tuple(k for k, _ in runner.fused), tuple(k for k, _ in runner.eager), values
+        runner.n_steps, runner.n_chunks, tuple(k for k, _ in runner.fused), tuple(k for k, _ in runner.eager), values,
+        snap.written if snap is not None else 0,
     )
 
 
@@ -797,12 +1153,14 @@ class _ChunkRunner:
     step. On a fallback error the states reached so far are bound and the
     remaining steps (the failed chunk's included) run per step."""
 
-    def __init__(self, fused, eager, stats, compute_keys, treedef, batched, additive_ok, k, mesh=None) -> None:
+    def __init__(self, fused, eager, stats, compute_keys, treedef, batched, additive_ok, k, mesh=None, snap=None) -> None:
         """``mesh``: a mesh drive's ``{"mesh", "axes", "hierarchical",
         "prior", "verdicts", "share"}``; its chunks run the ``mesh_scan``
         programs with the quarantine verdicts, the last one with the sync
         and the merge into ``prior`` where the backend's collectives capture
-        (NCCL)."""
+        (NCCL). ``snap``: the drive's snapshot writer, staged at the chunk
+        boundaries it finds due."""
+        self.snap = snap
         self.fused = list(fused)
         self.eager = list(eager)
         self.stats = stats
@@ -831,6 +1189,10 @@ class _ChunkRunner:
         self.synced = False  # the last chunk's program ran the mesh sync
 
     # -- chunks -----------------------------------------------------------
+    def _boundary(self, steps_done: int) -> None:
+        if self.snap is not None and self.snap.due(steps_done):
+            self.snap.stage(self.fused, self.states, steps_done, final=False)
+
     def _dispatch_mesh(self, leaves: List[torch.Tensor], pads: Optional[List[int]], last: bool, pos: int) -> None:
         members = [m for _, m in self.fused]
         k = int(leaves[0].shape[0])
@@ -919,6 +1281,8 @@ class _ChunkRunner:
                 return
             pos += span
             self.bound_steps = pos
+            if not last:
+                self._boundary(pos)
         self.n_steps = n_steps
         _bind_states(self.fused, self.states, n_steps)
         for i in range(n_steps):
@@ -975,6 +1339,9 @@ class _ChunkRunner:
             if slot is not None:
                 _Staging.consumed(slot)
             self.bound_steps += len(args_list)
+            if not last and not tail_steps:
+                # the states hold exactly the first bound_steps stream items
+                self._boundary(self.bound_steps)
             return True
 
         def _flush(last: bool) -> None:

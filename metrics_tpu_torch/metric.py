@@ -1216,6 +1216,7 @@ class Metric(nn.Module):
             "_compute_impl",
             "_engine_key",
             "_engine_key_pins",
+            "_engine_key_dyn",
             "_zero_row_deltas",
         )
         state = {k: v for k, v in self.__dict__.items() if k not in skip}

@@ -20,8 +20,7 @@ Prometheus text.
   in ``dropped``. Per-kind totals survive eviction.
 * **Typed.** ``kind`` is one of :data:`EVENT_KINDS`, the JAX package's set
   unchanged, so a JSONL written by either package validates under either.
-  Kinds of layers the port does not have yet (serving, fleet, warmup,
-  sharding, the wire codecs, the retrying group exchange) stay in the set
+  Kinds of layers the port does not have yet (the fleet's) stay in the set
   and never fire.
 
 One process-wide ``RLock`` guards the ring, the counters and the

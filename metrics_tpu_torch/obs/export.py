@@ -14,9 +14,10 @@ keys. Its ``engine``, ``fetch``, ``encoders``, ``kernels``, ``sharding``
 ``compat`` (the schema registry's ``families`` and the groups'
 ``wire_negotiation``), ``serving``
 (:func:`~metrics_tpu_torch.serving.serving_summary`), ``durability``
-(:func:`~metrics_tpu_torch.serving.durability_stats`), ``bus``, ``spans``
+(:func:`~metrics_tpu_torch.serving.durability_stats`), ``warmup``
+(:func:`~metrics_tpu_torch.engine.warmup_report`), ``bus``, ``spans``
 and ``warnings`` sections hold the port's counters; the sections of layers
-the port does not have yet (``warmup``, ``fleet``, ``guard``) hold
+the port does not have yet (``fleet``, ``guard``) hold
 ``{"ported": False}``.
 
 JSONL: one event per line in :meth:`Event.as_dict`'s schema
@@ -40,8 +41,8 @@ JSONL_SCHEMA_VERSION = 1
 _EVENT_REQUIRED_FIELDS = ("v", "seq", "kind", "t", "source", "data")
 
 #: Sections of the JAX process snapshot whose layers the port does not have
-#: yet (ROADMAP §1 item 10); each later slice fills in its own.
-UNPORTED_SECTIONS = ("warmup", "fleet", "guard")
+#: yet (ROADMAP §1 item 10b, the fleet).
+UNPORTED_SECTIONS = ("fleet", "guard")
 
 
 def _shard_stats() -> Dict[str, Any]:
@@ -122,6 +123,8 @@ def process_snapshot() -> Dict[str, Any]:
         "serving": _serving_summary(),
         # journal appends and compactions, spill blobs, checkpoints, recoveries
         "durability": _durability_stats(),
+        # warmup manifests: what was loaded and warmed, warmed hits, staleness
+        "warmup": _engine.warmup_report(),
     }
     for name in UNPORTED_SECTIONS:
         out[name] = {"ported": False}
@@ -243,9 +246,10 @@ _ENCODER_COUNTERS = (
 
 
 def prometheus_text(obj: Optional[Any] = None) -> str:
-    """The counters in Prometheus text exposition format: the engine, the
-    async fetches, the encoders, the kernel registry, the sharded states,
-    the wire codecs, the serving banks, the state digests, the schema
+    """The counters in Prometheus text exposition format: the engine (with
+    the persistent kernel cache), the async fetches, the encoders, the
+    kernel registry, the sharded states, the wire codecs, the serving banks,
+    the warmup manifests, the state digests, the schema
     registry and the wire negotiation, the durable plane, the bus and the
     spans; with a metric or collection, each member's compile, sync and
     health counters under a ``member`` label (a bare metric is ``_``)."""
@@ -264,6 +268,10 @@ def prometheus_text(obj: Optional[Any] = None) -> str:
     _sample("metrics_tpu_engine_entries", eng["entries"], kind="gauge")  # LRU-evictable
     for key in ("calls", "compiles", "cache_hits", "retraces", "bucketed_calls"):
         _sample(f"metrics_tpu_engine_{key}", eng[key])
+    persist = eng["persistent_cache"]
+    _sample("metrics_tpu_engine_persistent_cache_enabled", 1 if persist["enabled"] else 0, kind="gauge")
+    for key in ("persistent_hits", "persistent_misses"):
+        _sample(f"metrics_tpu_engine_{key}", persist[key])
     fetch = _engine.fetch_stats()
     for key in ("async_fetches", "coalesced_leaves"):
         _sample(f"metrics_tpu_engine_{key}", fetch[key])
@@ -325,6 +333,16 @@ def prometheus_text(obj: Optional[Any] = None) -> str:
             _sample("metrics_tpu_bank_quarantine_rate", bank["quarantine_rate"], labels, kind="gauge")
             _sample("metrics_tpu_bank_updates_quarantined", bank["updates_quarantined"], labels)
             _sample("metrics_tpu_bank_rows_masked", bank["rows_masked"], labels)
+
+    # warmup manifests: the warmed program inventory and staleness
+    warm = _engine.warmup_report()
+    _sample("metrics_tpu_warmup_manifest_loaded", 1 if warm["manifest_loaded"] else 0, kind="gauge")
+    _sample("metrics_tpu_warmup_manifest_programs", warm["manifest_programs"], kind="gauge")
+    for key in ("entries_warmed", "programs_warmed", "programs_failed", "warmed_hits", "stale_total"):
+        _sample(f"metrics_tpu_warmup_{key}", warm[key])
+    rec = warm["recording"]
+    _sample("metrics_tpu_warmup_recording", 1 if rec["active"] else 0, kind="gauge")
+    _sample("metrics_tpu_warmup_recorded_programs", rec["programs"], kind="gauge")
 
     # state digests: the failures are the alerting surface
     for key, value in sorted(_integrity_stats().items()):

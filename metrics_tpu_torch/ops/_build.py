@@ -2,7 +2,8 @@
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a``; the objects are linked into one shared library with a plain
-C interface in ``metrics_tpu_torch/_build/``, named by a hash of the sources
+C interface in ``metrics_tpu_torch/_build/`` (or in the persistent kernel
+cache's directory, ``engine/persist.py``), named by a hash of the sources
 and flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing here includes PyTorch's headers, which keeps a build to seconds.
 
@@ -82,24 +83,35 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and PATH)")
 
 
+def _build_dir() -> Path:
+    """``BUILD_DIR``, or the persistent kernel cache's directory where one is enabled."""
+    from metrics_tpu_torch.engine import persist
+
+    path = persist.cache_dir()
+    return BUILD_DIR if path is None else Path(path)
+
+
 def _library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES:
         digest.update((CSRC / src).read_bytes())
-    return BUILD_DIR / f"libmetrics_kernels_{digest.hexdigest()[:16]}.so"
+    return _build_dir() / f"libmetrics_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
     """Compile ``csrc/`` into the shared library unless it is already built."""
     global last_build_seconds, last_build_log
+    from metrics_tpu_torch.engine import persist
+
     so = _library_path()
     if so.exists():
         last_build_seconds = 0.0
+        persist.note_load(built=False)
         return so
-    BUILD_DIR.mkdir(exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    work = Path(tempfile.mkdtemp(dir=so.parent))
     try:
         objs = [work / (Path(src).stem + ".o") for src in SOURCES]
         procs = [
@@ -125,6 +137,7 @@ def build() -> Path:
         shutil.rmtree(work, ignore_errors=True)
     last_build_seconds = time.perf_counter() - t0
     last_build_log = "\n".join(logs)
+    persist.note_load(built=True)
     return so
 
 

@@ -45,6 +45,7 @@ from metrics_tpu_torch.resilience.integrity import (  # noqa: F401
     IntegrityAuditor,
     fold_digest,
     forge_payload_corruption,
+    forge_snapshot_corruption,
     inject_bitflip,
     integrity_stats,
     leaf_digest,

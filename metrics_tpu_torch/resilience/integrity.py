@@ -21,15 +21,14 @@ The bank-bound half acts on a serving bank
   JAX package's site, so both packages corrupt the same bit);
   :func:`bitflip_injector` wires it to a fault plan's ``bitflip_site``.
 * :func:`forge_payload_corruption` corrupts one leaf of a sealed payload
-  while keeping every crc valid, the corruption only the digests can see.
+  while keeping every crc valid, the corruption only the digests can see;
+  :func:`forge_snapshot_corruption` does the same inside a sealed drive
+  snapshot (``engine/driver.py``).
 * :class:`IntegrityAuditor` drains a bank's sampled audits
   (``MetricBank(audit_rate=)``), replays each on a solo clone of the
   template and compares bit for bit; a mismatch is reported (an ``audit``
   event with ``ok`` False) and, with ``repair=True``, repaired from the
   last attested blob (``MetricBank.repair_tenant``, a ``repair`` event).
-
-``forge_snapshot_corruption`` forges drive snapshots, which come with ROADMAP
-§1 item 10.
 """
 import json
 import struct
@@ -49,6 +48,7 @@ __all__ = [
     "bump",
     "fold_digest",
     "forge_payload_corruption",
+    "forge_snapshot_corruption",
     "inject_bitflip",
     "integrity_stats",
     "leaf_digest",
@@ -330,6 +330,19 @@ def forge_payload_corruption(payload: bytes, *, leaf: Optional[str] = None, bit:
     blocks[target] = _groups.pack_envelope(ibody[: 4 + ihl] + bytes(data), iv)
     new_body = body[: 4 + header_len] + b"".join(struct.pack(">Q", len(b)) + b for b in blocks)
     return _groups.pack_envelope(new_body, version)
+
+
+def forge_snapshot_corruption(payload: bytes, *, leaf: Optional[str] = None, bit: int = 0) -> bytes:
+    """:func:`forge_payload_corruption` for a sealed drive snapshot: the
+    inner tenant payload is forged and the snapshot's envelope sealed again,
+    so ``drive(resume_from=)`` sees valid crcs and a failing digest. A
+    ``leaf`` is named in the flat payload's ``"member\x00state"`` form."""
+    from metrics_tpu_torch.parallel import groups as _groups
+
+    version, body = _groups.unpack_envelope(payload, " (forge)")
+    (meta_len,) = struct.unpack(">I", body[:4])
+    inner = forge_payload_corruption(body[4 + meta_len :], leaf=leaf, bit=bit)
+    return _groups.pack_envelope(body[: 4 + meta_len] + inner, version)
 
 
 # ---------------------------------------------------------------------------

@@ -60,8 +60,11 @@ rows cross the mesh in one exchange per call, and every process gets the
 same global rows. Mesh rank 0 alone reads and writes the store, with the
 JAX package's bytes. Without a mesh a template's ``add_state(sharding=)``
 annotations are inert configuration here as in the JAX package; they
-travel with spills and exports. :meth:`MetricBank.warmup` (ROADMAP §1
-item 10) raises.
+travel with spills and exports.
+
+**Warm starts.** :meth:`MetricBank.warmup` makes the wave and epoch
+programs a warmup manifest recorded (``engine/warmup.py``) on this bank's
+leaves before its first wave.
 
 Observability: ``admit``/``evict``/``flush``/``journal``/``spill_write``/
 ``recover``/``repair``/``bank_drive`` events, and the per-bank gauges of
@@ -1748,12 +1751,19 @@ class MetricBank:
         return metric
 
     def warmup(self, manifest: Optional[Any] = None) -> Dict[str, Any]:
-        """Warm the bank's programs from a recorded manifest: the engine's
-        warmup manifests are ROADMAP §1 item 10, not ported yet."""
-        raise NotImplementedError(
-            "MetricBank.warmup() binds the bank to a recorded warmup manifest (engine.warmup): ROADMAP §1"
-            " item 10, not ported yet. The bank captures each program at its first wave."
-        )
+        """Make the programs a warmup manifest recorded for banks like this
+        one before the first wave: ``engine.warmup(manifest,
+        templates=[self])``. A bank's graphs hold its leaves' addresses, so
+        its entries warm only on the live bank: each wave and epoch program
+        of the manifest is captured on this bank's leaves (its warm-up
+        request runs with ``warm_up=True``: no row is written, no tenant
+        admitted), and the per-instance programs of its template warm too.
+        The first wave of a warmed signature then captures nothing (it runs
+        eagerly as the cell's probe); the later ones replay. Returns
+        ``engine.warmup_report()``."""
+        from metrics_tpu_torch import engine as _engine
+
+        return _engine.warmup(manifest, templates=[self])
 
     # ------------------------------------------------------------------
     # distributed: the whole bank over a mesh axis

@@ -99,9 +99,9 @@ def bump(key: str, n: int = 1) -> None:
 def durability_stats() -> Dict[str, int]:
     """Process-wide durable-plane counters: journal appends, bytes and
     compactions, replayed and torn records, spill blob writes, reads and
-    bytes, bank checkpoints, recoveries and the tenants they restored. The
-    drive-snapshot keys (``snapshots``, ``snapshot_bytes``, ``resumes``)
-    stay 0 until drive snapshots are ported (ROADMAP §1 item 10)."""
+    bytes, bank checkpoints, recoveries and the tenants they restored, and
+    the drive snapshots written (``snapshots``, ``snapshot_bytes``) and
+    resumed (``resumes``)."""
     with _STATS_LOCK:
         return dict(_STATS)
 

@@ -328,14 +328,33 @@ def test_streaming_dispatches_each_chunk_as_it_fills():
 
 @pytest.mark.parametrize(
     "kwargs",
-    [{"mesh": object()}, {"axis_name": "dp"}, {"in_specs": ()}, {"hierarchical_sync": True}, {"snapshot_store": {}}, {"resume_from": {}}, {"snapshot_every": 2}],
+    [
+        {"mesh": object()},
+        {"axis_name": "dp"},
+        {"in_specs": ()},
+        {"hierarchical_sync": True},
+        {"snapshot_store": "memory", "mesh": object(), "axis_name": "dp"},
+        {"resume_from": "memory"},
+        {"snapshot_store": "memory", "snapshot_every": 0},
+    ],
     ids=["mesh", "axis_name", "in_specs", "hierarchical_sync", "snapshot_store", "resume_from", "snapshot_every"],
 )
 def test_modes_of_later_slices_raise_not_implemented(kwargs):
+    from metrics_tpu_torch.serving import MemoryStore
+
     m = mt.SumMetric(nan_strategy="disable", device="cpu")
-    if set(kwargs) & {"snapshot_store", "resume_from", "snapshot_every"}:
-        # the snapshots name the fleet item, not ported yet
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
+    if set(kwargs) & {"snapshot_store", "resume_from"}:
+        # the drive snapshots are ported (tests/test_torch_drive_resume.py):
+        # the JAX package's validation errors, as test_drive_resume.py's
+        # test_resume_validation_errors and test_snapshot_rejects_mesh_and_eager_members
+        kwargs = {k: MemoryStore() if v == "memory" else v for k, v in kwargs.items()}
+        expect = {
+            "mesh": (ValueError, "LOCAL epoch path"),
+            "resume_from": (KeyError, "no drive snapshot"),
+            "snapshot_every": (ValueError, "snapshot_every must be >= 1"),
+        }
+        err, match = next(v for k, v in expect.items() if k in kwargs)
+        with pytest.raises(err, match=match):
             et.drive(m, (torch.ones(2, 3),), **kwargs)
     else:
         # the mesh modes are ported (tests/test_torch_mesh.py): an incomplete

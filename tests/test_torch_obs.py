@@ -812,11 +812,14 @@ def test_jsonl_roundtrip_and_prometheus_render():
     assert process["kernels"]["by_op"] == mt.kernel_stats()
     assert set(process["kernels"]) == {"registered", "launches", "plain_calls", "by_op"}
     assert "confusion_counts" in process["kernels"]["registered"] and "policy" not in process["kernels"]
-    for name in ("warmup", "fleet", "guard"):
+    for name in ("fleet", "guard"):
         assert process[name] == {"ported": False}
     # the resilient sync's sections are ported, under the JAX package's keys
     mj = _jax()
     jax_process = mj.obs.snapshot()
+    # the warmup manifests' section: warmup_report(), the JAX keys
+    assert process["warmup"] == mt.engine.warmup_report()
+    assert set(process["warmup"]) == set(jax_process["warmup"])
     # the serving plane's: serving_summary() per bank, durability_stats()
     assert process["serving"] == mt.serving.serving_summary()
     assert process["durability"] == mt.serving.durability_stats()

@@ -1070,8 +1070,6 @@ def test_unported_options_raise_with_their_messages(tmp_path):
         MetricBank(S.m("Accuracy", num_classes=NUM_CLASSES), capacity=2, mesh=object(), tenant_axis="host")
     with pytest.raises(MetricsUserError, match="needs mesh= too"):
         MetricBank(S.m("Accuracy", num_classes=NUM_CLASSES), capacity=2, tenant_axis="host")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        MetricBank(S.m("Accuracy", num_classes=NUM_CLASSES), capacity=2).warmup()
     with pytest.raises(MetricsUserError, match="orbax-checkpoint") as err:
         OrbaxStore(str(tmp_path / "orbax"))
     assert "DiskStore" in str(err.value)
