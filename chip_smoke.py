@@ -192,7 +192,7 @@
    package's ``random_*_params``), written to a temporary ``.npz`` and
    loaded by the metrics as a user's weights would be:
    a. FID, KID (100 subsets of 1000) and IS (10 splits) at CIFAR-10 test
-      size: 10,000 real and 10,000 generated uint8 images of 32 x 32 (smooth
+      size, reduced to 2,000 real and 2,000 generated uint8 images of 32 x 32 (smooth
       seeded fields made on the card; the generated set shifted and
       noised), batches of 500, resized to 299 x 299 by the TF1 matrices
       into InceptionV3. Checks: 32 images' features and logits within rtol
@@ -204,7 +204,7 @@
       iteration, and its distance to the eigh value logged against
       ``NEWTON_SCHULZ_FID_RTOL``; KID and IS within 1e-5 of numpy over the
       same subsets and splits; ``update_stream`` over the real set in
-      chunks of 512 (a 272-row tail padded to 512) with exactly one
+      chunks of 512 (a 464-row tail padded to 512) with exactly one
       captured ``encode_acc`` program, replayed by a second FID, its
       moments and FID within 1e-6 of ``update``'s; host batches, staged
       from pinned memory, give the same moments bit for bit. Logged: images/s, ms
@@ -228,15 +228,15 @@
    ``compute()``; logged per metric: ms per update on the host clock, the
    device ms, busy share, host syncs and host-to-device copies of three
    profiled updates, ``compute()``'s ms and the peak memory:
-   a. WMT14 newstest2014 en-de size (3,003 segments, Poisson 25 words,
+   a. WMT14 newstest2014 en-de (3,003 segments, reduced to 500; Poisson 25 words,
       batches of 64): BLEU and SacreBLEU-13a (counters exact and scores
       within 1e-6 of a clipped n-gram oracle), chrF++, TER and EED (a
       second instance over the first 500 pairs within 1e-6 of the
       functional on the CPU);
-   b. LibriSpeech test-clean size (2,620 utterances, about 5% word
+   b. LibriSpeech test-clean (2,620 utterances, reduced to 1,000; about 5% word
       errors): WER, CER, MER, WIL, WIP against a plain Python
       (bit-parallel) Levenshtein, counts exact, scores within 1e-6;
-   c. CNN/DailyMail 3.0.0 test size (11,490 summaries of 3-4 sentences,
+   c. CNN/DailyMail 3.0.0 test (11,490 summaries, reduced to 4,000, of 3-4 sentences,
       batches of 32): ROUGE-1/2/L/Lsum, ``accumulate="best"``; ROUGE-1
       and -2 against a clipped overlap oracle, L and Lsum by the CPU prefix;
    d. SQuAD v1.1 dev size (10,570 questions, 1-3 ground truths, 2%
@@ -273,7 +273,8 @@
       at 16 kHz, seeded SNRs of 0-25 dB, batches of 10): SNR, SI-SDR, STOI
       and ESTOI (the 875-tap resampler), the first 20 clips against the
       same oracles; the PESQ constructor must raise its gate's error;
-   c. COCO val2017 size (5,000 images, 80 classes, 36,781 ground truths in
+   c. COCO val2017 (5,000 images, reduced to 1,500 with the ground truths in
+      proportion; 80 classes, 36,781 ground truths in
       COCO's area split, 100 detections an image, batches of 16,
       ``class_metrics``): ``MeanAveragePrecision`` on the card, with no host
       sync and no host-to-device copy in an update, equal bit for bit to a
@@ -328,11 +329,11 @@
 
 16. The encoder's mesh (phase 17, last). (a) An NCCL group of one in this
    process, a ``(1, 1)`` mesh: FID with ``encoder_sharding="mp"`` and
-   ``feature_sharding="mp"`` over 12a's CIFAR-10-size sets (10,000 real and
-   10,000 generated images, InceptionV3 at full width) against the
+   ``feature_sharding="mp"`` over 12a's sets (2,000 real and
+   2,000 generated images, InceptionV3 at full width) against the
    unsharded stream in turns, the moments and FID bit for bit, one captured
    program with the weights' gather inside it and no host sync; BERTScore
-   over 13a's 3,003 pairs through 13e's encoder written as
+   over 13a's 500 pairs through 13e's encoder written as
    ``apply_fn(params, ids, mask)``, every 2-D weight split over ``mp``,
    within 1e-6 of the plain route. (b) Four gloo ranks on ``cuda:0``
    (``--encoder-rank``) on a ``(2, 2)`` mesh: the same FID on the first
@@ -451,6 +452,42 @@
    first and second request cold and warm, the warmups' seconds, the drive's
    ms with and without snapshots, a snapshot's bytes, its seal and write ms,
    the resume's ms.
+
+21. The elastic fleet (phase 22, last), on phase 19's seeded
+   ImageNet-1k-shaped requests of [64, 1000], every fleet over a shared
+   ``DiskStore`` with ``checkpoint_every_n_flushes=1``. (a) Workers 0-3 of
+   the main path's collection at capacity 16, routers' ``max_requests``
+   16, 48 tenants: round 1 (recorded into a warmup manifest), ``join(4,
+   manifest=)``, round 2, ``kill(1)`` with its share of round 3 queued,
+   the rest of round 3, ``die(2)``, ``leave(0)``, round 4 with a
+   ``join(5)`` that a ``kill`` plan fells at its first admission, then
+   ``compute_all()``. Checked: every tenant bit for bit against a solo
+   collection fed the same requests in the same order, and its confusion
+   matrix against ``np.bincount``; the rendezvous shape of every move map;
+   the kill's re-submissions equal the queued requests; the die reads the
+   store only; the warmed joiner's first flush captures nothing and no
+   warm failed; each decommission and the die free at least the departed
+   bank's bytes, and ``del fleet`` returns the card to the phase's start
+   within 64 MiB. (b) A fresh fleet of 4 workers, 4 tenants each in waves
+   of 4: the median healthy flush measured, then ``latency_threshold_ms``
+   at twice it and a ``slow`` plan on worker 3 at four times it: worker 3
+   walks to probation and ejection, no other worker leaves healthy, the
+   hedges of its queued requests are delivered and applied exactly once
+   (``duplicates_applied == 0``), tenants bit for bit; then a
+   ``ConfusionMatrix(1000)`` fleet with ``audit_rate=1`` and a ``bitflip``
+   plan on worker 1, ejected through its failed audits, its tenants bit
+   for bit over their acked requests. (c) ``rolling_upgrade`` of 3 workers,
+   once clean and once with a canary that corrupts its state and is rolled
+   back; no acked request lost. (d) ``KVLedger`` over the default
+   ``TCPStore`` of a gloo world of one: a join that moves every tenant the
+   joiner owns. Logged: each membership change's ms split into drain,
+   export, publish and admit, its moves and bytes, the memory it freed; the
+   kill's and the die's recovery ms; the joiner's first flush warm against
+   the first workers' cold ones; the healthy flush against the guard's
+   default 250 ms; the guard's walk; a move's ms through the store; the
+   phase's seconds. Phase 16b's ranks also move the main path's
+   ``ConfusionMatrix(1000, class_sharding="mp")`` from the ``(2, 2)`` mesh
+   to ``(1, 4)`` and back with ``reshard_onto(verify=True)``, bit for bit.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record. Any failure raises and exits non-zero. Without
@@ -3304,8 +3341,11 @@ def run_image_phase(torch, mt, smi: str):
 # generative evaluation: FID, KID and IS at CIFAR-10 size, LPIPS (12a, 12b)
 # ---------------------------------------------------------------------------
 CIFAR10_TEST = (10_000, 3, 32, 32)  # CIFAR-10 test split: images, channels, height, width
+# reduced (depth, for the script's time limit): 12a and 17a take the first
+# 2,000 of CIFAR-10 test's 10,000 images a set
+GEN_IMAGES = 2_000
 GEN_BATCH = 500
-STREAM_CHUNK = 512  # update_stream's chunks: 19 of 512 and a 272-row tail padded to 512
+STREAM_CHUNK = 512  # update_stream's chunks: 3 of 512 and a 464-row tail padded to 512
 KID_SUBSETS, KID_SUBSET_SIZE = 100, 1000  # KernelInceptionDistance's defaults
 IS_SPLITS = 10
 GEN_SHIFT, GEN_NOISE = 24.0, 12.0  # the generated set: the real fields' statistics shifted, plus pixel noise
@@ -3334,7 +3374,8 @@ def _smooth_fields(torch, gen, n: int, c: int, h: int, w: int, coarse: int = 4):
 
 def _cifar_sets(torch):
     """The real and generated uint8 image sets, made on the card."""
-    n, c, h, w = CIFAR10_TEST
+    _, c, h, w = CIFAR10_TEST
+    n = GEN_IMAGES
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 12)
     real = (127.5 + 60.0 * _smooth_fields(torch, gen, n, c, h, w)).clamp_(0, 255).round_().to(torch.uint8)
@@ -3574,7 +3615,7 @@ def run_generative_phase(torch, mt, smi: str) -> None:
     from metrics_tpu_torch.sharding import NEWTON_SCHULZ_FID_RTOL
 
     t_phase = time.perf_counter()
-    n = CIFAR10_TEST[0]
+    n = GEN_IMAGES
     real, fake = _cifar_sets(torch)
     bounds = _batches_of(n, GEN_BATCH)
     real_b = [real[s:e] for s, e in bounds]
@@ -3648,7 +3689,7 @@ def run_generative_phase(torch, mt, smi: str) -> None:
     stream_chunks = [real[s:e] for s, e in _batches_of(n, STREAM_CHUNK)]
     fid_s = mt.FrechetInceptionDistance(feature=2048, weights_path=path)
     stream_results = []
-    # the first chunk warms up and captures; the other 19 (the 272-row tail padded to 512) replay
+    # the first chunk warms up and captures; the others (the 464-row tail padded to 512) replay
     for chunks in (stream_chunks[:1], stream_chunks[1:]):
         t0 = _reset_stats(torch, mt)
         torch.cuda.reset_peak_memory_stats()
@@ -3716,7 +3757,7 @@ def run_generative_phase(torch, mt, smi: str) -> None:
     )
     shutil.rmtree(tmp, ignore_errors=True)
     _log(
-        f"generative (12a): CIFAR-10 test size, {n} real and {n} generated uint8 images of 3 x 32 x 32 (made on the card,"
+        f"generative (12a): reduced: images a set from CIFAR-10 test's {CIFAR10_TEST[0]} to {n}; {n} real and {n} generated uint8 images of 3 x 32 x 32 (made on the card,"
         f" the generated set shifted by {GEN_SHIFT} and noised at sigma {GEN_NOISE}), batches of {GEN_BATCH}, each resized"
         f" to 299 x 299 by the TF1 matrices, InceptionV3 at full width (seeded random weights, {macs / 1e9:.3f} GMAC per"
         f" image); {smi}; features and logits of {NET_CHECK_IMAGES} images within rtol 1e-3, atol 2e-3 of a float64 copy,"
@@ -3817,13 +3858,16 @@ def run_lpips_phase(torch, mt, smi: str) -> None:
 TEXT_VOCAB = 30_000  # a Zipf-distributed word list
 TEXT_ZIPF = (1.0, 2.7)  # Zipf-Mandelbrot exponent and shift of the word ranks
 WMT14_NEWSTEST = 3_003  # WMT14 newstest2014 en-de: segments, one reference each
+MT_SEGMENTS = 500  # reduced (depth, for the script's time limit): 13a (and 13e, 17a) stream 500 segments
 MT_WORDS = 25  # mean words per segment (Poisson)
 MT_BATCH = 64
 MT_EDITS = (0.12, 0.05, 0.05)  # word substitution, drop and insertion rates of a hypothesis
 LIBRISPEECH_TEST_CLEAN = 2_620  # utterances
+ASR_UTTERANCES = 1_000  # reduced (depth, for the script's time limit): 13b streams 1,000 utterances
 ASR_WORDS = 20
 ASR_EDITS = (0.03, 0.01, 0.01)  # about 5% word errors
 CNNDM_TEST = 11_490  # CNN/DailyMail 3.0.0 test: summaries of 3-4 sentences, about 56 words
+SUM_SUMMARIES = 4_000  # reduced (depth, for the script's time limit): 13c streams 4,000 summaries
 SUM_BATCH = 32
 SQUAD_DEV = 10_570  # SQuAD v1.1 dev: questions
 QA_BATCH = 512
@@ -4156,7 +4200,7 @@ def run_translation(torch, mt, ft, vocab, rng) -> list:
     """13a: machine translation at WMT14 newstest2014 (en-de) size."""
     import re
 
-    preds, refs = _text_pairs(rng, vocab, WMT14_NEWSTEST, MT_WORDS, MT_EDITS, punctuate=True)
+    preds, refs = _text_pairs(rng, vocab, MT_SEGMENTS, MT_WORDS, MT_EDITS, punctuate=True)
     targets = [[r] for r in refs]
     batches = list(zip(_batched(preds, MT_BATCH), _batched(targets, MT_BATCH)))
     prefix_batches = list(zip(_batched(preds[:TEXT_PREFIX], MT_BATCH), _batched(targets[:TEXT_PREFIX], MT_BATCH)))
@@ -4185,8 +4229,8 @@ def run_translation(torch, mt, ft, vocab, rng) -> list:
 
 
 def run_speech(torch, mt, ft, vocab, rng) -> list:
-    """13b: speech recognition at LibriSpeech test-clean size."""
-    preds, refs = _text_pairs(rng, vocab, LIBRISPEECH_TEST_CLEAN, ASR_WORDS, ASR_EDITS, punctuate=False)
+    """13b: speech recognition on LibriSpeech test-clean-like utterances."""
+    preds, refs = _text_pairs(rng, vocab, ASR_UTTERANCES, ASR_WORDS, ASR_EDITS, punctuate=False)
     batches = list(zip(_batched(preds, MT_BATCH), _batched(refs, MT_BATCH)))
     metrics = {
         name: (lambda cls=cls: getattr(mt, cls)(), lambda a, b, fn=fn: getattr(ft, fn)(a, b))
@@ -4501,12 +4545,12 @@ def run_text_phase(torch, mt, smi: str):
     rng = np.random.default_rng(SEED)
     vocab = _Vocab(rng)
     mt_rows, mt_updates, mt_preds, mt_refs = run_translation(torch, mt, ft, vocab, rng)
-    _log(f"translation (13a): {WMT14_NEWSTEST} segments (WMT14 newstest2014 en-de size), batches of {MT_BATCH} ({mt_updates} updates); {smi}: " + " | ".join(f"{name} {_round(v)}; {note}" for name, _, v, note in mt_rows))
+    _log(f"translation (13a): reduced: segments from WMT14 newstest2014 en-de's {WMT14_NEWSTEST} to {MT_SEGMENTS}; batches of {MT_BATCH} ({mt_updates} updates); {smi}: " + " | ".join(f"{name} {_round(v)}; {note}" for name, _, v, note in mt_rows))
     asr_rows, asr_updates = run_speech(torch, mt, ft, vocab, rng)
-    _log(f"speech (13b): {LIBRISPEECH_TEST_CLEAN} utterances (LibriSpeech test-clean size), batches of {MT_BATCH} ({asr_updates} updates); {smi}: " + " | ".join(f"{name} {_round(v)}; {note}" for name, _, v, note in asr_rows))
-    n_sum = CNNDM_TEST
+    _log(f"speech (13b): reduced: utterances from LibriSpeech test-clean's {LIBRISPEECH_TEST_CLEAN} to {ASR_UTTERANCES}; batches of {MT_BATCH} ({asr_updates} updates); {smi}: " + " | ".join(f"{name} {_round(v)}; {note}" for name, _, v, note in asr_rows))
+    n_sum = SUM_SUMMARIES
     sum_rows, sum_updates = run_summarization(torch, mt, ft, vocab, rng, n_sum)
-    _log(f"summarization (13c): {n_sum} summaries (CNN/DailyMail 3.0.0 test size), batches of {SUM_BATCH} ({sum_updates} updates); {smi}: " + " | ".join(f"{name} {_round(v)}; {note}" for name, _, v, note in sum_rows))
+    _log(f"summarization (13c): reduced: summaries from CNN/DailyMail 3.0.0 test's {CNNDM_TEST} to {n_sum}; batches of {SUM_BATCH} ({sum_updates} updates); {smi}: " + " | ".join(f"{name} {_round(v)}; {note}" for name, _, v, note in sum_rows))
     qa_rows, qa_updates, unanswered = run_question_answering(torch, mt, ft, vocab, rng)
     _log(f"question answering (13d): {SQUAD_DEV} questions (SQuAD v1.1 dev size, {unanswered} unanswered, warned once), batches of {QA_BATCH} ({qa_updates} updates); {smi}: " + " | ".join(f"{name} {_round(v)}; {note}" for name, _, v, note in qa_rows))
     _log(run_bert_score(torch, mt, ft, mt_preds, mt_refs, smi))
@@ -4535,6 +4579,7 @@ STOI_ATOL = 2e-4  # the JAX suite's float32 STOI tolerance (tests/audio/test_sto
 RESAMPLE_ATOL = 1e-4
 STREAM_MEAN_RTOL = 1e-5
 COCO_VAL2017 = (5_000, 80, 36_781)  # images, classes, ground-truth boxes
+MAP_IMAGES = 1_500  # reduced (depth, for the script's time limit): 14c's images, the ground truths in proportion
 COCO_IMAGE = (640.0, 480.0)
 COCO_AREAS = ((0.41, 4.0**2, 32.0**2), (0.34, 32.0**2, 96.0**2), (0.24, 96.0**2, 350.0**2))  # COCO's split: share, area range
 COCO_TOP_CLASS = 0.3  # share of the most frequent class (person in COCO)
@@ -4819,14 +4864,15 @@ def run_enhancement(torch, mt, ft, smi: str) -> str:
 
 
 def _coco_data(torch):
-    """COCO val2017-sized detections on the card: 36,781 ground truths over
-    5,000 images (about Poisson, mean 7.36 an image), COCO's area split, one
+    """COCO val2017-like detections on the card: ground truths at val2017's
+    density over ``MAP_IMAGES`` images (about Poisson, mean 7.36 an image), COCO's area split, one
     class at 30%; 100 detections an image: jittered copies of the ground
     truths (1.3 a ground truth, 90% with the right label) and seeded false
     positives, with seeded scores. Returns the flat tensors and the
     per-image counts."""
     rng = np.random.default_rng(SEED + 14)
-    n_img, n_cls, n_gt = COCO_VAL2017
+    n_img, n_cls = MAP_IMAGES, COCO_VAL2017[1]
+    n_gt = round(COCO_VAL2017[2] * n_img / COCO_VAL2017[0])
     gt_counts = np.bincount(rng.integers(0, n_img, n_gt), minlength=n_img)
     gt_off = np.concatenate([[0], np.cumsum(gt_counts)[:-1]])
     j = np.arange(COCO_DETECTIONS)[None, :]
@@ -4882,7 +4928,7 @@ def _coco_images(torch, flat, gt_counts, det_counts, device: str):
 
 
 def run_detection(torch, mt, smi: str) -> str:
-    """14c: COCO val2017 size: 5,000 images, 80 classes, 100 detections an
+    """14c: COCO val2017-like: ``MAP_IMAGES`` images, 80 classes, 100 detections an
     image, batches of 16, ``class_metrics=True``: the card's result against a
     CPU instance's bit for bit, the first 200 images against the numpy COCO
     oracle; ``update`` makes no host sync."""
@@ -4948,8 +4994,8 @@ def run_detection(torch, mt, smi: str) -> str:
     oracle_s = time.perf_counter() - t_oracle
     scalars = {k: round(float(v), 6) for k, v in value.items() if v.ndim == 0}
     return (
-        f"detection (14c): {n_img} images, {COCO_VAL2017[1]} classes, {sum(gt_counts)} ground truths, {sum(det_counts)} detections"
-        f" (COCO val2017 size), batches of {MAP_BATCH} ({len(bounds)} updates), class_metrics; data {data_s:.1f} s; {smi}:"
+        f"detection (14c): reduced: images from COCO val2017's {COCO_VAL2017[0]} to {n_img}, ground truths in proportion;"
+        f" {COCO_VAL2017[1]} classes, {sum(gt_counts)} ground truths, {sum(det_counts)} detections, batches of {MAP_BATCH} ({len(bounds)} updates), class_metrics; data {data_s:.1f} s; {smi}:"
         f" {scalars}; {note}; an update checked for {syncs} host syncs and {copies} host-to-device copies; states"
         f" {state_bytes / 1e6:.1f} MB on the card, peak {peak / 2**20:.1f} MiB above the start; compute() {compute_ms / 1e3:.1f} s"
         f" (one copy to pinned host memory, then the host float64 evaluation); the CPU instance's compute() {cpu_compute_s:.1f} s, equal bit for bit on"
@@ -5523,6 +5569,32 @@ def _shard_rank(rank: int, port: int, out_path: str) -> None:
             _values_equal(f"main path {label}", mc.compute(), want)
             _states_equal(f"main path {label}", mc, states)
             rec["main"][label] = (seconds, launches, _require_captured(label, mc))
+
+        # the fleet's mesh change: the main path's class-split confusion
+        # matrix re-laid from (2, 2) onto (1, 4) and back, verified on the
+        # gathered global state at each move
+        from metrics_tpu_torch.fleet import reshard_onto
+
+        cm = mt.ConfusionMatrix(num_classes=IMAGENET_VAL[1], class_sharding="mp")
+        t0 = _reset_stats(torch, mt)
+        drive(cm, (logits, target), mesh=mesh, in_specs=P(None, "dp"))
+        torch.cuda.synchronize()
+        launches = {op: s["launches"] for op, s in mt.kernel_stats().items() if s["launches"]}
+        before = cm.compute()
+        if not torch_equal(before, want["confmat"]):
+            raise AssertionError(f"reshard rank {rank}: the class-split drive differs from the local drive")
+        mesh14 = init_device_mesh("cuda", (1, 4), mesh_dim_names=("dp", "mp"))
+        moves = []
+        for target_mesh, shard in ((mesh14, (IMAGENET_VAL[1] // 4, IMAGENET_VAL[1])), (mesh, (IMAGENET_VAL[1] // 2, IMAGENET_VAL[1]))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reshard_onto(cm, target_mesh, verify=True)
+            torch.cuda.synchronize()
+            moves.append((time.perf_counter() - t0) * 1e3)
+            if tuple(cm.confmat.shape) != shard or not torch_equal(cm.compute(), before):
+                raise AssertionError(f"reshard rank {rank}: after the move to {shard} the value changed")
+        rec["reshard"] = (moves, launches, mt.sharding.shard_stats()["mesh_changes"])
+        del cm
         rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         dist.barrier()
     finally:
@@ -5721,10 +5793,19 @@ def run_sharded_phase(torch, mt, smi: str) -> dict:
         )
         for label, (seconds, ops, note) in rec["main"].items():
             _log(f"phase 16b rank {rec['rank']} main path {label}: {seconds * 1e3:.0f} ms, bit for bit against the local drive; launches {ops}; {note}")
+        moves, ops, changes = rec["reshard"]
+        _log(
+            f"phase 16b rank {rec['rank']} reshard: ConfusionMatrix({IMAGENET_VAL[1]}, class_sharding='mp') driven on the"
+            f" (2, 2) mesh, reshard_onto (1, 4) {moves[0]:.1f} ms and back to (2, 2) {moves[1]:.1f} ms (verify=True: the"
+            f" gathered global state bit for bit), compute() bit for bit against the local drive after each move;"
+            f" mesh_changes {changes}; launches {ops}"
+        )
         _log(f"phase 16b rank {rec['rank']}: peak memory {rec['peak_gb']:.2f} GB; {rec['free_gb_ml']:.1f} GB free on the card before the Open Images drive")
     for op in ("confusion_counts", "select_topk"):
         launches[op] = launches.get(op, 0) + sum(rec["main"][label][1].get(op, 0) for rec in ranks for label in rec["main"])
-    launches["confusion_counts@window"] = sum(rec["launches21k"]["confusion_counts"] for rec in ranks)
+    launches["confusion_counts@window"] = sum(
+        rec["launches21k"]["confusion_counts"] + rec["reshard"][1].get("confusion_counts", 0) for rec in ranks
+    )
     launches["multilabel_counts@window"] = sum(rec["launchesml"]["multilabel_counts"] for rec in ranks)
     _log(f"phase 16 sharded states: {time.perf_counter() - t_phase:.1f} s in all; {smi}")
     return launches
@@ -5734,7 +5815,7 @@ def run_sharded_phase(torch, mt, smi: str) -> dict:
 # phase 17: the encoder's mesh
 # ---------------------------------------------------------------------------
 ENC_RANK_TIMEOUT_S = 300
-ENC_MESH_IMAGES = 1_024  # 17b: the first real and generated images of the CIFAR-10-size sets
+ENC_MESH_IMAGES = 1_024  # 17b: the first real and generated images of 12a's sets
 ENC_MESH_CHUNK = 128  # 17b's stream chunks: four ranks share the card's memory (at 256 a rank's graph pool was 11.5 GiB, and a rank ran out)
 ENC_MESH_PAIRS = 256  # 17b: BERTScore pairs of 13a
 ENC_MESH_LAYERS = 2  # 17b: the seeded encoder cut to 2 layers, at full width
@@ -5808,7 +5889,7 @@ def _timed(torch, fn):
 def _encoder_world_one(torch, mt, ft, smi: str, path: str, pairs) -> None:
     """Phase 17a: an NCCL group of one in this process, a ``(1, 1)`` mesh.
     FID with ``encoder_sharding="mp"`` and ``feature_sharding="mp"`` over
-    the CIFAR-10-size sets at full InceptionV3 width against the unsharded
+    12a's sets at full InceptionV3 width against the unsharded
     stream, bit for bit, captured with the gather in the graph; BERTScore
     through the seeded encoder placed on the mesh against the plain route."""
     import torch.distributed as dist
@@ -5817,7 +5898,7 @@ def _encoder_world_one(torch, mt, ft, smi: str, path: str, pairs) -> None:
     from metrics_tpu_torch import engine
     from metrics_tpu_torch.encoders import encoder_stats
 
-    n = CIFAR10_TEST[0]
+    n = GEN_IMAGES
     real, fake = _cifar_sets(torch)
     chunks = {True: [real[s:e] for s, e in _batches_of(n, STREAM_CHUNK)], False: [fake[s:e] for s, e in _batches_of(n, STREAM_CHUNK)]}
     engine.clear_cache()
@@ -5878,7 +5959,7 @@ def _encoder_world_one(torch, mt, ft, smi: str, path: str, pairs) -> None:
         rate = {k: n / v for k, v in seconds.items()}
         chunk_ms = {k: 1e3 * v / len(chunks[k[1]]) for k, v in seconds.items()}
         _log(
-            f"phase 17a FID encoder_sharding='mp' (NCCL world size 1, (1, 1) mesh), {n} real + {n} generated CIFAR-10-size"
+            f"phase 17a FID encoder_sharding='mp' (NCCL world size 1, (1, 1) mesh), {n} real + {n} generated (reduced from CIFAR-10 test's {CIFAR10_TEST[0]})"
             f" images, chunks of {STREAM_CHUNK}, InceptionV3 at full width: moments and FID (eigh {value!r}) equal the unsharded"
             f" stream's bit for bit; {summary['graphs']} captured program ({summary['cache_hits']} replays), param_gather"
             f" {stats['param_gather']}, 0 host syncs;"
@@ -7664,6 +7745,597 @@ def run_warm_snapshot_phase(torch, mt, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the elastic fleet
+# ---------------------------------------------------------------------------
+FLEET_A = (4, 16, 48, 16)  # 22a: workers, capacity, tenants, the routers' max_requests
+FLEET_ROUNDS = 4  # 22a: one request per tenant a round
+FLEET_B = (4, 8, 4, 1, 3)  # 22b: workers, capacity, tenants a worker (a round is one wave of 4 on each), warm and measured rounds
+FLEET_HEDGE_ROWS = 32  # 22b: rows of the requests left queued on the sick worker (a signature of their own)
+FLEET_AUDIT = (4, 2, 8)  # 22b: the bitflip fleet's workers, tenants a worker (its waves), most rounds
+FLEET_UPGRADE = (3, 2, 2)  # 22c: workers, tenants a worker, canary steps
+FLEET_KV = (3, 2, 4)  # 22d: workers, tenants a worker, tenants owned by the joiner (each moves through the store)
+FLEET_MEM_SLACK = 64 * 2**20  # 22a: what the card may still hold after the fleet is dropped
+
+
+def _tenants_by_owner(fl, workers, per_worker: int, start: int) -> dict:
+    """``{worker: [tenant ids]}``, the smallest integer ids from ``start``
+    that rendezvous gives each worker, ``per_worker`` each."""
+    epoch = fl.FleetEpoch(workers)
+    out = {w: [] for w in epoch.workers}
+    t = start
+    while any(len(v) < per_worker for v in out.values()):
+        w = fl.owner(t, epoch)
+        if len(out[w]) < per_worker:
+            out[w].append(t)
+        t += 1
+    return out
+
+
+class _FleetRequests:
+    """The phase's requests: block ``k`` of ``SERVE_REQ`` rows of phase 19's
+    seeded ImageNet-1k-shaped stream, on the card, handed out in order; each
+    tenant's blocks are kept so its solo twin is fed the same ones."""
+
+    def __init__(self, torch, n_blocks: int):
+        self.logits_np, self.target_np = _serving_stream(n_blocks * SERVE_REQ)
+        self.logits = torch.from_numpy(self.logits_np).cuda()
+        self.target = torch.from_numpy(self.target_np).cuda()
+        self.next = 0
+        self.n_blocks = n_blocks
+        self.fed: dict = {}
+
+    def take(self, tenant, rows: int = SERVE_REQ):
+        if self.next >= self.n_blocks:
+            raise AssertionError("phase 22: the request stream ran out")
+        s = self.next * SERVE_REQ
+        self.next += 1
+        self.fed.setdefault(tenant, []).append((s, rows))
+        return self.logits[s:s + rows], self.target[s:s + rows]
+
+    def rows(self, tenant) -> np.ndarray:
+        return np.concatenate([np.arange(s, s + n) for s, n in self.fed[tenant]])
+
+    def feed(self, metric, tenant) -> None:
+        for s, n in self.fed[tenant]:
+            metric.update(self.logits[s:s + n], self.target[s:s + n])
+
+
+class _FleetSplit:
+    """Wall ms of the fleet's migration steps, summed while active: drain (a
+    router's flush), export (the source's sealed payload, or the store read
+    of a recovery), publish (the ledger), admit (decode and import). Wraps
+    the fleet's own calls and puts them back on exit."""
+
+    KEYS = ("drain", "export", "publish", "admit")
+
+    def __init__(self, torch, fleet):
+        from metrics_tpu_torch.fleet import migrate, router
+        from metrics_tpu_torch.serving import store
+
+        self.torch = torch
+        self.ms = dict.fromkeys(self.KEYS, 0.0)
+        self.counts = dict.fromkeys(self.KEYS, 0)
+        self._sites = [
+            (router.Worker, "drain", "drain"),
+            (router.Worker, "export_payload", "export"),
+            (store, "durable_tenant_payloads", "export"),
+            (fleet.ledger, "publish", "publish"),
+            (migrate, "admit_payload", "admit"),
+        ]
+        self._saved = []
+
+    def _wrap(self, fn, key):
+        torch = self.torch
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.ms[key] += (time.perf_counter() - t0) * 1e3
+                self.counts[key] += 1
+
+        return timed
+
+    def __enter__(self):
+        for owner, name, key in self._sites:
+            own = name in vars(owner)  # a class's or a module's own; else a bound method of an instance
+            self._saved.append((owner, name, vars(owner).get(name), own))
+            setattr(owner, name, self._wrap(getattr(owner, name), key))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn, own in reversed(self._saved):
+            if own:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)
+        self._saved.clear()
+
+    def note(self) -> str:
+        return ", ".join(f"{k} {self.ms[k]:.0f} ms ({self.counts[k]})" for k in self.KEYS)
+
+
+def _bank_graphs(bank) -> int:
+    return sum(1 for p in bank._resident.programs.values() if not isinstance(p, (bool, str)))
+
+
+def _bank_bytes(bank) -> int:
+    return sum(t.numel() * t.element_size() for t in bank._resident.values())
+
+
+def _fleet_a_tenants(fl, n_workers: int, n_tenants: int) -> list:
+    """22a's integer tenant ids: as many on each first worker, of which as
+    many go to the joiner at the next epoch, so that every first worker's
+    waves and the joiner's first wave, before and after the join, fall in
+    one pow2 bucket of requests (the waves the warmup manifest records are
+    the joiner's)."""
+    per = n_tenants // n_workers
+    first, grown = fl.FleetEpoch(range(n_workers)), fl.FleetEpoch(range(n_workers + 1))
+    held = {w: [] for w in range(n_workers)}
+    for joining, quota in ((True, per // n_workers), (False, per)):  # the joiner's share first, then the rest
+        t = 0
+        while any(len(ts) < quota for ts in held.values()):
+            w = fl.owner(t, first)
+            if len(held[w]) < quota and (fl.owner(t, grown) == n_workers) == joining and t not in held[w]:
+                held[w].append(t)
+            t += 1
+    return sorted(t for ts in held.values() for t in ts)
+
+
+def _check_fleet_values(torch, mt, name: str, values: dict, reqs: "_FleetRequests", make) -> None:
+    """Every tenant's value, bit for bit, against a solo twin on the card fed
+    the same requests in the same order, and its confusion matrix against
+    numpy's ``bincount`` of its rows."""
+    c = IMAGENET_VAL[1]
+    for t, got in values.items():
+        solo = make(mt)
+        reqs.feed(solo, t)
+        want = solo.compute()
+        if not isinstance(want, dict):
+            want, got = {"confmat": want}, {"confmat": got}
+        for key, v in want.items():
+            if not torch_equal(got[key].cpu(), v.cpu()):
+                raise AssertionError(f"{name} tenant {t} {key}: differs from its solo twin")
+        rows = reqs.rows(t)
+        oracle = _confusion_oracle(reqs.logits_np[rows].argmax(1), reqs.target_np[rows], c)
+        if not np.array_equal(got["confmat"].cpu().numpy(), oracle):
+            raise AssertionError(f"{name} tenant {t}: the confusion matrix differs from np.bincount")
+
+
+def _confmat_1000(mt):
+    return mt.ConfusionMatrix(num_classes=IMAGENET_VAL[1])
+
+
+def run_fleet_elastic(torch, mt, smi: str, reqs: "_FleetRequests", root: str) -> dict:
+    """Phase 22a: workers join, are killed, die and leave under traffic;
+    every tenant ends bit for bit as its solo twin. Returns the launches."""
+    import gc
+    import importlib
+
+    from metrics_tpu_torch import engine
+    from metrics_tpu_torch import fleet as fl
+    from metrics_tpu_torch.resilience import FaultPlan
+    from metrics_tpu_torch.serving import DiskStore, durability_stats
+
+    n_workers, cap, n_tenants, max_req = FLEET_A
+    tenants = _fleet_a_tenants(fl, n_workers, n_tenants)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # the join(5) of step 8 is the fleet's epoch 5: the plan fells worker 5 at its first admission
+    plan = FaultPlan([{"kind": "kill", "rank": 5, "epoch": 5}])
+    fleet = fl.Fleet(
+        _imagenet_collection(mt), workers=list(range(n_workers)), capacity=cap, name="smoke22a", max_requests=max_req,
+        max_delay_s=None, fault_plan=plan, durable_store=DiskStore(os.path.join(root, "store22a")),
+    )
+    split = _FleetSplit(torch, fleet)
+    notes = []
+
+    def submit(group) -> None:
+        for t in group:
+            fleet.submit(t, *reqs.take(t))
+
+    def a_round(group=tenants) -> float:
+        t0 = time.perf_counter()
+        submit(group)
+        fleet.flush()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def change(label, fn, old, planned=None):
+        """One membership change: its ms split, moves and bytes; the rendezvous
+        shape of its move map (or of the planned map, where the plan felled
+        the destination); the bank it decommissions freed."""
+        before_stats = dict(fleet.stats)
+        split.ms, split.counts = dict.fromkeys(split.KEYS, 0.0), dict.fromkeys(split.KEYS, 0)
+        held_by = {w: _bank_bytes(wk.bank) for w, wk in fleet._workers.items() if wk.bank is not None}
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with split:
+            moves = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = held - torch.cuda.memory_allocated()
+        freed_need = sum(n for w, n in held_by.items() if w not in fleet.epoch.workers)
+        if freed_need and freed < freed_need:
+            raise AssertionError(f"phase 22a {label}: {freed / 2**20:.1f} MiB freed, the departed banks held {freed_need / 2**20:.1f} MiB")
+        new = fleet.epoch
+        checked = planned if planned is not None else new
+        fl.assert_minimal_moves(fl.placement_diff(tenants, old, checked), old, checked, n_tenants=n_tenants)
+        real = {t: m for t, m in moves.items() if m[0] != m[1]}
+        fl.assert_minimal_moves(real, old, new, n_tenants=n_tenants)
+        delta = {k: fleet.stats.get(k, 0) - before_stats.get(k, 0) for k in ("migrations", "rebalance_bytes", "recovered_tenants", "resubmitted_requests", "kills", "dies")}
+        notes.append(
+            f"{label} (v{old.version} -> v{new.version}, workers {list(new.workers)}): {ms:.0f} ms ({split.note()}),"
+            f" {len(moves)} moves, {delta['rebalance_bytes'] / 1e6:.1f} MB; freed {freed / 2**20:.0f} MiB (the departed"
+            f" banks' {freed_need / 2**20:.0f} MiB); {delta}"
+        )
+        return moves, ms, delta
+
+    mt.reset_kernel_stats()
+    # 1. round 1, recorded into a warmup manifest; each worker's first flush is cold
+    warm_mod = importlib.import_module("metrics_tpu_torch.engine.warmup")
+    engine.record_manifest()
+    try:
+        r1_s = a_round()
+        doc = engine.manifest_dict()
+    finally:
+        warm_mod.stop_recording()
+    cold_ms = [fleet.worker(w).bank._last_flush_ms for w in range(n_workers)]
+    # 2. join(4), warmed from the manifest
+    old = fleet.epoch
+    moves, join_ms, _ = change("join(4, manifest=)", lambda: fleet.join(4, manifest=doc), old)
+    if any(dst != 4 for _, dst in moves.values()) or fleet.stats.get("warmup_failures", 0):
+        raise AssertionError(f"phase 22a join: moves {moves}, stats {fleet.stats}")
+    joiner = fleet.worker(4)
+    graphs = _bank_graphs(joiner.bank)
+    # 3. round 2: the joiner's first flush replays what the warm captured
+    r2_s = a_round()
+    warm_ms = joiner.bank._last_flush_ms
+    if _bank_graphs(joiner.bank) != graphs or graphs < 1:
+        raise AssertionError(f"phase 22a: the warmed joiner captured at its first flush ({graphs} graphs warmed, {_bank_graphs(joiner.bank)} after)")
+    # 4. kill(1) with its share of round 3 still queued
+    queued = [t for t in tenants if fleet.owner_of(t) == 1]
+    submit(queued)
+    if fleet.worker(1).router.pending != len(queued):
+        raise AssertionError(f"phase 22a: {fleet.worker(1).router.pending} queued on worker 1, {len(queued)} submitted")
+    resub = fleet.stats["resubmitted_requests"]
+    old = fleet.epoch
+    moves, kill_ms, delta = change("kill(1)", lambda: fleet.kill(1), old)
+    if fleet.stats["resubmitted_requests"] - resub != len(queued) or delta["recovered_tenants"] != len(moves):
+        raise AssertionError(f"phase 22a kill: resubmitted {fleet.stats['resubmitted_requests'] - resub} of {len(queued)} queued; {delta}")
+    # 5. the rest of round 3
+    r3_s = a_round([t for t in tenants if t not in queued])
+    # 6. die(2): the bank and router are gone before recovery; the store is all it reads
+    shell = fleet.worker(2)
+    owned = [t for t in tenants if fleet.owner_of(t) == 2]
+    reads = durability_stats()["blob_reads"]
+    old = fleet.epoch
+    moves, die_ms, delta = change("die(2)", lambda: fleet.die(2), old)
+    if shell.bank is not None or shell.router is not None or sorted(moves) != sorted(owned):
+        raise AssertionError(f"phase 22a die: shell bank {shell.bank}, moves {sorted(moves)} vs owned {sorted(owned)}")
+    if durability_stats()["blob_reads"] - reads < len(owned) or delta["dies"] != 1:
+        raise AssertionError(f"phase 22a die: {durability_stats()['blob_reads'] - reads} blob reads for {len(owned)} tenants; {delta}")
+    # 7. leave(0)
+    old = fleet.epoch
+    change("leave(0)", lambda: fleet.leave(0), old)
+    # 8. round 4, with join(5) in the middle: the plan fells worker 5 at its first admission
+    half = tenants[: n_tenants // 2]
+    submit(half)
+    old = fleet.epoch
+    moves, _, delta = change("join(5), felled at admission", lambda: fleet.join(5), old, planned=old.join(5))
+    if delta["kills"] != 1 or 5 in fleet.epoch.workers or any(dst == 5 for _, dst in moves.values()):
+        raise AssertionError(f"phase 22a: the plan's kill of the joiner: {delta}, moves {moves}")
+    r4_s = a_round(tenants[n_tenants // 2:])
+    # 9. every tenant's value, then the fleet dropped
+    t0 = time.perf_counter()
+    values = {t: {k: v.cpu() for k, v in d.items()} for t, d in fleet.compute_all().items()}
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launches(mt.kernel_stats())
+    if set(launches) != {"confusion_counts", "select_topk"} or any(r["plain_calls"] for r in mt.kernel_stats().values()):
+        raise AssertionError(f"phase 22a: kernel stats {mt.kernel_stats()}")
+    if set(values) != set(tenants) or fleet.ledger.pending() or fleet._in_flight or fleet._parked_requests:
+        raise AssertionError(f"phase 22a: {len(values)} tenants computed, ledger {fleet.ledger.pending()}, parked {fleet._in_flight} {fleet._parked_requests}")
+    peak = torch.cuda.max_memory_allocated() - start
+    stats = dict(fleet.stats)
+    del fleet, shell, joiner, split
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - start
+    if left > FLEET_MEM_SLACK:
+        raise AssertionError(f"phase 22a: the card holds {left / 2**20:.1f} MiB more than at the phase's start after the fleet was dropped")
+    _check_fleet_values(torch, mt, "phase 22a", values, reqs, _imagenet_collection)
+    for note in notes:
+        _log(f"phase 22a {note}")
+    _log(
+        f"phase 22a elastic fleet: workers 0-3 (capacity {cap}, routers' max_requests {max_req}, a shared DiskStore,"
+        f" checkpoint_every_n_flushes=1) serving {n_tenants} tenants of the main path's collection (ConfusionMatrix"
+        f"({IMAGENET_VAL[1]}), requests of [{SERVE_REQ}, {IMAGENET_VAL[1]}]) through 4 rounds, join(4), kill(1) with"
+        f" {len(queued)} requests queued, die(2), leave(0) and join(5) felled at admission: every tenant equals its solo"
+        f" collection bit for bit and np.bincount; rounds {r1_s:.2f} / {r2_s:.2f} / {r3_s:.2f} / {r4_s:.2f} s; the"
+        f" joiner's first flush {warm_ms:.0f} ms warmed (0 captures) against {[round(m) for m in cold_ms]} ms cold (each"
+        f" first worker's first flush, its capture included); join {join_ms:.0f} ms, kill recovery {kill_ms:.0f} ms, die"
+        f" recovery {die_ms:.0f} ms; compute_all {compute_ms:.0f} ms; peak {peak / 2**20:.0f} MiB over the phase's start,"
+        f" {left / 2**20:.1f} MiB left after del fleet; stats {stats}; launches {launches}; {smi}"
+    )
+    return launches
+
+
+def _measure_healthy_flush(fleet, owned, rounds: int, submit) -> list:
+    """The flush ms of every worker's wave over ``rounds`` rounds."""
+    out = []
+    for _ in range(rounds):
+        for w, ts in owned.items():
+            submit(ts)
+            out.append(fleet.worker(w).bank._last_flush_ms)
+    return out
+
+
+def run_fleet_guard(torch, mt, smi: str, reqs: "_FleetRequests", root: str) -> dict:
+    """Phase 22b: a slow worker walks to ejection while its queued requests'
+    hedges are delivered exactly once; then a corrupting worker is ejected
+    through its audits. Returns the launches of the fleets' traffic."""
+    from metrics_tpu_torch import fleet as fl
+    from metrics_tpu_torch.resilience import FaultPlan, FaultSpec, IntegrityAuditor, parse_plan
+    from metrics_tpu_torch.serving import DiskStore
+
+    n_workers, cap, per, warm_rounds, measured_rounds = FLEET_B
+    # each worker's wave tenants, and two more of worker 3's for the requests
+    # left queued (a tenant's new request would flush its queued ones first)
+    owned = _tenants_by_owner(fl, range(n_workers), per + 2, start=1000)
+    hedged = owned[3][per:]
+    owned = {w: ts[:per] for w, ts in owned.items()}
+    tenants = [t for ts in owned.values() for t in ts]
+    # worker 3 carries a slow spec from the start (so its flush path has the
+    # gray-fault seam); it matches no epoch until the healthy flush is measured
+    plan = FaultPlan([FaultSpec(kind="slow", rank=3, epoch=10**9, seconds=0.001)])
+    fleet = fl.Fleet(
+        _imagenet_collection(mt), workers=list(range(n_workers)), capacity=cap, name="smoke22b", max_requests=per,
+        max_delay_s=None, fault_plan=plan, durable_store=DiskStore(os.path.join(root, "store22b")),
+    )
+    launches = {}
+
+    def count(fn):
+        mt.reset_kernel_stats()
+        out = fn()
+        for op, n in _launches(mt.kernel_stats()).items():
+            launches[op] = launches.get(op, 0) + n
+        return out
+
+    def submit(group, via=fleet):
+        for t in group:
+            via.submit(t, *reqs.take(t))
+
+    count(lambda: [submit(ts) for _ in range(warm_rounds) for ts in owned.values()])
+    healthy = count(lambda: _measure_healthy_flush(fleet, owned, measured_rounds, submit))
+    median = float(np.median(healthy))
+    plan.specs[:] = [FaultSpec(kind="slow", rank=3, seconds=4 * median / 1e3)]
+    clock = [0.0]
+    guard = fl.FleetGuard(fleet, name="smoke22b", latency_threshold_ms=2 * median, probation_after=2, eject_after=1, clock=lambda: clock[0])
+    walk, edges = [], []
+    listener = mt.obs.bus.subscribe(
+        lambda e: edges.append((e.data["state_from"], e.data["state_to"], e.data["reasons"]))
+        if e.kind == "guard" and e.data.get("worker") == "3" else None
+    )
+    try:
+        def guarded_round():
+            submit(tenants, via=guard)
+            guard.poll()
+            walk.append(dict(guard.worker_states()))
+
+        count(guarded_round)
+        count(guarded_round)
+        if walk[-1].get(3) != "probation":
+            raise AssertionError(f"phase 22b: worker 3 after two slow rounds: {walk}")
+        # requests of their own signature, left queued on the sick worker; their hedges arm
+        for t in hedged:
+            guard.submit(t, *reqs.take(t, FLEET_HEDGE_ROWS))
+        clock[0] += 1.0
+        guard.poll()
+        if guard.stats["hedges_armed"] != len(hedged):
+            raise AssertionError(f"phase 22b: hedges armed {guard.stats}")
+        count(guarded_round)  # worker 3's third slow flush: ejected; the hedges go to the new owners
+        count(lambda: guard.drain())
+        states = guard.worker_states()
+        dedup = fleet.request_dedup.summary()
+        gstats = dict(guard.stats)
+    finally:
+        mt.obs.bus.unsubscribe(listener)
+        guard.close()
+    if states.get(3) != "ejected" or any(states.get(w) != "healthy" for w in range(3)) or any(s.get(w, "healthy") != "healthy" for s in walk for w in range(3)):
+        raise AssertionError(f"phase 22b: states {states}, walk {walk}")
+    if [e[:2] for e in edges] != [("healthy", "probation"), ("probation", "ejected")]:
+        raise AssertionError(f"phase 22b: worker 3's walk {edges}")
+    if gstats["hedges_delivered"] != len(hedged) or dedup["duplicates_applied"] != 0 or dedup["duplicates_dropped"] != len(hedged):
+        raise AssertionError(f"phase 22b: hedges {gstats}, dedup {dedup}")
+    values = {t: {k: v.cpu() for k, v in d.items()} for t, d in fleet.compute_all().items()}
+    stats = dict(fleet.stats)
+    del fleet, guard
+    _check_fleet_values(torch, mt, "phase 22b", values, reqs, _imagenet_collection)
+    _log(
+        f"phase 22b guard: 4 workers, {per} tenants each (waves of {per}); a healthy flush {median:.1f} ms median over"
+        f" {len(healthy)} flushes ({min(healthy):.1f}-{max(healthy):.1f}; the guard's default latency_threshold_ms is 250),"
+        f" latency_threshold_ms {2 * median:.1f}, worker 3 slowed by {4 * median:.0f} ms a flush: walk {walk}; worker 3"
+        f" {edges}; the others healthy throughout; hedges {gstats['hedges_armed']} armed, {gstats['hedges_delivered']}"
+        f" delivered, dedup {dedup}; every tenant bit for bit against its solo collection; fleet {stats}; {smi}"
+    )
+
+    # the integrity plane: a worker whose state a bitflip plan corrupts after each checkpoint
+    n_workers, per, most = FLEET_AUDIT
+    owned = _tenants_by_owner(fl, range(n_workers), per, start=2000)
+    tenants = [t for ts in owned.values() for t in ts]
+    plan = parse_plan('[{"kind": "bitflip", "rank": 1, "times": 8}]')
+    fleet = fl.Fleet(
+        _confmat_1000(mt), workers=list(range(n_workers)), capacity=per + 2, name="smoke22b-sdc", max_requests=per,
+        max_delay_s=None, fault_plan=plan, durable_store=DiskStore(os.path.join(root, "store22b-sdc")), audit_rate=1.0,
+    )
+    guard = fl.FleetGuard(fleet, name="smoke22b-sdc", probation_after=1, eject_after=2, min_workers=2, latency_threshold_ms=600_000.0)
+    auditors = {w: IntegrityAuditor(fleet.worker(w).bank) for w in range(n_workers)}
+    walk = []
+    try:
+        for step in range(most):
+            count(lambda: submit(tenants, via=guard))
+            for w, auditor in auditors.items():
+                if w in fleet._workers and fleet.worker(w).bank is not None:
+                    auditor.poll()
+            walk.append(dict(guard.observe()))
+            if walk[-1].get(1) == "ejected":
+                break
+        summary = guard.summary()
+    finally:
+        guard.close()
+    del auditors
+    if walk[-1].get(1) != "ejected" or any(walk[-1].get(w) != "healthy" for w in (0, 2, 3)) or summary["workers"]["1"]["audit_failures"] < 1:
+        raise AssertionError(f"phase 22b bitflip: walk {walk}, summary {summary['workers']}")
+    for t in tenants:
+        bank = next(w.bank for w in fleet._workers.values() if w.bank is not None and (t in w.bank.tenants or t in w.bank.spilled_tenants))
+        n = bank.update_count(t)
+        solo = _confmat_1000(mt)
+        for s, rows in reqs.fed[t][:n]:
+            solo.update(reqs.logits[s:s + rows], reqs.target[s:s + rows])
+        if not torch_equal(bank.tenant_state(t)["confmat"], solo.confmat):
+            raise AssertionError(f"phase 22b bitflip: tenant {t} differs from its solo twin over its {n} acked requests")
+    _log(
+        f"phase 22b audits: 4 workers of ConfusionMatrix({IMAGENET_VAL[1]}), audit_rate=1, a bitflip plan on worker 1:"
+        f" walk {walk}; worker 1 ejected after {summary['workers']['1']['audit_failures']} failed audits, its tenants"
+        f" recovered bit for bit against their solo twins over the acked requests; fleet {dict(fleet.stats)}; {smi}"
+    )
+    del fleet
+    return launches
+
+
+def run_fleet_upgrade(torch, mt, smi: str, reqs: "_FleetRequests", root: str) -> dict:
+    """Phase 22c: a clean rolling upgrade, then one whose canary corrupts its
+    state and is rolled back; no acked request is lost. Returns launches."""
+    from metrics_tpu_torch import fleet as fl
+    from metrics_tpu_torch.resilience import parse_plan
+    from metrics_tpu_torch.serving import DiskStore
+
+    n_workers, per, canary_steps = FLEET_UPGRADE
+    tenants = [t for ts in _tenants_by_owner(fl, range(n_workers), per, start=3000).values() for t in ts]
+    fleet = fl.Fleet(
+        _confmat_1000(mt), workers=list(range(n_workers)), capacity=per + 3, name="smoke22c", max_delay_s=None,
+        durable_store=DiskStore(os.path.join(root, "store22c")), fault_plan=parse_plan("[]"),
+    )
+    mt.reset_kernel_stats()
+
+    def pump(f):
+        for t in tenants:
+            f.submit(t, *reqs.take(t))
+        f.flush()
+
+    pump(fleet)
+    reports, seconds = [], []
+    bad = parse_plan('[{"kind": "bitflip", "rank": 0, "times": 8}]')
+    for label, factory in (("clean", lambda wid, f: f.build_worker(wid)), ("bitflip canary", lambda wid, f: f.build_worker(wid, fault_plan=bad))):
+        guard = fl.FleetGuard(fleet, name=f"smoke22c-{label}", probation_after=1, eject_after=2, min_workers=2, latency_threshold_ms=600_000.0)
+        t0 = time.perf_counter()
+        try:
+            reports.append(fleet.rolling_upgrade(factory, guard=guard, canary_steps=canary_steps, on_step=pump))
+        finally:
+            guard.close()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    clean, rolled = reports
+    if clean["rolled_back"] or sorted(clean["upgraded"]) != list(range(n_workers)) or clean["audit"]["failed"]:
+        raise AssertionError(f"phase 22c clean rollout: {clean}")
+    if not rolled["rolled_back"] or "integrity" not in rolled["breach"] or rolled["upgraded"]:
+        raise AssertionError(f"phase 22c canary: {rolled}")
+    if sorted(fleet.epoch.workers) != list(range(n_workers)) or fleet.worker(0).bank.state_fault_injector is not None:
+        raise AssertionError(f"phase 22c: after the rollback {fleet.epoch}")
+    pump(fleet)
+    launches = _launches(mt.kernel_stats())
+    values = {t: v.cpu() for t, v in fleet.compute_all().items()}
+    stats = dict(fleet.stats)
+    del fleet
+    _check_fleet_values(torch, mt, "phase 22c", values, reqs, _confmat_1000)
+    _log(
+        f"phase 22c rolling upgrade: {n_workers} workers of ConfusionMatrix({IMAGENET_VAL[1]}), {len(tenants)} tenants,"
+        f" canary_steps={canary_steps}: clean rollout {seconds[0]:.1f} s (upgraded {clean['upgraded']}, audits"
+        f" {clean['audit']}); the bitflip canary rolled back in {seconds[1]:.1f} s (breach {rolled['breach']}, audits"
+        f" {rolled['audit']}); no acked request lost: every tenant bit for bit against its solo twin; fleet {stats}; {smi}"
+    )
+    return launches
+
+
+def run_fleet_kv(torch, mt, smi: str, reqs: "_FleetRequests", root: str) -> dict:
+    """Phase 22d: a resize whose payloads cross ``KVLedger`` over the default
+    ``TCPStore`` of a world of one. Returns the launches."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch import fleet as fl
+    from metrics_tpu_torch.serving import DiskStore
+
+    n_workers, per, joiner_share = FLEET_KV
+    owned = _tenants_by_owner(fl, range(n_workers), per, start=4000)
+    moving = _tenants_by_owner(fl, range(n_workers + 1), joiner_share, start=4000)[n_workers]
+    tenants = sorted({t for ts in owned.values() for t in ts} | set(moving))
+    if dist.is_initialized():
+        raise AssertionError("phase 22d: a torch.distributed group is already initialised")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    try:
+        fleet = fl.Fleet(
+            _confmat_1000(mt), workers=list(range(n_workers)), capacity=len(tenants), name="smoke22d", max_delay_s=None,
+            ledger=fl.KVLedger(), durable_store=DiskStore(os.path.join(root, "store22d")),
+        )
+        mt.reset_kernel_stats()
+        for t in tenants:
+            fleet.submit(t, *reqs.take(t))
+        fleet.flush()
+        split = _FleetSplit(torch, fleet)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with split:
+            moves = fleet.join(n_workers)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not set(moving) <= set(moves) or fleet.ledger.pending():
+            raise AssertionError(f"phase 22d: moves {moves}, pending {fleet.ledger.pending()}")
+        for t in tenants:
+            fleet.submit(t, *reqs.take(t))
+        fleet.flush()
+        launches = _launches(mt.kernel_stats())
+        values = {t: v.cpu() for t, v in fleet.compute_all().items()}
+        moved_mb = fleet.stats["rebalance_bytes"] / 1e6
+        del fleet
+    finally:
+        dist.destroy_process_group()
+    _check_fleet_values(torch, mt, "phase 22d", values, reqs, _confmat_1000)
+    _log(
+        f"phase 22d KVLedger over the default TCPStore (gloo, world size 1): join({n_workers}) moved {len(moves)}"
+        f" tenants of ConfusionMatrix({IMAGENET_VAL[1]}) ({moved_mb:.1f} MB) in {ms:.0f} ms, {ms / len(moves):.0f} ms a"
+        f" move ({split.note()}); every tenant bit for bit against its solo twin; {smi}"
+    )
+    return launches
+
+
+def run_fleet_phase(torch, mt, smi: str) -> dict:
+    """Phase 22: the elastic fleet on the card (22a membership, 22b the
+    guard, 22c a rolling upgrade, 22d the ledger over the TCPStore).
+    Returns the launches of the fleets' traffic."""
+    t_phase = time.perf_counter()
+    mt.engine.clear_cache()
+    torch.cuda.empty_cache()
+    reqs = _FleetRequests(torch, 640)
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as root:
+        for label, run in (("22a", run_fleet_elastic), ("22b", run_fleet_guard), ("22c", run_fleet_upgrade), ("22d", run_fleet_kv)):
+            t0 = time.perf_counter()
+            for op, n in run(torch, mt, smi, reqs, root).items():
+                launches[op] = launches.get(op, 0) + n
+            _log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    del reqs
+    torch.cuda.empty_cache()
+    _log(f"phase 22 elastic fleet: {time.perf_counter() - t_phase:.1f} s in all, oracles and solo twins included; launches {launches}; {smi}")
+    return launches
+
+
 def check_windowed_kernels(torch, rng):
     """Phase 16c: the class windows of the confusion-count kernels at the
     phase's shapes, each against its plain version and the matching slice
@@ -7856,6 +8528,11 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     _log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     _log(smi)
+    _log(
+        f"reduced (depth, for the time limit): 12a and 17a images a set from {CIFAR10_TEST[0]} to {GEN_IMAGES};"
+        f" 13a, 13e and 17a segments from {WMT14_NEWSTEST} to {MT_SEGMENTS}; 13b utterances from {LIBRISPEECH_TEST_CLEAN}"
+        f" to {ASR_UTTERANCES}; 13c summaries from {CNNDM_TEST} to {SUM_SUMMARIES}; 14c images from {COCO_VAL2017[0]} to {MAP_IMAGES}"
+    )
 
     _build.library()
     _log(f"build: {_build.last_build_seconds:.1f} s (0.0 = reused) -> {_build._library_path().name}")
@@ -7936,20 +8613,21 @@ def main() -> int:
     serving_launches = run_serving_phase(torch, mt, smi, logits, target, main_top5)
     pod_launches = run_pod_phase(torch, mt, smi)
     warm_launches = run_warm_snapshot_phase(torch, mt, smi)
+    fleet_launches = run_fleet_phase(torch, mt, smi)
 
     # each kernel's launches on the paths that run it, each counted from 0 just before its run
     launches = {
         **{
             k: v["launches"] + sync_launches.get(k, 0) + engine_launches.get(k, 0) + wrapper_launches.get(k, 0)
             + obs_launches.get(k, 0) + shard_launches.get(k, 0) + resilience_launches.get(k, 0)
-            + serving_launches.get(k, 0) + pod_launches.get(k, 0) + warm_launches.get(k, 0)
+            + serving_launches.get(k, 0) + pod_launches.get(k, 0) + warm_launches.get(k, 0) + fleet_launches.get(k, 0)
             for k, v in main_stats.items()
         },
         "confusion_counts": main_stats["confusion_counts"]["launches"] + sync_launches.get("confusion_counts", 0)
         + engine_launches.get("confusion_counts", 0) + extension_launches + wrapper_launches["confusion_counts"]
         + obs_launches["confusion_counts"] + shard_launches.get("confusion_counts", 0)
         + resilience_launches["confusion_counts"] + serving_launches["confusion_counts"]
-        + warm_launches["confusion_counts"],
+        + warm_launches["confusion_counts"] + fleet_launches["confusion_counts"],
         "confusion_counts@segmentation": seg_launches,
         "confusion_counts@window": shard_launches["confusion_counts@window"] + pod_launches["confusion_counts@window"],
         "multilabel_counts@window": shard_launches["multilabel_counts@window"],

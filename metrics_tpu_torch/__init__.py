@@ -46,6 +46,10 @@ explainer, ``obs.snapshot()`` and the JSONL and Prometheus exporters.
 ``serving`` is the multi-tenant serving plane: ``MetricBank`` (one program
 per wave of tenants' requests, LRU spill, the write-ahead journal and crash
 recovery, shadow audits), ``RequestRouter`` and ``RequestDedup``.
+``fleet`` makes banks a service whose size changes: rendezvous placement,
+live migration through a ledger, kill and die recovery from the durable
+store, mesh resharding, ``FleetGuard`` with hedged submits, and rolling
+upgrades.
 """
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.audio import (
@@ -83,6 +87,7 @@ from metrics_tpu_torch.classification import (
     StatScores,
 )
 from metrics_tpu_torch import engine  # noqa: F401
+from metrics_tpu_torch import fleet  # noqa: F401
 from metrics_tpu_torch import obs  # noqa: F401
 from metrics_tpu_torch import parallel  # noqa: F401
 from metrics_tpu_torch import resilience  # noqa: F401

@@ -20,8 +20,8 @@ Prometheus text.
   in ``dropped``. Per-kind totals survive eviction.
 * **Typed.** ``kind`` is one of :data:`EVENT_KINDS`, the JAX package's set
   unchanged, so a JSONL written by either package validates under either.
-  Kinds of layers the port does not have yet (the fleet's) stay in the set
-  and never fire.
+  The fleet emits ``migrate``, ``fleet_epoch`` and ``upgrade``, its guard
+  ``guard`` and ``hedge``.
 
 One process-wide ``RLock`` guards the ring, the counters and the
 subscribers; concurrent emitters (``compute_async`` resolving on another

@@ -15,10 +15,11 @@ keys. Its ``engine``, ``fetch``, ``encoders``, ``kernels``, ``sharding``
 ``wire_negotiation``), ``serving``
 (:func:`~metrics_tpu_torch.serving.serving_summary`), ``durability``
 (:func:`~metrics_tpu_torch.serving.durability_stats`), ``warmup``
-(:func:`~metrics_tpu_torch.engine.warmup_report`), ``bus``, ``spans``
-and ``warnings`` sections hold the port's counters; the sections of layers
-the port does not have yet (``fleet``, ``guard``) hold
-``{"ported": False}``.
+(:func:`~metrics_tpu_torch.engine.warmup_report`), ``fleet``
+(:func:`~metrics_tpu_torch.fleet.fleet_stats`), ``guard``
+(:func:`~metrics_tpu_torch.fleet.guard_stats`, the admission control's
+``overload_summary()`` folded in), ``bus``, ``spans`` and ``warnings``
+sections hold the port's counters.
 
 JSONL: one event per line in :meth:`Event.as_dict`'s schema
 (``{"v": 1, "seq", "kind", "t", "source", "data"}``), checked by
@@ -27,8 +28,7 @@ by either package validates under either.
 
 Prometheus: text format 0.0.4 of the counters, under the JAX package's
 family names (``metrics_tpu_*``) and its ``member`` labels, so a dashboard
-built on the JAX package reads the port. An unported section renders no
-family.
+built on the JAX package reads the port.
 """
 import json
 from typing import IO, Any, Dict, Iterable, List, Optional, Tuple, Union
@@ -40,9 +40,8 @@ from metrics_tpu_torch.obs import warn as _warn
 JSONL_SCHEMA_VERSION = 1
 _EVENT_REQUIRED_FIELDS = ("v", "seq", "kind", "t", "source", "data")
 
-#: Sections of the JAX process snapshot whose layers the port does not have
-#: yet (ROADMAP §1 item 10b, the fleet).
-UNPORTED_SECTIONS = ("fleet", "guard")
+#: Sections of the JAX process snapshot that the port does not fill: none.
+UNPORTED_SECTIONS: Tuple[str, ...] = ()
 
 
 def _shard_stats() -> Dict[str, Any]:
@@ -55,6 +54,18 @@ def _wire_stats() -> Dict[str, Any]:
     from metrics_tpu_torch.parallel import quantize
 
     return quantize.wire_stats()
+
+
+def _fleet_stats() -> Dict[str, Any]:
+    from metrics_tpu_torch.fleet import fleet_stats
+
+    return fleet_stats()
+
+
+def _guard_stats() -> Dict[str, Any]:
+    from metrics_tpu_torch.fleet import guard_stats
+
+    return guard_stats()
 
 
 def _integrity_stats() -> Dict[str, Any]:
@@ -125,9 +136,12 @@ def process_snapshot() -> Dict[str, Any]:
         "durability": _durability_stats(),
         # warmup manifests: what was loaded and warmed, warmed hits, staleness
         "warmup": _engine.warmup_report(),
+        # the elastic fleet: per-fleet membership and occupancy, migrations
+        "fleet": _fleet_stats(),
+        # gray-failure and overload defense: worker health states, hedges,
+        # the exactly-once dedup proof, admission control and brownout
+        "guard": _guard_stats(),
     }
-    for name in UNPORTED_SECTIONS:
-        out[name] = {"ported": False}
     out["bus"] = _bus.summary()
     out["spans"] = _trace.span_summary()
     out["warnings"] = {repr(k): v for k, v in _warn.warn_counts().items()}
@@ -249,8 +263,8 @@ def prometheus_text(obj: Optional[Any] = None) -> str:
     """The counters in Prometheus text exposition format: the engine (with
     the persistent kernel cache), the async fetches, the encoders, the
     kernel registry, the sharded states, the wire codecs, the serving banks,
-    the warmup manifests, the state digests, the schema
-    registry and the wire negotiation, the durable plane, the bus and the
+    the fleet, the durable plane, the guard, the warmup manifests, the state
+    digests, the schema registry and the wire negotiation, the bus and the
     spans; with a metric or collection, each member's compile, sync and
     health counters under a ``member`` label (a bare metric is ``_``)."""
     from metrics_tpu_torch import engine as _engine
@@ -360,9 +374,57 @@ def prometheus_text(obj: Optional[Any] = None) -> str:
     for key, value in sorted(compat["wire_negotiation"].items()):
         _sample(f"metrics_tpu_compat_wire_{key}", value)
 
+    # elastic fleet: membership, per-worker occupancy, migration traffic
+    fleet = _fleet_stats()
+    for key in ("migrations", "rebalance_bytes", "kills", "recovered_tenants", "epoch_changes", "upgrades", "rollbacks"):
+        _sample(f"metrics_tpu_fleet_{key}", fleet[key])
+    _sample("metrics_tpu_fleet_tenants", fleet["tenants"], kind="gauge")
+    # parked state (park-and-retry): tenants waiting in the migration ledger
+    # and requests awaiting re-submission; gauges, they drain to zero
+    _sample("metrics_tpu_fleet_parked_tenants", fleet["in_flight_tenants"], kind="gauge")
+    _sample("metrics_tpu_fleet_parked_requests", fleet["parked_requests"], kind="gauge")
+    for fleet_name in sorted(fleet["fleets"]):
+        summary = fleet["fleets"][fleet_name]
+        fleet_labels = {"fleet": fleet_name, "template": summary.get("template", "")}
+        _sample("metrics_tpu_fleet_epoch", summary["epoch"], fleet_labels, kind="gauge")
+        _sample("metrics_tpu_fleet_workers", len(summary["workers"]), fleet_labels, kind="gauge")
+        _sample("metrics_tpu_fleet_parked_tenants", summary["in_flight_tenants"], fleet_labels, kind="gauge")
+        _sample("metrics_tpu_fleet_parked_requests", summary["parked_requests"], fleet_labels, kind="gauge")
+        for worker_name in sorted(summary["workers"]):
+            worker = summary["workers"][worker_name]
+            labels = {"fleet": fleet_name, "worker": worker_name}
+            _sample("metrics_tpu_fleet_tenants_owned", worker["tenants"], labels, kind="gauge")
+            _sample("metrics_tpu_fleet_worker_alive", 1 if worker["alive"] else 0, labels, kind="gauge")
+            for key in ("migrations_in", "migrations_out", "bytes_in", "bytes_out"):
+                _sample(f"metrics_tpu_fleet_{key}", worker[key], labels)
+
     # durable state plane: journal, spill, checkpoint and recovery counters
     for key, value in sorted(_durability_stats().items()):
         _sample(f"metrics_tpu_durable_{key}", value)
+
+    # gray-failure and overload defense: worker health states, the hedges'
+    # lifecycle, the exactly-once dedup proof, sheds by reason, brownout
+    guard = _guard_stats()
+    for key in ("healthy", "probation", "ejected"):
+        _sample(f"metrics_tpu_guard_workers_{key}", guard[key], kind="gauge")
+    _sample("metrics_tpu_guard_outstanding_requests", guard["outstanding"], kind="gauge")
+    for key in (
+        "submitted",
+        "applied",
+        "hedges_armed",
+        "hedges_delivered",
+        "hedges_cancelled",
+        "ejections",
+        "duplicates_dropped",
+        "duplicates_applied",
+    ):
+        _sample(f"metrics_tpu_guard_{key}", guard[key])
+    overload = guard["overload"]
+    _sample("metrics_tpu_guard_brownout_active", 1 if overload["brownout_active"] else 0, kind="gauge")
+    for key in ("admitted", "sheds", "retries_admitted", "brownouts_entered"):
+        _sample(f"metrics_tpu_guard_{key}", overload[key])
+    for reason in ("tenant_quota", "inflight", "deadline", "retry_budget"):
+        _sample("metrics_tpu_guard_sheds_by_reason", overload[f"shed_{reason}"], {"reason": reason})
 
     bus_summary = _bus.summary()
     for kind in sorted(bus_summary["by_kind"]):

@@ -29,8 +29,10 @@ produced on demand, deterministically, in one CPU process:
 
 The ``kill``, ``die``, ``slow``, ``flaky`` and ``bitflip`` kinds are parsed
 and kept as in the JAX package; the KV layers honour ``slow`` and
-``flaky``, and the serving and fleet layers that consume the others come
-with them.
+``flaky``, and the fleet consumes all five: ``kill`` and ``die`` fell a
+migration's destination at admission, ``slow`` and ``flaky`` ride a
+worker's flush, ``bitflip`` corrupts a worker's state after its
+checkpoint.
 """
 import contextlib
 import contextvars
@@ -83,7 +85,7 @@ class FaultSpec:
             extra ``seconds`` (timing out the attempt if its budget is
             smaller); ``'corrupt'`` — the first ``times`` reads return
             bit-flipped bytes, later reads the true payload; ``'kill'`` —
-            consumed by the elastic fleet layer (ROADMAP §1 item 10), not
+            consumed by the elastic fleet layer (``fleet/router.py``), not
             the KV fake: the worker whose integer id is ``rank`` dies the
             moment it is asked to admit a migrating tenant at fleet-epoch
             version ``epoch`` (the mid-migration worker-kill scenario — the

@@ -22,9 +22,10 @@ The controller is threadless and clock-driven (the clock is injectable):
 decisions happen on :meth:`~AdmissionController.submit`, pressure tracking
 on :meth:`~AdmissionController.tick`. It reads its ``inner`` object by duck
 typing (``submit``, ``fleet``, ``pending_requests()``, ``owner_of``,
-``_workers`` with their ``router`` and ``bank``), the surface of the JAX
-package's fleet; ``obs.snapshot()["guard"]`` stays unported until the
-fleet's guard is ported (ROADMAP §1 item 10).
+``_workers`` with their ``router`` and ``bank``), the surface of
+:class:`~metrics_tpu_torch.fleet.Fleet` and
+:class:`~metrics_tpu_torch.fleet.FleetGuard`; :func:`overload_summary` is
+folded into ``fleet.guard_stats()``, ``obs.snapshot()["guard"]``.
 """
 import itertools
 import threading
@@ -412,9 +413,8 @@ _OVERLOAD_AGGREGATE_KEYS = (
 
 def overload_summary() -> Dict[str, Any]:
     """Process-wide admission-control telemetry: aggregates over every live
-    controller plus the per-controller summaries (the JAX package folds it
-    into ``obs.snapshot()["guard"]``, which the port fills once the fleet's
-    guard is ported)."""
+    controller plus the per-controller summaries, folded into
+    ``fleet.guard_stats()["overload"]`` (``obs.snapshot()["guard"]``)."""
     controllers = {c.name: c.summary() for c in all_controllers()}
     out: Dict[str, Any] = {key: 0 for key in _OVERLOAD_AGGREGATE_KEYS}
     out["brownout_active"] = any(c.get("brownout_active") for c in controllers.values())

@@ -441,6 +441,12 @@ class MetricBank:
             "drive_steps": 0,
             "coalesced_gathers": 0,
         }
+        # key the cells now, as unlearned: a tenant imported or readmitted
+        # before the first wave teaches them what a first update learns
+        # (``Accuracy.mode``), and a cell keyed after that would serve
+        # another entry than its peers' and its warmup manifest's
+        for m in self._cell_members:
+            _cache.metric_fingerprint(m)
         with _REGISTRY_LOCK:
             _BANKS.add(self)
 

@@ -2,8 +2,8 @@
 (counterpart of ``metrics_tpu/serving/dedup.py``, plain Python, copied with
 its caps and eviction order).
 
-A gray-failure-immune request plane re-issues work: the fleet guard
-(ROADMAP §1 item 10) hedges a stalled request toward the
+A gray-failure-immune request plane re-issues work: the
+:class:`~metrics_tpu_torch.fleet.FleetGuard` hedges a stalled request toward the
 tenant's rendezvous failover owner, and the fleet's kill-recovery path
 re-submits a dead router's un-flushed queue. Both can race — the SAME
 logical update arriving at a bank twice, through two routers — and a metric
@@ -41,7 +41,7 @@ class RequestDedup:
     """Fleet-scoped exactly-once registry for tagged requests.
 
     One instance is shared by every bank a request can be re-issued to
-    (the fleet of ROADMAP §1 item 10 creates one and hands it to each
+    (:class:`~metrics_tpu_torch.fleet.Fleet` creates one and hands it to each
     worker's bank). Untagged requests (``request_id=None``) bypass it
     entirely — the legacy single-submission path pays nothing.
     """

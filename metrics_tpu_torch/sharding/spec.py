@@ -461,16 +461,18 @@ def place_state_dict(
     return out, layouts
 
 
-def place_states(metric: Any, mesh: Any, source: Optional[str] = None) -> Any:
+def place_states(metric: Any, mesh: Any, source: Optional[str] = None, count_change: bool = True) -> Any:
     """Lay a metric's registered-sharded states out over ``mesh``, its
     defaults too (so :meth:`Metric.reset` gives placed defaults), and
     remember the mesh and layouts: the body of ``Metric.shard_states``.
-    A new layout changes the program, so the metric's program key is made anew."""
+    A new layout changes the program, so the metric's program key is made
+    anew. ``count_change=False`` leaves ``mesh_changes`` to the caller
+    (``fleet.reshard_onto`` counts each move once, placed before or not)."""
     if not metric.__dict__.get("_state_shardings"):
         metric._shard_mesh = mesh
         return metric
     old_mesh = metric.__dict__.get("_shard_mesh")
-    if old_mesh is not None and old_mesh is not mesh:
+    if count_change and old_mesh is not None and old_mesh is not mesh:
         count_mesh_change()
     placed, layouts = place_state_dict(metric._snapshot_state(), metric, mesh, source)
     defaults = dict(metric._defaults)

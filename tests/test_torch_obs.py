@@ -812,11 +812,14 @@ def test_jsonl_roundtrip_and_prometheus_render():
     assert process["kernels"]["by_op"] == mt.kernel_stats()
     assert set(process["kernels"]) == {"registered", "launches", "plain_calls", "by_op"}
     assert "confusion_counts" in process["kernels"]["registered"] and "policy" not in process["kernels"]
-    for name in ("fleet", "guard"):
-        assert process[name] == {"ported": False}
     # the resilient sync's sections are ported, under the JAX package's keys
     mj = _jax()
     jax_process = mj.obs.snapshot()
+    # the fleet's and the guard's: fleet_stats() and guard_stats(), the JAX keys
+    assert process["fleet"] == mt.fleet.fleet_stats() and process["guard"] == mt.fleet.guard_stats()
+    for name in ("fleet", "guard"):
+        assert set(process[name]) == set(jax_process[name]), name
+    assert set(process["guard"]["overload"]) == set(jax_process["guard"]["overload"])
     # the warmup manifests' section: warmup_report(), the JAX keys
     assert process["warmup"] == mt.engine.warmup_report()
     assert set(process["warmup"]) == set(jax_process["warmup"])
