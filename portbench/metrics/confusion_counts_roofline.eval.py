@@ -1,0 +1,7 @@
+"""confusion_counts: the least time of its calls (bytes at the HBM rate) over its kernels' device time, in %."""
+from portbench.lib.readers import kernel_roofline
+from portbench.lib.roofline import CONFUSION_KERNELS
+
+
+def read(obs):
+    return kernel_roofline(obs, "confusion_counts", CONFUSION_KERNELS)
