@@ -25,10 +25,11 @@
 //      and at least one. Each sample adds 1 to its cell with a shared-memory
 //      atomicAdd. The warp aggregation first planned (lanes of one key
 //      found with __match_any_sync, the lowest adding __popc of the group
-//      once) is built with -DMT_CC_MERGE=1 and timed against this by
-//      `python3 -m metrics_tpu_torch.ops.confusion_merge_probe`: with a
-//      copy per warp the loop waits on device memory and the shared
-//      atomics' conflicts hide behind it, so the merge saves nothing on
+//      once) is built with -DMT_CC_MERGE=1 and timed against this (a
+//      second library: the flag added to ops/_build.py's NVCC_FLAGS, with
+//      _build._LIB reset, both timed in one process): with a copy per warp
+//      the loop waits on device memory and the shared atomics' conflicts
+//      hide behind it, so the merge saves nothing on
 //      segmentation runs and costs more than the atomics it saves on
 //      uniform keys, where nothing merges (PERF.md has the times). So it
 //      is off.

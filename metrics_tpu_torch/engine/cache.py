@@ -128,6 +128,7 @@ import torch
 from metrics_tpu_torch.engine import _tree, bucketing
 from metrics_tpu_torch.obs import bus as _bus
 from metrics_tpu_torch.obs import explain as _explain
+from metrics_tpu_torch.obs import trace as _trace
 from metrics_tpu_torch.ops import registry as _kernels
 from metrics_tpu_torch.parallel.comm import axis_world  # noqa: F401  (the JAX engine's home of it)
 from metrics_tpu_torch.resilience import health as _health
@@ -386,7 +387,9 @@ class _Graph:
     outputs (the wave's new rows) are handed out uncloned: the bank reads
     them before the next replay."""
 
-    __slots__ = ("graph", "static_in", "tensor_pos", "out_leaves", "out_spec", "launches", "pins", "nbytes", "resident")
+    __slots__ = (
+        "graph", "static_in", "tensor_pos", "out_leaves", "out_spec", "launches", "pins", "nbytes", "resident", "kind"
+    )
 
     def __init__(
         self,
@@ -395,8 +398,10 @@ class _Graph:
         leaves: List[Any],
         spec: Any,
         pool: Any,
-        resident: Optional[Resident] = None,
+        resident: Optional[Resident],
+        kind: str,
     ) -> None:
+        self.kind = kind
         static = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
         self.tensor_pos = [i for i, x in enumerate(static) if isinstance(x, torch.Tensor)]
         self.static_in = [static[i] for i in self.tensor_pos]
@@ -413,9 +418,26 @@ class _Graph:
         self.resident = resident is not None
 
     def replay(self, leaves: List[Any]) -> Any:
+        if _trace.active():
+            return self._replay_traced(leaves)
         torch._foreach_copy_(self.static_in, [leaves[i] for i in self.tensor_pos])
         self.graph.replay()
         _kernels.credit(self.launches)
+        return self._outputs()
+
+    def _replay_traced(self, leaves: List[Any]) -> Any:
+        with _trace.span("engine.copy_in", self.kind):
+            torch._foreach_copy_(self.static_in, [leaves[i] for i in self.tensor_pos])
+        with _trace.span("engine.replay", self.kind):
+            self.graph.replay()
+        _kernels.credit(self.launches)
+        if self.resident:
+            return self._outputs()
+        with _trace.span("engine.clone_out", self.kind):
+            return self._outputs()
+
+    def _outputs(self) -> Any:
+        """The graph's outputs: its own on resident leaves, else fresh clones."""
         if self.resident:
             return _tree.unflatten(self.out_spec, self.out_leaves)
         tensors = [x for x in self.out_leaves if isinstance(x, torch.Tensor)]
@@ -490,7 +512,11 @@ class SharedEntry:
         copied; on the card its programs are kept on it.
         Raises :class:`JitIncompatibleError` where the program cannot be
         captured."""
-        fn, leaves, spec, key, device, head, programs = self._resolve(variant, inputs, resident)
+        if _trace.active():
+            with _trace.span("engine.key", self.kind):
+                fn, leaves, spec, key, device, head, programs = self._resolve(variant, inputs, resident)
+        else:
+            fn, leaves, spec, key, device, head, programs = self._resolve(variant, inputs, resident)
         program = programs.get(key)
         if program == _FAILED:
             raise JitIncompatibleError(f"the {self.kind} program {variant!r} could not be captured on {device}")
@@ -630,7 +656,7 @@ class SharedEntry:
         with self._lock:
             stream = torch.cuda.current_stream(device)
             try:
-                programs[key] = _Graph(fn, cell, leaves, spec, pool, resident)
+                programs[key] = _Graph(fn, cell, leaves, spec, pool, resident, self.kind)
             except (JitIncompatibleError, RuntimeError) as err:  # RuntimeError: the toolkit refused an operation
                 programs[key] = _FAILED
                 _end_refused_capture(device, stream, pool)
@@ -739,10 +765,14 @@ def _make_metric_entry(key: Any, pins: Tuple) -> SharedEntry:
     entry = SharedEntry(key, "metric_update", pins)
 
     def _exact(inst, state, args, kwargs):
-        return _health.traced_update(inst, state, args, kwargs)
+        out = _health.traced_update(inst, state, args, kwargs)
+        _trace.mark("end", state)
+        return out
 
     def _bucketed(inst, state, args, kwargs, pad_count):
-        return _health.traced_update(inst, state, args, kwargs, pad_count=pad_count)
+        out = _health.traced_update(inst, state, args, kwargs, pad_count=pad_count)
+        _trace.mark("end", state)
+        return out
 
     entry._fns = {"exact": _exact, "bucketed": _bucketed}
     return entry
@@ -810,14 +840,15 @@ def _make_bootstrap_entry(key: Any, pins: Tuple) -> SharedEntry:
         # output, so the gathered batch and the update's temporaries are
         # freed before the next replicate and a capture holds one of each.
         out: Dict[str, torch.Tensor] = {}
-        for b in range(idx.shape[0]):
-            rows = idx[b]
-            sel_args, sel_kwargs = _select_rows(args, kwargs, rows)
-            new = _health.traced_update(inst, {n: v[b] for n, v in stacked.items()}, sel_args, sel_kwargs)
-            for n, v in new.items():
-                if b == 0:
-                    out[n] = v.new_empty((idx.shape[0],) + tuple(v.shape))
-                out[n][b].copy_(v)
+        with _trace.quiet_marks():
+            for b in range(idx.shape[0]):
+                rows = idx[b]
+                sel_args, sel_kwargs = _select_rows(args, kwargs, rows)
+                new = _health.traced_update(inst, {n: v[b] for n, v in stacked.items()}, sel_args, sel_kwargs)
+                for n, v in new.items():
+                    if b == 0:
+                        out[n] = v.new_empty((idx.shape[0],) + tuple(v.shape))
+                    out[n][b].copy_(v)
         return out
 
     entry._fns = {"exact": _replicates}
@@ -895,7 +926,9 @@ def _wave_program(body: Callable) -> Callable:
     (the bank writes the rows back once the wave succeeded). Pad requests
     address the sink row past the capacity, which no tenant owns.
     ``warm_up`` (ahead of a capture) runs the first request alone and
-    returns nothing: it loads the kernels and runs the Python-init probe."""
+    returns nothing: it loads the kernels and runs the Python-init probe.
+    The device marks ``wave`` and ``wave_end`` open and close it; its
+    requests' transitions mark nothing."""
 
     def wave(
         cell: Any,
@@ -907,18 +940,21 @@ def _wave_program(body: Callable) -> Callable:
         *,
         warm_up: bool = False,
     ) -> Optional[Dict[str, torch.Tensor]]:
+        _trace.mark("wave", slots)
         leaves, spec = _tree.flatten((args, kwargs))
         n = 1 if warm_up else int(slots.shape[0])
         staged = {name: leaf.new_empty((n,) + tuple(leaf.shape[1:])) for name, leaf in bank.items()}
-        for i in range(n):
-            row = slots[i : i + 1]
-            state = {name: leaf.index_select(0, row)[0] for name, leaf in bank.items()}
-            req_args, req_kwargs = _request_at(leaves, spec, i)
-            new = body(cell, state, req_args, req_kwargs, None if pads is None else pads[i])
-            for name, value in new.items():
-                staged[name][i].copy_(value)
-            # this request's temporaries are freed before the next one's
-            del state, new, req_args, req_kwargs
+        with _trace.quiet_marks():
+            for i in range(n):
+                row = slots[i : i + 1]
+                state = {name: leaf.index_select(0, row)[0] for name, leaf in bank.items()}
+                req_args, req_kwargs = _request_at(leaves, spec, i)
+                new = body(cell, state, req_args, req_kwargs, None if pads is None else pads[i])
+                for name, value in new.items():
+                    staged[name][i].copy_(value)
+                # this request's temporaries are freed before the next one's
+                del state, new, req_args, req_kwargs
+        _trace.mark("wave_end", slots)
         return None if warm_up else staged
 
     return wave
@@ -945,9 +981,10 @@ def _scan_program(body: Callable) -> Callable:
     ) -> Optional[Dict[str, torch.Tensor]]:
         leaves, spec = _tree.flatten((args, kwargs))
         state = {name: leaf.index_select(0, slot)[0] for name, leaf in bank.items()}
-        for k in range(1 if warm_up else n_steps):
-            step_args, step_kwargs = _request_at(leaves, spec, k)
-            state = body(cell, state, step_args, step_kwargs, None if pads is None else pads[k])
+        with _trace.quiet_marks():
+            for k in range(1 if warm_up else n_steps):
+                step_args, step_kwargs = _request_at(leaves, spec, k)
+                state = body(cell, state, step_args, step_kwargs, None if pads is None else pads[k])
         return None if warm_up else state
 
     return scan
@@ -1030,10 +1067,12 @@ def _make_fused_entry(kind: str, keys: Tuple[str, ...], cache_key: Any, pins: Tu
     entry._member_names = keys
 
     def _update(members, states, args, member_kwargs, pad_count=None):
-        return {
+        out = {
             k: _health.traced_update(m, states[k], args, member_kwargs[k], pad_count=pad_count)
             for k, m in zip(keys, members)
         }
+        _trace.mark("end", states)
+        return out
 
     def _forward(members, states, args, member_kwargs):
         vals: Dict[str, Any] = {}
@@ -1043,6 +1082,7 @@ def _make_fused_entry(kind: str, keys: Tuple[str, ...], cache_key: Any, pins: Tu
             m._restore_state(batch_state)
             vals[k] = m._compute_impl()
             merged[k] = m.merge_states(states[k], batch_state)
+        _trace.mark("end", states)
         return vals, merged
 
     def _compute(members, states):

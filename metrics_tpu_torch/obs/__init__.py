@@ -7,8 +7,12 @@ lifecycle spans, the retrace explainer, the exporters and ``warn_once``.
   dispatches, warnings). It ships disabled; the disabled path costs one
   bool read, and enabling it changes no program.
 * :mod:`~metrics_tpu_torch.obs.trace`: spans around ``update``,
-  ``forward``, ``compute``, ``sync`` and ``drive``, with an opt-in fence
-  (``torch.cuda.synchronize`` of the payload's devices) for device time.
+  ``forward``, ``compute``, ``sync`` and ``drive`` and around the engine's,
+  the bank's and the router's dispatch, with an opt-in fence
+  (``torch.cuda.synchronize`` of the payload's devices) for device time;
+  profiler ranges of them while ``torch.profiler`` records;
+  device marks inside the captured programs; counts and samples where work
+  waits (``readings()``).
 * :mod:`~metrics_tpu_torch.obs.explain`: each retrace names the changed
   program-key component.
 * :mod:`~metrics_tpu_torch.obs.export`: ``snapshot()``, JSONL with a

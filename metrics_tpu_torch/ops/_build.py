@@ -23,7 +23,7 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("binned_counts.cu", "confusion_counts.cu", "pairwise_reduce.cu", "select_topk.cu")
+SOURCES = ("binned_counts.cu", "confusion_counts.cu", "mark.cu", "pairwise_reduce.cu", "select_topk.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,6 +57,8 @@ _SIGNATURES: Dict[str, List] = {
     # device, dtype code, op code, x [N*d], y [M*d], n, m, d, zero_diag,
     # out [N] (f64 for f64 inputs, else f32), scratch, scratch bytes, stream
     "mt_pairwise_reduce": [_INT, _INT, _INT, _P, _P, _I64, _I64, _I64, _INT, _P, _P, _I64, _P],
+    # device, stage (index in obs/trace.py MARK_STAGES), stream
+    "mt_mark": [_INT, _INT, _P],
 }
 #: C entries that return a value other than an error code: name -> (argument types, result type).
 _QUERIES: Dict[str, tuple] = {

@@ -84,6 +84,7 @@ from metrics_tpu_torch.engine import _tree
 from metrics_tpu_torch.engine import bucketing as _bucketing
 from metrics_tpu_torch.engine import cache as _cache
 from metrics_tpu_torch.obs import bus as _bus
+from metrics_tpu_torch.obs import trace as _trace
 from metrics_tpu_torch.resilience import health as _health
 from metrics_tpu_torch.resilience import integrity as _integrity
 from metrics_tpu_torch.serving import pod as _pod
@@ -98,6 +99,20 @@ __all__ = ["MetricBank", "all_banks", "serving_summary"]
 _BANKS: "weakref.WeakSet[MetricBank]" = weakref.WeakSet()
 _BANK_IDS = itertools.count()
 _REGISTRY_LOCK = threading.Lock()
+
+
+class _Wave:
+    """One wave as :meth:`MetricBank._apply_batch_locked`'s phases hand it on."""
+
+    __slots__ = (
+        "requests", "claimed", "tenants", "leaves_per_req", "spec", "pads", "entry", "stats", "slots", "audit",
+        "n_req", "dense", "n_launches", "staged", "err",
+    )
+
+    def __init__(self) -> None:
+        self.audit: Optional[Tuple] = None
+        self.staged: Any = None
+        self.err: Optional[BaseException] = None
 
 
 def all_banks() -> List["MetricBank"]:
@@ -1261,8 +1276,51 @@ class MetricBank:
     def _apply_batch_locked(
         self, requests: List[Tuple[Hashable, Tuple[Any, ...]]], request_ids: Optional[List[Any]] = None
     ) -> int:
+        """One wave in three phases, each a span while :func:`obs.trace.active`:
+        ``bank.prepare`` (dedup, the requests' structure and padding,
+        admission), ``bank.dispatch`` (stacking and the wave's program) and
+        ``bank.write_back`` (the rows, counts and cadence work)."""
         t_start = time.perf_counter()
         consumed = len(requests)
+        if _trace.active():
+            with _trace.span("bank.prepare", "MetricBank"):
+                wave = self._prepare_wave(requests, request_ids)
+            if wave is None:
+                return consumed
+            if wave.err is None:
+                with _trace.span("bank.dispatch", "MetricBank"):
+                    self._launch_wave(wave)
+            with _trace.span("bank.write_back", "MetricBank"):
+                self._commit_wave(wave)
+        else:
+            wave = self._prepare_wave(requests, request_ids)
+            if wave is None:
+                return consumed  # every request was a duplicate: no launch
+            if wave.err is None:
+                self._launch_wave(wave)
+            self._commit_wave(wave)
+        ms = self._record_ms(t_start)
+        if _bus.enabled():
+            _bus.emit(
+                "flush",
+                source=type(self._template).__name__,
+                bank=self.name,
+                requests=wave.n_req,
+                variant="dense" if wave.dense else "scatter",
+                bucketed=wave.pads is not None,
+                shard_launches=wave.n_launches,
+                occupancy=len(self._slots),
+                ms=round(ms, 3),
+            )
+        return consumed
+
+    def _prepare_wave(
+        self, requests: List[Tuple[Hashable, Tuple[Any, ...]]], request_ids: Optional[List[Any]]
+    ) -> Optional["_Wave"]:
+        """A wave up to its launch, or None where every request was a
+        duplicate. A failure after the processes agreed on the requests is
+        kept in ``err``, for :meth:`_commit_wave` to raise once agreed."""
+        wave = _Wave()
         claimed: List[Tuple[Hashable, Any]] = []
         prepared: Any = None
         err: Optional[BaseException] = None
@@ -1291,60 +1349,57 @@ class MetricBank:
         # same tenants on every process, and no process failed its checks
         self._agree_or_release(err, claimed, "apply_batch", tenants)
         if not requests:
-            return consumed  # every request was a duplicate: no launch
-        leaves_per_req, spec, pads = prepared
-        staged: Any = None
+            return None
+        wave.requests, wave.claimed, wave.tenants = requests, claimed, tenants
+        wave.leaves_per_req, wave.spec, wave.pads = prepared
         try:
-            entry = self._entry()
-            stats = _cache.instance_stats(self._template)
-            slots = self._admit_many(tenants)
-            audit: Optional[Tuple] = None
+            wave.entry = self._entry()
+            wave.stats = _cache.instance_stats(self._template)
+            wave.slots = self._admit_many(tenants)
             if self._audit_period is not None:
                 self._flush_index += 1
                 if self._flush_index % self._audit_period == 0:
                     pick = tenants[self._audit_cursor % len(tenants)]
                     self._audit_cursor += 1
-                    audit = (pick, int(self._counts[pick]), self._row_copy(self._slots[pick]), self._flush_index)
-            n_req = len(requests)
-            dense = n_req >= self.dense_threshold * self.capacity
+                    wave.audit = (pick, int(self._counts[pick]), self._row_copy(self._slots[pick]), self._flush_index)
+            wave.n_req = len(requests)
+            wave.dense = wave.n_req >= self.dense_threshold * self.capacity
             # the JAX bank's launches: one dense program, or one shard-local
             # scatter program per tenant shard the wave touches
-            n_launches = 1 if dense else len({self._slot_shard(s) for s in slots})
-            staged = self._dispatch_wave(entry, stats, slots, leaves_per_req, spec, pads)
+            wave.n_launches = 1 if wave.dense else len({self._slot_shard(s) for s in wave.slots})
         except Exception as e:
-            err = e
-        # the wave commits only where it succeeded: on a pod bank, on every
-        # process of the mesh
-        self._agree_or_release(err, claimed)
-        self._write_back(staged)
-        self._share_init(slots[0])
-        for tenant, rid in claimed:
+            wave.err = e
+        return wave
+
+    def _launch_wave(self, wave: "_Wave") -> None:
+        """The wave's program; its new rows, or its failure, kept on ``wave``."""
+        try:
+            wave.staged = self._dispatch_wave(
+                wave.entry, wave.stats, wave.slots, wave.leaves_per_req, wave.spec, wave.pads
+            )
+        except Exception as e:
+            wave.err = e
+
+    def _commit_wave(self, wave: "_Wave") -> None:
+        """Commit a wave only where it succeeded (on a pod bank, on every
+        process of the mesh): its rows, the exactly-once claims, the counts
+        and the cadence work; else release its claims and raise."""
+        self._agree_or_release(wave.err, wave.claimed)
+        self._write_back(wave.staged)
+        self._share_init(wave.slots[0])
+        for tenant, rid in wave.claimed:
             self._dedup.commit(tenant, rid)
-        for t in tenants:
+        for t in wave.tenants:
             self._counts[t] += 1
             self._dirty[t] = None
-        self.stats["launches"] += n_launches
-        self.stats["requests"] += n_req
-        self.stats["dense_launches" if dense else "scatter_launches"] += n_launches
-        if pads is not None:
-            self.stats["bucketed_requests"] += n_req
-        self._after_apply(tenants)
-        if audit is not None:
-            self._capture_audit(requests, audit)
-        ms = self._record_ms(t_start)
-        if _bus.enabled():
-            _bus.emit(
-                "flush",
-                source=type(self._template).__name__,
-                bank=self.name,
-                requests=n_req,
-                variant="dense" if dense else "scatter",
-                bucketed=pads is not None,
-                shard_launches=n_launches,
-                occupancy=len(self._slots),
-                ms=round(ms, 3),
-            )
-        return consumed
+        self.stats["launches"] += wave.n_launches
+        self.stats["requests"] += wave.n_req
+        self.stats["dense_launches" if wave.dense else "scatter_launches"] += wave.n_launches
+        if wave.pads is not None:
+            self.stats["bucketed_requests"] += wave.n_req
+        self._after_apply(wave.tenants)
+        if wave.audit is not None:
+            self._capture_audit(wave.requests, wave.audit)
 
     def _release(self, claimed: List[Tuple[Hashable, Any]]) -> None:
         """Release a failed wave's exactly-once claims: the router re-queues
@@ -1515,6 +1570,9 @@ class MetricBank:
             pads = [pads[i] for i in owned] if pads is not None else None
         n_req = len(slots)
         n_padded = _bucketing.next_pow2(n_req)
+        if _trace.active():
+            _trace.count("bank.rows_launched", n_padded)
+            _trace.count("bank.rows_padded", n_padded - n_req)
         rows = list(leaves_per_req)
         slot_ids = [self._local_row(slot) for slot in slots]
         req_pads = list(pads) if pads is not None else None

@@ -19,6 +19,11 @@ what was not applied back at the head of its queue (the bank released its
 dedup claims). Deadlines are checked on :meth:`submit` and :meth:`poll`;
 nothing flushes from a background thread.
 
+While :func:`metrics_tpu_torch.obs.trace.active`, each flush of a group is a
+``router.flush`` span, and every request whose submit was seen leaves one
+``router.queue_wait_ms`` sample in ``obs.trace``: its wait on the router's
+clock from :meth:`RequestRouter.submit` to the start of its wave's flush.
+
 In front of a bank placed on a mesh (``MetricBank(mesh=)``) every process
 of the mesh runs its own router and must flush the same waves: the
 grouping is deterministic, but a deadline read from each process's clock
@@ -33,13 +38,14 @@ import torch
 
 from metrics_tpu_torch.engine import _tree
 from metrics_tpu_torch.engine import bucketing as _bucketing
+from metrics_tpu_torch.obs import trace as _trace
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 
 __all__ = ["RequestRouter"]
 
 
 class _Wave:
-    __slots__ = ("t", "reqs", "ids")
+    __slots__ = ("t", "reqs", "ids", "submitted")
 
     def __init__(self, now: float) -> None:
         self.t = now  # creation time == arrival of its oldest request
@@ -48,6 +54,8 @@ class _Wave:
         # wave so a flush can hand it to the bank's exactly-once dedup and a
         # drain can hand it to the fleet's kill-path resubmission)
         self.ids: Dict[Hashable, Any] = {}
+        # tenant -> submit time, for the requests submitted while traced
+        self.submitted: Optional[Dict[Hashable, float]] = None
 
 
 class _Group:
@@ -188,28 +196,29 @@ class RequestRouter:
         # in another group must not overtake them — flush those groups first
         for other_sig, other in list(self._groups.items()):
             if other_sig != sig and any(tenant in w.reqs for w in other.waves):
-                flushed += self._flush_group(other_sig)
+                flushed += self._flush_group(other_sig, now=now)
         group = self._groups.get(sig)
         if group is None:
             group = self._groups[sig] = _Group(now)
         for wave in group.waves:
             if tenant not in wave.reqs:
-                wave.reqs[tenant] = args
-                if request_id is not None:
-                    wave.ids[tenant] = request_id
                 break
         else:
-            fresh = _Wave(now)
-            fresh.reqs[tenant] = args
-            if request_id is not None:
-                fresh.ids[tenant] = request_id
-            group.waves.append(fresh)
+            wave = _Wave(now)
+            group.waves.append(wave)
+        wave.reqs[tenant] = args
+        if request_id is not None:
+            wave.ids[tenant] = request_id
+        if _trace.active():
+            if wave.submitted is None:
+                wave.submitted = {}
+            wave.submitted[tenant] = now
         group.pending += 1
         self.stats["submitted"] += 1
         if len(group.waves[0].reqs) >= self.max_requests:
             self.stats["size_flushes"] += 1
             self._sig_stats[self._sig_label(sig)]["size_flushes"] += 1
-            flushed += self._flush_group(sig, waves=1)
+            flushed += self._flush_group(sig, waves=1, now=now)
         return flushed + self._flush_expired(now)
 
     def poll(self) -> int:
@@ -287,10 +296,19 @@ class RequestRouter:
             if group is not None and now - group.oldest_t >= self.max_delay_s:
                 self.stats["deadline_flushes"] += 1
                 self._sig_stats[self._sig_label(sig)]["deadline_flushes"] += 1
-                flushed += self._flush_group(sig)
+                flushed += self._flush_group(sig, now=now)
         return flushed
 
-    def _flush_group(self, sig: Any, waves: Optional[int] = None) -> int:
+    def _flush_group(self, sig: Any, waves: Optional[int] = None, now: Optional[float] = None) -> int:
+        """Flush up to ``waves`` waves of the group ``sig`` (all by default);
+        ``now`` is the clock's reading that set the flush off, where one was
+        taken."""
+        if not _trace.active():
+            return self._flush_waves(sig, waves)
+        with _trace.span("router.flush", "RequestRouter"):
+            return self._flush_waves(sig, waves, self._clock() if now is None else now)
+
+    def _flush_waves(self, sig: Any, waves: Optional[int], now: Optional[float] = None) -> int:
         group = self._groups.get(sig)
         if group is None:
             return 0
@@ -300,6 +318,10 @@ class RequestRouter:
             wave = group.waves.pop(0)
             if not wave.reqs:
                 continue
+            if wave.submitted is not None and now is not None:
+                for t_sub in wave.submitted.values():
+                    _trace.sample("router.queue_wait_ms", (now - t_sub) * 1e3)
+                wave.submitted = None  # a retried wave is not sampled twice
             requests = list(wave.reqs.items())
             # a wave larger than capacity cannot be one launch: chunk it
             try:

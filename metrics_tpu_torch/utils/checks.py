@@ -15,6 +15,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from metrics_tpu_torch.obs import trace as _trace
 from metrics_tpu_torch.utils.data import in_program, select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
 from metrics_tpu_torch.utils.exceptions import JitIncompatibleError
@@ -203,7 +204,10 @@ def _input_format_classification(
     multiclass: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, DataType]:
     """Normalize any accepted classification input to binary int32 ``(N, C)``
-    or ``(N, C, X)`` tensors, and return the input case."""
+    or ``(N, C, X)`` tensors, and return the input case. Inside an engine
+    program it opens with the device mark ``format`` and closes with
+    ``update`` (``obs/trace.py``)."""
+    _trace.mark("format", preds)
     preds, target = _input_squeeze(preds, target)
     if preds.dtype == torch.float16:
         preds = preds.float()
@@ -246,7 +250,9 @@ def _input_format_classification(
     if preds.ndim > 2 and preds.shape[-1] == 1:
         preds, target = preds.squeeze(-1), target.squeeze(-1)
 
-    return preds.to(torch.int32), target.to(torch.int32), case
+    preds, target = preds.to(torch.int32), target.to(torch.int32)
+    _trace.mark("update", preds)
+    return preds, target, case
 
 
 def _input_format_classification_one_hot(

@@ -1,0 +1,6 @@
+"""Device ms a collection forward spends from each `format` mark (the input formatter's start) to the next mark."""
+from portbench.lib import program_spans
+
+
+def read(obs):
+    return program_spans.from_profile(obs, program_spans.stage_device_ms, "format")
